@@ -1,0 +1,647 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises, and the script exits non-zero):
+  1. the card (``nvidia-smi`` name and power limit) and the build of the
+     hand-written kernels from ``src/repro_torch/csrc``;
+  2. each kernel against its plain PyTorch version on the card, at the
+     main path's shapes (and, for segmented attention, GQA / int8 /
+     layer- and lane-major / per-lane lengths / empty memory / a fully
+     masked row), with its time, the plain version's, one library call's
+     and the least time the card could take (the bound);
+  3. the main path at the full width and depth of LLaMA-7B
+     (``configs/llama_7b_paper.config()``, random bf16 weights from seed
+     0): B=4 lanes, 4 ingests of 64-token contexts, a 448-token prefill
+     into a 512-token cache and 32 greedy tokens, for concat + bf16 cache,
+     concat + int8 cache and merge + bf16 cache, with the launches of
+     every kernel counted;
+  4. a cross-check of the whole path: 2 layers at full width in float32,
+     once on CUDA with the kernels and once on the CPU with the plain
+     versions;
+  5. one ``{"kernels": [...]}`` line, then the result line.
+Needs one CUDA card; exits non-zero without one.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+PEAK_BYTES = 3.35e12            # H100 SXM HBM3, bytes/s
+PEAK_BF16 = 989e12              # H100 SXM dense bf16 tensor-core FLOP/s
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def bound(nbytes: float, ops: float, peak_ops: float):
+    """(bound_ms, bound_by): the larger of bytes / HBM rate and operations
+    / peak rate for the inputs' type."""
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def time_ms(torch, fn, iters: int = 40, warmup: int = 5) -> float:
+    """Mean time per call of ``fn`` over ``iters`` back-to-back calls,
+    between two CUDA events.  Where the host takes longer to issue a call
+    than the device takes to run it, this is the host's issue rate."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int = 20, only: str = None) -> float:
+    """Mean DEVICE time per call of ``fn``: the summed durations of the
+    device events that ``torch.profiler`` records over ``iters`` calls
+    after a warm-up (with ``only``, just the kernels whose name contains
+    it).  Host launch overhead is excluded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA
+           and (only is None or only in e.name())]
+    if not evs:
+        raise RuntimeError(f"the profiler recorded no device events"
+                           f"{'' if only is None else ' named ' + only}")
+    return sum(e.duration_ns() for e in evs) / 1e6 / iters
+
+
+def timings(torch, kernel, kernel_name: str, plain, library, iters: int = 20):
+    """Device ms per call of the kernel (its own kernel only), its plain
+    version and the library call, plus the kernel wrapper's event-timed
+    ms per back-to-back call (which includes host launch overhead)."""
+    return dict(ms=device_ms(torch, kernel, iters, only=kernel_name),
+                call_ms=time_ms(torch, kernel, iters),
+                plain_ms=device_ms(torch, plain, max(iters // 2, 5)),
+                library_ms=device_ms(torch, library, iters))
+
+
+def report(label: str, t, bms: float, by: str, card: str):
+    log(f"  {label}: kernel {t['ms']:.4f} ms (device; {t['call_ms']:.4f} ms "
+        f"per back-to-back wrapper call), plain {t['plain_ms']:.4f} ms, "
+        f"library {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}) "
+        f"[{card}]")
+
+
+def max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def bf16_tol(want) -> float:
+    """Two bf16 ulps of the largest value: both versions compute in
+    float32 and round once to bf16, so float32 sums taken in another
+    order can land them one ulp apart (an ulp of x is <= 2**-7 |x|)."""
+    return 2.0 ** -6 * want.float().abs().max().item()
+
+
+def check(name: str, err: float, tol: float):
+    log(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:.1e})")
+    if not err <= tol:
+        raise AssertionError(f"{name}: max_abs_err {err} > {tol}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def seg_dict(k, v, **kw):
+    d = dict(k=k, v=v, k_scale=None, v_scale=None, length=None, layer=None,
+             lane_major=False, idx=None, seg=None, comp=None, valid=None)
+    d.update(kw)
+    return d
+
+
+def check_segmented(torch, F, dattn, quantize_kv, card):
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    # -- GQA, int8 layered segments in both layouts, per-lane lengths,
+    #    an empty memory lane and a fully masked row (float32: tight);
+    #    head dims 72 (not a multiple of 32) and 256 (the largest taken)
+    B, Hq, Hkv, L, S = 3, 14, 2, 3, 100
+    for D, Sq in ((64, 5), (64, 1), (72, 5), (72, 1), (256, 5), (256, 1)):
+        q = rn(B, Sq, Hq, D)
+        mk, mv = rn(B, 16, Hkv, D), rn(B, 16, Hkv, D)
+        ck8, cks = quantize_kv(rn(L, B, S, Hkv, D))
+        cv8, cvs = quantize_kv(rn(L, B, S, Hkv, D))
+        sk, sv = rn(B, Sq, Hkv, D), rn(B, Sq, Hkv, D)
+        ar = torch.arange(Sq, device=dev, dtype=torch.int32)
+        qi = ar.clone()
+        if Sq > 1:
+            qi[2] = -5                       # row 2 sees no key at all
+        self_seg = seg_dict(sk, sv, idx=ar, seg=torch.ones_like(ar),
+                            comp=torch.zeros_like(ar, dtype=torch.bool),
+                            valid=ar < Sq - 1 if Sq > 1 else None)
+        mem_len = torch.tensor([0, 5, 16], device=dev, dtype=torch.int32)
+        lens = torch.tensor([37, 0, 100], device=dev, dtype=torch.int32)
+        layouts = {
+            "layer-major": seg_dict(ck8, cv8, k_scale=cks, v_scale=cvs,
+                                    length=lens, layer=1),
+            "lane-major": seg_dict(
+                ck8.transpose(0, 1).contiguous(), cv8.transpose(0, 1).contiguous(),
+                k_scale=cks.transpose(0, 1).contiguous(),
+                v_scale=cvs.transpose(0, 1).contiguous(), length=lens,
+                layer=torch.tensor([1, 0, 2], device=dev, dtype=torch.int32),
+                lane_major=True),
+        }
+        for name, cache_seg in layouts.items():
+            segs = [seg_dict(mk, mv, length=mem_len), cache_seg, self_seg]
+            one = torch.ones_like(qi)
+            out = dattn.segmented_flash_attention(q, segs, qi, one, D ** -0.5)
+            want = dattn.plain(q, segs, qi, one, D ** -0.5)
+            torch.cuda.synchronize()
+            check(f"segmented GQA 14/2 hd{D} int8 {name} Sq={Sq}",
+                  max_err(out, want), 1e-4)
+            if Sq > 1 and not bool((out[:, 2] == 0).all()):
+                raise AssertionError("fully masked row is not exactly 0")
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError("non-finite attention output")
+
+    # -- main-path shapes (LLaMA-7B, bf16): decode, ingest, prefill
+    B, H, D, L = 4, 32, 128, 32
+    mem_k, mem_v = rn(B, 128, H, D, dtype=torch.bfloat16), \
+        rn(B, 128, H, D, dtype=torch.bfloat16)
+    ck, cv = rn(L, B, 512, H, D, dtype=torch.bfloat16), \
+        rn(L, B, 512, H, D, dtype=torch.bfloat16)
+    ck8, cks = quantize_kv(ck)
+    cv8, cvs = quantize_kv(cv)
+    scale = D ** -0.5
+    results = {}
+
+    def shapes(Sq, cache_len, decode):
+        q = rn(B, Sq, H, D, dtype=torch.bfloat16)
+        sk, sv = rn(B, Sq, H, D, dtype=torch.bfloat16), \
+            rn(B, Sq, H, D, dtype=torch.bfloat16)
+        ar = torch.arange(Sq, device=dev, dtype=torch.int32)
+        idx = ar + 2 ** 30 if decode else ar
+        comp = torch.zeros(Sq, device=dev, dtype=torch.bool)
+        if not decode and Sq == 72:          # ingest: <COMP> rows last
+            comp[64:] = True
+        self_seg = seg_dict(sk, sv, idx=idx, seg=torch.ones_like(ar), comp=comp)
+        return q, self_seg, idx
+
+    for label, Sq, clen, decode, int8 in (
+            ("decode", 1, 480, True, False), ("decode int8", 1, 480, True, True),
+            ("ingest", 72, 0, False, False), ("prefill", 448, 0, False, False)):
+        q, self_seg, idx = shapes(Sq, clen, decode)
+        one = torch.ones_like(idx)
+
+        def segs_at(layer):
+            cache = seg_dict(ck8, cv8, k_scale=cks, v_scale=cvs, length=clen,
+                             layer=layer) if int8 else \
+                seg_dict(ck, cv, length=clen, layer=layer)
+            return [seg_dict(mem_k, mem_v, length=32), cache, self_seg]
+
+        out = dattn.segmented_flash_attention(q, segs_at(5), idx, one, scale)
+        want = dattn.plain(q, segs_at(5), idx, one, scale)
+        torch.cuda.synchronize()
+        err = max_err(out, want)
+        check(f"segmented {label} B4 Sq{Sq} H32 hd128 cache {clen}", err,
+              bf16_tol(want))
+        # rotate over 4 layers so the timed reads exceed the 50 MB L2
+        segs4 = [segs_at(li) for li in range(4)]
+        # library yardstick: SDPA over the explicit concatenation of the
+        # valid keys with the CCM mask (built outside the timing; decode
+        # sees every valid key, so it needs no mask)
+        cats = []
+        for li in range(4):
+            kk = ck[li] if not int8 else \
+                (ck8[li].float() * cks[li][..., None]).bfloat16()
+            vv = cv[li] if not int8 else \
+                (cv8[li].float() * cvs[li][..., None]).bfloat16()
+            kc = torch.cat([mem_k[:, :32], kk[:, :clen], self_seg["k"]], 1)
+            vc = torch.cat([mem_v[:, :32], vv[:, :clen], self_seg["v"]], 1)
+            cats.append((kc.transpose(1, 2).contiguous(),
+                         vc.transpose(1, 2).contiguous()))
+        qt = q.transpose(1, 2).contiguous()
+        mask = None
+        if not decode:
+            kidx = torch.cat([torch.full((32 + clen,), -1, device=dev,
+                                         dtype=torch.int32), idx])
+            kcomp = torch.cat([torch.ones(32 + clen, device=dev,
+                                          dtype=torch.bool), self_seg["comp"]])
+            kseg = torch.cat([torch.zeros(32 + clen, device=dev,
+                                          dtype=torch.int32), one])
+            mask = (kidx[None] <= idx[:, None]) & \
+                ((kseg[None] == one[:, None]) | kcomp[None])
+        t = timings(
+            torch,
+            lambda i: dattn.segmented_flash_attention(q, segs4[i % 4], idx,
+                                                      one, scale),
+            "segmented_attention_kernel",
+            lambda i: dattn.plain(q, segs4[i % 4], idx, one, scale),
+            lambda i: F.scaled_dot_product_attention(
+                qt, cats[i % 4][0], cats[i % 4][1], attn_mask=mask))
+        nkeys = 32 + clen + Sq
+        kv_bytes = B * nkeys * H * D * 2 * (1 if int8 else 2)
+        if int8:
+            kv_bytes += B * clen * H * 4 * 2 + B * (32 + Sq) * H * D * 2
+        nbytes = kv_bytes + 2 * q.numel() * 2
+        ops_ = 4.0 * B * H * Sq * nkeys * D
+        bms, by = bound(nbytes, ops_, PEAK_BF16)
+        report(f"segmented {label} (library: SDPA)", t, bms, by, card)
+        results[label] = dict(max_abs_err=err, ms=t["ms"],
+                              plain_ms=t["plain_ms"],
+                              library_ms=t["library_ms"], bound_ms=bms,
+                              bound_by=by)
+    return results
+
+
+def check_cond_lora(torch, clora, card):
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(2)
+    M, K, N, r = 4 * (64 + 8), 4096, 4096, 8
+    bf = torch.bfloat16
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(bf)
+
+    x = rn(M, K)
+    ws = [rn(K, N, std=K ** -0.5) for _ in range(4)]   # 4 x 33.5 MB > L2
+    a, b = rn(r, K, std=K ** -0.5), rn(r, N, std=0.05)
+    gate = ((torch.arange(M, device=dev) % 72) >= 64).float()
+    for gname, gt in (("gated", gate), ("gate all zero", torch.zeros_like(gate))):
+        out = clora.cond_lora_matmul(x, ws[0], a, b, gt, 2.0)
+        want = clora.plain(x, ws[0], a, b, gt, 2.0)
+        torch.cuda.synchronize()
+        err = max_err(out, want)
+        check(f"cond_lora {gname} M{M} K{K} N{N} r{r}", err, bf16_tol(want))
+        if gname == "gated":
+            main_err = err
+    bias = rn(N)
+    want = clora.plain(x, ws[1], a, b, gate, 2.0, bias=bias)
+    check("cond_lora with bias", max_err(
+        clora.cond_lora_matmul(x, ws[1], a, b, gate, 2.0, bias=bias), want),
+        bf16_tol(want))
+    g2 = gate.to(bf)[:, None]
+    t = timings(
+        torch,
+        lambda i: clora.cond_lora_matmul(x, ws[i % 4], a, b, gate, 2.0),
+        "cond_lora_kernel",
+        lambda i: clora.plain(x, ws[i % 4], a, b, gate, 2.0),
+        lambda i: x @ ws[i % 4] + g2 * ((x @ a.T) @ b) * 2.0)
+    nbytes = 2 * (M * K + K * N + r * K + r * N + M * N) + 4 * M
+    ops_ = 2.0 * M * K * N + 2.0 * M * K * r + 2.0 * M * r * N
+    bms, by = bound(nbytes, ops_, PEAK_BF16)
+    report("cond_lora (library: x@W + gate*(x@A^T@B)*s)", t, bms, by, card)
+    return dict(max_abs_err=main_err, ms=t["ms"], plain_ms=t["plain_ms"],
+                library_ms=t["library_ms"], bound_ms=bms, bound_by=by)
+
+
+def check_kv_merge(torch, kvm, card):
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(3)
+    shape = (32, 4, 8, 32, 128)
+    mems = [torch.randn(shape, generator=g, device=dev).bfloat16()
+            for _ in range(4)]
+    hs = [torch.randn(shape, generator=g, device=dev).bfloat16()
+          for _ in range(4)]
+    errs = []
+    for a in (1.0, 1.0 / 3, 0.3):
+        want = kvm.plain(mems[0], hs[0], a)
+        got = kvm.kv_merge_update_(mems[0].clone(), hs[0], a)
+        torch.cuda.synchronize()
+        errs.append(max_err(got, want))
+        check(f"kv_merge a={a:.4f} {shape}", errs[-1], bf16_tol(want))
+    t = timings(
+        torch,
+        lambda i: kvm.kv_merge_update_(mems[i % 4], hs[i % 4], 1.0 / 3),
+        "merge_kernel",
+        lambda i: mems[i % 4].copy_(kvm.plain(mems[i % 4], hs[i % 4], 1.0 / 3)),
+        lambda i: torch.lerp(mems[i % 4], hs[i % 4], 1.0 / 3))
+    n = mems[0].numel()
+    bms, by = bound(3 * 2 * n, 3.0 * n, PEAK_BF16)
+    report("kv_merge (library: torch.lerp)", t, bms, by, card)
+    return dict(max_abs_err=max(errs), ms=t["ms"], plain_ms=t["plain_ms"],
+                library_ms=t["library_ms"], bound_ms=bms, bound_by=by)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path at full width and depth
+# ---------------------------------------------------------------------------
+
+def profile_window(torch, fn, label: str, card: str):
+    """Device busy time, span and top kernels of one call of ``fn`` under
+    ``torch.profiler`` (after one warm-up call).  The profiler's own host
+    overhead stretches the span, so the idle share is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    if not evs:
+        log(f"  profile {label}: no device events recorded (not measured)")
+        return
+    busy = sum(e.duration_ns() for e in evs) / 1e6
+    span = (max(e.end_ns() for e in evs) - min(e.start_ns() for e in evs)) / 1e6
+    by_name = {}
+    for e in evs:
+        by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    log(f"  profile {label}: device busy {busy:.3f} ms of a {span:.3f} ms "
+        f"span, idle share {1 - busy / span:.3f}, {len(evs)} device events "
+        f"[{card}]")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {ms:9.3f} ms  {name[:100]}")
+
+def randomize_lora_b(torch, params, seed: int, std: float = 0.05):
+    """The reference initialises LoRA b = 0, which would leave the gate
+    unexercised: draw it at random (comp_embed is random already)."""
+    lora = params["layers"]["attn"]["lora"]
+    for i, name in enumerate(("q", "k", "v", "o")):
+        b = lora[name]["b"]
+        gen = torch.Generator(device=b.device).manual_seed(seed + i)
+        b.copy_(torch.randn(b.shape, generator=gen, device=b.device) * std)
+
+
+def clone_state(torch, st):
+    def c(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, tuple) and hasattr(x, "_replace"):
+            return type(x)(*[c(y) for y in x])
+        return x
+    return c(st)
+
+
+def main_path(torch, PI, ops, params, cfg, mode, cache_dtype, card,
+              profile: bool = False):
+    B, T, LC, PROMPT, CACHE, NEW = 4, 4, 64, 448, 512, 32
+    ccm = dataclasses.replace(cfg.ccm, mode=mode)
+    rcfg = cfg.replace(kv_cache_dtype=cache_dtype, ccm=ccm)
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    chunks = [torch.randint(0, cfg.vocab_size, (B, LC), generator=gen,
+                            device=dev) for _ in range(T)]
+    prompt = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen,
+                           device=dev)
+    st = PI.init_online_state(rcfg, B, CACHE, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ingest_ms = []
+    for ch in chunks:
+        t0 = time.perf_counter()
+        st = PI.ingest_context(params, rcfg, st, ch)
+        torch.cuda.synchronize()
+        ingest_ms.append((time.perf_counter() - t0) * 1e3)
+    st_ingested = clone_state(torch, st)
+    t0 = time.perf_counter()
+    logits, st = PI.prefill(params, rcfg, st, prompt)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    toks = [logits[:, -1].argmax(-1)]
+    finite = bool(torch.isfinite(logits).all())
+    t0 = time.perf_counter()
+    for _ in range(NEW - 1):
+        lg, st = PI.decode_step(params, rcfg, st, toks[-1][:, None])
+        finite &= bool(torch.isfinite(lg).all())
+        toks.append(lg[:, -1].argmax(-1))
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    manual = torch.stack(toks, 1).to(torch.int32)
+    t0 = time.perf_counter()
+    gen_toks = PI.generate(params, rcfg, st_ingested, prompt, NEW)
+    torch.cuda.synchronize()
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+
+    name = f"{mode}+{cache_dtype}"
+    if not finite:
+        raise AssertionError(f"{name}: non-finite logits")
+    if not torch.equal(gen_toks, manual):
+        raise AssertionError(f"{name}: generate tokens differ from the "
+                             "prefill + decode_step loop")
+    L, m = cfg.n_layers, cfg.ccm.comp_len
+    # one attend per layer per pass: T ingests, then prefill + NEW - 1
+    # decode steps twice (the explicit loop and generate)
+    want_counts = {"segmented_attention": L * (T + 2 * NEW),
+                   "cond_lora": 4 * L * T,
+                   "kv_merge_update": 2 * T if mode == "merge" else 0}
+    if counts != want_counts:
+        raise AssertionError(f"{name}: launches {counts} != {want_counts}")
+    mem, cache = st.mem, st.cache
+    want_state = dict(pos=T * (LC + m) + PROMPT + NEW - 1,
+                      slots=T if mode == "concat" else 1, steps=T,
+                      stream_pos=T * (LC + m), length=PROMPT + NEW - 1)
+    got_state = dict(pos=st.pos, slots=mem.slots, steps=mem.steps,
+                     stream_pos=mem.stream_pos, length=cache.length)
+    if got_state != want_state:
+        raise AssertionError(f"{name}: state {got_state} != {want_state}")
+    M = (cfg.ccm.max_steps if mode == "concat" else 1) * m
+    shapes = {"mem.k": (L, B, M, cfg.n_kv_heads, cfg.hd),
+              "cache.k": (L, B, CACHE, cfg.n_kv_heads, cfg.hd)}
+    if tuple(mem.k.shape) != shapes["mem.k"] or \
+            tuple(cache.k.shape) != shapes["cache.k"]:
+        raise AssertionError(f"{name}: state shapes {mem.k.shape} "
+                             f"{cache.k.shape}")
+    if cache_dtype == "int8" and cache.k.dtype != torch.int8:
+        raise AssertionError("int8 cache is not int8")
+    log(f"  {name}: ingest ms {[round(t, 2) for t in ingest_ms]}, prefill "
+        f"{PROMPT} tok x {B} {prefill_ms:.2f} ms, decode "
+        f"{B * (NEW - 1) / decode_ms * 1e3:.2f} tok/s ({decode_ms / (NEW - 1):.2f} "
+        f"ms/step), generate {B * NEW / generate_ms * 1e3:.2f} tok/s "
+        f"({generate_ms:.1f} ms) [{card}]")
+    log(f"  {name}: launches {counts} (as the path implies)")
+    if profile:         # after the counts: these launches are not counted
+        def decode3():
+            nonlocal st
+            for _ in range(3):
+                _, st = PI.decode_step(params, rcfg, st, toks[-1][:, None])
+
+        def ingest1():
+            nonlocal st
+            st = PI.ingest_context(params, rcfg, st, chunks[0])
+        profile_window(torch, decode3, f"{name} 3 decode steps", card)
+        profile_window(torch, ingest1, f"{name} 1 ingest", card)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the whole path, CUDA kernels vs CPU plain versions
+# ---------------------------------------------------------------------------
+
+def cross_check(torch, PI, params_bf16, cfg, devices=("cuda", "cpu")):
+    B, T, LC, PROMPT, CACHE = 2, 17, 32, 64, 66
+    c2 = cfg.replace(n_layers=2, compute_dtype="float32",
+                     param_dtype="float32")
+
+    def to(t, dev, layers=False):
+        """float32 copy on ``dev``; under ``layers`` the first 2 layers."""
+        if isinstance(t, dict):
+            return {k: to(v, dev, layers or k == "layers")
+                    for k, v in t.items()}
+        t = t[:2] if layers else t
+        return t.to(device=dev, dtype=torch.float32).contiguous()
+
+    runs = {}
+    gen = torch.Generator().manual_seed(5)
+    chunks = [torch.randint(0, c2.vocab_size, (B, LC), generator=gen)
+              for _ in range(T)]
+    prompt = torch.randint(0, c2.vocab_size, (B, PROMPT), generator=gen)
+    forced = [torch.randint(0, c2.vocab_size, (B, 1), generator=gen)
+              for _ in range(4)]
+    for dev in devices:
+        t0 = time.perf_counter()
+        pp = to(params_bf16, dev)
+        st = PI.init_online_state(c2, B, CACHE, device=dev)
+        for ch in chunks:
+            st = PI.ingest_context(pp, c2, st, ch.to(dev))
+        logits = []
+        lg, st = PI.prefill(pp, c2, st, prompt.to(dev), full_logits=True)
+        logits.append(lg)
+        for tok in forced:                  # teacher-forced decode
+            lg, st = PI.decode_step(pp, c2, st, tok.to(dev))
+            logits.append(lg)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = (logits, st, time.perf_counter() - t0)
+        del pp
+    (lc, sc, tc), (lp, sp, tp) = (runs[d] for d in devices)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(lc, lp)):
+        a = a.cpu()
+        lim = 1e-3 * b.abs().max().item()
+        err = max_err(a, b)
+        worst = max(worst, err / lim)
+        if not err <= lim:
+            raise AssertionError(f"cross-check logits {i}: {err} > {lim}")
+    leaves = {"mem.k": (sc.mem.k, sp.mem.k), "mem.v": (sc.mem.v, sp.mem.v),
+              "cache.k": (sc.cache.k, sp.cache.k),
+              "cache.v": (sc.cache.v, sp.cache.v)}
+    for name, (a, b) in leaves.items():
+        lim = 1e-3 * b.abs().max().item()
+        err = max_err(a.cpu(), b)
+        log(f"  cross-check {name}: max|d| {err:.3e} (limit {lim:.3e})")
+        if not err <= lim:
+            raise AssertionError(f"cross-check {name}: {err} > {lim}")
+    ints_c = (sc.pos, sc.mem.slots, sc.mem.steps, sc.mem.stream_pos,
+              sc.cache.length)
+    ints_p = (sp.pos, sp.mem.slots, sp.mem.steps, sp.mem.stream_pos,
+              sp.cache.length)
+    if ints_c != ints_p or sc.mem.slots != cfg.ccm.max_steps:
+        raise AssertionError(f"cross-check counters {ints_c} vs {ints_p}")
+    log(f"  cross-check 2 layers fp32, {T} ingests (concat clamp fired: slots "
+        f"{sc.mem.slots}/{cfg.ccm.max_steps}), prefill {PROMPT}, 4 forced "
+        f"decode steps (cache length {sc.cache.length} > {CACHE}): worst "
+        f"logits max|d| / (1e-3 max|logit|) = {worst:.3f}; cuda {tc:.1f} s, "
+        f"cpu {tp:.1f} s")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
+        return 2
+    import torch.nn.functional as F
+    from repro_torch.configs import llama_7b_paper
+    from repro_torch.core import inference as PI
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import cond_lora as clora
+    from repro_torch.kernels import decode_attention as dattn
+    from repro_torch.kernels import kv_merge as kvm
+    from repro_torch.models.transformer import init_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    card = smi
+    log("phase 1: card and build")
+    log(smi)
+    log(f"  torch {torch.__version__} cuda {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    build_s = time.perf_counter() - t0
+    log(f"  built {sorted(libs)} in {build_s:.1f} s")
+    for stem in sorted(libs):
+        for line in _build.build_log(stem).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    {stem}: {line.strip()}")
+
+    log("phase 2: kernels against their plain versions on the card")
+    seg = check_segmented(torch, F, dattn, PI.quantize_kv, card)
+    lora = check_cond_lora(torch, clora, card)
+    merge = check_kv_merge(torch, kvm, card)
+
+    log("phase 3: LLaMA-7B main path (32 layers, d 4096, bf16, seed 0)")
+    cfg = llama_7b_paper.config()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=0)
+    randomize_lora_b(torch, params, seed=100)
+    torch.cuda.synchronize()
+    log(f"  init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+    totals = {}
+    for mode, cdt in (("concat", "bfloat16"), ("concat", "int8"),
+                      ("merge", "bfloat16")):
+        counts = main_path(torch, PI, ops, params, cfg, mode, cdt, card,
+                           profile=(mode, cdt) == ("concat", "bfloat16"))
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    log("phase 4: cross-check, 2 layers full width fp32, CUDA vs CPU")
+    cross_check(torch, PI, params, cfg)
+    del params
+
+    rows = [
+        dict(name="segmented_attention", route="cuda",
+             source="src/repro_torch/csrc/segmented_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:160",
+             launches=totals["segmented_attention"], **seg["decode"]),
+        dict(name="cond_lora", route="cuda",
+             source="src/repro_torch/csrc/cond_lora.cu",
+             replaces="src/repro/kernels/cond_lora.py:48",
+             launches=totals["cond_lora"], **lora),
+        dict(name="kv_merge_update", route="triton",
+             source="src/repro_torch/kernels/kv_merge.py",
+             replaces="src/repro/kernels/kv_merge.py:27",
+             launches=totals["kv_merge_update"], **merge),
+    ]
+    for r in rows:
+        if r["launches"] <= 0:
+            raise AssertionError(f"{r['name']} never launched on the main path")
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,80 @@
+"""Fused conditional-LoRA matmul on the H100 (port of
+``repro/kernels/cond_lora.py``).
+
+Replaces the Pallas TPU kernel ``cond_lora_matmul`` (body ``_kernel``) in
+``repro/kernels/cond_lora.py``:
+``y = x @ W (+ bias) + gate * ((x @ A^T) @ B) * scale``.  The kernel is
+CUDA C++ in ``csrc/cond_lora.cu``; its header says what bounds it on the
+card and what its design does about that.  This module checks the
+arguments and launches it on PyTorch's current stream.  The plain
+version is ``ref.cond_lora_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import cond_lora_ref as plain
+
+MAX_RANK = 64
+
+launches = 0   # kernel launches (the count chip_smoke reads)
+
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        fn = _build.library("cond_lora").cond_lora_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        _fn = fn
+    return _fn
+
+
+def cond_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor, gate: torch.Tensor, scale: float,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the CUDA kernel.  x (M, K), w (K, N), a (r, K), b (r, N),
+    bias (N,) or None: contiguous CUDA tensors of one dtype, float32 or
+    bf16; gate (M,) float32.  Returns (M, N) in x.dtype."""
+    global launches
+    if not x.is_cuda:
+        raise ValueError("cond_lora_matmul needs CUDA tensors")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x dtype {x.dtype}: float32 or bf16 only")
+    M, K = x.shape
+    N, r = w.shape[1], a.shape[0]
+    want = {"x": (M, K), "w": (K, N), "a": (r, K), "b": (r, N)}
+    ops = {"x": x, "w": w, "a": a, "b": b}
+    if bias is not None:
+        want["bias"], ops["bias"] = (N,), bias
+    for name, t in ops.items():
+        if tuple(t.shape) != want[name] or t.dtype != x.dtype \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: want contiguous {want[name]} "
+                             f"{x.dtype} on {x.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"LoRA rank {r} outside 1..{MAX_RANK}")
+    if gate.shape != (M,) or gate.dtype != torch.float32 \
+            or gate.device != x.device or not gate.is_contiguous():
+        raise ValueError(f"gate: want contiguous ({M},) float32 on {x.device}")
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    dev = x.device
+    err = _launcher()(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+        gate.data_ptr(), 0 if bias is None else bias.data_ptr(),
+        y.data_ptr(), M, N, K, r, float(scale),
+        int(x.dtype == torch.bfloat16),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cond_lora kernel launch failed: cudaError {err}")
+    launches += 1
+    return y

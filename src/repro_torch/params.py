@@ -1,0 +1,37 @@
+"""Carry a parameter tree from the reference into the port.
+
+``params_from_numpy`` takes the reference's tree as numpy arrays (for a
+JAX tree, ``jax.tree.map(np.asarray, params)``) and returns the port's
+tree on ``device``: every leaf in ``cfg.pdtype`` except the LoRA ``a``/``b``
+factors, which stay float32 as the reference initialises them.  Key paths
+and the stacked leading layer axis are kept as they are.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.config import ModelConfig
+
+
+def _leaf(arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    # bfloat16 numpy arrays (ml_dtypes) are not accepted by torch.from_numpy
+    # and arrays from JAX are read-only: go through a float32 copy, which
+    # holds every bfloat16 value exactly.
+    a = np.array(arr, dtype=np.float32, copy=True)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                      device: DeviceLike = None) -> Dict[str, Any]:
+    dev = resolve_device(device)
+
+    def walk(t, in_lora: bool):
+        if isinstance(t, dict):
+            return {k: walk(v, in_lora or k == "lora") for k, v in t.items()}
+        return _leaf(t, torch.float32 if in_lora else cfg.pdtype, dev)
+
+    return walk(tree, False)
