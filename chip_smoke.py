@@ -20,13 +20,26 @@ Phases (any failure raises, and the script exits non-zero):
   4. a cross-check of the whole path: 2 layers at full width in float32,
      once on CUDA with the kernels and once on the CPU with the plain
      versions;
-  5. one ``{"kernels": [...]}`` line, then the result line.
+  5. the training path at the full width and depth of LLaMA-7B: 3 concat
+     and 2 merge AdamW steps through ``make_train_step`` (B=4, the
+     segment layout of 16 steps of 64 + 8 <COMP> tokens and a 64-token
+     tail, S=1216), with the launches of every kernel counted, every
+     trainable leaf updated and every frozen leaf bitwise unchanged; a
+     gradient-free ``train_forward``; a profiled step;
+  6. a cross-check of training: 2 layers at full width in float32, loss,
+     tail logits and gradients on CUDA against the CPU, and the parallel
+     forward against t ingests + prefill on the card;
+then one ``{"kernels": [...]}`` line, then the result line.  Phase 2 also
+holds the training kernels (CCM flash attention forward and backward,
+kv_cummean forward and reverse, cond_lora's autograd) against their plain
+versions.
 Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -71,19 +84,25 @@ def device_ms(torch, fn, iters: int = 20, only: str = None) -> float:
     """Mean DEVICE time per call of ``fn``: the summed durations of the
     device events that ``torch.profiler`` records over ``iters`` calls
     after a warm-up (with ``only``, just the kernels whose name contains
-    it).  Host launch overhead is excluded."""
+    it).  Host launch overhead is excluded.  A window in which the
+    profiler delivered no device event at all is measured again (up to
+    three windows); it never stands in for a time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    evs = [e for e in prof.profiler.kineto_results.events()
-           if e.device_type() == DeviceType.CUDA
-           and (only is None or only in e.name())]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        evs = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and (only is None or only in e.name())]
+        if evs:
+            break
+        log("  (the profiler delivered no device events; measuring again)")
     if not evs:
         raise RuntimeError(f"the profiler recorded no device events"
                            f"{'' if only is None else ' named ' + only}")
@@ -343,6 +362,238 @@ def check_kv_merge(torch, kvm, card):
                 library_ms=t["library_ms"], bound_ms=bms, bound_by=by)
 
 
+def ccm_meta(torch, layout, dev):
+    """Concat-mode metadata of ``layout`` on ``dev`` (int32 idx/seg, bool
+    comp), as ``train_forward`` hands it to the kernel."""
+    S = layout.seq_len
+    idx = torch.arange(S, device=dev, dtype=torch.int32)
+    seg = layout.seg_ids.to(dev)
+    comp = layout.comp_mask.to(dev)
+    return idx, seg, comp
+
+
+def check_ccm_attention(torch, F, ca, segment_layout, card):
+    """Kernel 4: forward and backward against the plain version (and its
+    autograd) on the card, then the training shape's times."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def grads(fn, q, k, v, do):
+        q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = fn(q, k, v)
+        return (out,) + torch.autograd.grad(out, (q, k, v), do)
+
+    # -- GQA 14/2 and 32/32, head dims 64/72/128/256, S not a multiple of
+    #    the tiles, padded keys, a fully masked row; float32 and bf16.
+    #    float32: 1e-4 x max|plain| (float32 sums over up to 1216 keys in
+    #    another order); bf16: 2 ulps of the largest output for the forward
+    #    and 4 for gradients (the backward rounds O, dQ, dK, dV to bf16 and
+    #    recomputes P from the float32 log-sum-exp).
+    lay = segment_layout(3, 29, 4, 11)                   # S = 110
+    cases = [(2, 14, 2, 64, torch.float32), (2, 14, 2, 72, torch.float32),
+             (1, 4, 4, 256, torch.float32), (2, 14, 2, 128, torch.bfloat16),
+             (1, 6, 2, 256, torch.bfloat16)]
+    for B, Hq, Hkv, D, dt in cases:
+        S = lay.seq_len
+        idx, seg, comp = ccm_meta(torch, lay, dev)
+        qi = idx.clone()
+        qi[5] = -7                                       # sees no key
+        valid = torch.ones(S, dtype=torch.bool, device=dev)
+        valid[-3:] = False                               # padded keys
+        meta = (qi, seg, idx, seg, comp, valid)
+        q = rn(B, Hq, S, D, dtype=dt)
+        k, v = rn(B, Hkv, S, D, dtype=dt), rn(B, Hkv, S, D, dtype=dt)
+        do = rn(B, Hq, S, D, dtype=dt)
+        got = grads(lambda a, b, c: ca.ccm_attention(a, b, c, *meta, D ** -0.5),
+                    q, k, v, do)
+        want = grads(lambda a, b, c: ca.plain(a, b, c, *meta, D ** -0.5),
+                     q, k, v, do)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("fwd", "dq", "dk", "dv"), got, want):
+            top = b.float().abs().max().item()
+            tol = 1e-4 * top if dt == torch.float32 else \
+                2.0 ** (-6 if name == "fwd" else -5) * top
+            check(f"ccm_attention {name} B{B} GQA {Hq}/{Hkv} hd{D} S{S} "
+                  f"{str(dt)[6:]}", max_err(a, b), tol)
+        if not bool((got[0][:, :, 5] == 0).all()):
+            raise AssertionError("fully masked row is not exactly 0")
+
+    # -- the training shape: LLaMA-7B heads, concat layout, bf16
+    lay = segment_layout(16, 64, 8, 64)                  # S = 1216
+    B, H, S, D = 4, 32, lay.seq_len, 128
+    idx, seg, comp = ccm_meta(torch, lay, dev)
+    meta = (idx, seg, idx, seg, comp, None)
+    scale = D ** -0.5
+    sets = [tuple(rn(B, H, S, D, dtype=torch.bfloat16) for _ in range(4))
+            for _ in range(4)]                           # 4 x 160 MB > L2
+    q, k, v, do = sets[0]
+    got = grads(lambda a, b, c: ca.ccm_attention(a, b, c, *meta, scale),
+                q, k, v, do)
+    want = grads(lambda a, b, c: ca.plain(a, b, c, *meta, scale), q, k, v, do)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(("fwd", "dq", "dk", "dv"), got, want):
+        errs[name] = max_err(a, b)
+        top = b.float().abs().max().item()
+        check(f"ccm_attention {name} B4 H32 S{S} hd128 bf16 (training shape)",
+              errs[name], 2.0 ** (-6 if name == "fwd" else -5) * top)
+    del got, want
+    # the (q, k) pairs the CCM mask lets through: the work this data needs
+    mask = (idx[None, :] <= idx[:, None]) \
+        & ((seg[None, :] == seg[:, None]) | comp[None, :])
+    pairs = int(mask.sum().item()) * B * H
+    nq, nk = -(-S // 16), -(-S // 32)      # the kernel's 16 x 32 tiles
+    padded = torch.zeros(nq * 16, nk * 32, dtype=torch.bool, device=dev)
+    padded[:S, :S] = mask
+    kept = int(padded.reshape(nq, 16, nk, 32).any(3).any(1).sum().item())
+    log(f"  ccm_attention training shape: {pairs / (B * H * S * S):.4f} of "
+        f"the S x S pairs visible; the tile skip keeps {kept} of "
+        f"{nq * nk} 16 x 32 tiles")
+
+    def fwd_k(i):
+        return ca.ccm_attention_fwd(*sets[i % 4][:3], *meta, scale)
+
+    def fwd_p(i):
+        return ca.plain(*sets[i % 4][:3], *meta, scale)
+
+    def fwd_l(i):
+        return F.scaled_dot_product_attention(*sets[i % 4][:3],
+                                              attn_mask=mask, scale=scale)
+    t_f = timings(torch, fwd_k, "ccm_attention_fwd_kernel", fwd_p, fwd_l)
+    nb = 2 * (4 * B * H * S * D) + 4 * B * H * S      # q, k, v, o + lse
+    bms, by = bound(nb, 4.0 * D * pairs, PEAK_BF16)
+    report("ccm_attention forward (library: SDPA with the CCM mask)", t_f,
+           bms, by, card)
+    fwd_row = dict(max_abs_err=errs["fwd"], ms=t_f["ms"],
+                   plain_ms=t_f["plain_ms"], library_ms=t_f["library_ms"],
+                   bound_ms=bms, bound_by=by)
+
+    # backward only: the graphs are built once, outside the timing
+    saved = []
+    for qq, kk, vv, dd in sets:
+        o, lse = ca.ccm_attention_fwd(qq, kk, vv, *meta, scale)
+        saved.append((qq, kk, vv, o, lse, dd))
+
+    def retained(fn):
+        out = []
+        for qq, kk, vv, dd in sets:
+            xs = [x.detach().requires_grad_(True) for x in (qq, kk, vv)]
+            out.append((fn(*xs), xs, dd))
+        return out
+    plain_g = retained(lambda a, b, c: ca.plain(a, b, c, *meta, scale))
+
+    def bwd_k(i):
+        return ca.ccm_attention_bwd(*saved[i % 4], *meta, scale)
+
+    def bwd_p(i):
+        o, xs, dd = plain_g[i % 4]
+        return torch.autograd.grad(o, xs, dd, retain_graph=True)
+    t_pb = dict(plain_ms=device_ms(torch, bwd_p, 5))
+    del plain_g
+    lib_g = retained(lambda a, b, c: F.scaled_dot_product_attention(
+        a, b, c, attn_mask=mask, scale=scale))
+
+    def bwd_l(i):
+        o, xs, dd = lib_g[i % 4]
+        return torch.autograd.grad(o, xs, dd, retain_graph=True)
+    t_b = dict(ms=device_ms(torch, bwd_k, 20, only="ccm_attention_bwd"),
+               call_ms=time_ms(torch, bwd_k, 20),
+               library_ms=device_ms(torch, bwd_l, 20), **t_pb)
+    del lib_g
+    nb = 2 * (8 * B * H * S * D) + 8 * B * H * S     # q k v o dO -> dq dk dv
+    bms, by = bound(nb, 10.0 * D * pairs, PEAK_BF16)
+    report("ccm_attention backward (library: SDPA backward)", t_b, bms, by,
+           card)
+    bwd_row = dict(max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]),
+                   ms=t_b["ms"], plain_ms=t_b["plain_ms"],
+                   library_ms=t_b["library_ms"], bound_ms=bms, bound_by=by)
+    del sets, saved
+    torch.cuda.empty_cache()
+    return fwd_row, bwd_row
+
+
+def check_kv_cummean(torch, kvm, card):
+    """Kernel 5 at the merge shape: T = 16 steps of R = B*m*H*D columns,
+    forward and reverse, contiguous and read in place from (B, S, H, D)."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(6)
+    T, B, m, H, D, lc = 16, 4, 8, 32, 128, 64
+    R = B * m * H * D
+    errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        h = torch.randn(T, R, generator=g, device=dev).to(dt)
+        gr = torch.randn(T, R, generator=g, device=dev).to(dt)
+        hh = h.detach().requires_grad_(True)
+        out = kvm.kv_cummean(hh[None])[0]
+        (dh,) = torch.autograd.grad(out, (hh,), gr)
+        hp = h.detach().requires_grad_(True)
+        want = kvm.plain_cummean(hp, 0)
+        (dwant,) = torch.autograd.grad(want, (hp,), gr)
+        torch.cuda.synchronize()
+        tol = (lambda w: 1e-6 * w.abs().max().item()) if dt == torch.float32 \
+            else bf16_tol
+        errs.append(max_err(out, want))
+        check(f"kv_cummean forward (T{T}, R{R}) {str(dt)[6:]}", errs[-1],
+              tol(want))
+        check(f"kv_cummean reverse (T{T}, R{R}) {str(dt)[6:]}",
+              max_err(dh, dwant), tol(dwant))
+    # in place: the <COMP> groups of a (B, S, H, D) activation, strided
+    x = torch.randn(B, T * (lc + m) + 64, H, D, generator=g,
+                    device=dev).bfloat16()
+    grp = x[:, :T * (lc + m)].reshape(B, T, lc + m, H * D)[:, :, lc:].flatten(2)
+    got = kvm.kv_cummean(grp)
+    want = kvm.plain_cummean(grp, 1)
+    check("kv_cummean on the strided <COMP> groups of (B, S, H, D)",
+          max_err(got, want), bf16_tol(want))
+    hs = [torch.randn(T, R, generator=g, device=dev).bfloat16()
+          for _ in range(4)]
+    ar = torch.arange(1, T + 1, device=dev, dtype=torch.float32)[:, None]
+    t = timings(
+        torch, lambda i: kvm.kv_cummean(hs[i % 4][None]), "cummean_kernel",
+        lambda i: kvm.plain_cummean(hs[i % 4], 0),
+        lambda i: torch.cumsum(hs[i % 4].float(), 0) / ar)
+    bms, by = bound(2 * 2 * T * R, 2.0 * T * R, PEAK_BF16)
+    report("kv_cummean (library: torch.cumsum(h.float(), 0) / arange)", t,
+           bms, by, card)
+    tr = device_ms(torch, lambda i: kvm.kv_cummean_launch(hs[i % 4][None],
+                                                          reverse=True),
+                   20, only="cummean_kernel")
+    log(f"  kv_cummean reverse: kernel {tr:.4f} ms (device) [{card}]")
+    return dict(max_abs_err=max(errs), ms=t["ms"], plain_ms=t["plain_ms"],
+                library_ms=t["library_ms"], bound_ms=bms, bound_by=by)
+
+
+def check_cond_lora_grad(torch, clora, card):
+    """cond_lora under autograd (kernel forward, matmul backward) against
+    autograd through the plain version: dx, dA, dB and dbias."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(7)
+    for M, K, N, dt in ((288, 512, 384, torch.float32),
+                        (4 * 1216, 4096, 4096, torch.bfloat16)):
+        def rn(*shape, std=1.0):
+            return (torch.randn(shape, generator=g, device=dev) * std).to(dt)
+        x, w = rn(M, K), rn(K, N, std=K ** -0.5)
+        a, b = rn(8, K, std=K ** -0.5), rn(8, N, std=0.05)
+        bias, dy = rn(N), rn(M, N)
+        gate = ((torch.arange(M, device=dev) % 72) >= 64).float()
+        res = []
+        for fn in (clora.cond_lora, clora.plain):
+            xs = [t.detach().requires_grad_(True) for t in (x, a, b, bias)]
+            y = fn(xs[0], w, xs[1], xs[2], gate, 2.0, xs[3])
+            res.append(torch.autograd.grad(y, xs, dy))
+        torch.cuda.synchronize()
+        for name, got, want in zip(("dx", "dA", "dB", "dbias"), *res):
+            top = want.float().abs().max().item()
+            # bf16: the base product dy @ W^T is rounded to bf16 before the
+            # LoRA term is added, then the sum is rounded again (4 ulps)
+            tol = 1e-4 * top if dt == torch.float32 else 2.0 ** -5 * top
+            check(f"cond_lora autograd {name} M{M} K{K} N{N} {str(dt)[6:]}",
+                  max_err(got, want), tol)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path at full width and depth
 # ---------------------------------------------------------------------------
@@ -445,9 +696,10 @@ def main_path(torch, PI, ops, params, cfg, mode, cache_dtype, card,
     L, m = cfg.n_layers, cfg.ccm.comp_len
     # one attend per layer per pass: T ingests, then prefill + NEW - 1
     # decode steps twice (the explicit loop and generate)
-    want_counts = {"segmented_attention": L * (T + 2 * NEW),
-                   "cond_lora": 4 * L * T,
-                   "kv_merge_update": 2 * T if mode == "merge" else 0}
+    want_counts = {k: 0 for k in counts}
+    want_counts.update({"segmented_attention": L * (T + 2 * NEW),
+                        "cond_lora": 4 * L * T,
+                        "kv_merge_update": 2 * T if mode == "merge" else 0})
     if counts != want_counts:
         raise AssertionError(f"{name}: launches {counts} != {want_counts}")
     mem, cache = st.mem, st.cache
@@ -558,6 +810,182 @@ def cross_check(torch, PI, params_bf16, cfg, devices=("cuda", "cpu")):
         f"cpu {tp:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training at full width and depth
+# ---------------------------------------------------------------------------
+
+def train_phase(torch, ops, clora, TR, T, PD, PA, PP, segment_layout,
+                params, cfg, card):
+    """3 concat + 2 merge AdamW steps of LLaMA-7B through
+    ``make_train_step`` (B=4, S=1216), then one gradient-free
+    ``train_forward``; returns the launch counts of the 5 steps."""
+    import dataclasses as dc
+    dev = params["embed"].device
+    layout = segment_layout(16, 64, 8, 64)
+    B = 4
+    batch = PD.sample_kv_batch(PD.ShardableIndexIterator(0, B).key_for(0),
+                               layout, B, device=dev)
+    tp, fp = PP.partition(params, TR.trainable_mask_for(cfg, params))
+    opt = PA.init_adamw(tp)
+    # lr 1e-3 from step 1: an update of ~lr moves every bf16 comp_embed
+    # value (|x| ~ 0.02, one bf16 ulp ~ 1.2e-4)
+    ocfg = PA.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+    train0 = {"/".join(p): x.detach().clone() for p, x in PP.leaves(tp)}
+    frozen0 = {"/".join(p): x.clone() for p, x in PP.leaves(fp)}
+    merge_cfg = cfg.replace(ccm=dc.replace(cfg.ccm, mode="merge",
+                                           merge_alpha=None))
+    steps = [("concat", cfg)] * 3 + [("merge", merge_cfg)] * 2
+    fns = {m: TR.make_train_step(c, layout, ocfg) for m, c in steps}
+    L = cfg.n_layers
+    want_step = {
+        "concat": {"ccm_attention": 2 * L, "ccm_attention_backward": L,
+                   "cond_lora": 4 * 2 * L},
+        "merge": {"kv_cummean": 2 * 2 * L, "kv_cummean_backward": 2 * L,
+                  "cond_lora": 4 * 2 * L}}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    clora.backward_calls = 0
+    totals = {}
+    losses = []
+    for i, (mode, _) in enumerate(steps):
+        before = ops.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tp, opt, metrics, _ = fns[mode](tp, fp, opt, batch, None)
+        loss = metrics["loss"].item()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        after = ops.launch_counts()
+        step_counts = {k: after[k] - before[k] for k in after
+                       if after[k] != before[k]}
+        losses.append(loss)
+        log(f"  train step {i + 1} ({mode}): loss {loss:.4f}, grad norm "
+            f"{metrics['grad_norm'].item():.4f}, {dt:.1f} ms, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+            f"launches {step_counts} [{card}]")
+        if step_counts != want_step[mode]:
+            raise AssertionError(f"step {i + 1} launches {step_counts} != "
+                                 f"{want_step[mode]}")
+    totals = ops.launch_counts()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss {losses}")
+    if clora.backward_calls != 5 * 4 * L:
+        raise AssertionError(f"cond_lora autograd backward ran "
+                             f"{clora.backward_calls} times, want {20 * L}")
+    for k, x in PP.leaves(tp):
+        if torch.equal(x.detach(), train0["/".join(k)]):
+            raise AssertionError(f"trainable leaf {'/'.join(k)} unchanged")
+    for k, x in PP.leaves(fp):
+        if not torch.equal(x, frozen0["/".join(k)]):
+            raise AssertionError(f"frozen leaf {'/'.join(k)} changed")
+    log(f"  {len(train0)} trainable leaves all changed, {len(frozen0)} "
+        f"frozen leaves bitwise unchanged; opt step {opt.step}")
+    del frozen0, train0
+    for mode, c in (("concat", cfg), ("merge", merge_cfg)):
+        with torch.no_grad():
+            T.train_forward(params, c, batch["tokens"], layout)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg = T.train_forward(params, c, batch["tokens"], layout)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not bool(torch.isfinite(lg).all()) \
+                or lg.shape != (B, 64, cfg.vocab_size):
+            raise AssertionError(f"train_forward {mode}: bad logits")
+        log(f"  train_forward {mode} (no grad, B4 S1216, tail logits): "
+            f"{ms:.1f} ms [{card}]")
+    # one profiled step of each mode (after the counts: not counted)
+    for mode in ("concat", "merge"):
+        profile_window(torch, lambda: fns[mode](tp, fp, opt, batch, None),
+                       f"1 {mode} train step", card)
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training cross-check (CUDA vs CPU) and parallel = online
+# ---------------------------------------------------------------------------
+
+def train_cross_check(torch, PI, TR, PT, PD, PP, segment_layout, params_bf16,
+                      cfg, devices=("cuda", "cpu")):
+    """2 layers at full width in float32: (a) loss, tail logits and every
+    trainable gradient leaf on CUDA (kernels) against the CPU (plain
+    versions), concat and merge; (b) on the card, the parallel forward's
+    tail logits against t ingests + prefill (the online kernels).
+    Tolerance 1e-3 x max|.| per tensor (float32 sums in other orders)."""
+    import dataclasses as dc
+    c2 = cfg.replace(n_layers=2, compute_dtype="float32",
+                     param_dtype="float32")
+    layout = segment_layout(4, 32, 8, 32)                 # S = 192
+    B = 2
+    batch = PD.sample_kv_batch(PD.ShardableIndexIterator(3, B).key_for(0),
+                               layout, B, device="cpu")
+
+    def to(t, dev, layers=False):
+        if isinstance(t, dict):
+            return {k: to(v, dev, layers or k == "layers")
+                    for k, v in t.items()}
+        t = t[:2] if layers else t
+        return t.detach().to(device=dev, dtype=torch.float32).contiguous()
+
+    def close(name, a, b):
+        lim = 1e-3 * b.abs().max().item()
+        err = max_err(a.cpu(), b)
+        if not err <= lim:
+            raise AssertionError(f"{name}: {err} > {lim}")
+        return err / lim
+
+    for mode in ("concat", "merge"):
+        cm = c2.replace(ccm=dc.replace(c2.ccm, mode=mode))
+        res = {}
+        for dev in devices:
+            t0 = time.perf_counter()
+            pp = to(params_bf16, dev)
+            tp, fp = PP.partition(pp, TR.trainable_mask_for(cm, pp))
+            leaves = PP.leaves(tp)
+            for _, x in leaves:
+                x.requires_grad_(True)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            params = PP.merge(tp, fp)
+            logits = PT.train_forward(params, cm, b["tokens"], layout)
+            tail = b["tokens"][:, layout.seq_len - layout.tail_len:]
+            loss = TR.next_token_loss(logits, tail, b["loss_mask"])
+            grads = torch.autograd.grad(loss, [x for _, x in leaves])
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            res[dev] = (loss.detach(), logits.detach(),
+                        {"/".join(p): g for (p, _), g in zip(leaves, grads)},
+                        time.perf_counter() - t0)
+            del pp, tp, fp, params
+        (lc, gc_, grc, tc), (lp, gp, grp, tpu) = (res[d] for d in devices)
+        worst = max(close(f"{mode} loss", lc, lp),
+                    close(f"{mode} tail logits", gc_, gp))
+        for k in grp:
+            if not grp[k].abs().max().item() > 0:
+                raise AssertionError(f"{mode} gradient {k} is all zero")
+            worst = max(worst, close(f"{mode} grad {k}", grc[k], grp[k]))
+        log(f"  train cross-check {mode}: loss {lc.item():.6f} vs "
+            f"{lp.item():.6f}, logits + {len(grp)} gradient leaves, worst "
+            f"max|d| / limit {worst:.3f}; cuda {tc:.1f} s, cpu {tpu:.1f} s")
+
+        # (b) parallel = online on the card
+        pp = to(params_bf16, devices[0])
+        toks = batch["tokens"].to(devices[0])
+        with torch.no_grad():
+            lg = PT.train_forward(pp, cm, toks, layout)
+            st = PI.init_online_state(cm, B, layout.tail_len + 8,
+                                      device=devices[0])
+            step = layout.chunk_len + layout.comp_len
+            for j in range(layout.t_steps):
+                st = PI.ingest_context(pp, cm, st, toks[:, j * step:(j + 1)
+                                                        * step - layout.comp_len])
+            on, _ = PI.prefill(pp, cm, st, toks[:, layout.t_steps * step:],
+                               full_logits=True)
+        r = close(f"{mode} parallel vs online", on, lg.cpu())
+        log(f"  parallel = online ({mode}, cuda): tail logits max|d| / "
+            f"(1e-3 max|logit|) = {r:.3f}")
+        del pp
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -570,7 +998,14 @@ def main() -> int:
     from repro_torch.kernels import cond_lora as clora
     from repro_torch.kernels import decode_attention as dattn
     from repro_torch.kernels import kv_merge as kvm
+    from repro_torch.kernels import ccm_attention as ca
+    from repro_torch.core.masks import segment_layout
+    from repro_torch.data import synthetic as PD
+    from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as PT
     from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import adamw as PA
+    from repro_torch.optim import partition as PP
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -596,6 +1031,9 @@ def main() -> int:
     seg = check_segmented(torch, F, dattn, PI.quantize_kv, card)
     lora = check_cond_lora(torch, clora, card)
     merge = check_kv_merge(torch, kvm, card)
+    check_cond_lora_grad(torch, clora, card)
+    ccm_fwd, ccm_bwd = check_ccm_attention(torch, F, ca, segment_layout, card)
+    cummean = check_kv_cummean(torch, kvm, card)
 
     log("phase 3: LLaMA-7B main path (32 layers, d 4096, bf16, seed 0)")
     cfg = llama_7b_paper.config()
@@ -616,6 +1054,17 @@ def main() -> int:
 
     log("phase 4: cross-check, 2 layers full width fp32, CUDA vs CPU")
     cross_check(torch, PI, params, cfg)
+
+    log("phase 5: LLaMA-7B training, 3 concat + 2 merge AdamW steps "
+        "(B4, S1216)")
+    train_counts = train_phase(torch, ops, clora, TR, PT, PD, PA, PP,
+                               segment_layout, params, cfg, card)
+    log(f"  launches over the 5 steps: {train_counts}")
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    log("phase 6: training cross-check, 2 layers full width fp32, CUDA vs "
+        "CPU, and parallel = online on the card")
+    train_cross_check(torch, PI, TR, PT, PD, PP, segment_layout, params, cfg)
     del params
 
     rows = [
@@ -631,6 +1080,18 @@ def main() -> int:
              source="src/repro_torch/kernels/kv_merge.py",
              replaces="src/repro/kernels/kv_merge.py:27",
              launches=totals["kv_merge_update"], **merge),
+        dict(name="ccm_attention", route="cuda",
+             source="src/repro_torch/csrc/ccm_attention.cu",
+             replaces="src/repro/kernels/ccm_attention.py:86",
+             launches=train_counts["ccm_attention"], **ccm_fwd),
+        dict(name="ccm_attention_backward", route="cuda",
+             source="src/repro_torch/csrc/ccm_attention.cu",
+             replaces="src/repro/kernels/ccm_attention.py:86",
+             launches=train_counts["ccm_attention_backward"], **ccm_bwd),
+        dict(name="kv_cummean", route="triton",
+             source="src/repro_torch/kernels/kv_merge.py",
+             replaces="src/repro/kernels/kv_merge.py:65",
+             launches=train_counts["kv_cummean"], **cummean),
     ]
     for r in rows:
         if r["launches"] <= 0:

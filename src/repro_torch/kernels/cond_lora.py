@@ -8,6 +8,19 @@ CUDA C++ in ``csrc/cond_lora.cu``; its header says what bounds it on the
 card and what its design does about that.  This module checks the
 arguments and launches it on PyTorch's current stream.  The plain
 version is ``ref.cond_lora_ref``.
+
+``cond_lora`` is the differentiable entry: a ``torch.autograd.Function``
+whose forward is the kernel and whose backward is three ``torch.matmul``
+products (the reference gets the same cotangents from XLA's autodiff of
+the jnp ``cond_linear``, outside any Pallas kernel):
+
+    dx    = dy @ W^T + s * ((g * dy) @ B^T) @ A
+    dA    = s * ((g * dy) @ B^T)^T @ x
+    dB    = s * (x @ A^T)^T @ (g * dy)
+    dbias = sum_rows(dy)
+
+``W`` is frozen (LoRA-only training): a ``W`` that requires a gradient
+raises.
 """
 from __future__ import annotations
 
@@ -21,7 +34,8 @@ from repro_torch.kernels.ref import cond_lora_ref as plain
 
 MAX_RANK = 64
 
-launches = 0   # kernel launches (the count chip_smoke reads)
+launches = 0         # kernel launches (the count chip_smoke reads)
+backward_calls = 0   # autograd backward passes (matmuls, not a kernel)
 
 _fn = None
 
@@ -78,3 +92,48 @@ def cond_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         raise RuntimeError(f"cond_lora kernel launch failed: cudaError {err}")
     launches += 1
     return y
+
+
+class _CondLoRA(torch.autograd.Function):
+    """Kernel forward, matmul backward (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, gate, scale, bias):
+        ctx.save_for_backward(x, w, a, b, gate)
+        ctx.scale = scale
+        ctx.has_bias = bias is not None
+        return cond_lora_matmul(x, w, a, b, gate, scale, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        global backward_calls
+        backward_calls += 1
+        x, w, a, b, gate = ctx.saved_tensors
+        s = ctx.scale
+        need = ctx.needs_input_grad
+        dx = da = db = dbias = None
+        dy32 = dy.float()
+        gdy = dy32 * gate[:, None]                       # (M, N) float32
+        if need[0] or need[2]:
+            u = (gdy @ b.float().T) * s                  # (M, r)
+            if need[0]:
+                dx = (dy @ w.to(dy.dtype).T).float() + u @ a.float()
+                dx = dx.to(x.dtype)
+            if need[2]:
+                da = (u.T @ x.float()).to(a.dtype)
+        if need[3]:
+            db = (((x.float() @ a.float().T) * s).T @ gdy).to(b.dtype)
+        if ctx.has_bias and need[6]:
+            dbias = dy32.sum(0).to(dy.dtype)
+        return dx, None, da, db, None, None, dbias
+
+
+def cond_lora(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor, gate: torch.Tensor, scale: float,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``cond_lora_matmul`` under autograd: gradients reach x, a, b and
+    bias.  ``w`` must not require a gradient (it is frozen)."""
+    if w.requires_grad:
+        raise ValueError("cond_lora: W requires a gradient, but the kernel "
+                         "has no dW (W is frozen under train_mode='lora')")
+    return _CondLoRA.apply(x, w, a, b, gate, float(scale), bias)

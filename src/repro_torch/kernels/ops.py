@@ -7,27 +7,35 @@ no fallback from a CUDA tensor to the plain version.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from repro_torch.kernels import ccm_attention as _attn
 from repro_torch.kernels import cond_lora as _lora
 from repro_torch.kernels import decode_attention as _dattn
 from repro_torch.kernels import kv_merge as _merge
 from repro_torch.kernels import ref as _ref
 
-_KERNELS = {"segmented_attention": _dattn, "cond_lora": _lora,
-            "kv_merge_update": _merge}
+# op name -> (module, name of its launch counter)
+_KERNELS = {"segmented_attention": (_dattn, "launches"),
+            "cond_lora": (_lora, "launches"),
+            "kv_merge_update": (_merge, "launches"),
+            "ccm_attention": (_attn, "launches"),
+            "ccm_attention_backward": (_attn, "bwd_launches"),
+            "kv_cummean": (_merge, "cummean_launches"),
+            "kv_cummean_backward": (_merge, "cummean_bwd_launches")}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per op since the last reset (CUDA tensors only)."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, attr in _KERNELS.values():
+        setattr(mod, attr, 0)
 
 
 def segmented_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
@@ -42,10 +50,11 @@ def segmented_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
 def cond_lora(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, gate: torch.Tensor, scale: float,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (M,K) @ w (K,N) (+bias) + gate * (x @ a.T @ b) * scale — fused."""
+    """x (M,K) @ w (K,N) (+bias) + gate * (x @ a.T @ b) * scale — fused.
+    Differentiable in x, a, b and bias (``w`` is frozen)."""
     if x.is_cuda:
-        return _lora.cond_lora_matmul(x, w, a, b, gate.float().contiguous(),
-                                      scale, bias)
+        return _lora.cond_lora(x, w, a, b, gate.detach().float().contiguous(),
+                               scale, bias)
     return _ref.cond_lora_ref(x, w, a, b, gate, scale, bias)
 
 
@@ -56,3 +65,30 @@ def kv_merge_update(mem: torch.Tensor, h: torch.Tensor,
     if mem.is_cuda:
         return _merge.kv_merge_update_(mem, h, a)
     return mem.copy_(_ref.kv_merge_ref(mem, h, a))
+
+
+def ccm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_info, k_info, scale: float) -> torch.Tensor:
+    """Drop-in for ``models.attention.attend``: q (B, Sq, Hq, D), k/v
+    (B, Sk, Hkv, D), ``KeyInfo`` metadata; returns (B, Sq, Hq, D).
+    Differentiable in q, k, v.  The CUDA kernels read the (B, S, H, D)
+    tensors in place through strides (no transpose copy, no padding)."""
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            q_info.idx, q_info.seg, k_info.idx, k_info.seg, k_info.comp,
+            k_info.valid)
+    if q.is_cuda:
+        return _attn.ccm_attention(*args, scale).transpose(1, 2)
+    return _ref.ccm_attention_ref(*args, scale).transpose(1, 2)
+
+
+def kv_cummean(h: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Running means of h along ``dim``, float32 accumulation, rounded
+    once to h.dtype.  Differentiable.  On CUDA the kernel reads h as an
+    (outer, T, inner) view through its strides (the inner dims must
+    flatten to one unit-stride axis, else they are copied)."""
+    if not h.is_cuda:
+        return _ref.kv_cummean_ref(h, dim)
+    dim = dim % h.ndim
+    T = h.shape[dim]
+    h3 = h.reshape(math.prod(h.shape[:dim]), T, math.prod(h.shape[dim + 1:]))
+    return _merge.kv_cummean(h3).reshape(h.shape)

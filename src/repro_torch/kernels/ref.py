@@ -26,8 +26,9 @@ def ccm_attention_ref(q, k, v, q_idx, q_seg, k_idx, k_seg, k_comp, k_valid,
     """Dense-mask attention oracle.
 
     q (B, Hq, Sq, D); k/v (B, Hkv, Sk, D); metadata (S,) shared or (B, S)
-    per lane.  Mask: (k_idx <= q_idx) & ((k_seg == q_seg) | k_comp) &
-    k_valid.  Fully masked rows give exactly 0.  Computed in float32.
+    per lane (``k_valid`` None: every key valid).  Mask: (k_idx <= q_idx)
+    & ((k_seg == q_seg) | k_comp) & k_valid.  Fully masked rows give
+    exactly 0.  Computed in float32.
     """
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -38,7 +39,8 @@ def ccm_attention_ref(q, k, v, q_idx, q_seg, k_idx, k_seg, k_comp, k_valid,
     ki = _lanes(k_idx, B, torch.int32, dev)
     ks = _lanes(k_seg, B, torch.int32, dev)
     kc = _lanes(k_comp, B, torch.bool, dev)
-    kv = _lanes(k_valid, B, torch.bool, dev)
+    kv = torch.ones((B, Sk), dtype=torch.bool, device=dev) \
+        if k_valid is None else _lanes(k_valid, B, torch.bool, dev)
     mask = (ki[:, None, :] <= qi[:, :, None]) \
         & ((ks[:, None, :] == qs[:, :, None]) | kc[:, None, :]) \
         & kv[:, None, :]                                   # (B, Sq, Sk)
@@ -139,3 +141,15 @@ def kv_merge_ref(mem, h, a: float) -> torch.Tensor:
     ``a`` is the runtime weight (1/t arithmetic mean, or the EMA alpha)."""
     a32 = torch.tensor(a, dtype=torch.float32, device=mem.device)
     return ((1 - a32) * mem.float() + a32 * h.float()).to(mem.dtype)
+
+
+def kv_cummean_ref(h: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Running means of h along ``dim`` (merge-mode training), in float32
+    with one rounding to h.dtype.  Under autograd its backward is the
+    plain version of the kernel's reverse pass."""
+    csum = torch.cumsum(h.float(), dim=dim)
+    shape = [1] * h.ndim
+    shape[dim] = h.shape[dim]
+    denom = torch.arange(1, h.shape[dim] + 1, dtype=torch.float32,
+                         device=h.device).reshape(shape)
+    return (csum / denom).to(h.dtype)

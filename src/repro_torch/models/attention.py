@@ -1,8 +1,15 @@
 """Attention with CCM-aware masking (port of ``repro/models/attention.py``,
-the parts the online slice runs).
+the parts the online and training slices run).
 
 Conventions: q (B, Sq, Hq, D); k/v (B, Sk, Hkv, D); GQA grouping is done
 here (no materialized head repetition).  Softmax statistics in float32.
+
+``attend`` is the training forward's full-sequence attention: every
+``impl`` other than ``"concat"`` (the dense masked oracle) goes to the
+hand-written CCM flash-attention kernel op (``kernels/ops.ccm_attention``,
+differentiable).  So the default ``"dense"`` reaches the kernel here,
+while in the reference it names ``attend_dense``; ``"chunked"`` also maps
+to the kernel (``attend_chunked`` is not ported).
 
 ``attend_segments`` is the decode / ingest / prefill hot path: a q block
 attends an ordered list of KV segments ``[mem | cache(:length) | self]``
@@ -38,6 +45,14 @@ class KeyInfo(NamedTuple):
     valid: Optional[torch.Tensor] = None
 
 
+def plain_causal_info(length: int, offset: int = 0,
+                      device=None) -> KeyInfo:
+    """Plain causal metadata: one segment, every key a <COMP>-like key."""
+    idx = torch.arange(length, dtype=torch.int32, device=device) + offset
+    return KeyInfo(idx=idx, seg=torch.zeros_like(idx),
+                   comp=torch.ones((length,), dtype=torch.bool, device=device))
+
+
 def concat_info(a: KeyInfo, b: KeyInfo) -> KeyInfo:
     def valid(x: KeyInfo):
         return x.valid if x.valid is not None \
@@ -71,6 +86,19 @@ def attend_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
     return out.reshape(B, Sq, Hq, D)
+
+
+def attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, q_info: KeyInfo, k_info: KeyInfo,
+           impl: Optional[str] = None) -> torch.Tensor:
+    """Full-sequence CCM attention: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D).
+    impl None -> ``cfg.attn_impl``; 'concat' -> the dense masked oracle;
+    anything else -> the CCM flash-attention kernel op (CUDA kernel for
+    CUDA tensors, its plain version on the CPU)."""
+    scale = 1.0 / (cfg.hd ** 0.5)
+    if (impl or cfg.attn_impl) != "concat":
+        return kops.ccm_attention(q, k, v, q_info, k_info, scale)
+    return attend_dense(q, k, v, mask_from_info(q_info, k_info), scale)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 
 The two dataclasses are copied field for field, so a reference config and
 its port describe the same model.  ``cdtype``/``pdtype`` return torch
-dtypes.  On the segmented attention path ``attn_impl`` only tells
-``"concat"`` (the materialized-concatenation oracle) apart from every
-other value, which goes to the hand-written kernel op.
+dtypes.  ``attn_impl`` only tells ``"concat"`` (the dense masked oracle:
+the materialized concatenation on the segmented path, ``attend_dense`` in
+training) apart from every other value, which goes to the hand-written
+kernel op; the reference's default ``"dense"`` is its jnp attend.
 """
 from __future__ import annotations
 

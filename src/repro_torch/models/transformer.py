@@ -1,15 +1,22 @@
 """Model assembly for the dense family (port of
-``repro/models/transformer.py``: init, embeddings, logits).
+``repro/models/transformer.py``: init, embeddings, logits and the CCM
+parallel training forward).
 
 Params keep the reference tree: a nested dict with the same key paths and
 the same stacked leading layer axis (``layers/attn/wq`` is (L, d, Hq*hd)).
+The reference's ``lax.scan`` over layers is a Python loop over views of
+the stacked leaves; ``cfg.remat`` becomes ``torch.utils.checkpoint`` per
+layer when gradients are on (the reference's ``jax.checkpoint``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import masks as M
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -96,3 +103,112 @@ def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor
     x = L.apply_norm(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head.to(x.dtype)
+
+
+# ===========================================================================
+# block application (training / full sequence) and the layer stack
+# ===========================================================================
+
+def _attn_mlp_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
+                    q_info, k_info, comp_gate, positions,
+                    merge_ctx) -> torch.Tensor:
+    h = L.apply_norm(cfg, lp["ln1"], x)
+    q, k, v = A.qkv_project(cfg, lp["attn"], h, comp_gate,
+                            positions if cfg.pos_embed == "rope" else None)
+    if merge_ctx is not None:
+        # merge mode: dense attend over [virtual slots | raw keys], as the
+        # reference does (no kernel computes it there either)
+        slots_fn = merge_ctx.get("slots_fn")
+        if slots_fn is not None:
+            mem_k, mem_v = slots_fn(k, v)
+            k = torch.cat([mem_k, k], dim=1)
+            v = torch.cat([mem_v, v], dim=1)
+        o = A.attend_dense(q, k, v, merge_ctx["mask"], 1.0 / cfg.hd ** 0.5)
+    else:
+        o = A.attend(cfg, q, k, v, q_info, k_info)
+    x = x + A.out_project(cfg, lp["attn"], o, comp_gate)
+    h = L.apply_norm(cfg, lp["ln2"], x)
+    return x + L.apply_mlp(cfg, lp["mlp"], h)
+
+
+def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
+                   q_info=None, k_info=None, comp_gate=None, positions=None,
+                   merge_ctx=None) -> torch.Tensor:
+    """Run the decoder stack on embedded inputs x (B, S, d)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r}: the port covers "
+                                  "'dense'")
+    remat = cfg.remat and torch.is_grad_enabled()
+    for li in range(cfg.n_layers):
+        body = functools.partial(
+            _attn_mlp_block, cfg, layer_params(params, li), q_info=q_info,
+            k_info=k_info, comp_gate=comp_gate, positions=positions,
+            merge_ctx=merge_ctx)
+        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
+    return x
+
+
+# ===========================================================================
+# CCM parallel training forward (paper Fig. 3 / Alg. 1)
+# ===========================================================================
+
+def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  layout: M.SegmentLayout,
+                  logits_slice: Optional[Tuple[int, int]] = None,
+                  unconditional_lora: bool = False) -> torch.Tensor:
+    """One parallelized CCM forward; tokens (B, S) follow ``layout``.
+
+    Returns logits over ``logits_slice`` (start, length), by default the
+    tail (input/output) region only.  Concat mode attends through the
+    CCM flash-attention kernel; merge mode builds the virtual memory
+    slots (running mean through the ``kv_cummean`` kernel, or the EMA)
+    and attends densely over [slots | raw keys].
+    """
+    if cfg.ccm.enabled and cfg.ccm.method != "ccm":
+        raise NotImplementedError(f"CCM method {cfg.ccm.method!r}: the "
+                                  "gisting and compressive baselines are "
+                                  "not ported")
+    if cfg.pos_embed == "learned":
+        raise NotImplementedError("learned position embeddings are not "
+                                  "ported")
+    dev = tokens.device
+    S = layout.seq_len
+    seg = layout.seg_ids.to(dev)
+    comp = layout.comp_mask.to(dev)
+    pos = layout.positions.to(dev)
+    comp_off = M.comp_offset_array(layout.comp_mask).long().to(dev)
+    use_ccm = cfg.ccm.enabled
+
+    x = embed_tokens(cfg, params, tokens, comp if use_ccm else None,
+                     comp_off)
+    comp_gate = None
+    if use_ccm:
+        comp_gate = comp.to(cfg.cdtype)[None].expand(tokens.shape)
+        if unconditional_lora:
+            comp_gate = torch.ones_like(comp_gate)
+
+    merge_ctx = None
+    q_info = k_info = None
+    if use_ccm and cfg.ccm.mode == "merge":
+        raw_mask = M.intra_segment_causal(seg, comp)
+        slot_mask = M.expand_slot_mask(M.merge_slot_mask(seg, layout.t_steps),
+                                       layout.comp_len)
+        merge_ctx = {
+            "mask": torch.cat([slot_mask, raw_mask], dim=1),
+            "slots_fn": functools.partial(
+                M.merge_virtual_kv, comp_mask=comp, t_steps=layout.t_steps,
+                comp_len=layout.comp_len, alpha=cfg.ccm.merge_alpha)}
+    elif use_ccm:
+        q_info = A.KeyInfo(idx=torch.arange(S, dtype=torch.int32, device=dev),
+                           seg=seg, comp=comp)
+        k_info = q_info
+    else:
+        q_info = k_info = A.plain_causal_info(S, device=dev)
+
+    x = forward_hidden(params, cfg, x, q_info=q_info, k_info=k_info,
+                       comp_gate=comp_gate, positions=pos,
+                       merge_ctx=merge_ctx)
+    if logits_slice is None:
+        logits_slice = (S - layout.tail_len, layout.tail_len)
+    start, length = logits_slice
+    return lm_logits(params, cfg, x[:, start:start + length])

@@ -1,10 +1,12 @@
-"""Carry a parameter tree from the reference into the port.
+"""Carry a parameter tree between the reference and the port.
 
 ``params_from_numpy`` takes the reference's tree as numpy arrays (for a
 JAX tree, ``jax.tree.map(np.asarray, params)``) and returns the port's
 tree on ``device``: every leaf in ``cfg.pdtype`` except the LoRA ``a``/``b``
 factors, which stay float32 as the reference initialises them.  Key paths
 and the stacked leading layer axis are kept as they are.
+``params_to_numpy`` is the inverse: the port's tree as numpy arrays
+(bf16 leaves as float32, which holds every bf16 value exactly).
 """
 from __future__ import annotations
 
@@ -35,3 +37,15 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         return _leaf(t, torch.float32 if in_lora else cfg.pdtype, dev)
 
     return walk(tree, False)
+
+
+def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's tree -> numpy arrays on the host (None leaves kept)."""
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if t is None:
+            return None
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+    return walk(tree)

@@ -49,9 +49,17 @@ def test_entry_points_need_a_device(monkeypatch):
     from repro_torch.models.transformer import init_lm
     from repro_torch.params import params_from_numpy
 
+    from repro_torch.core.masks import segment_layout
+    from repro_torch.data.synthetic import sample_kv_batch
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.optim.adamw import AdamWConfig
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = llama_7b_paper.smoke(compute_dtype="float32")
+    layout = segment_layout(2, 4, 2, 4)
     for call in (lambda: init_lm(cfg, 0),
+                 lambda: TrainLoop(cfg, layout, AdamWConfig(), 1),
+                 lambda: sample_kv_batch(torch.Generator(), layout, 1),
                  lambda: params_from_numpy({}, cfg),
                  lambda: PI.init_online_state(cfg, 1, 8),
                  lambda: PI.init_cache(cfg, 1, 8),
