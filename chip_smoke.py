@@ -29,10 +29,19 @@ Phases (any failure raises, and the script exits non-zero):
   6. a cross-check of training: 2 layers at full width in float32, loss,
      tail logits and gradients on CUDA against the CPU, and the parallel
      forward against t ingests + prefill on the card;
+  7. the multi-tenant serve engine (``repro_torch.serve.ServeEngine``) at
+     the full width and depth of LLaMA-7B (concat, bf16 cache, 8 slots
+     of a 256-token cache, default buckets, prefix cache on): 12
+     sessions over 3 tenants, 3 ragged contexts each, a fork, a
+     prefix-cache hit, LRU offload and restore, one query per session,
+     each held against the session run alone (B=1); a profiled drain;
+     then two 4-layer engines at full width (merge + bf16 with per-lane
+     merge weights and async offload; concat + int8 cache with a
+     pressure recompression);
 then one ``{"kernels": [...]}`` line, then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward,
-kv_cummean forward and reverse, cond_lora's autograd) against their plain
-versions.
+kv_cummean forward and reverse, cond_lora's autograd) and the arena's
+session gather/scatter against their plain versions.
 Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
@@ -362,6 +371,82 @@ def check_kv_merge(torch, kvm, card):
                 library_ms=t["library_ms"], bound_ms=bms, bound_by=by)
 
 
+def check_session_gather(torch, sg, card):
+    """Arena gather/scatter against their plain versions, bit-exact: 2-D
+    and 5-D leaves of float32, bf16 and int8 (a 37-element row is 37
+    bytes: the kernel's narrow-unit path), duplicate gather ids, a
+    scatter whose duplicates all hit the scratch row (each of its
+    elements from one of their rows), ids 0 and S-1; then
+    the arena's real LLaMA-7B leaves (a concat bf16 cache k row at
+    cache_len 256, 64 MiB; a memory k row of 16 slots x 8, 32 MiB), timed
+    at B=4.  Returns the (gather, scatter) rows of the kernels line."""
+    from repro_torch.kernels import ref
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(4)
+    S = 6
+    for dt in (torch.float32, torch.bfloat16, torch.int8):
+        for row in ((37,), (2, 1, 4, 2, 8)):
+            slab = torch.randint(-127, 128, (S,) + row, generator=g,
+                                 device=dev).to(dt)
+            for ids in ([0, S - 1, 2], [3, 3, 0, 3]):
+                got = sg.session_gather(slab, ids)
+                if not torch.equal(got, ref.session_gather_ref(slab, ids)):
+                    raise AssertionError(f"session_gather {dt} {row} {ids}")
+            rows = torch.randint(-127, 128, (5,) + row, generator=g,
+                                 device=dev).to(dt)
+            ids = [0, 2, S - 1, S - 1, S - 1]
+            got = sg.session_scatter(slab.clone(), ids, rows)
+            want = ref.session_scatter_ref(slab.clone(), ids, rows)
+            torch.cuda.synchronize()
+            # the three writers of the scratch row race: each element
+            # holds one writer's value, not necessarily all the same one's
+            if not torch.equal(got[:S - 1], want[:S - 1]) or not bool(
+                    (got[S - 1][None] == rows[2:5]).any(0).all()):
+                raise AssertionError(f"session_scatter {dt} {row}")
+    log("  session gather/scatter: float32, bf16, int8 x 2-D (37-element "
+        "rows) and 5-D leaves, duplicate ids, ids 0 and S-1: bit-exact")
+    B, ids = 4, [5, 0, 8, 3]
+    ids_t = torch.tensor(ids, device=dev)
+    out = {}
+    for name, toks in (("cache k row (32, 1, 256, 32, 128)", 256),
+                       ("memory k row (32, 1, 128, 32, 128)", 128)):
+        slab = torch.randn((9, 32, 1, toks, 32, 128), generator=g,
+                           device=dev).to(torch.bfloat16)
+        rows = torch.randn((B,) + tuple(slab.shape[1:]), generator=g,
+                           device=dev).to(torch.bfloat16)
+        got = sg.session_gather(slab, ids)
+        if not torch.equal(got, ref.session_gather_ref(slab, ids)):
+            raise AssertionError(f"session_gather {name}")
+        a = sg.session_scatter(slab.clone(), ids, rows)
+        if not torch.equal(a, ref.session_scatter_ref(slab.clone(), ids,
+                                                      rows)):
+            raise AssertionError(f"session_scatter {name}")
+        del a, got
+        row_bytes = slab[0].numel() * 2
+        bms, by = bound(2 * B * row_bytes, 0.0, PEAK_BF16)
+        tg = timings(torch, lambda i: sg.session_gather(slab, ids),
+                     "session_copy_kernel",
+                     lambda i: ref.session_gather_ref(slab, ids),
+                     lambda i: torch.index_select(slab, 0, ids_t))
+        report(f"session_gather B4 {name} {row_bytes / 2 ** 20:.0f} MiB "
+               "(library: torch.index_select)", tg, bms, by, card)
+        ts = timings(torch, lambda i: sg.session_scatter(slab, ids, rows),
+                     "session_copy_kernel",
+                     lambda i: ref.session_scatter_ref(slab, ids, rows),
+                     lambda i: slab.index_copy_(0, ids_t, rows))
+        report(f"session_scatter B4 {name} (library: index_copy_)", ts, bms,
+               by, card)
+        if not out:                      # the cache row goes in the line
+            out = {"gather": tg, "scatter": ts, "bound": (bms, by)}
+        del slab, rows
+    torch.cuda.empty_cache()
+    bms, by = out["bound"]
+    return tuple(dict(max_abs_err=0.0, ms=out[k]["ms"],
+                      plain_ms=out[k]["plain_ms"],
+                      library_ms=out[k]["library_ms"], bound_ms=bms,
+                      bound_by=by) for k in ("gather", "scatter"))
+
+
 def ccm_meta(torch, layout, dev):
     """Concat-mode metadata of ``layout`` on ``dev`` (int32 idx/seg, bool
     comp), as ``train_forward`` hands it to the kernel."""
@@ -598,13 +683,16 @@ def check_cond_lora_grad(torch, clora, card):
 # phase 3: the main path at full width and depth
 # ---------------------------------------------------------------------------
 
-def profile_window(torch, fn, label: str, card: str):
+def profile_window(torch, fn, label: str, card: str, warmup: bool = True):
     """Device busy time, span and top kernels of one call of ``fn`` under
-    ``torch.profiler`` (after one warm-up call).  The profiler's own host
-    overhead stretches the span, so the idle share is an upper bound."""
+    ``torch.profiler`` (after one warm-up call unless ``warmup`` is
+    False); returns {kernel name: device ms} (None when the profiler
+    recorded no device event).  The profiler's own host overhead
+    stretches the span, so the idle share is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -614,7 +702,7 @@ def profile_window(torch, fn, label: str, card: str):
            if e.device_type() == DeviceType.CUDA]
     if not evs:
         log(f"  profile {label}: no device events recorded (not measured)")
-        return
+        return None
     busy = sum(e.duration_ns() for e in evs) / 1e6
     span = (max(e.end_ns() for e in evs) - min(e.start_ns() for e in evs)) / 1e6
     by_name = {}
@@ -625,6 +713,7 @@ def profile_window(torch, fn, label: str, card: str):
         f"[{card}]")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"    {ms:9.3f} ms  {name[:100]}")
+    return by_name
 
 def randomize_lora_b(torch, params, seed: int, std: float = 0.05):
     """The reference initialises LoRA b = 0, which would leave the gate
@@ -986,6 +1075,225 @@ def train_cross_check(torch, PI, TR, PT, PD, PP, segment_layout, params_bf16,
         del pp
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the multi-tenant serve engine
+# ---------------------------------------------------------------------------
+
+def first_layers(tree, n: int):
+    """A parameter tree cut to its first ``n`` layers (views)."""
+    def cut(t):
+        return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[:n]
+    return {k: cut(v) if k == "layers" else v for k, v in tree.items()}
+
+
+def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
+                n_sessions: int, n_slots: int, seed: int,
+                async_offload: bool = False, recompress: bool = False,
+                stagger: bool = False, detail: bool = False):
+    """Drive ``ServeEngine`` through its entry points: ``n_sessions``
+    sessions over 3 tenants, two of them opened with the same
+    ``prefix_tokens`` (a prefix-cache hit), 3 ragged contexts of 33-64
+    tokens each (token bucket 64), one fork, then one 17-32-token query
+    per session.  ``stagger`` gives half the sessions their second
+    context a round early, so one ingest batch mixes lanes at t = 2 and
+    t = 3 (per-lane merge weights); ``recompress`` triggers one pressure
+    recompression after the ingests.  Every query's logits are then held
+    against the same session run alone (B=1) through ``ingest_context``
+    / ``prefill`` on the card; an offloaded-then-restored row must come
+    back bit-equal.  Returns the kernel launches of the engine's run."""
+    import numpy as np
+    from repro_torch.core.memory import recompress_memory
+    from repro_torch.serve import PressurePolicy, ServeEngine
+    from repro_torch.serve.arena import tree_leaves
+
+    rs = np.random.default_rng(seed)
+    dev = params["embed"].device
+    V = cfg.vocab_size
+    sids = [f"s{i}" for i in range(n_sessions)]
+    tenant = {sid: f"t{i % 3}" for i, sid in enumerate(sids)}
+    p1, p2 = sids[-2], sids[-1]
+    tenant[p1] = tenant[p2] = "t1"
+    ctx = {sid: [rs.integers(0, V, int(rs.integers(33, 65))).astype(np.int32)
+                 for _ in range(3)] for sid in sids}
+    ctx[p2][0] = ctx[p1][0]                       # the shared prefix
+    qry = {sid: rs.integers(0, V, int(rs.integers(17, 33))).astype(np.int32)
+           for sid in sids + ["fork"]}
+    policy = PressurePolicy(capacity_tokens=10 ** 9) if recompress else None
+    eng = ServeEngine(params, cfg, n_slots=n_slots, cache_len=256,
+                      async_offload=async_offload, pressure_policy=policy,
+                      device=dev)
+    mgr = eng._mgr["online"]
+
+    def tally():
+        """Batches, host seconds of step dispatch (activation included),
+        and sessions moved and host seconds per transfer direction."""
+        snap = eng.metrics_snapshot()["metrics"]
+
+        def tot(name, **lab):
+            return sum(v["value"] for v in snap[name]["values"]
+                       if all(v["labels"].get(k) == x for k, x in lab.items()))
+        return dict(batches=int(tot("serve_batches_total")),
+                    dispatch_s=tot("serve_dispatch_seconds_total"),
+                    **{f"{d}{x}": tot(f"offload_{m}_total", dir=d)
+                       for d in ("offload", "restore")
+                       for x, m in (("", "sessions"),
+                                    ("_s", "transfer_seconds"))})
+
+    def batches():
+        return tally()["batches"]
+
+    def drain(what: str):
+        a = tally()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        b = {k: v - a[k] for k, v in tally().items()}
+        nb = b["batches"]
+        log(f"  {label}: {what}: {nb} batches, {ms:.1f} ms, "
+            f"{ms / max(nb, 1):.1f} ms per batch; host: dispatch "
+            f"{b['dispatch_s'] * 1e3:.1f} ms, of it offload "
+            f"{int(b['offload'])} rows {b['offload_s'] * 1e3:.1f} ms, restore "
+            f"{int(b['restore'])} rows {b['restore_s'] * 1e3:.1f} ms [{card}]")
+        return ms / max(nb, 1), nb
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for sid in sids[:-1]:
+        eng.create_session(sid, tenant=tenant[sid],
+                           prefix_tokens=ctx[sid][0] if sid == p1 else None)
+    drain("prefix ingest")          # compressed once, pinned in the cache
+    eng.create_session(p2, tenant=tenant[p2], prefix_tokens=ctx[p2][0])
+    for sid in sids[:-2]:
+        eng.ingest(sid, ctx[sid][0])
+    ingest_ms = [drain("ingest round 1")[0]]
+    rounds = [[sid for i, sid in enumerate(sids) if i % 2 == 0], sids,
+              [sid for i, sid in enumerate(sids) if i % 2 == 1]] \
+        if stagger else [sids, sids]
+    done = {sid: 1 for sid in sids}
+    for r, group in enumerate(rounds):
+        for sid in group:
+            eng.ingest(sid, ctx[sid][done[sid]])
+            done[sid] += 1
+        if detail and r == len(rounds) - 1:
+            n0 = batches()
+            by_name = profile_window(torch, eng.run, f"{label} ingest drain",
+                                     card, warmup=False)
+            nb = batches() - n0
+            if by_name is not None:
+                gms = sum(v for k, v in by_name.items()
+                          if "session_copy_kernel" in k
+                          and ("<false>" in k or "ILb0E" in k))
+                sms = sum(v for k, v in by_name.items()
+                          if "session_copy_kernel" in k
+                          and ("<true>" in k or "ILb1E" in k))
+                log(f"  {label}: profiled drain of {nb} ingest batches: "
+                    f"gather {gms / max(nb, 1):.4f} ms, scatter "
+                    f"{sms / max(nb, 1):.4f} ms of device time per batch "
+                    f"[{card}]")
+        else:
+            ingest_ms.append(drain(f"ingest round {r + 2}")[0])
+    if any(v != 3 for v in done.values()):
+        raise AssertionError(f"{label}: contexts per session {done}")
+    recompressed = None
+    if recompress:
+        freed = eng.pressure.relieve(cfg.ccm.comp_len)
+        rc = [d for d in eng.pressure.decisions if d["lever"] == "recompress"]
+        if freed <= 0 or len(rc) != 1:
+            raise AssertionError(f"{label}: recompress {freed} {rc}")
+        recompressed = rc[0]["sid"]
+        log(f"  {label}: pressure recompress of {recompressed} freed "
+            f"{freed} memory tokens")
+    # fork a session that is resident now, so that its first write (the
+    # queries) breaks the shared row copy-on-write
+    parent = next(s for s in reversed(sids[:-2]) if mgr.sessions[s].resident)
+    eng.fork_session(parent, "fork")
+    eng.run()                               # the fork: control plane only
+    order = [parent, "fork"] + [s for s in sids if s != parent]
+    reqs = {sid: eng.query(sid, qry[sid]).request for sid in order}
+    query_ms, _ = drain("queries")
+    counts = ops.launch_counts()
+
+    snap = eng.metrics_snapshot()["metrics"]
+    moved = {v["labels"]["dir"]: int(v["value"])
+             for v in snap["offload_sessions_total"]["values"]}
+    hits = int(snap["serve_prefix_dedup_hits_total"]["values"][0]["value"])
+    forks = int(snap["serve_fork_total"]["values"][0]["value"])
+    cow = int(sum(v["value"]
+                  for v in snap["serve_cow_breaks_total"]["values"]))
+    errs = mgr.arena.consistency_errors()
+    if errs or moved["offload"] <= 0 or moved["restore"] <= 0 \
+            or hits < 1 or forks != 1 or cow < 1:
+        raise AssertionError(f"{label}: consistency {errs}, moved {moved}, "
+                             f"prefix hits {hits}, forks {forks}, COW {cow}")
+    for k in ("session_gather", "session_scatter", "segmented_attention",
+              "cond_lora"):
+        if counts[k] <= 0:
+            raise AssertionError(f"{label}: {k} never launched")
+    log(f"  {label}: offloads {moved['offload']}, restores "
+        f"{moved['restore']}, prefix hits {hits}, COW breaks {cow}, "
+        f"launches {counts}")
+
+    # every query against the session run alone (B=1) on the card
+    worst = 0.0
+    for sid, req in reqs.items():
+        if not req.done or req.result is None:
+            raise AssertionError(f"{label}: query of {sid} not delivered")
+        src = parent if sid == "fork" else sid
+        st = PI.init_online_state(cfg, 1, 256, device=dev)
+        for c in ctx[src]:
+            st = PI.ingest_context(params, cfg, st,
+                                   torch.as_tensor(c, device=dev)[None])
+        if src == recompressed:
+            st = st._replace(mem=recompress_memory(
+                cfg, st.mem, eng.pressure.policy.recompress_group))
+        want, _ = PI.prefill(params, cfg, st,
+                             torch.as_tensor(qry[sid], device=dev)[None],
+                             full_logits=True)
+        want = want[0].float().cpu()
+        got = torch.from_numpy(req.result)
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: {sid} logits {got.shape}")
+        err, tol = max_err(got, want), bf16_tol(want)
+        worst = max(worst, err / tol)
+        if not err <= tol:
+            raise AssertionError(f"{label}: {sid} logits differ from the "
+                                 f"single-session run: {err} > {tol}")
+    log(f"  {label}: {len(reqs)} queries match their single-session runs: "
+        f"worst max_abs_err / bf16_tol = {worst:.3f}")
+
+    # an offloaded row comes back bit-equal (host clock for the rates)
+    sid = next(s for s in sids if mgr.sessions[s].resident)
+    before = mgr.arena.read_slot(mgr.sessions[sid].slot)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.offload_session(sid)
+    mgr.sync()
+    t_off = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr.activate_batch([sid])
+    torch.cuda.synchronize()
+    t_res = time.perf_counter() - t0
+    after = mgr.arena.read_slot(mgr.sessions[sid].slot)
+    same = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+               for a, b in zip(tree_leaves(before), tree_leaves(after)))
+    if not same:
+        raise AssertionError(f"{label}: {sid}'s row changed over an "
+                             "offload and restore")
+    gb = mgr.arena.state_bytes / 1e9
+    log(f"  {label}: {sid} offloaded ({'async' if async_offload else 'sync'})"
+        f" and restored bit-equal; {gb * 1e3:.1f} MB per row, offload "
+        f"{gb / t_off:.2f} GB/s, restore {gb / t_res:.2f} GB/s (host clock, "
+        f"gather/scatter included) [{card}]")
+    if detail:
+        log(f"  {label}: ms per ingest batch {[round(x, 1) for x in ingest_ms]}, "
+            f"per query batch {query_ms:.1f} [{card}]")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -999,6 +1307,7 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as dattn
     from repro_torch.kernels import kv_merge as kvm
     from repro_torch.kernels import ccm_attention as ca
+    from repro_torch.kernels import session_gather as sg
     from repro_torch.core.masks import segment_layout
     from repro_torch.data import synthetic as PD
     from repro_torch.launch import train as TR
@@ -1034,6 +1343,7 @@ def main() -> int:
     check_cond_lora_grad(torch, clora, card)
     ccm_fwd, ccm_bwd = check_ccm_attention(torch, F, ca, segment_layout, card)
     cummean = check_kv_cummean(torch, kvm, card)
+    gather, scatter = check_session_gather(torch, sg, card)
 
     log("phase 3: LLaMA-7B main path (32 layers, d 4096, bf16, seed 0)")
     cfg = llama_7b_paper.config()
@@ -1065,7 +1375,25 @@ def main() -> int:
     log("phase 6: training cross-check, 2 layers full width fp32, CUDA vs "
         "CPU, and parallel = online on the card")
     train_cross_check(torch, PI, TR, PT, PD, PP, segment_layout, params, cfg)
-    del params
+
+    log("phase 7: the multi-tenant serve engine, LLaMA-7B (32 layers, bf16, "
+        "concat): 12 sessions on 8 slots, 3 tenants")
+    serve_counts = serve_phase(torch, ops, PI, params, cfg, card,
+                               label="32L concat+bf16", n_sessions=12,
+                               n_slots=8, seed=21, detail=True)
+    log("  then 4 layers at full width: merge + bf16 (per-lane a_t, async "
+        "offload) and concat + int8 cache (pressure recompress)")
+    p4 = first_layers(params, 4)
+    serve_phase(torch, ops, PI, p4, cfg.replace(
+        n_layers=4, ccm=dataclasses.replace(cfg.ccm, mode="merge")), card,
+        label="4L merge+bf16", n_sessions=6, n_slots=4, seed=22,
+        async_offload=True, stagger=True)
+    serve_phase(torch, ops, PI, p4, cfg.replace(n_layers=4,
+                                                kv_cache_dtype="int8"),
+                card, label="4L concat+int8", n_sessions=6, n_slots=4,
+                seed=23, recompress=True)
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del params, p4
 
     rows = [
         dict(name="segmented_attention", route="cuda",
@@ -1092,6 +1420,14 @@ def main() -> int:
              source="src/repro_torch/kernels/kv_merge.py",
              replaces="src/repro/kernels/kv_merge.py:65",
              launches=train_counts["kv_cummean"], **cummean),
+        dict(name="session_gather", route="cuda",
+             source="src/repro_torch/csrc/session_gather.cu",
+             replaces="src/repro/kernels/session_gather.py:30",
+             launches=serve_counts["session_gather"], **gather),
+        dict(name="session_scatter", route="cuda",
+             source="src/repro_torch/csrc/session_gather.cu",
+             replaces="src/repro/kernels/session_gather.py:56",
+             launches=serve_counts["session_scatter"], **scatter),
     ]
     for r in rows:
         if r["launches"] <= 0:

@@ -180,16 +180,141 @@ def expand_slot_mask(slot_mask: torch.Tensor, comp_len: int) -> torch.Tensor:
     return torch.repeat_interleave(slot_mask, comp_len, dim=1)
 
 
-def layer_window_write(buf: torch.Tensor, blk: torch.Tensor, layer: int,
-                       at: int) -> torch.Tensor:
-    """Write ``blk`` (B, s, ...) into layer ``layer`` of the stacked state
-    ``buf`` (L, B, S, ...) at row ``at``, IN PLACE, and return ``buf``.
+# ---------------------------------------------------------------------------
+# ragged token lanes (serve-engine token-bucket padding) and block writes
+# ---------------------------------------------------------------------------
 
-    Like the reference's ``dynamic_update_slice`` the start is clamped so
-    the block fits: once ``at + s`` passes ``S`` the block lands on the
-    last ``s`` rows, while the caller's length counter keeps advancing.
+def lane_valid(length: int, valid_len, tail_start: Optional[int] = None,
+               device=None) -> torch.Tensor:
+    """Key-validity mask of ragged lanes: (length,) for an int
+    ``valid_len``, (B, length) for B per-lane lengths.
+
+    True at positions ``< valid_len`` (the real tokens of a request padded
+    up to a token bucket) and, when ``tail_start`` is given, at positions
+    ``>= tail_start`` (a block that is always real, e.g. the <COMP> group
+    appended after a padded context chunk).
     """
-    s, S = blk.shape[1], buf.shape[2]
-    a = min(max(int(at), 0), max(S - s, 0))
-    buf[layer, :, a:a + s] = blk.to(buf.dtype)
+    ar = torch.arange(length, device=device)
+    vl = torch.as_tensor(np.asarray(valid_len), device=device)
+    v = ar < (vl[..., None] if vl.ndim else vl)
+    if tail_start is not None:
+        v = v | (ar >= tail_start)
+    return v
+
+
+class BlockWrite(NamedTuple):
+    """Where a block of ``s`` new rows lands in a (B, n, ...) buffer view:
+    one slice ``[start, start + count)`` shared by every lane, or (when
+    ``start`` is None) explicit (lane, buffer row, block row) index lists
+    for one ``index_put``."""
+    start: Optional[int]
+    count: int
+    lanes: Optional[torch.Tensor] = None
+    rows: Optional[torch.Tensor] = None
+    src: Optional[torch.Tensor] = None
+
+
+def block_rows(at: int, s: int, n: int, valid_len=None):
+    """Host plan of one lane's block write: (buffer rows, block rows).
+
+    ``valid_len`` None: the block is written whole and its start clamps so
+    it fits, like ``dynamic_update_slice`` (a write past the end lands on
+    the last ``s`` rows).  Else (ragged lane): only the first
+    ``valid_len`` rows are written and rows past the buffer's end are
+    dropped, with no clamp-shift; every other row stays bit-exact."""
+    if valid_len is None:
+        a = min(max(int(at), 0), max(n - s, 0))
+        k = min(s, n)
+        return list(range(a, a + k)), list(range(k))
+    src = [j for j in range(min(int(valid_len), s)) if 0 <= at + j < n]
+    return [int(at) + j for j in src], src
+
+
+def plan_block_write(at, s: int, n: int, valid_len=None,
+                     device=None) -> BlockWrite:
+    """The write of a (B, s, ...) block into a (B, n, ...) view at
+    per-lane starts ``at`` (an int or B ints) with per-lane valid lengths
+    ``valid_len`` (None, an int or B ints; see `block_rows`).  Planned on
+    the host once per step and reused by every layer."""
+    ats = np.atleast_1d(np.asarray(at, dtype=np.int64))
+    vls = [None] * len(ats) if valid_len is None \
+        else np.broadcast_to(np.asarray(valid_len, np.int64), ats.shape)
+    plans = [block_rows(int(a), s, n, None if v is None else int(v))
+             for a, v in zip(ats, vls)]
+    dst, src = plans[0]
+    if all(p == plans[0] for p in plans) and src == list(range(len(src))) \
+            and dst == list(range(dst[0] if dst else 0,
+                                  (dst[0] if dst else 0) + len(dst))):
+        return BlockWrite(start=dst[0] if dst else 0, count=len(dst))
+    lanes, rows, src = [], [], []
+    for b, (r, j) in enumerate(plans):
+        lanes += [b] * len(r)
+        rows += r
+        src += j
+    t = lambda x: torch.tensor(x, dtype=torch.long, device=device)  # noqa: E731
+    return BlockWrite(start=None, count=len(rows), lanes=t(lanes),
+                      rows=t(rows), src=t(src))
+
+
+def apply_block_write(view: torch.Tensor, blk: torch.Tensor,
+                      plan: BlockWrite) -> torch.Tensor:
+    """Write ``blk`` (B, s, ...) into ``view`` (B, n, ...) IN PLACE as
+    ``plan`` says; returns ``view``.  A view of a larger buffer (one layer
+    of a stacked cache) writes through to it."""
+    if plan.start is not None:
+        if plan.count:
+            view[:, plan.start:plan.start + plan.count] = \
+                blk[:, :plan.count].to(view.dtype)
+    elif plan.count:
+        view[plan.lanes, plan.rows] = \
+            blk[plan.lanes, plan.src].to(view.dtype)
+    return view
+
+
+def layer_window_write(buf: torch.Tensor, blk: torch.Tensor, layer: int,
+                       at, valid_len=None,
+                       lane_major: bool = False) -> torch.Tensor:
+    """Write ``blk`` (B, s, ...) into layer ``layer`` of the stacked state
+    ``buf`` (L, B, S, ...) (or lane-major (B, L, S, ...)) at row ``at``
+    (an int, or B per-lane ints), IN PLACE, and return ``buf``.
+
+    Without ``valid_len`` the start clamps like the reference's
+    ``dynamic_update_slice``: once ``at + s`` passes ``S`` the block lands
+    on the last ``s`` rows, while the caller's length counter keeps
+    advancing.  With ``valid_len`` (ragged lanes) only the first
+    ``valid_len`` rows are written and rows past ``S`` are dropped.
+    """
+    view = buf[:, layer] if lane_major else buf[layer]
+    apply_block_write(view, blk, plan_block_write(
+        at, blk.shape[1], view.shape[1], valid_len, device=buf.device))
     return buf
+
+
+def ragged_window_write(buf: torch.Tensor, blk: torch.Tensor, starts,
+                        valid_len: int, axis: int) -> torch.Tensor:
+    """Write ``blk``'s first ``valid_len`` rows (along ``axis``) into
+    ``buf`` at the index tuple ``starts`` (every dim of ``buf``), IN PLACE;
+    rows past ``valid_len`` or past the buffer's end are not written (no
+    clamp-shift).  Returns ``buf``."""
+    n, s = buf.shape[axis], blk.shape[axis]
+    at = int(starts[axis])
+    dst, src = block_rows(at, s, n, valid_len)
+    if not dst:
+        return buf
+    win = tuple(slice(int(st), int(st) + blk.shape[d])
+                if d != axis else slice(dst[0], dst[-1] + 1)
+                for d, st in enumerate(starts))
+    part = blk.narrow(axis, src[0], len(src))
+    buf[win] = part.to(buf.dtype)
+    return buf
+
+
+def ragged_block_write(buf: torch.Tensor, blk: torch.Tensor, start: int,
+                       valid_len: int, axis: int) -> torch.Tensor:
+    """Write ``blk``'s first ``valid_len`` rows into ``buf`` at ``start``
+    along ``axis``, IN PLACE; every other position of ``buf`` stays
+    bit-exact (no ``dynamic_update_slice`` clamp-shift when the block
+    overhangs the buffer's end).  Returns ``buf``."""
+    starts = [0] * buf.ndim
+    starts[axis] = start
+    return ragged_window_write(buf, blk, starts, valid_len, axis)

@@ -17,6 +17,7 @@ from repro_torch.kernels import cond_lora as _lora
 from repro_torch.kernels import decode_attention as _dattn
 from repro_torch.kernels import kv_merge as _merge
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import session_gather as _sess
 
 # op name -> (module, name of its launch counter)
 _KERNELS = {"segmented_attention": (_dattn, "launches"),
@@ -25,7 +26,9 @@ _KERNELS = {"segmented_attention": (_dattn, "launches"),
             "ccm_attention": (_attn, "launches"),
             "ccm_attention_backward": (_attn, "bwd_launches"),
             "kv_cummean": (_merge, "cummean_launches"),
-            "kv_cummean_backward": (_merge, "cummean_bwd_launches")}
+            "kv_cummean_backward": (_merge, "cummean_bwd_launches"),
+            "session_gather": (_sess, "gather_launches"),
+            "session_scatter": (_sess, "scatter_launches")}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -92,3 +95,24 @@ def kv_cummean(h: torch.Tensor, dim: int = 0) -> torch.Tensor:
     T = h.shape[dim]
     h3 = h.reshape(math.prod(h.shape[:dim]), T, math.prod(h.shape[dim + 1:]))
     return _merge.kv_cummean(h3).reshape(h.shape)
+
+
+def session_gather(slab: torch.Tensor, ids: Sequence[int],
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Arena pack: slab (S, ...), ``ids`` B host ints in [0, S) -> (B, ...)
+    rows (into ``out`` when given).  Any dtype; ids out of range raise."""
+    if slab.is_cuda:
+        return _sess.session_gather(slab, ids, out)
+    rows = _ref.session_gather_ref(slab, _sess.check_ids(ids, slab.shape[0]))
+    return rows if out is None else out.copy_(rows)
+
+
+def session_scatter(slab: torch.Tensor, ids: Sequence[int],
+                    rows: torch.Tensor) -> torch.Tensor:
+    """Arena unpack: ``slab[ids] = rows`` IN PLACE (returned).  Duplicate
+    ids (pad lanes on the scratch row) race: each element of that row
+    ends up holding one of their values."""
+    if slab.is_cuda:
+        return _sess.session_scatter(slab, ids, rows)
+    return _ref.session_scatter_ref(
+        slab, _sess.check_ids(ids, slab.shape[0]), rows)

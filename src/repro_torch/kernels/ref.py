@@ -153,3 +153,16 @@ def kv_cummean_ref(h: torch.Tensor, dim: int = 0) -> torch.Tensor:
     denom = torch.arange(1, h.shape[dim] + 1, dtype=torch.float32,
                          device=h.device).reshape(shape)
     return (csum / denom).to(h.dtype)
+
+
+def session_gather_ref(slab: torch.Tensor, ids) -> torch.Tensor:
+    """Arena pack: ``slab[ids]`` (B, ...) out of (S, ...), a pure copy."""
+    return slab[torch.as_tensor(ids, dtype=torch.long, device=slab.device)]
+
+
+def session_scatter_ref(slab: torch.Tensor, ids,
+                        rows: torch.Tensor) -> torch.Tensor:
+    """Arena unpack: ``slab[ids] = rows`` in place; returns ``slab``."""
+    slab[torch.as_tensor(ids, dtype=torch.long, device=slab.device)] = \
+        rows.to(slab.dtype)
+    return slab

@@ -5,10 +5,10 @@
 Alg. 1), the masked tail loss, backprop restricted to the trainable
 partition (LoRA-only by default, the paper's regime) and the AdamW
 update.  ``TrainLoop`` adds checkpoint/restart (atomic + async), a
-step-time watchdog and a deterministic restartable data order.  The
-package reads no stdlib clock (``scripts/check_no_stray_timers.py``):
-the caller injects one (``clock=time.perf_counter`` in a script, a fake
-in tests) to time steps; without one no step is timed.
+step-time watchdog and a deterministic restartable data order.  Steps
+are timed on ``repro_torch.obs.clock``'s monotonic clock, the port's one
+reader of the stdlib clock (``scripts/check_no_stray_timers.py``); a
+test injects its own ``clock=``.
 
 Not ported: gradient compression on the data-parallel reduce
 (``grad_codec`` other than "none"), ``DistContext`` meshes and
@@ -28,6 +28,7 @@ from repro_torch.data.synthetic import ShardableIndexIterator, sample_kv_batch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.clock import perf_counter
 from repro_torch.optim import partition as PT
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_update,
                                      init_adamw)
@@ -122,7 +123,7 @@ class TrainLoop:
         self.step_fn = make_train_step(cfg, layout, opt_cfg)
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
         self.ckpt_every = ckpt_every
-        self.clock = clock
+        self.clock = clock if clock is not None else perf_counter
         self.watchdog = WatchdogStats()
         self.history: list = []
 

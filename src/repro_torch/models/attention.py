@@ -37,7 +37,7 @@ class KeyInfo(NamedTuple):
     idx  : global position index used for causality (mem keys get -1).
     seg  : CCM segment id (mem keys 0).
     comp : True where the key is a <COMP> token / memory slot.
-    valid: False at padding (keys only), or None.
+    valid: False at padding (keys only), or None; (B, Sk) per lane.
     """
     idx: torch.Tensor
     seg: torch.Tensor
@@ -57,19 +57,25 @@ def concat_info(a: KeyInfo, b: KeyInfo) -> KeyInfo:
     def valid(x: KeyInfo):
         return x.valid if x.valid is not None \
             else torch.ones(x.idx.shape, dtype=torch.bool, device=x.idx.device)
+    vs = None
+    if a.valid is not None or b.valid is not None:
+        vs = [valid(a), valid(b)]
+        if vs[0].ndim != vs[1].ndim:        # one of them per lane
+            B = max(v.shape[0] for v in vs if v.ndim == 2)
+            vs = [v.expand(B, -1) if v.ndim == 1 else v for v in vs]
     return KeyInfo(idx=torch.cat([a.idx, b.idx]), seg=torch.cat([a.seg, b.seg]),
                    comp=torch.cat([a.comp, b.comp]),
-                   valid=None if a.valid is None and b.valid is None
-                   else torch.cat([valid(a), valid(b)]))
+                   valid=None if vs is None else torch.cat(vs, dim=-1))
 
 
 def mask_from_info(q: KeyInfo, k: KeyInfo) -> torch.Tensor:
-    """(Q, K) CCM mask: causal AND (same-segment OR k-is-comp) AND k-valid."""
+    """(Q, K) CCM mask: causal AND (same-segment OR k-is-comp) AND k-valid;
+    (B, Q, K) when the key validity is per lane."""
     causal = k.idx[None, :] <= q.idx[:, None]
     allow = (k.seg[None, :] == q.seg[:, None]) | k.comp[None, :]
     m = causal & allow
     if k.valid is not None:
-        m = m & k.valid[None, :]
+        m = m & k.valid[..., None, :]
     return m
 
 
@@ -116,7 +122,10 @@ class KVSegment(NamedTuple):
     length   : valid-prefix length (a host int); None = fully valid.
     k_scale/v_scale : (B, S, Hkv) float32 for int8 k/v ((L, B, S, Hkv)
                with ``layer``).
-    layer    : host int index into the leading layer axis, or None.
+    layer    : host int index into the layer axis, or None.
+    lane_major : the stack is (B, L, S, Hkv, hd) (the serve arena's packed
+               lanes) instead of (L, B, S, Hkv, hd).
+    length may also be a (B,) int32 tensor of per-lane lengths.
     """
     k: torch.Tensor
     v: torch.Tensor
@@ -125,6 +134,7 @@ class KVSegment(NamedTuple):
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
     layer: Optional[int] = None
+    lane_major: bool = False
 
     @property
     def quantized(self) -> bool:
@@ -143,7 +153,7 @@ def _seg_layer_kv(seg: KVSegment):
     """The segment's (B, S, ...) layer view (concat oracle only)."""
     if seg.layer is None:
         return seg.k, seg.v, seg.k_scale, seg.v_scale
-    li = seg.layer
+    li = (slice(None), seg.layer) if seg.lane_major else seg.layer
     return (seg.k[li], seg.v[li],
             None if seg.k_scale is None else seg.k_scale[li],
             None if seg.v_scale is None else seg.v_scale[li])
@@ -160,7 +170,8 @@ def segment_key_info(seg: KVSegment) -> KeyInfo:
                        seg=torch.zeros((S,), dtype=torch.int32, device=dev),
                        comp=torch.ones((S,), dtype=torch.bool, device=dev))
     if seg.length is not None:
-        lv = torch.arange(S, device=dev) < seg.length
+        ln = torch.as_tensor(seg.length, device=dev)
+        lv = torch.arange(S, device=dev) < (ln[:, None] if ln.ndim else ln)
         info = info._replace(valid=lv if info.valid is None
                              else info.valid & lv)
     return info
@@ -171,6 +182,7 @@ def _raw_segment(seg: KVSegment) -> Dict:
     info = seg.info
     return {"k": seg.k, "v": seg.v, "k_scale": seg.k_scale,
             "v_scale": seg.v_scale, "length": seg.length, "layer": seg.layer,
+            "lane_major": seg.lane_major,
             "idx": None if info is None else info.idx,
             "seg": None if info is None else info.seg,
             "comp": None if info is None else info.comp,

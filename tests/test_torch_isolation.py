@@ -68,3 +68,42 @@ def test_entry_points_need_a_device(monkeypatch):
             call()
     st = PI.init_online_state(cfg, 1, 8, device="cpu")
     assert st.cache.k.device.type == "cpu" and st.mem.k.device.type == "cpu"
+
+
+_TIMER = re.compile(
+    r"\btime\.(time|perf_counter|perf_counter_ns|monotonic|monotonic_ns|"
+    r"process_time|thread_time)\s*\(|^\s*from\s+time\s+import\b|"
+    r"^\s*import\s+time\b", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_only_the_obs_clock_reads_a_stdlib_timer(path):
+    """All port timing goes through ``repro_torch.obs.clock``, which
+    reads the stdlib clock through the ``_time`` alias that
+    ``scripts/check_no_stray_timers.py`` lets pass."""
+    code = "\n".join(line.split("#", 1)[0]
+                     for line in path.read_text().splitlines())
+    if path == PORT / "obs" / "clock.py":
+        assert "import time as _time" in code
+        assert "_time.perf_counter()" in code
+    else:
+        assert not _TIMER.search(code), path
+
+
+def test_serve_engine_needs_a_device_and_refuses_unported_options(
+        monkeypatch):
+    from repro_torch.configs import llama_7b_paper
+    from repro_torch.serve import ServeEngine
+
+    cfg = llama_7b_paper.smoke(compute_dtype="float32")
+    for kw, slice_name in ((dict(stream_slots=2), "streaming"),
+                           (dict(n_shards=2), "multi-device"),
+                           (dict(mesh=object()), "multi-device")):
+        with pytest.raises(NotImplementedError, match=slice_name):
+            ServeEngine(None, cfg, device="cpu", **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(None, cfg, n_slots=2, cache_len=8)
+    eng = ServeEngine(None, cfg, n_slots=2, cache_len=8, device="cpu")
+    assert eng._mgr["online"].arena.slabs.cache.k.device.type == "cpu"

@@ -237,10 +237,12 @@ def test_cpu_ops_launch_no_kernel():
     pops.kv_cummean(torch.ones(3, 4))
     q = torch.ones(1, 4, 2, 8)
     pops.ccm_attention(q, q, q, *(pops_info(4),) * 2, 1.0)
+    slab = torch.zeros(3, 4)
+    pops.session_scatter(slab, [1], pops.session_gather(slab, [0]))
     assert pops.launch_counts() == {
         "segmented_attention": 0, "cond_lora": 0, "kv_merge_update": 0,
         "ccm_attention": 0, "ccm_attention_backward": 0, "kv_cummean": 0,
-        "kv_cummean_backward": 0}
+        "kv_cummean_backward": 0, "session_gather": 0, "session_scatter": 0}
 
 
 def pops_info(S):
