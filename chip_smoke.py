@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py --phase2   # the card, the build and phase 2 only
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the build of the
@@ -9,8 +10,12 @@ Phases (any failure raises, and the script exits non-zero):
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes (and, for segmented attention, GQA / int8 /
      layer- and lane-major / per-lane lengths / empty memory / a fully
-     masked row), with its time, the plain version's, one library call's
-     and the least time the card could take (the bound);
+     masked row, in float32 and bf16, and a split-K decode over lanes of
+     {0, 1, capacity} keys run twice), with its time, the plain
+     version's, one library call's and the least time the card could
+     take (the bound): cond_lora at M = 288 / 576 / 4864, segmented
+     attention at decode (bf16, int8, GQA 32/8), ingest, prefill and a
+     lane-major serve query;
   3. the main path at the full width and depth of LLaMA-7B
      (``configs/llama_7b_paper.config()``, random bf16 weights from seed
      0): B=4 lanes, 4 ingests of 64-token contexts, a 448-token prefill
@@ -38,7 +43,8 @@ Phases (any failure raises, and the script exits non-zero):
      then two 4-layer engines at full width (merge + bf16 with per-lane
      merge weights and async offload; concat + int8 cache with a
      pressure recompression);
-then one ``{"kernels": [...]}`` line, then the result line.  Phase 2 also
+then one ``{"kernels": [...]}`` line (with each tensor-core route's
+launches in phases 3, 5 and 7), then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward,
 kv_cummean forward and reverse, cond_lora's autograd) and the arena's
 session gather/scatter against their plain versions.
@@ -135,6 +141,11 @@ def report(label: str, t, bms: float, by: str, card: str):
         f"[{card}]")
 
 
+def shape_rows(res):
+    """Phase 2's {shape: row} results as a list for the kernels line."""
+    return [dict(shape=str(k), **v) for k, v in res.items()]
+
+
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -171,176 +182,327 @@ def check_segmented(torch, F, dattn, quantize_kv, card):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     # -- GQA, int8 layered segments in both layouts, per-lane lengths,
-    #    an empty memory lane and a fully masked row (float32: tight);
-    #    head dims 72 (not a multiple of 32) and 256 (the largest taken)
+    #    an empty memory lane and a fully masked row; head dims 72 (not a
+    #    multiple of 16: the tensor-core route pads its last k-step) and
+    #    256 (the largest taken); Sq 1 and 2 take the split-K decode route
+    #    in bf16, Sq 5 the mma.sync route.  float32 q (the CUDA-core
+    #    route): 1e-4; bf16 q with bf16 memory and self keys: bf16_tol
     B, Hq, Hkv, L, S = 3, 14, 2, 3, 100
-    for D, Sq in ((64, 5), (64, 1), (72, 5), (72, 1), (256, 5), (256, 1)):
-        q = rn(B, Sq, Hq, D)
-        mk, mv = rn(B, 16, Hkv, D), rn(B, 16, Hkv, D)
-        ck8, cks = quantize_kv(rn(L, B, S, Hkv, D))
-        cv8, cvs = quantize_kv(rn(L, B, S, Hkv, D))
-        sk, sv = rn(B, Sq, Hkv, D), rn(B, Sq, Hkv, D)
-        ar = torch.arange(Sq, device=dev, dtype=torch.int32)
-        qi = ar.clone()
-        if Sq > 1:
-            qi[2] = -5                       # row 2 sees no key at all
-        self_seg = seg_dict(sk, sv, idx=ar, seg=torch.ones_like(ar),
-                            comp=torch.zeros_like(ar, dtype=torch.bool),
-                            valid=ar < Sq - 1 if Sq > 1 else None)
-        mem_len = torch.tensor([0, 5, 16], device=dev, dtype=torch.int32)
-        lens = torch.tensor([37, 0, 100], device=dev, dtype=torch.int32)
-        layouts = {
-            "layer-major": seg_dict(ck8, cv8, k_scale=cks, v_scale=cvs,
-                                    length=lens, layer=1),
-            "lane-major": seg_dict(
-                ck8.transpose(0, 1).contiguous(), cv8.transpose(0, 1).contiguous(),
-                k_scale=cks.transpose(0, 1).contiguous(),
-                v_scale=cvs.transpose(0, 1).contiguous(), length=lens,
-                layer=torch.tensor([1, 0, 2], device=dev, dtype=torch.int32),
-                lane_major=True),
-        }
-        for name, cache_seg in layouts.items():
-            segs = [seg_dict(mk, mv, length=mem_len), cache_seg, self_seg]
-            one = torch.ones_like(qi)
-            out = dattn.segmented_flash_attention(q, segs, qi, one, D ** -0.5)
-            want = dattn.plain(q, segs, qi, one, D ** -0.5)
-            torch.cuda.synchronize()
-            check(f"segmented GQA 14/2 hd{D} int8 {name} Sq={Sq}",
-                  max_err(out, want), 1e-4)
-            if Sq > 1 and not bool((out[:, 2] == 0).all()):
-                raise AssertionError("fully masked row is not exactly 0")
-            if not bool(torch.isfinite(out).all()):
-                raise AssertionError("non-finite attention output")
+    for dt in (torch.float32, torch.bfloat16):
+        for D, Sq in ((64, 5), (64, 1), (72, 5), (72, 1), (72, 2), (256, 5),
+                      (256, 1)):
+            q = rn(B, Sq, Hq, D, dtype=dt)
+            mk, mv = rn(B, 16, Hkv, D, dtype=dt), rn(B, 16, Hkv, D, dtype=dt)
+            ck8, cks = quantize_kv(rn(L, B, S, Hkv, D))
+            cv8, cvs = quantize_kv(rn(L, B, S, Hkv, D))
+            sk, sv = rn(B, Sq, Hkv, D, dtype=dt), rn(B, Sq, Hkv, D, dtype=dt)
+            ar = torch.arange(Sq, device=dev, dtype=torch.int32)
+            qi = ar.clone()
+            if Sq > 2:
+                qi[2] = -5                   # row 2 sees no key at all
+            self_seg = seg_dict(sk, sv, idx=ar, seg=torch.ones_like(ar),
+                                comp=torch.zeros_like(ar, dtype=torch.bool),
+                                valid=ar < Sq - 1 if Sq > 1 else None)
+            mem_len = torch.tensor([0, 5, 16], device=dev, dtype=torch.int32)
+            lens = torch.tensor([37, 0, 100], device=dev, dtype=torch.int32)
+            layouts = {
+                "layer-major": seg_dict(ck8, cv8, k_scale=cks, v_scale=cvs,
+                                        length=lens, layer=1),
+                "lane-major": seg_dict(
+                    ck8.transpose(0, 1).contiguous(),
+                    cv8.transpose(0, 1).contiguous(),
+                    k_scale=cks.transpose(0, 1).contiguous(),
+                    v_scale=cvs.transpose(0, 1).contiguous(), length=lens,
+                    layer=torch.tensor([1, 0, 2], device=dev,
+                                       dtype=torch.int32),
+                    lane_major=True),
+            }
+            for name, cache_seg in layouts.items():
+                segs = [seg_dict(mk, mv, length=mem_len), cache_seg, self_seg]
+                one = torch.ones_like(qi)
+                out = dattn.segmented_flash_attention(q, segs, qi, one,
+                                                      D ** -0.5)
+                want = dattn.plain(q, segs, qi, one, D ** -0.5)
+                torch.cuda.synchronize()
+                tol = 1e-4 if dt == torch.float32 else bf16_tol(want)
+                check(f"segmented GQA 14/2 hd{D} int8 {name} Sq={Sq} "
+                      f"{str(dt)[6:]}", max_err(out, want), tol)
+                if Sq > 2 and not bool((out[:, 2] == 0).all()):
+                    raise AssertionError("fully masked row is not exactly 0")
+                if not bool(torch.isfinite(out).all()):
+                    raise AssertionError("non-finite attention output")
 
-    # -- main-path shapes (LLaMA-7B, bf16): decode, ingest, prefill
-    B, H, D, L = 4, 32, 128, 32
-    mem_k, mem_v = rn(B, 128, H, D, dtype=torch.bfloat16), \
-        rn(B, 128, H, D, dtype=torch.bfloat16)
-    ck, cv = rn(L, B, 512, H, D, dtype=torch.bfloat16), \
-        rn(L, B, 512, H, D, dtype=torch.bfloat16)
-    ck8, cks = quantize_kv(ck)
-    cv8, cvs = quantize_kv(cv)
-    scale = D ** -0.5
+    # -- a split-K decode whose lanes hold {0, 1, capacity} keys (lane 0
+    #    sees no key at all: exactly 0), run twice: the second call shows
+    #    that the combine counters were reset by the first
+    B, H, D, L, S = 3, 8, 128, 2, 512
+    mk, mv = rn(B, 64, H, D, dtype=torch.bfloat16), \
+        rn(B, 64, H, D, dtype=torch.bfloat16)
+    ck, cv = rn(L, B, S, H, D, dtype=torch.bfloat16), \
+        rn(L, B, S, H, D, dtype=torch.bfloat16)
+    q = rn(B, 1, H, D, dtype=torch.bfloat16)
+    sk, sv = rn(B, 1, H, D, dtype=torch.bfloat16), \
+        rn(B, 1, H, D, dtype=torch.bfloat16)
+    qi = torch.full((1,), 2 ** 30, device=dev, dtype=torch.int32)
+    one = torch.ones_like(qi)
+    segs = [seg_dict(mk, mv, length=torch.tensor([0, 1, 64], device=dev,
+                                                 dtype=torch.int32)),
+            seg_dict(ck, cv, layer=1, length=torch.tensor(
+                [0, 1, S], device=dev, dtype=torch.int32)),
+            seg_dict(sk, sv, idx=qi, seg=one,
+                     comp=torch.zeros(1, device=dev, dtype=torch.bool),
+                     valid=torch.tensor([[False], [True], [True]],
+                                        device=dev))]
+    first = dattn.segmented_flash_attention(q, segs, qi, one, D ** -0.5)
+    again = dattn.segmented_flash_attention(q, segs, qi, one, D ** -0.5)
+    want = dattn.plain(q, segs, qi, one, D ** -0.5)
+    torch.cuda.synchronize()
+    check("segmented decode lanes of {0, 1, capacity} keys", max_err(first,
+                                                                     want),
+          bf16_tol(want))
+    if not torch.equal(first, again):
+        raise AssertionError("a second identical decode call differs")
+    if not bool((first[0] == 0).all()):
+        raise AssertionError("decode lane with no key is not exactly 0")
+
     results = {}
-
-    def shapes(Sq, cache_len, decode):
-        q = rn(B, Sq, H, D, dtype=torch.bfloat16)
-        sk, sv = rn(B, Sq, H, D, dtype=torch.bfloat16), \
-            rn(B, Sq, H, D, dtype=torch.bfloat16)
-        ar = torch.arange(Sq, device=dev, dtype=torch.int32)
-        idx = ar + 2 ** 30 if decode else ar
-        comp = torch.zeros(Sq, device=dev, dtype=torch.bool)
-        if not decode and Sq == 72:          # ingest: <COMP> rows last
-            comp[64:] = True
-        self_seg = seg_dict(sk, sv, idx=idx, seg=torch.ones_like(ar), comp=comp)
-        return q, self_seg, idx
-
-    for label, Sq, clen, decode, int8 in (
-            ("decode", 1, 480, True, False), ("decode int8", 1, 480, True, True),
-            ("ingest", 72, 0, False, False), ("prefill", 448, 0, False, False)):
-        q, self_seg, idx = shapes(Sq, clen, decode)
-        one = torch.ones_like(idx)
-
-        def segs_at(layer):
-            cache = seg_dict(ck8, cv8, k_scale=cks, v_scale=cvs, length=clen,
-                             layer=layer) if int8 else \
-                seg_dict(ck, cv, length=clen, layer=layer)
-            return [seg_dict(mem_k, mem_v, length=32), cache, self_seg]
-
-        out = dattn.segmented_flash_attention(q, segs_at(5), idx, one, scale)
-        want = dattn.plain(q, segs_at(5), idx, one, scale)
-        torch.cuda.synchronize()
-        err = max_err(out, want)
-        check(f"segmented {label} B4 Sq{Sq} H32 hd128 cache {clen}", err,
-              bf16_tol(want))
-        # rotate over 4 layers so the timed reads exceed the 50 MB L2
-        segs4 = [segs_at(li) for li in range(4)]
-        # library yardstick: SDPA over the explicit concatenation of the
-        # valid keys with the CCM mask (built outside the timing; decode
-        # sees every valid key, so it needs no mask)
-        cats = []
-        for li in range(4):
-            kk = ck[li] if not int8 else \
-                (ck8[li].float() * cks[li][..., None]).bfloat16()
-            vv = cv[li] if not int8 else \
-                (cv8[li].float() * cvs[li][..., None]).bfloat16()
-            kc = torch.cat([mem_k[:, :32], kk[:, :clen], self_seg["k"]], 1)
-            vc = torch.cat([mem_v[:, :32], vv[:, :clen], self_seg["v"]], 1)
-            cats.append((kc.transpose(1, 2).contiguous(),
-                         vc.transpose(1, 2).contiguous()))
-        qt = q.transpose(1, 2).contiguous()
-        mask = None
-        if not decode:
-            kidx = torch.cat([torch.full((32 + clen,), -1, device=dev,
-                                         dtype=torch.int32), idx])
-            kcomp = torch.cat([torch.ones(32 + clen, device=dev,
-                                          dtype=torch.bool), self_seg["comp"]])
-            kseg = torch.cat([torch.zeros(32 + clen, device=dev,
-                                          dtype=torch.int32), one])
-            mask = (kidx[None] <= idx[:, None]) & \
-                ((kseg[None] == one[:, None]) | kcomp[None])
-        t = timings(
-            torch,
-            lambda i: dattn.segmented_flash_attention(q, segs4[i % 4], idx,
-                                                      one, scale),
-            "segmented_attention_kernel",
-            lambda i: dattn.plain(q, segs4[i % 4], idx, one, scale),
-            lambda i: F.scaled_dot_product_attention(
-                qt, cats[i % 4][0], cats[i % 4][1], attn_mask=mask))
-        nkeys = 32 + clen + Sq
-        kv_bytes = B * nkeys * H * D * 2 * (1 if int8 else 2)
-        if int8:
-            kv_bytes += B * clen * H * 4 * 2 + B * (32 + Sq) * H * D * 2
-        nbytes = kv_bytes + 2 * q.numel() * 2
-        ops_ = 4.0 * B * H * Sq * nkeys * D
-        bms, by = bound(nbytes, ops_, PEAK_BF16)
-        report(f"segmented {label} (library: SDPA)", t, bms, by, card)
-        results[label] = dict(max_abs_err=err, ms=t["ms"],
-                              plain_ms=t["plain_ms"],
-                              library_ms=t["library_ms"], bound_ms=bms,
-                              bound_by=by)
+    for case in SEG_CASES:
+        results[case["label"]] = timed_segmented(torch, F, dattn, quantize_kv,
+                                                 rn, card, **case)
     return results
 
 
-def check_cond_lora(torch, clora, card):
+# the phase-2 shapes of segmented attention (LLaMA-7B heads, bf16 q):
+# decode over a 480-token cache (bf16 and int8), an ingest (64 tokens +
+# 8 <COMP>), a 448-token prefill, a serve query over lane-major stacks
+# with per-lane lengths and layer ids, and a GQA decode (32/8 heads)
+SEG_CASES = [
+    dict(label="decode", Sq=1, clen=480),
+    dict(label="decode int8", Sq=1, clen=480, int8=True),
+    dict(label="ingest", Sq=72, clen=0),
+    dict(label="prefill", Sq=448, clen=0),
+    dict(label="serve query", Sq=32, clen=None, B=8, cap=256),
+    dict(label="decode GQA 32/8", Sq=1, clen=480, Hkv=8),
+]
+
+
+def timed_segmented(torch, F, dattn, quantize_kv, rn, card, *, label, Sq,
+                    clen, int8=False, B=4, Hkv=32, cap=512):
+    """One segmented-attention shape: checked against the plain version,
+    then timed beside it, SDPA over the explicit concatenation of the
+    valid keys (with the CCM mask; GQA through ``enable_gqa``) and the
+    bound.  Four layers (or four layer-id sets) rotate so that the timed
+    reads exceed the 50 MB L2.  ``clen=None`` is the serve query: lane-
+    major (B, L, S, H, D) memory and cache with per-lane lengths and
+    per-lane layer ids."""
     dev = "cuda"
-    g = torch.Generator(device=dev).manual_seed(2)
-    M, K, N, r = 4 * (64 + 8), 4096, 4096, 8
+    H, D, L = 32, 128, 32
+    G = H // Hkv
+    decode = Sq <= 2
+    serve = clen is None
     bf = torch.bfloat16
+    scale = D ** -0.5
+    q = rn(B, Sq, H, D, dtype=bf)
+    sk, sv = rn(B, Sq, Hkv, D, dtype=bf), rn(B, Sq, Hkv, D, dtype=bf)
+    ar = torch.arange(Sq, device=dev, dtype=torch.int32)
+    idx = ar + 2 ** 30 if decode else ar
+    comp = torch.zeros(Sq, device=dev, dtype=torch.bool)
+    if Sq == 72:                                  # ingest: <COMP> rows last
+        comp[64:] = True
+    one = torch.ones_like(idx)
+    self_seg = seg_dict(sk, sv, idx=idx, seg=one, comp=comp)
+    if serve:
+        Lr = 8                                    # layers held per lane row
+        mk, mv = rn(B, Lr, 128, Hkv, D, dtype=bf), rn(B, Lr, 128, Hkv, D,
+                                                      dtype=bf)
+        ck, cv = rn(B, Lr, cap, Hkv, D, dtype=bf), rn(B, Lr, cap, Hkv, D,
+                                                      dtype=bf)
+        ml = torch.tensor([128, 0, 8, 64, 120, 16, 128, 40][:B], device=dev,
+                          dtype=torch.int32)
+        cl = torch.tensor([cap, 0, 1, 100, 200, 37, cap - 1, 128][:B],
+                          device=dev, dtype=torch.int32)
+        gl = torch.Generator(device=dev).manual_seed(9)
+        lids = [torch.randint(0, Lr, (B,), generator=gl, device=dev,
+                              dtype=torch.int32) for _ in range(4)]
 
-    def rn(*shape, std=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * std).to(bf)
+        def segs_at(i):
+            return [seg_dict(mk, mv, length=ml, layer=lids[i], lane_major=True),
+                    seg_dict(ck, cv, length=cl, layer=lids[i], lane_major=True),
+                    self_seg]
+    else:
+        mk, mv = rn(B, 128, Hkv, D, dtype=bf), rn(B, 128, Hkv, D, dtype=bf)
+        ck, cv = rn(L, B, cap, Hkv, D, dtype=bf), rn(L, B, cap, Hkv, D,
+                                                     dtype=bf)
+        if int8:
+            ck8, cks = quantize_kv(ck)
+            cv8, cvs = quantize_kv(cv)
 
-    x = rn(M, K)
-    ws = [rn(K, N, std=K ** -0.5) for _ in range(4)]   # 4 x 33.5 MB > L2
-    a, b = rn(r, K, std=K ** -0.5), rn(r, N, std=0.05)
-    gate = ((torch.arange(M, device=dev) % 72) >= 64).float()
-    for gname, gt in (("gated", gate), ("gate all zero", torch.zeros_like(gate))):
-        out = clora.cond_lora_matmul(x, ws[0], a, b, gt, 2.0)
-        want = clora.plain(x, ws[0], a, b, gt, 2.0)
-        torch.cuda.synchronize()
-        err = max_err(out, want)
-        check(f"cond_lora {gname} M{M} K{K} N{N} r{r}", err, bf16_tol(want))
-        if gname == "gated":
-            main_err = err
-    bias = rn(N)
-    want = clora.plain(x, ws[1], a, b, gate, 2.0, bias=bias)
-    check("cond_lora with bias", max_err(
-        clora.cond_lora_matmul(x, ws[1], a, b, gate, 2.0, bias=bias), want),
-        bf16_tol(want))
-    g2 = gate.to(bf)[:, None]
+        def segs_at(i):
+            layer = 5 + i
+            cache = seg_dict(ck8, cv8, k_scale=cks, v_scale=cvs, length=clen,
+                             layer=layer) if int8 else \
+                seg_dict(ck, cv, length=clen, layer=layer)
+            return [seg_dict(mk, mv, length=32), cache, self_seg]
+    segs4 = [segs_at(i) for i in range(4)]
+    out = dattn.segmented_flash_attention(q, segs4[0], idx, one, scale)
+    want = dattn.plain(q, segs4[0], idx, one, scale)
+    torch.cuda.synchronize()
+    err = max_err(out, want)
+    check(f"segmented {label} B{B} Sq{Sq} H{H}/{Hkv} hd{D}", err,
+          bf16_tol(want))
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"segmented {label}: non-finite output")
+
+    # library yardstick: SDPA over the explicit concatenation of each
+    # lane's valid keys, with the CCM mask (built outside the timing)
+    def lane_keys(seg, b):
+        k, v = seg["k"], seg["v"]
+        if seg.get("layer") is not None:
+            li = seg["layer"]
+            li = int(li[b]) if isinstance(li, torch.Tensor) else int(li)
+            k, v = (k[b, li], v[b, li]) if seg.get("lane_major") \
+                else (k[li, b], v[li, b])
+            if seg.get("k_scale") is not None:
+                ks = seg["k_scale"][li, b]
+                vs = seg["v_scale"][li, b]
+                k = (k.float() * ks[..., None]).to(bf)
+                v = (v.float() * vs[..., None]).to(bf)
+        else:
+            k, v = k[b], v[b]
+        n = seg.get("length")
+        n = k.shape[0] if n is None else (int(n[b]) if isinstance(
+            n, torch.Tensor) else int(n))
+        return k[:n], v[:n]
+
+    cats, nkeys, pairs = [], [], []
+    for segs in segs4:
+        per_lane = []
+        for b in range(B):
+            kk = [lane_keys(s, b) for s in segs[:2]]
+            nmem = kk[0][0].shape[0] + kk[1][0].shape[0]
+            kc = torch.cat([kk[0][0], kk[1][0], sk[b]], 0)
+            vc = torch.cat([kk[0][1], kk[1][1], sv[b]], 0)
+            kidx = torch.cat([torch.full((nmem,), -1, device=dev,
+                                         dtype=torch.int32), idx])
+            kcomp = torch.cat([torch.ones(nmem, device=dev, dtype=torch.bool),
+                               comp])
+            kseg = torch.cat([torch.zeros(nmem, device=dev,
+                                          dtype=torch.int32), one])
+            mask = None if decode else (kidx[None] <= idx[:, None]) & \
+                ((kseg[None] == one[:, None]) | kcomp[None])
+            per_lane.append((kc.transpose(0, 1)[None].contiguous(),
+                             vc.transpose(0, 1)[None].contiguous(), mask))
+        cats.append(per_lane)
+        nkeys.append(sum(c[0].shape[2] for c in per_lane))
+        # the (q row, key) pairs the mask lets through: the work this
+        # data needs (every key at decode)
+        pairs.append(sum(Sq * c[0].shape[2] if c[2] is None
+                         else int(c[2].sum().item()) for c in per_lane))
+    if serve:
+        # lanes hold different key counts: one SDPA call per lane
+        qts = [q[b:b + 1].transpose(1, 2).contiguous() for b in range(B)]
+
+        def library(i):
+            for b, (kc, vc, mask) in enumerate(cats[i % 4]):
+                F.scaled_dot_product_attention(qts[b], kc, vc, attn_mask=mask,
+                                               enable_gqa=G > 1)
+    else:
+        qt = q.transpose(1, 2).contiguous()
+        stacked = [(torch.cat([c[0] for c in lanes]),
+                    torch.cat([c[1] for c in lanes]), lanes[0][2])
+                   for lanes in cats]
+
+        def library(i):
+            kc, vc, mask = stacked[i % 4]
+            return F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask,
+                                                  enable_gqa=G > 1)
     t = timings(
         torch,
-        lambda i: clora.cond_lora_matmul(x, ws[i % 4], a, b, gate, 2.0),
-        "cond_lora_kernel",
-        lambda i: clora.plain(x, ws[i % 4], a, b, gate, 2.0),
-        lambda i: x @ ws[i % 4] + g2 * ((x @ a.T) @ b) * 2.0)
-    nbytes = 2 * (M * K + K * N + r * K + r * N + M * N) + 4 * M
-    ops_ = 2.0 * M * K * N + 2.0 * M * K * r + 2.0 * M * r * N
+        lambda i: dattn.segmented_flash_attention(q, segs4[i % 4], idx, one,
+                                                  scale),
+        "segmented_attention",
+        lambda i: dattn.plain(q, segs4[i % 4], idx, one, scale), library)
+    n = nkeys[0]                                  # keys over all lanes
+    kv_bytes = n * Hkv * D * 2 * 2
+    if int8:                                      # the cache part is int8
+        nc = B * clen
+        kv_bytes -= nc * Hkv * D * 2 * 2
+        kv_bytes += nc * Hkv * (D + 4) * 2
+    nbytes = kv_bytes + 2 * q.numel() * 2
+    ops_ = 4.0 * H * D * pairs[0]
     bms, by = bound(nbytes, ops_, PEAK_BF16)
-    report("cond_lora (library: x@W + gate*(x@A^T@B)*s)", t, bms, by, card)
-    return dict(max_abs_err=main_err, ms=t["ms"], plain_ms=t["plain_ms"],
+    report(f"segmented {label} (library: SDPA)", t, bms, by, card)
+    return dict(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                 library_ms=t["library_ms"], bound_ms=bms, bound_by=by)
+
+
+def check_cond_lora(torch, clora, card):
+    """cond_lora against its plain version: edge shapes (ragged M, N and
+    K, ranks 1/13/64 that the wrapper pads to a multiple of 8, float32 on
+    the CUDA-core route at 1e-4 x max|plain|), then the main path's
+    shapes (K = N = 4096, r = 8) gated, ungated and with bias, each timed
+    beside its plain version, the library call and the bound.  Returns
+    {M: row}."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(2)
+    bf = torch.bfloat16
+
+    def rn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(dtype)
+
+    for M, K, N, r, dt in ((216, 4096, 4096, 8, bf), (37, 200, 136, 13, bf),
+                           (130, 520, 1000, 64, bf), (1, 8, 8, 1, bf),
+                           (100, 96, 80, 5, torch.float32)):
+        x, w = rn(M, K, dtype=dt), rn(K, N, std=K ** -0.5, dtype=dt)
+        a, b = rn(r, K, std=K ** -0.5, dtype=dt), rn(r, N, std=0.05, dtype=dt)
+        bias = rn(N, dtype=dt)
+        gate = (torch.arange(M, device=dev) % 3 == 0).float()
+        out = clora.cond_lora_matmul(x, w, a, b, gate, 2.0, bias=bias)
+        want = clora.plain(x, w, a, b, gate, 2.0, bias=bias)
+        torch.cuda.synchronize()
+        tol = 1e-4 * want.abs().max().item() if dt == torch.float32 \
+            else bf16_tol(want)
+        check(f"cond_lora M{M} K{K} N{N} r{r} {str(dt)[6:]} with bias",
+              max_err(out, want), tol)
+
+    K = N = 4096
+    r = 8
+    ws = [rn(K, N, std=K ** -0.5) for _ in range(4)]   # 4 x 33.5 MB > L2
+    a, b = rn(r, K, std=K ** -0.5), rn(r, N, std=0.05)
+    bias = rn(N)
+    rows = {}
+    # M = 288: an online ingest (4 lanes x 72); 576: an 8-lane serve
+    # ingest; 4864: a training step (4 x 1216)
+    for M in (288, 576, 4864):
+        x = rn(M, K)
+        gate = ((torch.arange(M, device=dev) % 72) >= 64).float()
+        errs = []
+        for gname, gt, bs in (("gated", gate, None),
+                              ("gate all zero", torch.zeros_like(gate), None),
+                              ("gated with bias", gate, bias)):
+            out = clora.cond_lora_matmul(x, ws[0], a, b, gt, 2.0, bias=bs)
+            want = clora.plain(x, ws[0], a, b, gt, 2.0, bias=bs)
+            torch.cuda.synchronize()
+            errs.append(max_err(out, want))
+            check(f"cond_lora {gname} M{M} K{K} N{N} r{r}", errs[-1],
+                  bf16_tol(want))
+        g2 = gate.to(bf)[:, None]
+        t = timings(
+            torch,
+            lambda i: clora.cond_lora_matmul(x, ws[i % 4], a, b, gate, 2.0),
+            "cond_lora",
+            lambda i: clora.plain(x, ws[i % 4], a, b, gate, 2.0),
+            lambda i: x @ ws[i % 4] + g2 * ((x @ a.T) @ b) * 2.0)
+        nbytes = 2 * (M * K + K * N + r * K + r * N + M * N) + 4 * M
+        ops_ = 2.0 * M * K * N + 2.0 * M * K * r + 2.0 * M * r * N
+        bms, by = bound(nbytes, ops_, PEAK_BF16)
+        report(f"cond_lora M{M} (library: x@W + gate*(x@A^T@B)*s)", t, bms,
+               by, card)
+        rows[M] = dict(max_abs_err=errs[0], ms=t["ms"],
+                       plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+                       bound_ms=bms, bound_by=by)
+        del x
+    return rows
 
 
 def check_kv_merge(torch, kvm, card):
@@ -786,8 +948,12 @@ def main_path(torch, PI, ops, params, cfg, mode, cache_dtype, card,
     # one attend per layer per pass: T ingests, then prefill + NEW - 1
     # decode steps twice (the explicit loop and generate)
     want_counts = {k: 0 for k in counts}
+    # the attends of ingest (Sq 72) and prefill (Sq 448) take the mma.sync
+    # route, decode steps the split-K route; every cond_lora is bf16 (wgmma)
     want_counts.update({"segmented_attention": L * (T + 2 * NEW),
-                        "cond_lora": 4 * L * T,
+                        "segmented_attention_mma": L * (T + 2),
+                        "segmented_attention_splitk": L * 2 * (NEW - 1),
+                        "cond_lora": 4 * L * T, "cond_lora_wgmma": 4 * L * T,
                         "kv_merge_update": 2 * T if mode == "merge" else 0})
     if counts != want_counts:
         raise AssertionError(f"{name}: launches {counts} != {want_counts}")
@@ -928,9 +1094,9 @@ def train_phase(torch, ops, clora, TR, T, PD, PA, PP, segment_layout,
     L = cfg.n_layers
     want_step = {
         "concat": {"ccm_attention": 2 * L, "ccm_attention_backward": L,
-                   "cond_lora": 4 * 2 * L},
+                   "cond_lora": 4 * 2 * L, "cond_lora_wgmma": 4 * 2 * L},
         "merge": {"kv_cummean": 2 * 2 * L, "kv_cummean_backward": 2 * L,
-                  "cond_lora": 4 * 2 * L}}
+                  "cond_lora": 4 * 2 * L, "cond_lora_wgmma": 4 * 2 * L}}
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     clora.backward_calls = 0
@@ -1228,7 +1394,7 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
         raise AssertionError(f"{label}: consistency {errs}, moved {moved}, "
                              f"prefix hits {hits}, forks {forks}, COW {cow}")
     for k in ("session_gather", "session_scatter", "segmented_attention",
-              "cond_lora"):
+              "segmented_attention_mma", "cond_lora", "cond_lora_wgmma"):
         if counts[k] <= 0:
             raise AssertionError(f"{label}: {k} never launched")
     log(f"  {label}: offloads {moved['offload']}, restores "
@@ -1327,13 +1493,17 @@ def main() -> int:
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    log(f"  {nvcc[-1]}")
     t0 = time.perf_counter()
     libs = _build.build_all()
     build_s = time.perf_counter() - t0
     log(f"  built {sorted(libs)} in {build_s:.1f} s")
     for stem in sorted(libs):
         for line in _build.build_log(stem).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma",
+                                       "arning", "wall time")):
                 log(f"    {stem}: {line.strip()}")
 
     log("phase 2: kernels against their plain versions on the card")
@@ -1344,6 +1514,9 @@ def main() -> int:
     ccm_fwd, ccm_bwd = check_ccm_attention(torch, F, ca, segment_layout, card)
     cummean = check_kv_cummean(torch, kvm, card)
     gather, scatter = check_session_gather(torch, sg, card)
+    if "--phase2" in sys.argv[1:]:
+        log(f"  --phase2: stopping after phase 2 ({time.perf_counter() - t_start:.1f} s)")
+        return 0
 
     log("phase 3: LLaMA-7B main path (32 layers, d 4096, bf16, seed 0)")
     cfg = llama_7b_paper.config()
@@ -1395,15 +1568,39 @@ def main() -> int:
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     del params, p4
 
+    # the tensor-core routes' launches in each main-path phase (3: online,
+    # 5: training, 7: the 32-layer serve engine)
+    by_phase = {k: {"3": totals[k], "5": train_counts.get(k, 0),
+                    "7": serve_counts[k]}
+                for k in ("segmented_attention_splitk",
+                          "segmented_attention_mma", "cond_lora_wgmma")}
+    for k, need in (("segmented_attention_splitk", "3"),
+                    ("segmented_attention_mma", "37"),
+                    ("cond_lora_wgmma", "357")):
+        if any(by_phase[k][ph] <= 0 for ph in need):
+            raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
+    log(f"  tensor-core route launches by phase: {by_phase}")
     rows = [
         dict(name="segmented_attention", route="cuda",
              source="src/repro_torch/csrc/segmented_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:160",
-             launches=totals["segmented_attention"], **seg["decode"]),
+             launches=sum(by_phase["segmented_attention_splitk"].values()),
+             launches_by_phase=by_phase["segmented_attention_splitk"],
+             kernel_route="split-K decode (bf16, Sq <= 2)", **seg["decode"],
+             shapes=shape_rows(seg)),
+        dict(name="segmented_attention_mma", route="cuda",
+             source="src/repro_torch/csrc/segmented_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:160",
+             launches=sum(by_phase["segmented_attention_mma"].values()),
+             launches_by_phase=by_phase["segmented_attention_mma"],
+             kernel_route="mma.sync (bf16, Sq > 2)", **seg["prefill"]),
         dict(name="cond_lora", route="cuda",
              source="src/repro_torch/csrc/cond_lora.cu",
              replaces="src/repro/kernels/cond_lora.py:48",
-             launches=totals["cond_lora"], **lora),
+             launches=sum(by_phase["cond_lora_wgmma"].values()),
+             launches_by_phase=by_phase["cond_lora_wgmma"],
+             kernel_route="TMA + wgmma (bf16)", **lora[288],
+             shapes=shape_rows(lora)),
         dict(name="kv_merge_update", route="triton",
              source="src/repro_torch/kernels/kv_merge.py",
              replaces="src/repro/kernels/kv_merge.py:27",

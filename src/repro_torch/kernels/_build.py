@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
+from repro_torch.obs import clock
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -55,6 +57,7 @@ def build_all() -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs: List = []
+    t0 = clock.perf_counter()
     for s in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -62,11 +65,24 @@ def build_all() -> Dict[str, Path]:
         p = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, str(s)],
                              stdout=log, stderr=subprocess.STDOUT)
         procs.append((s, tmp, p, log))
+    ends: Dict[str, float] = {}
+
+    def reap(src: Path, proc) -> None:
+        proc.wait()
+        ends[src.stem] = clock.perf_counter() - t0
+
+    waiters = [threading.Thread(target=reap, args=(s, p))
+               for s, _, p, _ in procs]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
     failed = []
     for s, tmp, p, log in procs:
-        rc = p.wait()
+        log.write(f"nvcc wall time {ends[s.stem]:.1f} s ({len(todo)} "
+                  "sources compiled in parallel)\n")
         log.close()
-        if rc != 0:
+        if p.returncode != 0:
             failed.append(s.name)
             os.unlink(tmp)
         else:

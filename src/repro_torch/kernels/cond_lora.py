@@ -9,6 +9,12 @@ card and what its design does about that.  This module checks the
 arguments and launches it on PyTorch's current stream.  The plain
 version is ``ref.cond_lora_ref``.
 
+The kernel has two routes, chosen by dtype: bf16 operands run on the
+tensor cores (TMA + ``wgmma``; ``K`` and ``N`` multiples of 8, the rank
+zero-padded to 8, 16, 32 or 64 by ``pad_rank``), float32 operands on the
+CUDA cores (the float32 cross-checks).  A bf16 shape the tensor-core
+route cannot take raises ``ValueError``; nothing falls back.
+
 ``cond_lora`` is the differentiable entry: a ``torch.autograd.Function``
 whose forward is the kernel and whose backward is three ``torch.matmul``
 products (the reference gets the same cotangents from XLA's autodiff of
@@ -35,6 +41,7 @@ from repro_torch.kernels.ref import cond_lora_ref as plain
 MAX_RANK = 64
 
 launches = 0         # kernel launches (the count chip_smoke reads)
+wgmma_launches = 0   # of them, launches of the bf16 tensor-core route
 backward_calls = 0   # autograd backward passes (matmuls, not a kernel)
 
 _fn = None
@@ -51,15 +58,32 @@ def _launcher():
     return _fn
 
 
+PADDED_RANKS = (8, 16, 32, 64)
+
+
+def pad_rank(a: torch.Tensor, b: torch.Tensor):
+    """A (r, K) and B (r, N) zero-padded to r_pad rows, the first of 8,
+    16, 32, 64 that holds r (multiples of 8: the N of the tensor-core
+    route's m64n8k16 rank products; the kernel has one instantiation per
+    r_pad); returned unchanged when r already is one.  Zero rows add
+    nothing to (x @ A^T) @ B."""
+    r = a.shape[0]
+    rp = next(p for p in PADDED_RANKS if p >= r)
+    if rp == r:
+        return a, b
+    return (torch.cat([a, a.new_zeros((rp - r, a.shape[1]))]),
+            torch.cat([b, b.new_zeros((rp - r, b.shape[1]))]))
+
+
 def cond_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                      b: torch.Tensor, gate: torch.Tensor, scale: float,
                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the CUDA kernel.  x (M, K), w (K, N), a (r, K), b (r, N),
     bias (N,) or None: contiguous CUDA tensors of one dtype, float32 or
-    bf16; gate (M,) float32.  Returns (M, N) in x.dtype."""
-    global launches
-    if not x.is_cuda:
-        raise ValueError("cond_lora_matmul needs CUDA tensors")
+    bf16; gate (M,) float32.  Returns (M, N) in x.dtype.  bf16 takes the
+    tensor-core route and needs K % 8 == 0, N % 8 == 0 and 16-byte
+    aligned data; float32 takes the CUDA-core route."""
+    global launches, wgmma_launches
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x dtype {x.dtype}: float32 or bf16 only")
     M, K = x.shape
@@ -79,18 +103,34 @@ def cond_lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if gate.shape != (M,) or gate.dtype != torch.float32 \
             or gate.device != x.device or not gate.is_contiguous():
         raise ValueError(f"gate: want contiguous ({M},) float32 on {x.device}")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        if K % 8 or N % 8:
+            raise ValueError(f"cond_lora bf16: K={K} and N={N} must be "
+                             "multiples of 8 (TMA's 16-byte row strides)")
+        a, b = pad_rank(a, b)
+        r = a.shape[0]
+        for name, t in (("x", x), ("w", w), ("a", a), ("b", b),
+                        ("bias", bias)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"cond_lora bf16: {name} is not 16-byte "
+                                 "aligned")
+    if not x.is_cuda:
+        raise ValueError("cond_lora_matmul needs CUDA tensors")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     dev = x.device
     err = _launcher()(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
         gate.data_ptr(), 0 if bias is None else bias.data_ptr(),
-        y.data_ptr(), M, N, K, r, float(scale),
-        int(x.dtype == torch.bfloat16),
+        y.data_ptr(), M, N, K, r, float(scale), int(bf16),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"cond_lora kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"cond_lora kernel launch failed: "
+                           + ("a TMA tensor map could not be built"
+                              if err == -1 else f"cudaError {err}"))
     launches += 1
+    wgmma_launches += bf16
     return y
 
 

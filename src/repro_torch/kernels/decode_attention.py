@@ -10,6 +10,14 @@ strides (so (B,S,H,D), layer-major (L,B,S,H,D) and lane-major
 (B,L,S,H,D) segments need no copy) and launches it on PyTorch's current
 stream.  The plain version is ``ref.segmented_attention_ref``.
 
+The kernel has three routes (see the CUDA file's header): float32 q on
+the CUDA cores; bf16 q with Sq <= 2 as a split-K decode
+(``plan_splits`` picks the number of splits from the segments'
+capacities, ``split_bounds`` is the kernel's cut of each lane's keys and
+``ref.merge_partials`` its combine); bf16 q with Sq > 2 on ``mma.sync``.
+bf16 q needs bf16 or int8 K/V; any other call raises ``ValueError``
+before a launch, and nothing falls back.
+
 Segment dicts follow ``repro``'s schema: k/v, k_scale/v_scale (int8
 only), length (int, (B,) int32 tensor or None), layer (int, (B,) tensor
 or None), lane_major, idx/seg/comp/valid ((S,) or (B, S), or idx None
@@ -18,7 +26,7 @@ for always-visible memory keys).
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -29,7 +37,13 @@ MAX_SEGS = 4
 MAX_D = 256
 _KV_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-launches = 0   # kernel launches (the count chip_smoke reads)
+MAX_SPLITS = 32     # split-K blocks per (lane, kv head), at most
+SPLIT_ROWS = 16     # q rows (heads x Sq) per split-K block, at most
+SM_COUNT = 132      # H100 SXM streaming multiprocessors
+
+launches = 0         # kernel launches (the count chip_smoke reads)
+splitk_launches = 0  # of them: the bf16 split-K decode route (Sq <= 2)
+mma_launches = 0     # of them: the bf16 mma.sync route (Sq > 2)
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
@@ -56,6 +70,56 @@ class _AttnParams(ctypes.Structure):
 
 
 _fn = None
+_split_state: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def plan_splits(capacity: int, blocks: int, sms: int = SM_COUNT) -> int:
+    """The split-K decode's number of splits: as many as keep the grid to
+    about 4 blocks per SM (one wave: 4 resident blocks of 128 threads per
+    SM), each split holding >= 64 of the ``capacity`` keys a lane can
+    have (the segments' capacities: known on the host, no sync)."""
+    want = 4 * sms // max(blocks, 1)
+    return max(1, min(want, capacity // 64, MAX_SPLITS))
+
+
+def split_bounds(counts: Sequence[int],
+                 n_split: int) -> List[List[Tuple[int, int, int]]]:
+    """The kernel's cut of one lane's valid keys (``counts[si]`` of
+    segment si, in segment order): flattened, split s covers [s*c,
+    min((s+1)*c, total)) with c = ceil(total / n_split).  Returns, per
+    split, the (segment, lo, hi) pieces it reads (empty for an empty
+    split)."""
+    total = sum(counts)
+    chunk = -(-total // n_split)
+    out = []
+    for sp in range(n_split):
+        k0 = min(sp * chunk, total)
+        k1 = min(k0 + chunk, total)
+        pieces, off = [], 0
+        for si, n in enumerate(counts):
+            lo, hi = min(max(k0 - off, 0), n), min(max(k1 - off, 0), n)
+            if lo < hi:
+                pieces.append((si, lo, hi))
+            off += n
+        out.append(pieces)
+    return out
+
+
+def _split_buffers(dev: torch.device, blocks: int,
+                   floats: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split-K combine's buffers on ``dev``, kept across calls and
+    grown on demand: per-(lane, kv head) int32 counters, zeroed once
+    (each combining block resets its own), and the float32 scratch of
+    the splits' partial states.  Launches on one stream reuse them in
+    order; split-K launches on two streams at once would share them."""
+    c, part = _split_state.get(dev, (None, None))
+    if c is None or c.numel() < blocks:
+        c = torch.zeros(max(blocks, 1024), dtype=torch.int32, device=dev)
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
+                           device=dev)
+    _split_state[dev] = (c, part)
+    return c, part
 
 
 def _launcher():
@@ -69,8 +133,9 @@ def _launcher():
                                "layouts differ")
         fn = lib.segmented_attention_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(_AttnParams), ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(_AttnParams)] + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+               ctypes.c_void_p]
         _fn = fn
     return _fn
 
@@ -108,10 +173,10 @@ def _check_vec(t: torch.Tensor, name: str):
 def segmented_flash_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
                               q_idx, q_seg, scale: float) -> torch.Tensor:
     """Launch the CUDA kernel: q (B, Sq, Hq, D) float32/bf16 on a CUDA
-    device over ``segs``; returns (B, Sq, Hq, D) in q.dtype."""
-    global launches
-    if not q.is_cuda:
-        raise ValueError("segmented_flash_attention needs CUDA tensors")
+    device over ``segs``; returns (B, Sq, Hq, D) in q.dtype.  float32 q
+    takes the CUDA-core route; bf16 q (with bf16 or int8 K/V) the split-K
+    decode route when Sq <= 2, else the mma.sync route."""
+    global launches, splitk_launches, mma_launches
     if q.dtype not in (torch.float32, torch.bfloat16) or q.ndim != 4:
         raise ValueError(f"q must be (B, Sq, Hq, D) float32/bf16, got "
                          f"{q.dtype} {tuple(q.shape)}")
@@ -120,12 +185,15 @@ def segmented_flash_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
         raise ValueError(f"head dim {D}: must be a multiple of 8, <= {MAX_D}")
     if q.stride(-1) != 1:
         raise ValueError("q: last dim must be contiguous")
+    if q.dtype == torch.bfloat16 and Sq > 2:
+        _check_vec(q, "q")           # the mma.sync route copies 16-byte rows
     segs = [s for s in segs
             if s["k"].shape[2 if s.get("layer") is not None else 1]]
     if not 1 <= len(segs) <= MAX_SEGS:
         raise ValueError(f"1..{MAX_SEGS} non-empty segments, got {len(segs)}")
     dev = q.device
     keep: List[torch.Tensor] = []
+    cap = 0                 # keys a lane can hold over all segments
     p = _AttnParams()
     Hkv = segs[0]["k"].shape[-2]
     if Hq % Hkv:
@@ -143,6 +211,9 @@ def segmented_flash_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
             _check_vec(t, f"segment {si} {name}")
         if k.dtype not in _KV_TYPES or v.dtype != k.dtype:
             raise ValueError(f"segment {si}: k/v dtype {k.dtype}/{v.dtype}")
+        if q.dtype == torch.bfloat16 and k.dtype == torch.float32:
+            raise ValueError(f"segment {si}: bf16 q takes bf16 or int8 "
+                             "k/v, not float32")
         lane_ax = (0 if lane_major else 1) if layered else 0
         tok_ax = 2 if layered else 1
         S = k.shape[tok_ax]
@@ -185,6 +256,7 @@ def segmented_flash_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
                 d.valid, d.valid_lane = _meta(s["valid"], B, S, dev, keep,
                                               "valid")
         d.S = S
+        cap += S if not isinstance(length, int) else max(0, min(length, S))
     p.nseg, p.B, p.Sq, p.Hq, p.Hkv, p.D = len(segs), B, Sq, Hq, Hkv, D
     p.scale = float(scale)
     p.q_idx, qm = _meta(q_idx, B, Sq, dev, keep, "q_idx")
@@ -192,16 +264,33 @@ def segmented_flash_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
     if qm != qm2:
         raise ValueError("q_idx and q_seg must both be shared or per-lane")
     p.qm_lane = qm
+    if not q.is_cuda:
+        raise ValueError("segmented_flash_attention needs CUDA tensors")
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
     p.q, p.o = q.data_ptr(), out.data_ptr()
     p.q_lane, p.q_tok, p.q_head = q.stride()[:3]
     p.o_lane, p.o_tok, p.o_head = out.stride()[:3]
+    route = 0 if q.dtype == torch.float32 else (1 if Sq <= 2 else 2)
+    n_split = hpb = hgroups = 1
+    part = counters = 0
+    if route == 1:
+        G = Hq // Hkv
+        hpb = min(G, SPLIT_ROWS // Sq)
+        hgroups = -(-G // hpb)
+        blocks = B * Hkv * hgroups
+        n_split = plan_splits(cap, blocks)
+        if n_split > 1:
+            c, scratch = _split_buffers(
+                dev, blocks, blocks * n_split * SPLIT_ROWS * (D + 2))
+            part, counters = scratch.data_ptr(), c.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _launcher()(ctypes.byref(p), int(q.dtype == torch.bfloat16),
-                      dev.index if dev.index is not None
+    err = _launcher()(ctypes.byref(p), route, n_split, hpb, hgroups, part,
+                      counters, dev.index if dev.index is not None
                       else torch.cuda.current_device(), stream)
     if err != 0:
         raise RuntimeError(f"segmented_attention kernel launch failed: "
                            f"cudaError {err}")
     launches += 1
+    splitk_launches += route == 1
+    mma_launches += route == 2
     return out

@@ -19,9 +19,14 @@ from repro_torch.kernels import kv_merge as _merge
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import session_gather as _sess
 
-# op name -> (module, name of its launch counter)
+# op name -> (module, name of its launch counter); the ``_splitk``,
+# ``_mma`` and ``_wgmma`` entries count the tensor-core routes' share of
+# their kernel's launches
 _KERNELS = {"segmented_attention": (_dattn, "launches"),
+            "segmented_attention_splitk": (_dattn, "splitk_launches"),
+            "segmented_attention_mma": (_dattn, "mma_launches"),
             "cond_lora": (_lora, "launches"),
+            "cond_lora_wgmma": (_lora, "wgmma_launches"),
             "kv_merge_update": (_merge, "launches"),
             "ccm_attention": (_attn, "launches"),
             "ccm_attention_backward": (_attn, "bwd_launches"),

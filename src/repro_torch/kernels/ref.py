@@ -124,6 +124,24 @@ def segmented_attention_ref(q, segs: Sequence[Dict[str, Any]], q_idx, q_seg,
     return out.transpose(1, 2)
 
 
+def merge_partials(m: torch.Tensor, l: torch.Tensor,
+                   acc: torch.Tensor) -> torch.Tensor:
+    """The split-K decode's combine: splits' running-softmax states over
+    the first axis -> the attention output.  m (n_split, ...) is a split's
+    largest visible logit (-inf where it saw no key), l the sum of
+    exp(logit - m), acc (..., D) the sum of exp(logit - m) * v.  Weights
+    w_s = exp(m_s - max m) over the splits with l > 0; out = sum w acc /
+    sum w l, and exactly 0 where no split saw a key.  (The kernel keeps
+    m in base 2; the formula is the same.)"""
+    live = l > 0
+    top = torch.where(live, m, -torch.inf).amax(0)
+    w = torch.where(live, torch.exp(m - top), torch.zeros_like(m))
+    tot = (w * l).sum(0)
+    out = (w[..., None] * acc).sum(0)
+    return torch.where(tot[..., None] > 0, out / tot[..., None],
+                       torch.zeros_like(out))
+
+
 def cond_lora_ref(x, w, a, b, gate, scale: float,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x@w (+bias) + gate * ((x@a^T)@b) * scale, in float32, cast to

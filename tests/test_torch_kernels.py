@@ -240,7 +240,9 @@ def test_cpu_ops_launch_no_kernel():
     slab = torch.zeros(3, 4)
     pops.session_scatter(slab, [1], pops.session_gather(slab, [0]))
     assert pops.launch_counts() == {
-        "segmented_attention": 0, "cond_lora": 0, "kv_merge_update": 0,
+        "segmented_attention": 0, "segmented_attention_splitk": 0,
+        "segmented_attention_mma": 0, "cond_lora": 0, "cond_lora_wgmma": 0,
+        "kv_merge_update": 0,
         "ccm_attention": 0, "ccm_attention_backward": 0, "kv_cummean": 0,
         "kv_cummean_backward": 0, "session_gather": 0, "session_scatter": 0}
 
@@ -261,6 +263,20 @@ def test_kernel_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         pda.segmented_flash_attention(torch.zeros(1, 1, 2, 8), [], [0], [0],
                                       1.0)
+    # the tensor-core routes: bf16 cond_lora (wgmma), bf16 segmented
+    # attention at Sq 1 (split-K decode) and Sq 3 (mma.sync)
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="CUDA"):
+        pcl.cond_lora_matmul(torch.zeros(2, 8, dtype=bf),
+                             torch.zeros(8, 8, dtype=bf),
+                             torch.zeros(1, 8, dtype=bf),
+                             torch.zeros(1, 8, dtype=bf), torch.zeros(2), 2.0)
+    kv = torch.zeros(1, 4, 2, 8, dtype=bf)
+    for sq in (1, 3):
+        with pytest.raises(ValueError, match="CUDA"):
+            pda.segmented_flash_attention(
+                torch.zeros(1, sq, 2, 8, dtype=bf), [dict(k=kv, v=kv)],
+                list(range(sq)), [0] * sq, 1.0)
 
 
 # ---------------------------------------------------------------------------
