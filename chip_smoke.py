@@ -45,9 +45,11 @@ Phases (any failure raises, and the script exits non-zero):
      pressure recompression);
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
 launches in phases 3, 5 and 7), then the result line.  Phase 2 also
-holds the training kernels (CCM flash attention forward and backward,
-kv_cummean forward and reverse, cond_lora's autograd) and the arena's
-session gather/scatter against their plain versions.
+holds the training kernels (CCM flash attention forward and backward on
+its float32 and bf16 routes, the bf16 cases with per-lane (B, S)
+metadata, a layout with no <COMP> key and hd 72, the backward run twice
+and bit-equal; kv_cummean forward and reverse; cond_lora's autograd)
+and the arena's session gather/scatter against their plain versions.
 Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
@@ -633,23 +635,40 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
         out = fn(q, k, v)
         return (out,) + torch.autograd.grad(out, (q, k, v), do)
 
-    # -- GQA 14/2 and 32/32, head dims 64/72/128/256, S not a multiple of
-    #    the tiles, padded keys, a fully masked row; float32 and bf16.
-    #    float32: 1e-4 x max|plain| (float32 sums over up to 1216 keys in
-    #    another order); bf16: 2 ulps of the largest output for the forward
-    #    and 4 for gradients (the backward rounds O, dQ, dK, dV to bf16 and
-    #    recomputes P from the float32 log-sum-exp).
-    lay = segment_layout(3, 29, 4, 11)                   # S = 110
-    cases = [(2, 14, 2, 64, torch.float32), (2, 14, 2, 72, torch.float32),
-             (1, 4, 4, 256, torch.float32), (2, 14, 2, 128, torch.bfloat16),
-             (1, 6, 2, 256, torch.bfloat16)]
-    for B, Hq, Hkv, D, dt in cases:
-        S = lay.seq_len
-        idx, seg, comp = ccm_meta(torch, lay, dev)
+    # -- GQA 14/2, 8/2, 8/8, 4/4 and 4/1, head dims 40/64/72/128/256, S
+    #    not a multiple of the tiles, padded keys, a fully masked row; float32
+    #    (the CUDA-core route) and bf16 (the tensor-core route; per-lane
+    #    (B, S) metadata with a different layout per lane, a layout with
+    #    no <COMP> key).  float32: 1e-4 x max|plain| (float32 sums over up
+    #    to 1216 keys in another order); bf16: 2 ulps of the largest output
+    #    for the forward and 4 for gradients (the backward rounds O, dQ,
+    #    dK, dV to bf16 and recomputes P from the float32 log-sum-exp).
+    S = 110
+    lays = [segment_layout(3, 29, 4, 11), segment_layout(5, 14, 4, 20),
+            segment_layout(2, 40, 8, 14)]                # S = 110 each
+    f32, bf = torch.float32, torch.bfloat16
+    cases = [(2, 14, 2, 64, f32, "shared"), (2, 14, 2, 72, f32, "shared"),
+             (1, 4, 4, 256, f32, "shared"), (2, 14, 2, 128, bf, "shared"),
+             (1, 6, 2, 256, bf, "shared"), (3, 8, 2, 128, bf, "per-lane"),
+             (2, 8, 8, 128, bf, "no-comp"), (2, 14, 2, 72, bf, "shared"),
+             (2, 4, 1, 40, bf, "per-lane")]
+    mma0 = (ca.mma_launches, ca.bwd_mma_launches)
+    for B, Hq, Hkv, D, dt, kind in cases:
+        if kind == "per-lane":                           # lane b: lays[b]
+            idx = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+            seg = torch.stack([lay.seg_ids for lay in lays[:B]]).to(dev)
+            comp = torch.stack([lay.comp_mask for lay in lays[:B]]).to(dev)
+            valid = torch.ones(B, S, dtype=torch.bool, device=dev)
+            valid[1, -5:] = False
+            valid[B - 1, 40:48] = False                  # invalid keys
+        else:
+            idx, seg, comp = ccm_meta(torch, lays[0], dev)
+            if kind == "no-comp":
+                comp = torch.zeros_like(comp)
+            valid = torch.ones(S, dtype=torch.bool, device=dev)
+        valid[..., -3:] = False                          # padded keys
         qi = idx.clone()
-        qi[5] = -7                                       # sees no key
-        valid = torch.ones(S, dtype=torch.bool, device=dev)
-        valid[-3:] = False                               # padded keys
+        qi[..., 5] = -7                                  # sees no key
         meta = (qi, seg, idx, seg, comp, valid)
         q = rn(B, Hq, S, D, dtype=dt)
         k, v = rn(B, Hkv, S, D, dtype=dt), rn(B, Hkv, S, D, dtype=dt)
@@ -664,9 +683,13 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
             tol = 1e-4 * top if dt == torch.float32 else \
                 2.0 ** (-6 if name == "fwd" else -5) * top
             check(f"ccm_attention {name} B{B} GQA {Hq}/{Hkv} hd{D} S{S} "
-                  f"{str(dt)[6:]}", max_err(a, b), tol)
+                  f"{str(dt)[6:]} {kind}", max_err(a, b), tol)
         if not bool((got[0][:, :, 5] == 0).all()):
             raise AssertionError("fully masked row is not exactly 0")
+    n_bf = sum(c[4] == bf for c in cases)
+    if (ca.mma_launches - mma0[0], ca.bwd_mma_launches - mma0[1]) \
+            != (n_bf, n_bf):
+        raise AssertionError("a bf16 case missed the tensor-core route")
 
     # -- the training shape: LLaMA-7B heads, concat layout, bf16
     lay = segment_layout(16, 64, 8, 64)                  # S = 1216
@@ -692,13 +715,22 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
     mask = (idx[None, :] <= idx[:, None]) \
         & ((seg[None, :] == seg[:, None]) | comp[None, :])
     pairs = int(mask.sum().item()) * B * H
-    nq, nk = -(-S // 16), -(-S // 32)      # the kernel's 16 x 32 tiles
+    nq, nk = -(-S // 16), -(-S // 32)      # the float32 route's 16 x 32 tiles
     padded = torch.zeros(nq * 16, nk * 32, dtype=torch.bool, device=dev)
     padded[:S, :S] = mask
     kept = int(padded.reshape(nq, 16, nk, 32).any(3).any(1).sum().item())
+    pl = ca.plan(*meta, B, S, S, dev)
+    nat = int(pl.k_count[:, :pl.nk].sum().item())
+    cmp_ = int(pl.k_count[:, pl.nk:].sum().item())
     log(f"  ccm_attention training shape: {pairs / (B * H * S * S):.4f} of "
-        f"the S x S pairs visible; the tile skip keeps {kept} of "
-        f"{nq * nk} 16 x 32 tiles")
+        f"the S x S pairs visible; the float32 route's tile skip keeps "
+        f"{kept} of {nq * nk} 16 x 32 tiles, the bf16 route's two streams "
+        f"{nat} natural + {cmp_} <COMP> = {nat + cmp_} of {pl.nq * pl.nk} "
+        f"64 x 64 tiles ({pairs / (B * H) / ((nat + cmp_) * 64 * 64):.3f} "
+        f"of their pairs visible)")
+    plan_ms = device_ms(torch, lambda i: ca.plan(*meta, B, S, S, dev), 10)
+    log(f"  ccm_attention plan() at the training shape: {plan_ms:.4f} ms "
+        f"device, built once per set of metadata [{card}]")
 
     def fwd_k(i):
         return ca.ccm_attention_fwd(*sets[i % 4][:3], *meta, scale)
@@ -709,20 +741,29 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
     def fwd_l(i):
         return F.scaled_dot_product_attention(*sets[i % 4][:3],
                                               attn_mask=mask, scale=scale)
-    t_f = timings(torch, fwd_k, "ccm_attention_fwd_kernel", fwd_p, fwd_l)
+    t_f = timings(torch, fwd_k, "ccm_attention_fwd", fwd_p, fwd_l)
     nb = 2 * (4 * B * H * S * D) + 4 * B * H * S      # q, k, v, o + lse
     bms, by = bound(nb, 4.0 * D * pairs, PEAK_BF16)
     report("ccm_attention forward (library: SDPA with the CCM mask)", t_f,
            bms, by, card)
     fwd_row = dict(max_abs_err=errs["fwd"], ms=t_f["ms"],
                    plain_ms=t_f["plain_ms"], library_ms=t_f["library_ms"],
-                   bound_ms=bms, bound_by=by)
+                   bound_ms=bms, bound_by=by, plan_ms=plan_ms)
+    log(f"  ccm_attention forward: {bms / t_f['ms']:.3f} of the bound, "
+        f"{t_f['library_ms'] / t_f['ms']:.2f}x the library's speed [{card}]")
 
     # backward only: the graphs are built once, outside the timing
     saved = []
     for qq, kk, vv, dd in sets:
         o, lse = ca.ccm_attention_fwd(qq, kk, vv, *meta, scale)
         saved.append((qq, kk, vv, o, lse, dd))
+    # two backward calls on the same inputs are bit-equal (no atomics)
+    g1 = ca.ccm_attention_bwd(*saved[0], *meta, scale)
+    g2 = ca.ccm_attention_bwd(*saved[0], *meta, scale)
+    if not all(torch.equal(a, b) for a, b in zip(g1, g2)):
+        raise AssertionError("ccm_attention backward: two calls differ")
+    log("  ccm_attention backward: two calls on the same inputs bit-equal")
+    del g1, g2
 
     def retained(fn):
         out = []
@@ -754,6 +795,8 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
     bms, by = bound(nb, 10.0 * D * pairs, PEAK_BF16)
     report("ccm_attention backward (library: SDPA backward)", t_b, bms, by,
            card)
+    log(f"  ccm_attention backward: {bms / t_b['ms']:.3f} of the bound, "
+        f"{t_b['library_ms'] / t_b['ms']:.2f}x the library's speed [{card}]")
     bwd_row = dict(max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]),
                    ms=t_b["ms"], plain_ms=t_b["plain_ms"],
                    library_ms=t_b["library_ms"], bound_ms=bms, bound_by=by)
@@ -1094,6 +1137,8 @@ def train_phase(torch, ops, clora, TR, T, PD, PA, PP, segment_layout,
     L = cfg.n_layers
     want_step = {
         "concat": {"ccm_attention": 2 * L, "ccm_attention_backward": L,
+                   "ccm_attention_mma": 2 * L,
+                   "ccm_attention_backward_mma": L,
                    "cond_lora": 4 * 2 * L, "cond_lora_wgmma": 4 * 2 * L},
         "merge": {"kv_cummean": 2 * 2 * L, "kv_cummean_backward": 2 * L,
                   "cond_lora": 4 * 2 * L, "cond_lora_wgmma": 4 * 2 * L}}
@@ -1151,8 +1196,14 @@ def train_phase(torch, ops, clora, TR, T, PD, PA, PP, segment_layout,
             f"{ms:.1f} ms [{card}]")
     # one profiled step of each mode (after the counts: not counted)
     for mode in ("concat", "merge"):
-        profile_window(torch, lambda: fns[mode](tp, fp, opt, batch, None),
-                       f"1 {mode} train step", card)
+        by = profile_window(torch, lambda: fns[mode](tp, fp, opt, batch, None),
+                            f"1 {mode} train step", card)
+        ccm = {n.split("<")[0].split()[-1]: ms for n, ms in (by or {}).items()
+               if "ccm_attention" in n}
+        if ccm:
+            log(f"  CCM attention in the profiled {mode} step: "
+                + ", ".join(f"{n} {ms:.3f} ms" for n, ms in sorted(ccm.items()))
+                + f"; {sum(ccm.values()):.3f} ms in all [{card}]")
     return totals
 
 
@@ -1573,10 +1624,13 @@ def main() -> int:
     by_phase = {k: {"3": totals[k], "5": train_counts.get(k, 0),
                     "7": serve_counts[k]}
                 for k in ("segmented_attention_splitk",
-                          "segmented_attention_mma", "cond_lora_wgmma")}
+                          "segmented_attention_mma", "cond_lora_wgmma",
+                          "ccm_attention_mma", "ccm_attention_backward_mma")}
     for k, need in (("segmented_attention_splitk", "3"),
                     ("segmented_attention_mma", "37"),
-                    ("cond_lora_wgmma", "357")):
+                    ("cond_lora_wgmma", "357"),
+                    ("ccm_attention_mma", "5"),
+                    ("ccm_attention_backward_mma", "5")):
         if any(by_phase[k][ph] <= 0 for ph in need):
             raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
     log(f"  tensor-core route launches by phase: {by_phase}")
@@ -1608,11 +1662,15 @@ def main() -> int:
         dict(name="ccm_attention", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
              replaces="src/repro/kernels/ccm_attention.py:86",
-             launches=train_counts["ccm_attention"], **ccm_fwd),
+             launches=sum(by_phase["ccm_attention_mma"].values()),
+             launches_by_phase=by_phase["ccm_attention_mma"],
+             kernel_route="mma.sync, two tile streams (bf16)", **ccm_fwd),
         dict(name="ccm_attention_backward", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
              replaces="src/repro/kernels/ccm_attention.py:86",
-             launches=train_counts["ccm_attention_backward"], **ccm_bwd),
+             launches=sum(by_phase["ccm_attention_backward_mma"].values()),
+             launches_by_phase=by_phase["ccm_attention_backward_mma"],
+             kernel_route="mma.sync, two tile streams (bf16)", **ccm_bwd),
         dict(name="kv_cummean", route="triton",
              source="src/repro_torch/kernels/kv_merge.py",
              replaces="src/repro/kernels/kv_merge.py:65",

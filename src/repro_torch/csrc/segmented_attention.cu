@@ -43,6 +43,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_bf16.cuh"   // cp.async, ldmatrix, mma.sync helpers
+
 #define MAX_SEGS 4
 #define MAX_D 256
 #define NWARPS 4
@@ -372,25 +374,6 @@ static int launch(const AttnParams& p, cudaStream_t stream) {
 #define MAX_SPLITS 32
 #define SPLIT_ROWS 16         // q rows (heads x Sq) per split-K block, at most
 #define LOG2E 1.4426950408889634f
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // Per-block view of the segment list: for segment si the block reads the
 // lane's keys [lo, hi) (the split-K route's share; the whole valid prefix
@@ -867,28 +850,6 @@ segmented_attention_splitk_kernel(const __grid_constant__ AttnParams p,
 // rows: least and largest q_idx, one segment or not); the per-lane
 // length bound is as in route 1.  A head dim that is not a multiple of 16
 // is zero-padded in the last k-step of Q K^T.
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x2_t(uint32_t r[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 struct MmaLayout {           // byte offsets into dynamic shared memory
   int rse, q, ring, meta, view, qm, qr, total;

@@ -4,8 +4,9 @@ At first use every ``src/repro_torch/csrc/*.cu`` is compiled by its own
 ``nvcc`` process, all started together, into a shared library with a
 plain C interface under ``build/repro_torch/`` at the checkout root
 (listed in ``.gitignore``).  A library's file name carries a hash of its
-source and of the compiler flags, so an edited source is rebuilt and an
-unchanged one is loaded from the previous build.  Libraries are loaded
+source, of every shared header ``csrc/*.cuh`` and of the compiler flags,
+so an edited source or header is rebuilt and an unchanged one is loaded
+from the previous build.  Libraries are loaded
 with ``ctypes``.  A failed build raises; nothing falls back.
 """
 from __future__ import annotations
@@ -43,6 +44,9 @@ def nvcc_path() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -30,6 +30,8 @@ _KERNELS = {"segmented_attention": (_dattn, "launches"),
             "kv_merge_update": (_merge, "launches"),
             "ccm_attention": (_attn, "launches"),
             "ccm_attention_backward": (_attn, "bwd_launches"),
+            "ccm_attention_mma": (_attn, "mma_launches"),
+            "ccm_attention_backward_mma": (_attn, "bwd_mma_launches"),
             "kv_cummean": (_merge, "cummean_launches"),
             "kv_cummean_backward": (_merge, "cummean_bwd_launches"),
             "session_gather": (_sess, "gather_launches"),

@@ -55,6 +55,57 @@ def ccm_attention_ref(q, k, v, q_idx, q_seg, k_idx, k_seg, k_comp, k_valid,
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+def ccm_attention_streams_ref(q, k, v, q_idx, q_seg, plan,
+                              scale: float) -> torch.Tensor:
+    """The bf16 kernels' two-stream algorithm, in float32: each q tile
+    runs one online softmax over the key-tile slots that ``plan`` (a
+    ``kernels.ccm_attention.CcmPlan``) lists for it, in the kernel's
+    order (the natural stream's tiles, then the <COMP> stream's), each
+    slot's keys gathered by their key-table position and masked by their
+    key-table k_idx, k_seg and flags.  Same arguments and result as
+    ``ccm_attention_ref`` (the plan stands for the key metadata);
+    differentiable in q, k and v."""
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    T = plan.tile
+    dev = q.device
+    qi = _lanes(q_idx, B, torch.int32, dev)
+    qs = _lanes(q_seg, B, torch.int32, dev)
+    qf = q.float().reshape(B, Hkv, G, Sq, D)
+    kf, vf = k.float(), v.float()
+    lanes = []
+    for b in range(B):
+        pb = b if plan.ktab.shape[0] > 1 else 0
+        rows = []
+        for t in range(plan.nq):
+            r0, r1 = t * T, min(Sq, (t + 1) * T)
+            qt = qf[b, :, :, r0:r1]                        # (Hkv, G, R, D)
+            m = torch.full(qt.shape[:3], -torch.inf, device=dev)
+            l = torch.zeros(qt.shape[:3], device=dev)
+            acc = torch.zeros(qt.shape, device=dev)
+            for slot in plan.q_tiles[pb, t, :int(plan.q_count[pb, t])].tolist():
+                e = plan.ktab[pb, slot * T:(slot + 1) * T]      # (T, 4)
+                pos = e[:, 0].clamp(min=0).long()
+                vis = (e[None, :, 1] <= qi[b, r0:r1, None]) \
+                    & (((e[None, :, 3] & 1) != 0)
+                       | (e[None, :, 2] == qs[b, r0:r1, None]))  # (R, T)
+                s = torch.einsum("hgrd,htd->hgrt", qt, kf[b, :, pos]) * scale
+                s = torch.where(vis, s, -torch.inf)
+                m_new = torch.maximum(m, s.amax(-1))
+                mu = torch.where(torch.isinf(m_new), 0.0, m_new)
+                alpha = torch.exp(m - mu)
+                p = torch.exp(s - mu[..., None])           # masked: 0
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] \
+                    + torch.einsum("hgrt,htd->hgrd", p, vf[b, :, pos])
+                m = m_new
+            # a row that saw no key: l == 0, acc == 0 -> exactly 0
+            rows.append(acc / torch.where(l > 0, l, 1.0)[..., None])
+        lanes.append(torch.cat(rows, 2))
+    return torch.stack(lanes).reshape(B, Hq, Sq, D).to(q.dtype)
+
+
 def _seg_layer_view(s: Dict[str, Any], key: str, B: int) -> Optional[torch.Tensor]:
     """The (B, S, ...) per-lane view of ``s[key]`` (k, v or a scale):
     picks the segment's layer out of a layer-major (L, B, S, ...) or

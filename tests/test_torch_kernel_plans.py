@@ -199,3 +199,19 @@ def test_segmented_bf16_q_refuses_float32_kv_before_launch():
     with pytest.raises(ValueError, match="bf16 q"):
         pda.segmented_flash_attention(q, [_seg(kv, kv)], [0], [0], 1.0)
     assert pda.launches == 0
+
+
+def test_build_name_follows_the_shared_headers(tmp_path):
+    """A library's file name hashes its source and every csrc/*.cuh, so
+    an edited shared header rebuilds each source that may include it."""
+    from repro_torch.kernels import _build
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    first = _build._target(src)
+    assert _build._target(src) == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = _build._target(src)
+    assert second != first and second.name.startswith("k-")
+    src.write_text('#include "h.cuh"\n// edited\n')
+    assert _build._target(src) not in (first, second)

@@ -243,7 +243,9 @@ def test_cpu_ops_launch_no_kernel():
         "segmented_attention": 0, "segmented_attention_splitk": 0,
         "segmented_attention_mma": 0, "cond_lora": 0, "cond_lora_wgmma": 0,
         "kv_merge_update": 0,
-        "ccm_attention": 0, "ccm_attention_backward": 0, "kv_cummean": 0,
+        "ccm_attention": 0, "ccm_attention_backward": 0,
+        "ccm_attention_mma": 0, "ccm_attention_backward_mma": 0,
+        "kv_cummean": 0,
         "kv_cummean_backward": 0, "session_gather": 0, "session_scatter": 0}
 
 
