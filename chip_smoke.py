@@ -15,7 +15,10 @@ Phases (any failure raises, and the script exits non-zero):
      version's, one library call's and the least time the card could
      take (the bound): cond_lora at M = 288 / 576 / 4864, segmented
      attention at decode (bf16, int8, GQA 32/8), ingest, prefill and a
-     lane-major serve query;
+     lane-major serve query; the merge update as one launch for k and
+     v (shared and per-lane weights, lane- and layer-major, a transposed
+     or misaligned h, float32 and bf16 mixed, the one-element path)
+     against the library pair (two ``lerp_``);
   3. the main path at the full width and depth of LLaMA-7B
      (``configs/llama_7b_paper.config()``, random bf16 weights from seed
      0): B=4 lanes, 4 ingests of 64-token contexts, a 448-token prefill
@@ -42,7 +45,8 @@ Phases (any failure raises, and the script exits non-zero):
      each held against the session run alone (B=1); a profiled drain;
      then two 4-layer engines at full width (merge + bf16 with per-lane
      merge weights and async offload; concat + int8 cache with a
-     pressure recompression);
+     pressure recompression), the merge engine with one merge launch
+     per ingest batch;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
 launches in phases 3, 5 and 7), then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward on
@@ -67,6 +71,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_BYTES = 3.35e12            # H100 SXM HBM3, bytes/s
 PEAK_BF16 = 989e12              # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_F32 = 67e12                # H100 SXM float32 outside the tensor cores
 
 
 def log(*a):
@@ -508,29 +513,120 @@ def check_cond_lora(torch, clora, card):
 
 
 def check_kv_merge(torch, kvm, card):
+    """Kernel 3, one launch per merge g_update (k and v together), against
+    its plain version: bf16 memory within bf16_tol (both round one float32
+    value once; the kernel's fused multiply-add may land one ulp away),
+    float32 memory within 1e-6 x max|want| (the same fma, no rounding to
+    bf16).  Cases: k + v at the phase-2 shape (LLaMA-7B merge memory, B4)
+    with a shared a; lane-major memory with per-lane a and h a transposed
+    view (the serve engine's call); layer-major with per-lane a; float32
+    h into bf16 memory; float32 memory (bf16 and float32 h); hd 72; the
+    one-element path for an inner run that is not a multiple of 8 and for
+    an h that is not 16-byte aligned.  Times the shared-a pair (the
+    online path's call) and the lane-major per-lane pair."""
     dev = "cuda"
+    bf, f32 = torch.bfloat16, torch.float32
     g = torch.Generator(device=dev).manual_seed(3)
-    shape = (32, 4, 8, 32, 128)
-    mems = [torch.randn(shape, generator=g, device=dev).bfloat16()
-            for _ in range(4)]
-    hs = [torch.randn(shape, generator=g, device=dev).bfloat16()
-          for _ in range(4)]
+    L, B, m, H, hd = 32, 4, 8, 32, 128
+    shape = (L, B, m, H, hd)
+    lanes = [1.0, 0.5, 1.0 / 3, 0.3]
+
+    def rn(shp, dtype=bf):
+        return torch.randn(shp, generator=g, device=dev).to(dtype)
+
+    def transposed(shp, dtype=bf):
+        """An h of shape ``shp`` that is the transpose of axes 0 and 1."""
+        return rn((shp[1], shp[0]) + tuple(shp[2:]), dtype).transpose(0, 1)
+
     errs = []
-    for a in (1.0, 1.0 / 3, 0.3):
-        want = kvm.plain(mems[0], hs[0], a)
-        got = kvm.kv_merge_update_(mems[0].clone(), hs[0], a)
+
+    def case(name, mems, hs, a, axis, vec):
+        want = [kvm.plain_lanes(x, h, a, axis) for x, h in zip(mems, hs)]
+        got = [x.clone() for x in mems]
+        width = kvm.vector_width(got, hs, a)
+        if width != vec:
+            raise AssertionError(f"kv_merge {name}: vector width {width}, "
+                                 f"want {vec}")
+        kvm.kv_merge_update_lanes_(got, hs, a, axis)
         torch.cuda.synchronize()
-        errs.append(max_err(got, want))
-        check(f"kv_merge a={a:.4f} {shape}", errs[-1], bf16_tol(want))
-    t = timings(
-        torch,
-        lambda i: kvm.kv_merge_update_(mems[i % 4], hs[i % 4], 1.0 / 3),
-        "merge_kernel",
-        lambda i: mems[i % 4].copy_(kvm.plain(mems[i % 4], hs[i % 4], 1.0 / 3)),
-        lambda i: torch.lerp(mems[i % 4], hs[i % 4], 1.0 / 3))
-    n = mems[0].numel()
-    bms, by = bound(3 * 2 * n, 3.0 * n, PEAK_BF16)
-    report("kv_merge (library: torch.lerp)", t, bms, by, card)
+        err = max(max_err(x, w) for x, w in zip(got, want))
+        tol = max(bf16_tol(w) if w.dtype == bf else
+                  1e-6 * w.abs().max().item() for w in want)
+        errs.append(err)
+        check(f"kv_merge {name} (width {width})", err, tol)
+
+    for a in (1.0, 1.0 / 3, 0.3):
+        case(f"k+v a={a:.4f} {shape}", [rn(shape), rn(shape)],
+             [rn(shape), rn(shape)], a, 1, 8)
+    lm = (B, L, m, H, hd)
+    case(f"lane-major {lm}, per-lane a, h transposed", [rn(lm), rn(lm)],
+         [transposed(lm), transposed(lm)], lanes, 0, 8)
+    case(f"layer-major {shape}, per-lane a", [rn(shape), rn(shape)],
+         [rn(shape), rn(shape)], lanes, 1, 8)
+    case("float32 h into bf16 memory, lane-major, per-lane a",
+         [rn(lm), rn(lm)], [transposed(lm, f32), transposed(lm, f32)],
+         lanes, 0, 8)
+    case("float32 memory, bf16 h, a=1/3", [rn(shape, f32), rn(shape, f32)],
+         [rn(shape), rn(shape)], 1.0 / 3, 1, 8)
+    case("float32 memory, float32 h transposed, per-lane a",
+         [rn(lm, f32), rn(lm, f32)],
+         [transposed(lm, f32), transposed(lm, f32)], lanes, 0, 4)
+    s72 = (B, L, m, H, 72)
+    case(f"hd 72 {s72}, per-lane a, h transposed", [rn(s72), rn(s72)],
+         [transposed(s72), transposed(s72)], lanes, 0, 8)
+    odd = (3, B, 1, 5, 37)
+    case(f"inner run 185 {odd}, per-lane a", [rn(odd), rn(odd)],
+         [rn(odd), rn(odd)], lanes, 1, 1)
+    n = math.prod(shape)
+    off = [rn((n + 1,))[1:].view(shape) for _ in range(2)]
+    case("h 2 bytes off 16-byte alignment, per-lane a",
+         [rn(shape), rn(shape)], off, lanes, 1, 1)
+
+    sets = [[rn(shape) for _ in range(4)] for _ in range(4)]   # > 50 MB L2
+
+    def pair(i):
+        mk, mv, hk, hv = sets[i % 4]
+        kvm.kv_merge_update_lanes_((mk, mv), (hk, hv), 1.0 / 3, 1)
+
+    def plain_pair(i):
+        mk, mv, hk, hv = sets[i % 4]
+        mk.copy_(kvm.plain_lanes(mk, hk, 1.0 / 3, 1))
+        mv.copy_(kvm.plain_lanes(mv, hv, 1.0 / 3, 1))
+
+    def lerp_pair(i):
+        mk, mv, hk, hv = sets[i % 4]
+        mk.lerp_(hk, 1.0 / 3)
+        mv.lerp_(hv, 1.0 / 3)
+
+    t = timings(torch, pair, "kv_merge_kernel", plain_pair, lerp_pair)
+    bms, by = bound(2 * 3 * n * 2, 2 * 3.0 * n, PEAK_F32)
+    report("kv_merge k+v, shared a (library: two torch.lerp_)", t, bms, by,
+           card)
+    log(f"  kv_merge k+v: {bms / t['ms']:.3f} of the bytes bound, "
+        f"{t['library_ms'] / t['ms']:.3f}x the library pair; wrapper call "
+        f"{t['call_ms'] - t['ms']:+.4f} ms over device time [{card}]")
+    lsets = [(rn(lm), rn(lm), transposed(lm), transposed(lm))
+             for _ in range(4)]
+
+    def lane_pair(i):
+        mk, mv, hk, hv = lsets[i % 4]
+        kvm.kv_merge_update_lanes_((mk, mv), (hk, hv), lanes, 0)
+
+    a_lm = torch.tensor(lanes, device=dev, dtype=bf).reshape(B, 1, 1, 1, 1)
+
+    def lane_lerp(i):
+        mk, mv, hk, hv = lsets[i % 4]
+        mk.lerp_(hk, a_lm)
+        mv.lerp_(hv, a_lm)
+    tl = dict(ms=device_ms(torch, lane_pair, 20, only="kv_merge_kernel"),
+              call_ms=time_ms(torch, lane_pair, 20),
+              library_ms=device_ms(torch, lane_lerp, 20))
+    log(f"  kv_merge k+v lane-major {lm}, per-lane a, h transposed: kernel "
+        f"{tl['ms']:.4f} ms (device; {tl['call_ms']:.4f} ms per "
+        f"back-to-back wrapper call), library {tl['library_ms']:.4f} ms "
+        f"(two torch.lerp_ with a (B,) bf16 weight tensor), bound "
+        f"{bms:.4f} ms ({by}) [{card}]")
+    del sets, lsets, off
     return dict(max_abs_err=max(errs), ms=t["ms"], plain_ms=t["plain_ms"],
                 library_ms=t["library_ms"], bound_ms=bms, bound_by=by)
 
@@ -807,12 +903,14 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
 
 def check_kv_cummean(torch, kvm, card):
     """Kernel 5 at the merge shape: T = 16 steps of R = B*m*H*D columns,
-    forward and reverse, contiguous and read in place from (B, S, H, D)."""
+    forward and reverse, contiguous and read in place from (B, S, H, D);
+    each direction timed against its bound and one library call.  Returns
+    the forward's and the reverse's rows."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(6)
     T, B, m, H, D, lc = 16, 4, 8, 32, 128, 64
     R = B * m * H * D
-    errs = []
+    errs, errs_r = [], []
     for dt in (torch.float32, torch.bfloat16):
         h = torch.randn(T, R, generator=g, device=dev).to(dt)
         gr = torch.randn(T, R, generator=g, device=dev).to(dt)
@@ -828,8 +926,9 @@ def check_kv_cummean(torch, kvm, card):
         errs.append(max_err(out, want))
         check(f"kv_cummean forward (T{T}, R{R}) {str(dt)[6:]}", errs[-1],
               tol(want))
-        check(f"kv_cummean reverse (T{T}, R{R}) {str(dt)[6:]}",
-              max_err(dh, dwant), tol(dwant))
+        errs_r.append(max_err(dh, dwant))
+        check(f"kv_cummean reverse (T{T}, R{R}) {str(dt)[6:]}", errs_r[-1],
+              tol(dwant))
     # in place: the <COMP> groups of a (B, S, H, D) activation, strided
     x = torch.randn(B, T * (lc + m) + 64, H, D, generator=g,
                     device=dev).bfloat16()
@@ -838,22 +937,37 @@ def check_kv_cummean(torch, kvm, card):
     want = kvm.plain_cummean(grp, 1)
     check("kv_cummean on the strided <COMP> groups of (B, S, H, D)",
           max_err(got, want), bf16_tol(want))
+    # 16 inputs of 4 MiB in turn: more than the 50 MB L2 holds
     hs = [torch.randn(T, R, generator=g, device=dev).bfloat16()
-          for _ in range(4)]
+          for _ in range(16)]
     ar = torch.arange(1, T + 1, device=dev, dtype=torch.float32)[:, None]
     t = timings(
-        torch, lambda i: kvm.kv_cummean(hs[i % 4][None]), "cummean_kernel",
-        lambda i: kvm.plain_cummean(hs[i % 4], 0),
-        lambda i: torch.cumsum(hs[i % 4].float(), 0) / ar)
+        torch, lambda i: kvm.kv_cummean(hs[i % 16][None]), "cummean_kernel",
+        lambda i: kvm.plain_cummean(hs[i % 16], 0),
+        lambda i: torch.cumsum(hs[i % 16].float(), 0) / ar)
     bms, by = bound(2 * 2 * T * R, 2.0 * T * R, PEAK_BF16)
     report("kv_cummean (library: torch.cumsum(h.float(), 0) / arange)", t,
            bms, by, card)
-    tr = device_ms(torch, lambda i: kvm.kv_cummean_launch(hs[i % 4][None],
-                                                          reverse=True),
-                   20, only="cummean_kernel")
-    log(f"  kv_cummean reverse: kernel {tr:.4f} ms (device) [{card}]")
-    return dict(max_abs_err=max(errs), ms=t["ms"], plain_ms=t["plain_ms"],
-                library_ms=t["library_ms"], bound_ms=bms, bound_by=by)
+    # the reverse on a gradient g (T, R): the kernel; the plain version's
+    # backward (autograd through ref.kv_cummean_ref, its graph kept); the
+    # library: torch.cumsum of g / (t + 1) flipped along T
+    hp = [h.detach().requires_grad_(True) for h in hs]
+    outs = [kvm.plain_cummean(x, 0) for x in hp]
+    t_r = timings(
+        torch, lambda i: kvm.kv_cummean_launch(hs[i % 16][None],
+                                               reverse=True),
+        "cummean_kernel",
+        lambda i: torch.autograd.grad(outs[i % 16], hp[i % 16], hs[i % 16],
+                                      retain_graph=True),
+        lambda i: torch.cumsum((hs[i % 16].float() / ar).flip(0), 0).flip(0))
+    report("kv_cummean reverse (library: torch.cumsum(g.float() / arange "
+           "flipped along T))", t_r, bms, by, card)
+    del hp, outs
+    return (dict(max_abs_err=max(errs), ms=t["ms"], plain_ms=t["plain_ms"],
+                 library_ms=t["library_ms"], bound_ms=bms, bound_by=by),
+            dict(max_abs_err=max(errs_r), ms=t_r["ms"],
+                 plain_ms=t_r["plain_ms"], library_ms=t_r["library_ms"],
+                 bound_ms=bms, bound_by=by))
 
 
 def check_cond_lora_grad(torch, clora, card):
@@ -989,7 +1103,8 @@ def main_path(torch, PI, ops, params, cfg, mode, cache_dtype, card,
                              "prefill + decode_step loop")
     L, m = cfg.n_layers, cfg.ccm.comp_len
     # one attend per layer per pass: T ingests, then prefill + NEW - 1
-    # decode steps twice (the explicit loop and generate)
+    # decode steps twice (the explicit loop and generate); one merge
+    # launch (k and v together) per ingest in merge mode
     want_counts = {k: 0 for k in counts}
     # the attends of ingest (Sq 72) and prefill (Sq 448) take the mma.sync
     # route, decode steps the split-K route; every cond_lora is bf16 (wgmma)
@@ -997,7 +1112,7 @@ def main_path(torch, PI, ops, params, cfg, mode, cache_dtype, card,
                         "segmented_attention_mma": L * (T + 2),
                         "segmented_attention_splitk": L * 2 * (NEW - 1),
                         "cond_lora": 4 * L * T, "cond_lora_wgmma": 4 * L * T,
-                        "kv_merge_update": 2 * T if mode == "merge" else 0})
+                        "kv_merge_update": T if mode == "merge" else 0})
     if counts != want_counts:
         raise AssertionError(f"{name}: launches {counts} != {want_counts}")
     mem, cache = st.mem, st.cache
@@ -1448,6 +1563,18 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
               "segmented_attention_mma", "cond_lora", "cond_lora_wgmma"):
         if counts[k] <= 0:
             raise AssertionError(f"{label}: {k} never launched")
+    ingest_batches = int(sum(v["value"]
+                             for v in snap["serve_batches_total"]["values"]
+                             if v["labels"].get("kind") == "ingest"))
+    if cfg.ccm.mode == "merge":
+        # one merge launch (k and v, a weight per lane) per ingest batch,
+        # also for the staggered batch that mixes lanes at t = 2 and 3
+        if counts["kv_merge_update"] != ingest_batches:
+            raise AssertionError(f"{label}: {counts['kv_merge_update']} merge "
+                                 f"launches for {ingest_batches} ingest "
+                                 "batches")
+        log(f"  {label}: {ingest_batches} ingest batches, one kv_merge "
+            "launch each")
     log(f"  {label}: offloads {moved['offload']}, restores "
         f"{moved['restore']}, prefix hits {hits}, COW breaks {cow}, "
         f"launches {counts}")
@@ -1563,7 +1690,7 @@ def main() -> int:
     merge = check_kv_merge(torch, kvm, card)
     check_cond_lora_grad(torch, clora, card)
     ccm_fwd, ccm_bwd = check_ccm_attention(torch, F, ca, segment_layout, card)
-    cummean = check_kv_cummean(torch, kvm, card)
+    cummean, cummean_bwd = check_kv_cummean(torch, kvm, card)
     gather, scatter = check_session_gather(torch, sg, card)
     if "--phase2" in sys.argv[1:]:
         log(f"  --phase2: stopping after phase 2 ({time.perf_counter() - t_start:.1f} s)")
@@ -1608,7 +1735,7 @@ def main() -> int:
     log("  then 4 layers at full width: merge + bf16 (per-lane a_t, async "
         "offload) and concat + int8 cache (pressure recompress)")
     p4 = first_layers(params, 4)
-    serve_phase(torch, ops, PI, p4, cfg.replace(
+    merge_counts = serve_phase(torch, ops, PI, p4, cfg.replace(
         n_layers=4, ccm=dataclasses.replace(cfg.ccm, mode="merge")), card,
         label="4L merge+bf16", n_sessions=6, n_slots=4, seed=22,
         async_offload=True, stagger=True)
@@ -1655,10 +1782,14 @@ def main() -> int:
              launches_by_phase=by_phase["cond_lora_wgmma"],
              kernel_route="TMA + wgmma (bf16)", **lora[288],
              shapes=shape_rows(lora)),
-        dict(name="kv_merge_update", route="triton",
-             source="src/repro_torch/kernels/kv_merge.py",
+        dict(name="kv_merge_update", route="cuda",
+             source="src/repro_torch/csrc/kv_merge.cu",
              replaces="src/repro/kernels/kv_merge.py:27",
-             launches=totals["kv_merge_update"], **merge),
+             launches=totals["kv_merge_update"]
+             + merge_counts["kv_merge_update"],
+             launches_by_phase={"3": totals["kv_merge_update"],
+                                "7": merge_counts["kv_merge_update"]},
+             **merge),
         dict(name="ccm_attention", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
              replaces="src/repro/kernels/ccm_attention.py:86",
@@ -1675,6 +1806,10 @@ def main() -> int:
              source="src/repro_torch/kernels/kv_merge.py",
              replaces="src/repro/kernels/kv_merge.py:65",
              launches=train_counts["kv_cummean"], **cummean),
+        dict(name="kv_cummean_backward", route="triton",
+             source="src/repro_torch/kernels/kv_merge.py",
+             replaces="src/repro/kernels/kv_merge.py:65",
+             launches=train_counts["kv_cummean_backward"], **cummean_bwd),
         dict(name="session_gather", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
              replaces="src/repro/kernels/session_gather.py:30",

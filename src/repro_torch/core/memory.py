@@ -110,11 +110,12 @@ def update_memory(cfg: ModelConfig, mem: MemState, h_k: torch.Tensor,
     n_new_tokens: tokens consumed this step (context + m), per lane or
     shared.
 
-    Merge mode goes through the ``kv_merge_update`` kernel op, which
-    computes in float32 (the reference computes in the memory dtype, with
-    ``a`` rounded to it): one launch over the whole batch when every lane
-    has the same ``a_t``, else one launch per lane on the lane's
-    contiguous block (lane-major memory).  Concat mode writes group
+    Merge mode makes one ``kv_merge_update_lanes`` kernel op call for k
+    and v together, with one ``a_t`` per lane when the lanes' ``t``
+    differ, on either memory layout; ``h`` goes in as the view it is
+    (lane-major: the transpose, read through its strides) and in its own
+    dtype.  The op computes in float32 (the reference computes in the
+    memory dtype, with ``a`` rounded to it).  Concat mode writes group
     ``slots`` of each lane; once the memory is full the write start
     clamps, like the reference's ``dynamic_update_slice``: the newest
     group overwrites the last slot and ``slots`` stays at its maximum.
@@ -124,22 +125,15 @@ def update_memory(cfg: ModelConfig, mem: MemState, h_k: torch.Tensor,
     t_new = mem.steps + 1
     if mem.lane_major:
         h_k, h_v = h_k.transpose(0, 1), h_v.transpose(0, 1)
-    h_k, h_v = h_k.to(mem.k.dtype), h_v.to(mem.v.dtype)
     if cfg.ccm.mode == "merge":
         t = uniform(t_new)
-        if t is not None:
-            a = merge_weight(cfg, t)
-            ops.kv_merge_update(mem.k, h_k.contiguous(), a)
-            ops.kv_merge_update(mem.v, h_v.contiguous(), a)
-        elif not mem.lane_major:
-            raise ValueError("per-lane merge weights need lane-major memory")
-        else:
-            for b, tb in enumerate(per_lane(t_new, B)):
-                a = merge_weight(cfg, int(tb))
-                ops.kv_merge_update(mem.k[b], h_k[b].contiguous(), a)
-                ops.kv_merge_update(mem.v[b], h_v[b].contiguous(), a)
+        a = merge_weight(cfg, t) if t is not None else \
+            [merge_weight(cfg, int(tb)) for tb in per_lane(t_new, B)]
+        ops.kv_merge_update_lanes((mem.k, mem.v), (h_k, h_v), a,
+                                  lane_axis=0 if mem.lane_major else 1)
         slots = mem.slots * 0 + 1
     else:
+        h_k, h_v = h_k.to(mem.k.dtype), h_v.to(mem.v.dtype)
         M = mem.k.shape[2]
         start = np.minimum(mem.slots * m, M - m)
         s0 = uniform(start)

@@ -1,89 +1,228 @@
-"""CCM-merge memory kernels on the H100, in Triton (port of
-``repro/kernels/kv_merge.py``): the online update ``kv_merge_update_``
-and the parallel-training running mean ``kv_cummean``.
+"""CCM-merge memory kernels on the H100 (port of
+``repro/kernels/kv_merge.py``): the online update, a CUDA C++ kernel,
+and the parallel-training running mean ``kv_cummean``, in Triton.
 
-``kv_merge_update_`` replaces the Pallas TPU kernel ``kv_merge_update``
+The online update replaces the Pallas TPU kernel ``kv_merge_update``
 (body ``_merge_kernel``) in ``repro/kernels/kv_merge.py``:
 Mem(t) = (1 - a) Mem(t-1) + a h(t), with ``a`` a runtime weight (1/t
-arithmetic mean, or the EMA alpha).
+arithmetic mean, or the EMA alpha).  Its kernel is ``csrc/kv_merge.cu``;
+its header says what bounds it on the card (bytes) and what the design
+does about that.  ``kv_merge_update_lanes_`` launches it once for a whole
+merge g_update: the k and v memories together, a weight per lane passed
+by value in the launch's parameter struct (at most ``MAX_LANES``), ``h``
+read through its two outer strides (so a lane-major transpose needs no
+copy) and in its own dtype.  ``kv_merge_update_`` is its one-tensor,
+one-weight case.
 
-What bounds it on the H100: device-memory bytes (read mem and h once,
-write mem once; two operations per element).  What the design does: one
-fused elementwise pass of masked 1024-element block loads, float32
-arithmetic and a cast-store, written IN PLACE into ``mem`` (no second
-buffer, no extra copy); ``a`` is a host float passed by value, so there
-is no device read of it.  There is no reuse, shared memory or tensor-core
-work to arrange, which is why Triton is the route.  Triton is imported
-inside the launching function only; its cache goes to
-``build/repro_torch/triton`` unless ``TRITON_CACHE_DIR`` is set.  The
-plain version is ``ref.kv_merge_ref``.
+Why CUDA C++ and not Triton, as this update was first written: on an
+NVIDIA H100 80GB HBM3 at a 700.00 W power limit the Triton kernel took
+0.0097 ms of device time per tensor, but 0.0352 ms per back-to-back
+wrapper call (Triton's Python launcher), and the online path is bound by
+the host's issue time.  This module's launches go through ``ctypes``
+with one parameter struct, as ``session_gather`` does.  The plain
+versions are ``ref.kv_merge_ref`` and ``ref.kv_merge_lanes_ref``.
 """
 from __future__ import annotations
 
+import ctypes
+import numbers
 import os
+import struct
+from typing import Sequence, Union
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import kv_cummean_ref as plain_cummean
-from repro_torch.kernels.ref import kv_merge_ref as plain
+from repro_torch.kernels.ref import kv_merge_lanes_ref as plain_lanes
 
-BLOCK = 1024
+MAX_LANES = 256
 CUMMEAN_BLOCK = 1024
 
-launches = 0           # kv_merge_update_ launches (chip_smoke reads them)
+launches = 0           # kv_merge kernel launches (chip_smoke reads them)
 cummean_launches = 0   # kv_cummean forward launches
 cummean_bwd_launches = 0   # kv_cummean reverse launches
 
-_kernel = None
 _cummean = None
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _compiled():
-    global _kernel
-    if _kernel is None:
-        os.environ.setdefault("TRITON_CACHE_DIR",
-                              str(_build.BUILD_DIR / "triton"))
-        import triton
-        import triton.language as tl
+class _MergeParams(ctypes.Structure):
+    _fields_ = [("mem", ctypes.c_void_p * 2), ("h", ctypes.c_void_p * 2),
+                ("h_s0", ctypes.c_longlong * 2),
+                ("h_s1", ctypes.c_longlong * 2), ("inner", ctypes.c_longlong),
+                ("outer0", ctypes.c_int), ("outer1", ctypes.c_int),
+                ("n_tensors", ctypes.c_int), ("lane_axis", ctypes.c_int),
+                ("n_lanes", ctypes.c_int), ("mem_bf16", ctypes.c_int),
+                ("h_bf16", ctypes.c_int), ("vec", ctypes.c_int),
+                ("a", ctypes.c_float * MAX_LANES)]
 
-        @triton.jit
-        def merge_kernel(mem_ptr, h_ptr, n, a, BLOCK: tl.constexpr):
-            offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-            msk = offs < n
-            m = tl.load(mem_ptr + offs, mask=msk).to(tl.float32)
-            h = tl.load(h_ptr + offs, mask=msk).to(tl.float32)
-            out = (1.0 - a) * m + a * h
-            tl.store(mem_ptr + offs, out.to(mem_ptr.dtype.element_ty),
-                     mask=msk)
 
-        _kernel = (triton, merge_kernel)
-    return _kernel
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        lib = _build.library("kv_merge")
+        lib.kv_merge_abi_size.restype = ctypes.c_int
+        lib.kv_merge_abi_size.argtypes = []
+        if lib.kv_merge_abi_size() != ctypes.sizeof(_MergeParams):
+            raise RuntimeError("kv_merge: C and ctypes parameter layouts "
+                               "differ")
+        fn = lib.kv_merge_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(_MergeParams), ctypes.c_int,
+                       ctypes.c_void_p]
+        _fn = fn
+    return _fn
+
+
+def _outer_strides(x: torch.Tensor):
+    """x's strides along its first two dims (0 for a dim of size 1);
+    raises unless the dims after them form one unit-stride run."""
+    want, shape, stride = 1, x.shape, x.stride()
+    for d in range(len(shape) - 1, 1, -1):
+        if shape[d] != 1 and stride[d] != want:
+            raise ValueError(f"h: the dims after the second must form one "
+                             f"unit-stride run, got strides {stride}")
+        want *= shape[d]
+    return (stride[0] if shape[0] > 1 else 0,
+            stride[1] if shape[1] > 1 else 0)
+
+
+def _geometry(mems, hs, ptrs, shared: bool):
+    """(outer0, outer1, inner, (h_s0, h_s1, ...), vec) of the launch.  A
+    shared weight over contiguous tensors is one run of every element;
+    else the tensors are (d0, d1, rest) arrays.  ``vec``: 16 bytes of the
+    narrower dtype when the inner run is a multiple of that and every
+    base (``ptrs``) and h stride is 16-byte aligned, else 1."""
+    mem0 = mems[0]
+    shape = mem0.shape
+    hsz = hs[0].element_size()
+    full = 16 // min(mem0.element_size(), hsz)
+    if len(shape) < 2 or (shared and all(h.is_contiguous() for h in hs)):
+        o0 = o1 = 1
+        inner = mem0.numel()
+        strides = ()
+    else:
+        o0, o1 = shape[0], shape[1]
+        inner = mem0.numel() // (o0 * o1)
+        tail = mem0.stride()[2:]          # mem is contiguous
+        strides = ()
+        for h in hs:
+            st = h.stride()
+            strides += ((st[0] if o0 > 1 else 0, st[1] if o1 > 1 else 0)
+                        if st[2:] == tail else _outer_strides(h))
+    ok = inner % full == 0
+    for x in ptrs:
+        ok = ok and x % 16 == 0
+    for x in strides:
+        ok = ok and x * hsz % 16 == 0
+    return o0, o1, inner, strides, full if ok else 1
+
+
+def _shared(a) -> bool:
+    t = type(a)
+    return t is float or t is int or isinstance(a, numbers.Real)
+
+
+def vector_width(mems: Sequence[torch.Tensor], hs: Sequence[torch.Tensor],
+                 a: Union[float, Sequence[float]]) -> int:
+    """Elements per thread access that ``kv_merge_update_lanes_`` takes
+    for these arguments: the full 16-byte width or the one-element
+    path."""
+    mems, hs = list(mems), list(hs)
+    ptrs = [x.data_ptr() for x in (*mems, *hs)]
+    return _geometry(mems, hs, ptrs, _shared(a))[4]
+
+
+def _stream(index: int) -> int:
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return get(index) if get is not None \
+        else torch.cuda.current_stream(index).cuda_stream
+
+
+# The fields of the parameter struct before ``a``, filled in one pack.
+_HEAD = struct.Struct("<4Q5q8i")
+assert _HEAD.size == _MergeParams.a.offset
+_ONE = struct.Struct("<f")
+
+
+def kv_merge_update_lanes_(mems: Sequence[torch.Tensor],
+                           hs: Sequence[torch.Tensor],
+                           a: Union[float, Sequence[float]],
+                           lane_axis: int = 0) -> Sequence[torch.Tensor]:
+    """Launch the kernel once: mems[i] <- (1 - a) * mems[i] + a * hs[i] IN
+    PLACE, in float32 with one rounding, for one or two (mem, h) pairs
+    (the k and v memories).  mems: contiguous CUDA float32/bf16 tensors of
+    one shape (d0, d1, ...) and dtype; hs: that shape, float32/bf16 (one
+    dtype, which may differ from mem's), any strides along d0 and d1 and
+    one unit-stride run over the rest.  ``a``: one host float for every
+    lane, or one per lane along ``lane_axis`` (0: d0, 1: d1), at most
+    ``MAX_LANES``.  Returns ``mems``.  Kept to plain comparisons and one
+    struct pack: the online path is bound by the host's issue time."""
+    global launches
+    n = len(mems)
+    if n != len(hs) or not 1 <= n <= 2:
+        raise ValueError(f"1 or 2 (mem, h) pairs, got {n} mems and "
+                         f"{len(hs)} hs")
+    mem0, h0 = mems[0], hs[0]
+    shape, mdt, hdt = mem0.shape, mem0.dtype, h0.dtype
+    for x in (*mems[1:], *hs):
+        if x.shape != shape:
+            raise ValueError(f"mems and hs must have one shape, got "
+                             f"{[tuple(y.shape) for y in (*mems, *hs)]}")
+    if mdt not in _DTYPES or hdt not in _DTYPES \
+            or any(m.dtype != mdt or not m.is_contiguous() for m in mems) \
+            or (n == 2 and hs[1].dtype != hdt):
+        raise ValueError(f"mems: contiguous, one dtype; hs: one dtype; "
+                         f"float32/bf16 only, got "
+                         f"{[m.dtype for m in mems]}/{[h.dtype for h in hs]}")
+    if lane_axis != 0 and lane_axis != 1:
+        raise ValueError(f"lane_axis must be 0 or 1, got {lane_axis}")
+    shared = _shared(a)
+    if not shared and (len(shape) < 2 or len(a) != shape[lane_axis]
+                       or len(a) > MAX_LANES):
+        raise ValueError(f"{len(a)} lane weights for lane axis {lane_axis} "
+                         f"of {tuple(shape)} (at most {MAX_LANES})")
+    index = mem0.get_device()
+    if index < 0 or any(x.get_device() != index for x in (*mems[1:], *hs)):
+        raise ValueError(f"kv_merge_update needs CUDA tensors on one "
+                         f"device, got {[str(y.device) for y in (*mems, *hs)]}")
+    if mem0.numel() == 0:
+        return mems
+    if n == 2:
+        ptrs = (mem0.data_ptr(), mems[1].data_ptr(), h0.data_ptr(),
+                hs[1].data_ptr())
+    else:
+        ptrs = (mem0.data_ptr(), 0, h0.data_ptr(), 0)
+    o0, o1, inner, st, vec = _geometry(mems, hs, ptrs, shared)
+    if not st:
+        st = (0, 0, 0, 0)
+    elif n == 1:
+        st = st + (0, 0)
+    p = _MergeParams()
+    _HEAD.pack_into(p, 0, *ptrs, st[0], st[2], st[1], st[3], inner, o0, o1,
+                    n, -1 if shared else lane_axis, 1 if shared else len(a),
+                    _DTYPES[mdt], _DTYPES[hdt], vec)
+    if shared:
+        _ONE.pack_into(p, _HEAD.size, a)
+    else:
+        struct.pack_into(f"<{len(a)}f", p, _HEAD.size, *a)
+    err = _launcher()(ctypes.byref(p), index, _stream(index))
+    if err != 0:
+        raise RuntimeError(f"kv_merge kernel launch failed: cudaError {err}")
+    launches += 1
+    return mems
 
 
 def kv_merge_update_(mem: torch.Tensor, h: torch.Tensor,
                      a: float) -> torch.Tensor:
-    """Launch the Triton kernel: mem <- (1 - a) * mem + a * h IN PLACE.
-    mem/h: contiguous CUDA tensors of one shape (h may have another float
-    dtype); ``a`` a host float.  Returns ``mem``."""
-    global launches
-    if not mem.is_cuda:
-        raise ValueError("kv_merge_update_ needs CUDA tensors")
-    if mem.shape != h.shape or mem.device != h.device \
-            or not mem.is_contiguous() or not h.is_contiguous():
-        raise ValueError(f"mem {tuple(mem.shape)} and h {tuple(h.shape)}: "
-                         "want contiguous tensors of one shape and device")
-    if not (mem.is_floating_point() and h.is_floating_point()):
-        raise ValueError(f"float tensors only, got {mem.dtype}/{h.dtype}")
-    n = mem.numel()
-    if n == 0:
-        return mem
-    triton, kern = _compiled()
-    with torch.cuda.device(mem.device):
-        kern[(triton.cdiv(n, BLOCK),)](mem, h, n, float(a), BLOCK=BLOCK,
-                                       num_warps=4)
-    launches += 1
-    return mem
+    """One tensor, one weight: mem <- (1 - a) * mem + a * h IN PLACE (see
+    ``kv_merge_update_lanes_`` for what the tensors may be).  Returns
+    ``mem``."""
+    return kv_merge_update_lanes_([mem], [h], float(a))[0]
 
 
 # ---------------------------------------------------------------------------

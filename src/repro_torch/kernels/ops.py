@@ -8,7 +8,7 @@ no fallback from a CUDA tensor to the plain version.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 
@@ -75,6 +75,23 @@ def kv_merge_update(mem: torch.Tensor, h: torch.Tensor,
     if mem.is_cuda:
         return _merge.kv_merge_update_(mem, h, a)
     return mem.copy_(_ref.kv_merge_ref(mem, h, a))
+
+
+def kv_merge_update_lanes(mems: Sequence[torch.Tensor],
+                          hs: Sequence[torch.Tensor],
+                          a: Union[float, Sequence[float]],
+                          lane_axis: int = 0) -> Sequence[torch.Tensor]:
+    """The whole merge g_update: ``mems[i] <- (1 - a) * mems[i] + a *
+    hs[i]`` IN PLACE for the k and v memories together, in float32 with
+    one rounding.  ``a`` is one host float, or one per lane along
+    ``lane_axis`` (0 or 1) of the (d0, d1, ...) memories; ``hs`` may be
+    strided views along d0 and d1 and of another float dtype.  One kernel
+    launch on CUDA."""
+    if mems[0].is_cuda:
+        return _merge.kv_merge_update_lanes_(mems, hs, a, lane_axis)
+    for mem, h in zip(mems, hs):
+        mem.copy_(_ref.kv_merge_lanes_ref(mem, h, a, lane_axis))
+    return mems
 
 
 def ccm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

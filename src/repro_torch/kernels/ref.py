@@ -208,7 +208,17 @@ def cond_lora_ref(x, w, a, b, gate, scale: float,
 def kv_merge_ref(mem, h, a: float) -> torch.Tensor:
     """Merge update (1 - a) * mem + a * h in float32, cast to mem.dtype;
     ``a`` is the runtime weight (1/t arithmetic mean, or the EMA alpha)."""
-    a32 = torch.tensor(a, dtype=torch.float32, device=mem.device)
+    return kv_merge_lanes_ref(mem, h, a)
+
+
+def kv_merge_lanes_ref(mem, h, a, lane_axis: int = 0) -> torch.Tensor:
+    """Merge update with a weight per lane: (1 - a) * mem + a * h in
+    float32, cast once to mem.dtype.  ``a`` is one host float, or one per
+    index of ``lane_axis`` (0 or 1) of mem; ``h`` may have any strides and
+    another float dtype."""
+    a32 = torch.as_tensor(a, dtype=torch.float32, device=mem.device)
+    if a32.ndim:
+        a32 = a32.reshape((-1,) + (1,) * (mem.ndim - 1 - lane_axis))
     return ((1 - a32) * mem.float() + a32 * h.float()).to(mem.dtype)
 
 

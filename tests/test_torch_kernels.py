@@ -10,7 +10,9 @@ at the end of the file.
 Tolerances (float32 on the CPU): segmented attention atol 2e-5 (the
 Pallas kernel's online softmax against the port's dense softmax over the
 concatenation); cond_lora atol 1e-4 at K = 256 (float32 sums in another
-order); kv_merge atol 1e-6 (the same float32 arithmetic).
+order); kv_merge atol 1e-6 (the same float32 arithmetic), also for the
+batched merge op (k and v, per-lane weights, a strided ``h``) held lane
+by lane against the Pallas kernel.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -228,10 +230,50 @@ def test_kv_merge_update(alpha):
                 atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("weights", ["per_lane", "shared"])
+@pytest.mark.parametrize("h_layout", ["contiguous", "transposed"])
+@pytest.mark.parametrize("lane_major", [False, True])
+def test_kv_merge_update_lanes(lane_major, h_layout, weights):
+    """The batched op's plain version (k and v in one call, a weight per
+    lane, the lane on axis 0 or 1, h contiguous or a transposed view)
+    against the Pallas kernel run on each lane alone (interpret mode)."""
+    rs = np.random.default_rng(8)
+    L, B, m, H, hd = 3, 4, 2, 2, 8
+    lanes = [1.0, 0.5, 1.0 / 3, 0.3]
+    a = lanes if weights == "per_lane" else 1.0 / 3
+    shape = (B, L, m, H, hd) if lane_major else (L, B, m, H, hd)
+    mk, mv = rs.normal(size=(2,) + shape).astype(np.float32)
+    # h in the layout of the memory, or the other one seen transposed
+    other = (L, B) if lane_major else (B, L)
+    hk, hv = rs.normal(size=(2,) + (other if h_layout == "transposed"
+                                    else shape[:2]) + shape[2:]
+                       ).astype(np.float32)
+    th = [_t(x) for x in (hk, hv)]
+    if h_layout == "transposed":
+        th = [x.transpose(0, 1) for x in th]
+        assert not th[0].is_contiguous()
+    hk_m, hv_m = (x.numpy() for x in th)         # in the memory's layout
+    mems = [_t(mk), _t(mv)]
+    out = pops.kv_merge_update_lanes(mems, th, a,
+                                     lane_axis=0 if lane_major else 1)
+    assert out[0] is mems[0] and out[1] is mems[1]     # in place
+    for b in range(B):
+        ab = lanes[b] if weights == "per_lane" else a
+        for got, mem0, h in ((mems[0], mk, hk_m), (mems[1], mv, hv_m)):
+            lane = (lambda x: x[b]) if lane_major else (lambda x: x[:, b])
+            want = jops.kv_merge_update(jnp.asarray(lane(mem0)),
+                                        jnp.asarray(lane(h)), ab,
+                                        interpret=True)
+            np.testing.assert_allclose(lane(got).numpy(), np.asarray(want),
+                                       atol=1e-6, rtol=0)
+
+
 def test_cpu_ops_launch_no_kernel():
     """CPU tensors take the plain versions: no launch is counted."""
     pops.reset_launch_counts()
     pops.kv_merge_update(torch.zeros(4), torch.ones(4), 0.5)
+    pops.kv_merge_update_lanes([torch.zeros(2, 3)] * 2, [torch.ones(2, 3)] * 2,
+                               [0.5, 0.25], lane_axis=0)
     pops.cond_lora(torch.ones(2, 8), torch.ones(8, 8), torch.ones(1, 8),
                    torch.ones(1, 8), torch.ones(2), 2.0)
     pops.kv_cummean(torch.ones(3, 4))
@@ -247,6 +289,31 @@ def test_cpu_ops_launch_no_kernel():
         "ccm_attention_mma": 0, "ccm_attention_backward_mma": 0,
         "kv_cummean": 0,
         "kv_cummean_backward": 0, "session_gather": 0, "session_scatter": 0}
+
+
+@pytest.mark.parametrize("case", ["cpu", "shapes", "lanes_over_max",
+                                  "lane_count", "three_pairs", "dtype"])
+def test_kv_merge_lanes_launcher_refuses(case):
+    """The merge kernel's launcher refuses CPU tensors, tensors of
+    different shapes, a lane count other than the lane axis's or above
+    MAX_LANES, more than two (mem, h) pairs and dtypes it does not take,
+    with a ValueError before any launch."""
+    x = torch.zeros(4, 3, 8)
+    mems, hs, a, axis, match = [x, x.clone()], [x, x], [0.5] * 4, 0, "CUDA"
+    if case == "shapes":
+        hs, match = [x, torch.zeros(4, 3, 9)], "one shape"
+    elif case == "lanes_over_max":
+        big = torch.zeros(pkm.MAX_LANES + 1, 1, 8)
+        mems, hs, a = [big], [big], [0.5] * (pkm.MAX_LANES + 1)
+        match = "lane weights"
+    elif case == "lane_count":
+        a, axis, match = [0.5] * 4, 1, "lane weights"
+    elif case == "three_pairs":
+        mems, hs, match = [x] * 3, [x] * 3, "pairs"
+    elif case == "dtype":
+        mems, match = [x.half(), x.half()], "float32/bf16"
+    with pytest.raises(ValueError, match=match):
+        pkm.kv_merge_update_lanes_(mems, hs, a, lane_axis=axis)
 
 
 def pops_info(S):
