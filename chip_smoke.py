@@ -52,8 +52,11 @@ launches in phases 3, 5 and 7), then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward on
 its float32 and bf16 routes, the bf16 cases with per-lane (B, S)
 metadata, a layout with no <COMP> key and hd 72, the backward run twice
-and bit-equal; kv_cummean forward and reverse; cond_lora's autograd)
-and the arena's session gather/scatter against their plain versions.
+and bit-equal; kv_cummean forward and reverse as one launch for the
+k + v groups of a layer, read in place from strided <COMP> groups and
+sliced gradients, timed as the median of three profiler windows;
+cond_lora's autograd) and the arena's session gather/scatter against
+their plain versions.
 Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
@@ -901,73 +904,151 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
     return fwd_row, bwd_row
 
 
+def windows(torch, fn, only=None, n: int = 3, iters: int = 20):
+    """(median, min, max) of the device ms per call over ``n`` profiler
+    windows (``device_ms``): one window can read 10% slow."""
+    ts = sorted(device_ms(torch, fn, iters, only=only) for _ in range(n))
+    return ts[n // 2], ts[0], ts[-1]
+
+
 def check_kv_cummean(torch, kvm, card):
-    """Kernel 5 at the merge shape: T = 16 steps of R = B*m*H*D columns,
-    forward and reverse, contiguous and read in place from (B, S, H, D);
-    each direction timed against its bound and one library call.  Returns
-    the forward's and the reverse's rows."""
+    """Kernel 5, one launch for the k + v groups of a layer, forward and
+    reverse (autograd), against the plain versions: float32 within 1e-6 x
+    max|want|, bf16 within bf16_tol (both accumulate in float32 and round
+    once; the kernel multiplies by 1/(t+1) where the plain version
+    divides).  Each case asserts its route (the vector width) and one
+    launch per direction.  Cases: the training pair read in place from
+    the strided <COMP> groups of two (B, S, H, D) activations, with
+    gradients sliced out of a larger one (as torch.cat's backward gives
+    them); contiguous float32 pairs; the single (1, 16, 131072) tensor;
+    T = 1 and T = 37; R = 185 and a base 2 bytes off 16-byte alignment
+    (the one-element path).  Then times, as the median of three profiler
+    windows with the min-max beside it, the pair forward and reverse at
+    the training shape and the single tensor, each against its bytes
+    bound and the library calls.  Returns the forward's and the
+    reverse's rows."""
     dev = "cuda"
+    bf, f32 = torch.bfloat16, torch.float32
     g = torch.Generator(device=dev).manual_seed(6)
     T, B, m, H, D, lc = 16, 4, 8, 32, 128, 64
-    R = B * m * H * D
+    R = m * H * D                      # 32768 columns of a <COMP> group
+    S = T * (lc + m) + 64              # the training layout, S = 1216
+
+    def rn(*shape, dtype=bf):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
     errs, errs_r = [], []
-    for dt in (torch.float32, torch.bfloat16):
-        h = torch.randn(T, R, generator=g, device=dev).to(dt)
-        gr = torch.randn(T, R, generator=g, device=dev).to(dt)
-        hh = h.detach().requires_grad_(True)
-        out = kvm.kv_cummean(hh[None])[0]
-        (dh,) = torch.autograd.grad(out, (hh,), gr)
-        hp = h.detach().requires_grad_(True)
-        want = kvm.plain_cummean(hp, 0)
-        (dwant,) = torch.autograd.grad(want, (hp,), gr)
+
+    def case(name, hs, gs, vec):
+        width = kvm.cummean_vector_width(hs)
+        if width != vec:
+            raise AssertionError(f"kv_cummean {name}: vector width {width}, "
+                                 f"want {vec}")
+        xs = [h.detach().requires_grad_(True) for h in hs]  # same strides
+        before = (kvm.cummean_launches, kvm.cummean_bwd_launches)
+        outs = kvm.kv_cummean(*xs)
+        dhs = torch.autograd.grad(outs, xs, gs)
         torch.cuda.synchronize()
-        tol = (lambda w: 1e-6 * w.abs().max().item()) if dt == torch.float32 \
-            else bf16_tol
-        errs.append(max_err(out, want))
-        check(f"kv_cummean forward (T{T}, R{R}) {str(dt)[6:]}", errs[-1],
-              tol(want))
-        errs_r.append(max_err(dh, dwant))
-        check(f"kv_cummean reverse (T{T}, R{R}) {str(dt)[6:]}", errs_r[-1],
-              tol(dwant))
-    # in place: the <COMP> groups of a (B, S, H, D) activation, strided
-    x = torch.randn(B, T * (lc + m) + 64, H, D, generator=g,
-                    device=dev).bfloat16()
-    grp = x[:, :T * (lc + m)].reshape(B, T, lc + m, H * D)[:, :, lc:].flatten(2)
-    got = kvm.kv_cummean(grp)
-    want = kvm.plain_cummean(grp, 1)
-    check("kv_cummean on the strided <COMP> groups of (B, S, H, D)",
-          max_err(got, want), bf16_tol(want))
-    # 16 inputs of 4 MiB in turn: more than the 50 MB L2 holds
-    hs = [torch.randn(T, R, generator=g, device=dev).bfloat16()
-          for _ in range(16)]
-    ar = torch.arange(1, T + 1, device=dev, dtype=torch.float32)[:, None]
-    t = timings(
-        torch, lambda i: kvm.kv_cummean(hs[i % 16][None]), "cummean_kernel",
-        lambda i: kvm.plain_cummean(hs[i % 16], 0),
-        lambda i: torch.cumsum(hs[i % 16].float(), 0) / ar)
-    bms, by = bound(2 * 2 * T * R, 2.0 * T * R, PEAK_BF16)
-    report("kv_cummean (library: torch.cumsum(h.float(), 0) / arange)", t,
-           bms, by, card)
-    # the reverse on a gradient g (T, R): the kernel; the plain version's
-    # backward (autograd through ref.kv_cummean_ref, its graph kept); the
-    # library: torch.cumsum of g / (t + 1) flipped along T
-    hp = [h.detach().requires_grad_(True) for h in hs]
-    outs = [kvm.plain_cummean(x, 0) for x in hp]
-    t_r = timings(
-        torch, lambda i: kvm.kv_cummean_launch(hs[i % 16][None],
-                                               reverse=True),
-        "cummean_kernel",
-        lambda i: torch.autograd.grad(outs[i % 16], hp[i % 16], hs[i % 16],
-                                      retain_graph=True),
-        lambda i: torch.cumsum((hs[i % 16].float() / ar).flip(0), 0).flip(0))
-    report("kv_cummean reverse (library: torch.cumsum(g.float() / arange "
-           "flipped along T))", t_r, bms, by, card)
-    del hp, outs
-    return (dict(max_abs_err=max(errs), ms=t["ms"], plain_ms=t["plain_ms"],
-                 library_ms=t["library_ms"], bound_ms=bms, bound_by=by),
-            dict(max_abs_err=max(errs_r), ms=t_r["ms"],
-                 plain_ms=t_r["plain_ms"], library_ms=t_r["library_ms"],
-                 bound_ms=bms, bound_by=by))
+        after = (kvm.cummean_launches, kvm.cummean_bwd_launches)
+        if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+            raise AssertionError(f"kv_cummean {name}: launches {before} -> "
+                                 f"{after}, want one per direction")
+        for h, gr, out, dh in zip(hs, gs, outs, dhs):
+            want = kvm.plain_cummean(h, 1)
+            dwant = kvm.plain_reverse(gr, 1)
+            tol = bf16_tol if h.dtype == bf \
+                else (lambda w: 1e-6 * w.abs().max().item())
+            errs.append(max_err(out, want))
+            errs_r.append(max_err(dh, dwant))
+            check(f"kv_cummean forward {name} (width {width})", errs[-1],
+                  tol(want))
+            check(f"kv_cummean reverse {name} (width {width})", errs_r[-1],
+                  tol(dwant))
+
+    def groups(x):
+        """The (B, T, m*H*D) <COMP> groups of x (B, S, H, D), in place."""
+        return x[:, :T * (lc + m)].reshape(B, T, lc + m, H * D)[
+            :, :, lc:].flatten(2)
+
+    def cat_grad():
+        """The slot part of the gradient of cat([slots, raw], 1)."""
+        full = rn(B, T * m + S, H, D)
+        return full[:, :T * m].reshape(B, T, R)
+
+    case(f"k+v <COMP> groups of (B, S, H, D) = {(B, S, H, D)}, gradient "
+         f"sliced from cat's", [groups(rn(B, S, H, D)) for _ in range(2)],
+         [cat_grad(), cat_grad()], 8)
+    case(f"k+v {(B, T, R)} float32", [rn(B, T, R, dtype=f32)
+                                      for _ in range(2)],
+         [rn(B, T, R, dtype=f32) for _ in range(2)], 4)
+    for dt, vec in ((bf, 8), (f32, 4)):
+        case(f"single (1, {T}, {B * R}) {str(dt)[6:]}",
+             [rn(1, T, B * R, dtype=dt)], [rn(1, T, B * R, dtype=dt)], vec)
+    case(f"k+v T=1 {(B, 1, R)}", [rn(B, 1, R) for _ in range(2)],
+         [rn(B, 1, R) for _ in range(2)], 8)
+    case("k+v T=37 (2, 37, 4096)", [rn(2, 37, 4096) for _ in range(2)],
+         [rn(2, 37, 4096) for _ in range(2)], 8)
+    case("k+v R=185 (3, 37, 185)", [rn(3, 37, 185) for _ in range(2)],
+         [rn(3, 37, 185) for _ in range(2)], 1)
+    n = B * T * 4096
+    case("k+v, k 2 bytes off 16-byte alignment (4, 16, 4096)",
+         [rn(n + 1)[1:].view(B, T, 4096), rn(B, T, 4096)],
+         [rn(B, T, 4096) for _ in range(2)], 1)
+
+    # timing: 8 pairs of 4 MiB tensors in turn, more than the 50 MB L2
+    sets = [(rn(B, T, R), rn(B, T, R)) for _ in range(8)]
+    ar = torch.arange(1, T + 1, device=dev, dtype=f32)[:, None]
+
+    def lib_fwd(x):
+        return torch.cumsum(x.float(), 1) / ar
+
+    def lib_rev(x):
+        return torch.cumsum((x.float() / ar).flip(1), 1).flip(1)
+
+    def timed(label, kern, plain, library, nb, n_el):
+        ms, lo, hi = windows(torch, kern, "kv_cummean_kernel")
+        lib, lib_lo, lib_hi = windows(torch, library)
+        t = dict(ms=ms, ms_min=lo, ms_max=hi,
+                 call_ms=time_ms(torch, kern, 20),
+                 plain_ms=device_ms(torch, plain, 10), library_ms=lib)
+        bms, by = bound(nb, 2.0 * n_el, PEAK_F32)
+        report(label, t, bms, by, card)
+        log(f"    median of 3 windows {ms:.4f} ms (min {lo:.4f}, max "
+            f"{hi:.4f}), library {lib:.4f} ({lib_lo:.4f}-{lib_hi:.4f}): "
+            f"{bms / ms:.3f} of the bound, {lib / ms:.2f}x the library's "
+            f"speed [{card}]")
+        return dict(ms=ms, ms_min=lo, ms_max=hi, plain_ms=t["plain_ms"],
+                    library_ms=lib, bound_ms=bms, bound_by=by)
+
+    n_el = 2 * B * T * R
+    fwd = timed(
+        f"kv_cummean k+v {(B, T, R)} bf16 (library: two torch.cumsum("
+        f"h.float(), 1) / arange)",
+        lambda i: kvm.kv_cummean_launch(sets[i % 8]),
+        lambda i: [kvm.plain_cummean(x, 1) for x in sets[i % 8]],
+        lambda i: [lib_fwd(x) for x in sets[i % 8]], 2 * n_el * 2, n_el)
+    rev = timed(
+        f"kv_cummean reverse k+v {(B, T, R)} bf16 (library: two "
+        f"torch.cumsum of g / (t+1) flipped along T)",
+        lambda i: kvm.kv_cummean_launch(sets[i % 8], reverse=True),
+        lambda i: [kvm.plain_reverse(x, 1) for x in sets[i % 8]],
+        lambda i: [lib_rev(x) for x in sets[i % 8]], 2 * n_el * 2, n_el)
+    singles = [x.view(1, T, B * R) for pair in sets for x in pair]
+    n_el = T * B * R
+    single = [timed(
+        f"kv_cummean{name} single (1, {T}, {B * R}) bf16",
+        lambda i: kvm.kv_cummean_launch([singles[i % 16]], reverse=r),
+        lambda i: plain(singles[i % 16], 1),
+        lambda i: lib(singles[i % 16]), 2 * n_el * 2, n_el)
+        for name, r, plain, lib in (
+            ("", False, kvm.plain_cummean, lib_fwd),
+            (" reverse", True, kvm.plain_reverse, lib_rev))]
+    del sets, singles
+    fwd.update(max_abs_err=max(errs), shape=f"k+v {(B, T, R)} bf16",
+               single=single[0])
+    rev.update(max_abs_err=max(errs_r), shape=f"k+v {(B, T, R)} bf16",
+               single=single[1])
+    return fwd, rev
 
 
 def check_cond_lora_grad(torch, clora, card):
@@ -1255,7 +1336,7 @@ def train_phase(torch, ops, clora, TR, T, PD, PA, PP, segment_layout,
                    "ccm_attention_mma": 2 * L,
                    "ccm_attention_backward_mma": L,
                    "cond_lora": 4 * 2 * L, "cond_lora_wgmma": 4 * 2 * L},
-        "merge": {"kv_cummean": 2 * 2 * L, "kv_cummean_backward": 2 * L,
+        "merge": {"kv_cummean": 2 * L, "kv_cummean_backward": L,
                   "cond_lora": 4 * 2 * L, "cond_lora_wgmma": 4 * 2 * L}}
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -1802,12 +1883,12 @@ def main() -> int:
              launches=sum(by_phase["ccm_attention_backward_mma"].values()),
              launches_by_phase=by_phase["ccm_attention_backward_mma"],
              kernel_route="mma.sync, two tile streams (bf16)", **ccm_bwd),
-        dict(name="kv_cummean", route="triton",
-             source="src/repro_torch/kernels/kv_merge.py",
+        dict(name="kv_cummean", route="cuda",
+             source="src/repro_torch/csrc/kv_cummean.cu",
              replaces="src/repro/kernels/kv_merge.py:65",
              launches=train_counts["kv_cummean"], **cummean),
-        dict(name="kv_cummean_backward", route="triton",
-             source="src/repro_torch/kernels/kv_merge.py",
+        dict(name="kv_cummean_backward", route="cuda",
+             source="src/repro_torch/csrc/kv_cummean.cu",
              replaces="src/repro/kernels/kv_merge.py:65",
              launches=train_counts["kv_cummean_backward"], **cummean_bwd),
         dict(name="session_gather", route="cuda",

@@ -154,25 +154,24 @@ def merge_virtual_kv(k: torch.Tensor, v: torch.Tensor,
     k, v: (B, S, H, D).  Returns (B, T*comp_len, H, D) slot keys/values;
     slot j holds Mem(j+1), the weighted average of the <COMP>-group KVs
     of segments 1..j+1.  ``alpha=None`` (the running mean) goes to the
-    ``kv_cummean`` kernel op over the groups read in place, in float32
-    with one rounding; the reference computes the same mean as an einsum
-    with the (T, T) weights cast to k.dtype, so in bf16 the two differ
-    at bf16 level (1/3 rounds to 0.33398).  The EMA keeps the einsum.
+    ``kv_cummean_pair`` kernel op over the k and v groups read in place,
+    one launch for both, in float32 with one rounding; the reference
+    computes the same mean as an einsum with the (T, T) weights cast to
+    k.dtype, so in bf16 the two differ at bf16 level (1/3 rounds to
+    0.33398).  The EMA keeps the einsum.  ``comp_mask`` is best given on
+    the host: the groups' placement is read from it on every call.
     """
     from repro_torch.kernels import ops
     B, S, H, D = k.shape
     T, m = t_steps, comp_len
-    out = []
-    for x in (k, v):
-        g = _comp_groups(x, comp_mask, T, m)                 # (B, T, m*H*D)
-        if alpha is None:
-            mem = ops.kv_cummean(g, dim=1)
-        else:
-            w = merge_coefficients(T, alpha).to(device=x.device,
-                                                dtype=x.dtype)
-            mem = torch.einsum("ji,bir->bjr", w, g)
-        out.append(mem.reshape(B, T * m, H, D))
-    return out[0], out[1]
+    # the (B, T, m*H*D) <COMP> groups, strided views where they can be
+    gk, gv = (_comp_groups(x, comp_mask, T, m) for x in (k, v))
+    if alpha is None:
+        mk, mv = ops.kv_cummean_pair(gk, gv, dim=1)
+    else:
+        w = merge_coefficients(T, alpha).to(device=k.device, dtype=k.dtype)
+        mk, mv = (torch.einsum("ji,bir->bjr", w, g) for g in (gk, gv))
+    return mk.reshape(B, T * m, H, D), mv.reshape(B, T * m, H, D)
 
 
 def expand_slot_mask(slot_mask: torch.Tensor, comp_len: int) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """CCM-merge memory kernels on the H100 (port of
-``repro/kernels/kv_merge.py``): the online update, a CUDA C++ kernel,
-and the parallel-training running mean ``kv_cummean``, in Triton.
+``repro/kernels/kv_merge.py``): the online update and the
+parallel-training running mean ``kv_cummean``, each a CUDA C++ kernel
+with one launch for the k and the v tensor together.
 
 The online update replaces the Pallas TPU kernel ``kv_merge_update``
 (body ``_merge_kernel``) in ``repro/kernels/kv_merge.py``:
@@ -14,36 +15,46 @@ read through its two outer strides (so a lane-major transpose needs no
 copy) and in its own dtype.  ``kv_merge_update_`` is its one-tensor,
 one-weight case.
 
-Why CUDA C++ and not Triton, as this update was first written: on an
-NVIDIA H100 80GB HBM3 at a 700.00 W power limit the Triton kernel took
-0.0097 ms of device time per tensor, but 0.0352 ms per back-to-back
-wrapper call (Triton's Python launcher), and the online path is bound by
-the host's issue time.  This module's launches go through ``ctypes``
-with one parameter struct, as ``session_gather`` does.  The plain
-versions are ``ref.kv_merge_ref`` and ``ref.kv_merge_lanes_ref``.
+The running mean replaces the Pallas TPU kernel ``kv_cummean`` (body
+``_cummean_kernel``): out[t] = (sum_{i<=t} h[i]) / (t+1) over the T axis
+of an (N, T, R) view, and the reverse pass that is its gradient,
+dh[t] = sum_{j>=t} g[j] / (j+1), both in float32 with one rounding.  Its
+kernel is ``csrc/kv_cummean.cu``: bound by device-memory bytes (no
+reuse); each thread walks T for one 16-byte column vector with a chunk
+of steps' loads in flight before the running sums, and the k and v
+tensors of a layer go in one launch, each read in place through its own
+row and step strides.  ``kv_cummean`` is its autograd op.
+
+Why CUDA C++ and not Triton, as both were first written: on an NVIDIA
+H100 80GB HBM3 at a 700.00 W power limit a Triton launch cost ~0.035 ms
+of host time through Triton's Python launcher, more than the device time
+of these kernels, and the Triton running mean walked T with one load in
+flight per step (0.3 of its bytes bound).  This module's launches go
+through ``ctypes`` with one parameter struct each, as ``session_gather``
+does.  The plain versions are ``ref.kv_merge_ref``,
+``ref.kv_merge_lanes_ref``, ``ref.kv_cummean_ref`` and
+``ref.kv_cummean_reverse_ref``.
 """
 from __future__ import annotations
 
 import ctypes
 import numbers
-import os
 import struct
-from typing import Sequence, Union
+from typing import List, Sequence, Union
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import kv_cummean_ref as plain_cummean
+from repro_torch.kernels.ref import kv_cummean_reverse_ref as plain_reverse
 from repro_torch.kernels.ref import kv_merge_lanes_ref as plain_lanes
 
 MAX_LANES = 256
-CUMMEAN_BLOCK = 1024
 
 launches = 0           # kv_merge kernel launches (chip_smoke reads them)
-cummean_launches = 0   # kv_cummean forward launches
+cummean_launches = 0   # kv_cummean forward launches (one per k + v pair)
 cummean_bwd_launches = 0   # kv_cummean reverse launches
 
-_cummean = None
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -58,24 +69,37 @@ class _MergeParams(ctypes.Structure):
                 ("a", ctypes.c_float * MAX_LANES)]
 
 
-_fn = None
+class _CumMeanParams(ctypes.Structure):
+    _fields_ = [("h", ctypes.c_void_p * 2), ("out", ctypes.c_void_p * 2),
+                ("s_n", ctypes.c_longlong * 2),
+                ("s_t", ctypes.c_longlong * 2), ("R", ctypes.c_longlong),
+                ("N", ctypes.c_int), ("T", ctypes.c_int),
+                ("n_tensors", ctypes.c_int), ("reverse", ctypes.c_int),
+                ("bf16", ctypes.c_int), ("vec", ctypes.c_int)]
 
 
-def _launcher():
-    global _fn
-    if _fn is None:
-        lib = _build.library("kv_merge")
-        lib.kv_merge_abi_size.restype = ctypes.c_int
-        lib.kv_merge_abi_size.argtypes = []
-        if lib.kv_merge_abi_size() != ctypes.sizeof(_MergeParams):
-            raise RuntimeError("kv_merge: C and ctypes parameter layouts "
+_PARAMS = {"kv_merge": _MergeParams, "kv_cummean": _CumMeanParams}
+_fns = {}
+
+
+def _launcher(stem: str = "kv_merge"):
+    """The C entry ``<stem>_launch`` of ``csrc/<stem>.cu``, after checking
+    that its parameter struct has the ctypes layout's size."""
+    fn = _fns.get(stem)
+    if fn is None:
+        lib = _build.library(stem)
+        size = getattr(lib, f"{stem}_abi_size")
+        size.restype = ctypes.c_int
+        size.argtypes = []
+        params = _PARAMS[stem]
+        if size() != ctypes.sizeof(params):
+            raise RuntimeError(f"{stem}: C and ctypes parameter layouts "
                                "differ")
-        fn = lib.kv_merge_launch
+        fn = getattr(lib, f"{stem}_launch")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(_MergeParams), ctypes.c_int,
-                       ctypes.c_void_p]
-        _fn = fn
-    return _fn
+        fn.argtypes = [ctypes.POINTER(params), ctypes.c_int, ctypes.c_void_p]
+        _fns[stem] = fn
+    return fn
 
 
 def _outer_strides(x: torch.Tensor):
@@ -225,102 +249,129 @@ def kv_merge_update_(mem: torch.Tensor, h: torch.Tensor,
     return kv_merge_update_lanes_([mem], [h], float(a))[0]
 
 
+
+
 # ---------------------------------------------------------------------------
 # kv_cummean: running mean over T (merge-mode parallel training)
 #
-# Replaces the Pallas TPU kernel ``kv_cummean`` (body ``_cummean_kernel``)
-# in ``repro/kernels/kv_merge.py``: out[t] = (sum_{i<=t} h[i]) / (t+1),
-# carried in a float32 accumulator.  The TPU kernel walks T as a
-# sequential grid axis; here one program owns a block of columns of one
-# outer row and loops over T itself, so the accumulator stays in
-# registers.  Its reverse (the gradient) is the same loop run backwards:
-# dh[t] = sum_{j>=t} g[j] / (j+1).
-#
-# What bounds it on the H100: device-memory bytes (read each element of
-# h once, write each output once; 2 operations per element).  The input
-# is a (N, T, R) view with an outer and a T stride and unit column
-# stride, so the <COMP> groups of a (B, S, H, D) activation are read in
-# place without a gather.  The output is contiguous (N, T, R).
+# What bounds it on the H100: device-memory bytes (each input element
+# read once, each output written once, 2 operations per element, no
+# reuse).  T is short (16 at the paper's layout) and the columns many,
+# so the work is wide and shallow: the kernel (``csrc/kv_cummean.cu``,
+# whose header has the details) gives each thread one 16-byte column
+# vector and issues a chunk of T steps' loads before the running sums.
+# One launch takes the k and v groups of a layer, each through its own
+# row and step strides, so neither the strided <COMP> groups nor a
+# gradient sliced out of ``torch.cat``'s is copied.  The wrapper runs on
+# every layer, forward, recompute and backward: plain comparisons and
+# one struct pack.
 # ---------------------------------------------------------------------------
 
-def _cummean_compiled():
-    global _cummean
-    if _cummean is None:
-        os.environ.setdefault("TRITON_CACHE_DIR",
-                              str(_build.BUILD_DIR / "triton"))
-        import triton
-        import triton.language as tl
-
-        @triton.jit
-        def cummean_kernel(h_ptr, o_ptr, T, R, s_n, s_t,
-                           REVERSE: tl.constexpr, BLOCK: tl.constexpr):
-            cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-            n = tl.program_id(1).to(tl.int64)
-            msk = cols < R
-            src = h_ptr + n * s_n + cols
-            dst = o_ptr + n * T * R + cols
-            acc = tl.zeros([BLOCK], dtype=tl.float32)
-            for i in range(0, T):
-                if REVERSE:
-                    t = T - 1 - i
-                else:
-                    t = i
-                x = tl.load(src + t.to(tl.int64) * s_t, mask=msk).to(tl.float32)
-                if REVERSE:
-                    acc += x / (t + 1.0)
-                    out = acc
-                else:
-                    acc += x
-                    out = acc / (t + 1.0)
-                tl.store(dst + t.to(tl.int64) * R,
-                         out.to(o_ptr.dtype.element_ty), mask=msk)
-
-        _cummean = (triton, cummean_kernel)
-    return _cummean
+# The kv_cummean parameter struct, filled in one pack.
+_CUM = struct.Struct("<4Q5q6i")
+assert _CUM.size == ctypes.sizeof(_CumMeanParams)
 
 
-def kv_cummean_launch(h: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """Launch the Triton kernel on h (N, T, R) (CUDA, float32/bf16, unit
-    column stride; any outer and T strides).  Forward: running means over
-    T; ``reverse``: the gradient pass.  Returns a contiguous (N, T, R)."""
+def _cummean_params(hs, outs, reverse: bool) -> _CumMeanParams:
+    """The launch's parameter struct for the (N, T, R) inputs ``hs`` (one
+    shape and dtype, checked by the caller) and their outputs, filled in
+    one pack.  Raises unless each input has unit column stride.  The
+    route: 16-byte accesses when R is a multiple of 16 bytes' worth and
+    every base and (row, step) stride is 16-byte aligned, else the
+    one-element path; the outputs are fresh allocations, aligned."""
+    N, T, R = hs[0].shape
+    size = hs[0].element_size()
+    ptrs, s_n, s_t = [0, 0], [0, 0], [0, 0]
+    aligned = R % (16 // size) == 0
+    for i, h in enumerate(hs):
+        st = h.stride()
+        if R > 1 and st[2] != 1:
+            raise ValueError(f"kv_cummean: the column axis must have unit "
+                             f"stride, got strides {st}")
+        ptrs[i] = h.data_ptr()
+        s_n[i] = st[0] if N > 1 else 0
+        s_t[i] = st[1] if T > 1 else 0
+        aligned = aligned and (ptrs[i] | s_n[i] * size | s_t[i] * size) \
+            % 16 == 0
+    p = _CumMeanParams()
+    _CUM.pack_into(p, 0, ptrs[0], ptrs[1], outs[0].data_ptr(),
+                   outs[1].data_ptr() if len(outs) > 1 else 0, s_n[0],
+                   s_n[1], s_t[0], s_t[1], R, N, T, len(hs),
+                   1 if reverse else 0, _DTYPES[hs[0].dtype],
+                   16 // size if aligned else 1)
+    return p
+
+
+def cummean_vector_width(hs: Sequence[torch.Tensor]) -> int:
+    """Elements per thread access that ``kv_cummean_launch`` takes for
+    these (N, T, R) inputs: the full 16-byte width or the one-element
+    path (see ``_cummean_params``)."""
+    return _cummean_params(hs, hs, False).vec
+
+
+def kv_cummean_launch(hs: Sequence[torch.Tensor],
+                      reverse: bool = False) -> List[torch.Tensor]:
+    """Launch the kernel once over one or two tensors (the k and v groups
+    of a layer): CUDA float32/bf16 (N, T, R) of one shape and dtype, unit
+    column stride, any row and step strides.  Forward: running means over
+    T; ``reverse``: the gradient pass.  Returns contiguous (N, T, R)
+    outputs, one per input.  Kept to plain comparisons and one struct
+    pack: a merge step makes 3 launches a layer."""
     global cummean_launches, cummean_bwd_launches
-    if not h.is_cuda:
-        raise ValueError("kv_cummean needs a CUDA tensor")
-    if h.ndim != 3 or h.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"h must be (N, T, R) float32/bf16, got "
-                         f"{tuple(h.shape)} {h.dtype}")
-    N, T, R = h.shape
-    if R > 1 and h.stride(2) != 1:
-        raise ValueError("h: the column axis must have unit stride")
-    out = torch.empty((N, T, R), dtype=h.dtype, device=h.device)
-    if out.numel() == 0:
-        return out
-    triton, kern = _cummean_compiled()
-    with torch.cuda.device(h.device):
-        kern[(triton.cdiv(R, CUMMEAN_BLOCK), N)](
-            h, out, T, R, h.stride(0), h.stride(1), REVERSE=bool(reverse),
-            BLOCK=CUMMEAN_BLOCK, num_warps=4)
+    n = len(hs)
+    if n != 1 and n != 2:
+        raise ValueError(f"kv_cummean takes 1 or 2 tensors, got {n}")
+    h0 = hs[0]
+    shape, dt = h0.shape, h0.dtype
+    if len(shape) != 3 or (n == 2 and hs[1].shape != shape):
+        raise ValueError(f"kv_cummean: the tensors must have one shape "
+                         f"(N, T, R), got {[tuple(h.shape) for h in hs]}")
+    if dt not in _DTYPES or (n == 2 and hs[1].dtype != dt):
+        raise ValueError(f"kv_cummean: one dtype, float32/bf16 only, got "
+                         f"{[h.dtype for h in hs]}")
+    index = h0.get_device()
+    if index < 0 or (n == 2 and hs[1].get_device() != index):
+        raise ValueError(f"kv_cummean needs CUDA tensors on one device, "
+                         f"got {[str(h.device) for h in hs]}")
+    if shape[0] >= 2 ** 31 or shape[1] >= 2 ** 31:
+        raise ValueError(f"kv_cummean: N and T must be below 2**31, got "
+                         f"{tuple(shape)}")
+    outs = [torch.empty(shape, dtype=dt, device=h0.device) for _ in hs]
+    if h0.numel() == 0:
+        return outs
+    p = _cummean_params(hs, outs, reverse)
+    err = _launcher("kv_cummean")(ctypes.byref(p), index, _stream(index))
+    if err != 0:
+        raise RuntimeError(f"kv_cummean kernel launch failed: cudaError "
+                           f"{err}")
     if reverse:
         cummean_bwd_launches += 1
     else:
         cummean_launches += 1
-    return out
+    return outs
+
+
+def _unit_columns(g: torch.Tensor) -> torch.Tensor:
+    return g if g.shape[2] <= 1 or g.stride(2) == 1 else g.contiguous()
 
 
 class _KVCumMean(torch.autograd.Function):
-    """Forward kernel, reverse kernel as its backward."""
+    """One forward launch over one or two tensors; the backward is one
+    reverse launch over their gradients, each read through its own
+    strides."""
 
     @staticmethod
-    def forward(ctx, h):
-        return kv_cummean_launch(h, reverse=False)
+    def forward(ctx, *hs):
+        return tuple(kv_cummean_launch(hs))
 
     @staticmethod
-    def backward(ctx, g):
-        if g.shape[2] > 1 and g.stride(2) != 1:
-            g = g.contiguous()
-        return kv_cummean_launch(g, reverse=True)
+    def backward(ctx, *gs):
+        return tuple(kv_cummean_launch([_unit_columns(g) for g in gs],
+                                       reverse=True))
 
 
-def kv_cummean(h: torch.Tensor) -> torch.Tensor:
-    """Differentiable running mean over axis 1 of h (N, T, R) (CUDA)."""
-    return _KVCumMean.apply(h)
+def kv_cummean(*hs: torch.Tensor):
+    """Differentiable running means over axis 1 of one or two (N, T, R)
+    CUDA tensors of one shape and dtype, in one launch; returns a tuple
+    of one output per input."""
+    return _KVCumMean.apply(*hs)

@@ -8,7 +8,7 @@ no fallback from a CUDA tensor to the plain version.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -108,6 +108,14 @@ def ccm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _ref.ccm_attention_ref(*args, scale).transpose(1, 2)
 
 
+def _as_3d(h: torch.Tensor, dim: int) -> torch.Tensor:
+    """h as the (outer, T, inner) view the kernel reads (a copy only when
+    the inner dims do not flatten to one axis)."""
+    dim = dim % h.ndim
+    return h.reshape(math.prod(h.shape[:dim]), h.shape[dim],
+                     math.prod(h.shape[dim + 1:]))
+
+
 def kv_cummean(h: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Running means of h along ``dim``, float32 accumulation, rounded
     once to h.dtype.  Differentiable.  On CUDA the kernel reads h as an
@@ -115,10 +123,18 @@ def kv_cummean(h: torch.Tensor, dim: int = 0) -> torch.Tensor:
     flatten to one unit-stride axis, else they are copied)."""
     if not h.is_cuda:
         return _ref.kv_cummean_ref(h, dim)
-    dim = dim % h.ndim
-    T = h.shape[dim]
-    h3 = h.reshape(math.prod(h.shape[:dim]), T, math.prod(h.shape[dim + 1:]))
-    return _merge.kv_cummean(h3).reshape(h.shape)
+    return _merge.kv_cummean(_as_3d(h, dim))[0].reshape(h.shape)
+
+
+def kv_cummean_pair(hk: torch.Tensor, hv: torch.Tensor,
+                    dim: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``kv_cummean`` of the k and the v groups of a layer (one shape and
+    dtype) in one kernel launch on CUDA, forward and backward; each is
+    read through its own strides."""
+    if not hk.is_cuda:
+        return _ref.kv_cummean_pair_ref(hk, hv, dim)
+    ok, ov = _merge.kv_cummean(_as_3d(hk, dim), _as_3d(hv, dim))
+    return ok.reshape(hk.shape), ov.reshape(hv.shape)
 
 
 def session_gather(slab: torch.Tensor, ids: Sequence[int],

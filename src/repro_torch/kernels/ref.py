@@ -234,6 +234,25 @@ def kv_cummean_ref(h: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return (csum / denom).to(h.dtype)
 
 
+def kv_cummean_pair_ref(hk: torch.Tensor, hv: torch.Tensor,
+                        dim: int = 0):
+    """The running means of the k and the v groups of a layer (what the
+    kernel computes in one launch): ``kv_cummean_ref`` of each."""
+    return kv_cummean_ref(hk, dim), kv_cummean_ref(hv, dim)
+
+
+def kv_cummean_reverse_ref(g: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The running mean's gradient (the kernel's reverse pass):
+    dh[t] = sum_{j>=t} g[j] / (j+1) along ``dim``, in float32 with one
+    rounding to g.dtype."""
+    shape = [1] * g.ndim
+    shape[dim] = g.shape[dim]
+    denom = torch.arange(1, g.shape[dim] + 1, dtype=torch.float32,
+                         device=g.device).reshape(shape)
+    w = (g.float() / denom).flip(dim)
+    return torch.cumsum(w, dim=dim).flip(dim).to(g.dtype)
+
+
 def session_gather_ref(slab: torch.Tensor, ids) -> torch.Tensor:
     """Arena pack: ``slab[ids]`` (B, ...) out of (S, ...), a pure copy."""
     return slab[torch.as_tensor(ids, dtype=torch.long, device=slab.device)]

@@ -196,8 +196,9 @@ def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         merge_ctx = {
             "mask": torch.cat([slot_mask, raw_mask], dim=1),
             "slots_fn": functools.partial(
-                M.merge_virtual_kv, comp_mask=comp, t_steps=layout.t_steps,
-                comp_len=layout.comp_len, alpha=cfg.ccm.merge_alpha)}
+                M.merge_virtual_kv, comp_mask=layout.comp_mask,
+                t_steps=layout.t_steps, comp_len=layout.comp_len,
+                alpha=cfg.ccm.merge_alpha)}
     elif use_ccm:
         q_info = A.KeyInfo(idx=torch.arange(S, dtype=torch.int32, device=dev),
                            seg=seg, comp=comp)

@@ -1,8 +1,9 @@
 """Port parity for the kernel ops of the online and training slices: the plain
 PyTorch versions (what the ops run for CPU tensors) against the JAX
 Pallas wrappers in interpret mode and against ``repro.kernels.ref``, on
-the same numpy inputs.  The CUDA/Triton kernels themselves run only on
-the card (``chip_smoke.py`` holds them against these plain versions).
+the same numpy inputs.  The CUDA kernels themselves run only on the card
+(``chip_smoke.py`` holds them against these plain versions); here their
+launchers' host-side checks and planning are tested.
 
 The training slice's kernel ops (CCM flash attention, kv_cummean) are
 at the end of the file.
@@ -12,8 +13,11 @@ Pallas kernel's online softmax against the port's dense softmax over the
 concatenation); cond_lora atol 1e-4 at K = 256 (float32 sums in another
 order); kv_merge atol 1e-6 (the same float32 arithmetic), also for the
 batched merge op (k and v, per-lane weights, a strided ``h``) held lane
-by lane against the Pallas kernel.
+by lane against the Pallas kernel; kv_cummean atol 1e-6 forward and
+1e-5 for its reverse (float32 sums in another order than jax.vjp's).
 """
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -488,8 +492,153 @@ def test_ccm_and_cummean_launchers_refuse_cpu_tensors():
     z = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError):
         pca.ccm_attention_fwd(x, x, x, z, z, z, z, z, None, 1.0)
-    with pytest.raises(ValueError):
-        pkm.kv_cummean_launch(torch.zeros(2, 3, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        pkm.kv_cummean_launch([torch.zeros(2, 3, 4)])
+
+
+# kv_cummean's k + v pair (one kernel launch on the card): the plain pair
+# and the plain reverse on the (N, T, R) views the kernel is given, held
+# against the Pallas kernel (interpret mode), the JAX reference and its
+# jax.vjp, on the same numpy inputs.  Cases: contiguous; the strided
+# <COMP> groups of two (B, S, H, D) activations (the training call); a
+# gradient sliced out of a larger one (its row stride is not T * R, as
+# when it comes from torch.cat's backward); T = 1; T = 37.
+CUMMEAN_CASES = ["contiguous", "comp_groups", "grad_slice", "t1", "t37"]
+
+
+def _cummean_case(case):
+    """(hk, hv, gk, gv): torch (N, T, R) views of numpy inputs."""
+    from repro_torch.core import masks as PM
+    rs = np.random.default_rng(CUMMEAN_CASES.index(case) + 40)
+    shapes = {"contiguous": (3, 6, 20), "grad_slice": (2, 5, 12),
+              "t1": (2, 1, 12), "t37": (2, 37, 10), "comp_groups": None}
+    if case == "comp_groups":
+        lay = PM.segment_layout(4, 8, 2, 8)
+        x = _t(rs.normal(size=(2, 2, lay.seq_len, 3, 8)).astype(np.float32))
+        hk, hv = (PM._comp_groups(x[i], lay.comp_mask, 4, 2) for i in (0, 1))
+        assert hk._base is not None and not hk.is_contiguous()
+    else:
+        hk, hv = _t(rs.normal(size=(2,) + shapes[case]).astype(np.float32))
+    N, T, R = hk.shape
+    if case == "grad_slice":
+        big = _t(rs.normal(size=(2, N, T + 3, R)).astype(np.float32))
+        gk, gv = big[0, :, :T], big[1, :, :T]
+        assert gk.stride(0) != T * R
+    else:
+        gk, gv = _t(rs.normal(size=(2, N, T, R)).astype(np.float32))
+    return hk, hv, gk, gv
+
+
+def _time_first(x):
+    """(N, T, R) -> the (T, N, R) layout the JAX functions take."""
+    return jnp.asarray(np.moveaxis(np.asarray(x), 1, 0))
+
+
+@pytest.mark.parametrize("case", CUMMEAN_CASES)
+def test_kv_cummean_pair_plain_matches_pallas(case):
+    """The plain pair (the k + v op on CPU tensors) against the Pallas
+    kernel in interpret mode and the JAX reference: atol 1e-6."""
+    hk, hv, _, _ = _cummean_case(case)
+    pops.reset_launch_counts()
+    got = pops.kv_cummean_pair(hk, hv, dim=1)
+    assert pops.launch_counts()["kv_cummean"] == 0
+    for out, h in zip(got, (hk, hv)):
+        assert out.shape == h.shape
+        jh = _time_first(h)
+        for want in (jops.kv_cummean(jh, interpret=True),
+                     jref.kv_cummean_ref(jh)):
+            np.testing.assert_allclose(
+                out.numpy(), np.moveaxis(np.asarray(want), 0, 1), atol=1e-6,
+                rtol=0)
+
+
+@pytest.mark.parametrize("case", CUMMEAN_CASES)
+def test_kv_cummean_reverse_plain_matches_jax_vjp(case):
+    """The plain reverse dh[t] = sum_{j>=t} g[j] / (j+1) against jax.vjp
+    of the JAX reference, and the CPU pair op's autograd against the
+    plain reverse: atol 1e-5."""
+    import jax
+    hk, hv, gk, gv = _cummean_case(case)
+    hs = [h.clone().requires_grad_(True) for h in (hk, hv)]
+    outs = pops.kv_cummean_pair(*hs, dim=1)
+    dhs = torch.autograd.grad(outs, hs, (gk, gv))
+    for h, g, dh in zip((hk, hv), (gk, gv), dhs):
+        got = pref.kv_cummean_reverse_ref(g, dim=1)
+        assert got.shape == g.shape
+        _, vjp = jax.vjp(jref.kv_cummean_ref, _time_first(h))
+        (want,) = vjp(_time_first(g))
+        want = np.moveaxis(np.asarray(want), 0, 1)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(dh.numpy(), got.numpy(), atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("case", ["cpu", "shapes", "three", "dtype"])
+def test_kv_cummean_launcher_refuses(case):
+    """The running-mean kernel's launcher refuses CPU tensors, tensors of
+    different shapes, more than two tensors and dtypes it does not take,
+    with a ValueError before any launch."""
+    x = torch.zeros(2, 4, 8)
+    hs, match = [x, x.clone()], "CUDA"
+    if case == "shapes":
+        hs, match = [x, torch.zeros(2, 4, 9)], "one shape"
+    elif case == "three":
+        hs, match = [x] * 3, "1 or 2"
+    elif case == "dtype":
+        hs, match = [x.half(), x.half()], "float32/bf16"
+    with pytest.raises(ValueError, match=match):
+        pkm.kv_cummean_launch(hs, reverse=case == "three")
+
+
+def _aligned(shape, dtype):
+    """A tensor of ``shape`` whose data starts on a 64-byte boundary."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 64, dtype=dtype)
+    off = (-buf.data_ptr() % 64) // buf.element_size()
+    return buf[off:off + n].view(shape)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16", 8), ("float32", 4), ("pair_own_strides", 8), ("r185", 1),
+    ("base_2_bytes_off", 1), ("step_stride_off", 1)])
+def test_kv_cummean_vector_width(case, want):
+    """The wrapper's route: 16-byte accesses when R is a multiple of 16
+    bytes' worth and every base and stride is 16-byte aligned; else the
+    one-element path."""
+    bf = torch.bfloat16
+    hs = [_aligned((2, 5, 64), bf)] * 2
+    if case == "float32":
+        hs = [_aligned((2, 5, 64), torch.float32)]
+    elif case == "pair_own_strides":      # a strided slice and a plain one
+        hs = [_aligned((2, 7, 64), bf)[:, 1:6], _aligned((2, 5, 64), bf)]
+    elif case == "r185":
+        hs = [_aligned((2, 5, 185), bf)] * 2
+    elif case == "base_2_bytes_off":
+        hs = [_aligned((2, 5, 64), bf), _aligned((2 * 5 * 64 + 8,), bf)[1:641]
+              .view(2, 5, 64)]
+    elif case == "step_stride_off":       # T stride of 68 bf16 = 136 bytes
+        hs = [_aligned((2, 5, 68), bf)[:, :, :64]] * 2
+    assert pkm.cummean_vector_width(hs) == want
+
+
+def test_kv_cummean_params_pack():
+    """The parameter struct of a k + v launch carries each tensor's own
+    pointers and (row, step) strides, the shape, the direction, the
+    dtype and the route, in the C layout's order."""
+    bf = torch.bfloat16
+    hk = _aligned((3, 9, 64), bf)[:, 2:7]           # strides (576, 64, 1)
+    hv = _aligned((3, 5, 64), bf)                   # strides (320, 64, 1)
+    outs = [torch.empty(3, 5, 64, dtype=bf) for _ in range(2)]
+    p = pkm._cummean_params([hk, hv], outs, reverse=True)
+    assert list(p.h) == [hk.data_ptr(), hv.data_ptr()]
+    assert list(p.out) == [o.data_ptr() for o in outs]
+    assert list(p.s_n) == [576, 320] and list(p.s_t) == [64, 64]
+    assert (p.R, p.N, p.T, p.n_tensors, p.reverse, p.bf16, p.vec) == \
+        (64, 3, 5, 2, 1, 1, 8)
+    one = pkm._cummean_params([hv[:1, :1]], outs[:1], reverse=False)
+    assert list(one.s_n) == [0, 0] and list(one.s_t) == [0, 0]
+    assert (one.N, one.T, one.n_tensors, one.reverse) == (1, 1, 1, 0)
+    assert ctypes.sizeof(pkm._CumMeanParams) == pkm._CUM.size
 
 
 @pytest.mark.parametrize("bias", [False, True])
