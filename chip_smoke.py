@@ -47,8 +47,23 @@ Phases (any failure raises, and the script exits non-zero):
      merge weights and async offload; concat + int8 cache with a
      pressure recompression), the merge engine with one merge launch
      per ingest batch;
+  8. CCM streaming (``repro_torch.core.streaming``): (a) LLaMA-7B at
+     full width and depth, B=2, the default stream config (window 4096,
+     sink 4, chunk 64, 64 memory groups): 72 chunks of 64 tokens and 16
+     single tokens through ``stream_step`` (9 evictions), the window
+     bound, the group count and finite logits checked every step, the
+     second eviction step held to ``impl="concat"``, host ms per step
+     kind, one profiled eviction step; (b) 4 layers at full width,
+     window 512: concat through the memory-full branch, merge and the
+     StreamingLLM baseline, 16 chunks each, then ``stream_step_lanes``
+     over 4 staggered lanes held to each lane alone, the lanes with no
+     eviction bit-equal; (c) 2 layers in float32, CUDA against the CPU
+     across evictions and a full memory; (d) ``ServeEngine`` stream
+     sessions (32 layers, window 512): 6 sessions on 4 stream slots, 12
+     requests of 33-64 tokens each, every answer held to the session
+     run alone;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
-launches in phases 3, 5 and 7), then the result line.  Phase 2 also
+launches in phases 3, 5, 7 and 8), then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward on
 its float32 and bf16 routes, the bf16 cases with per-lane (B, S)
 metadata, a layout with no <COMP> key and hd 72, the backward run twice
@@ -167,6 +182,22 @@ def bf16_tol(want) -> float:
     return 2.0 ** -6 * want.float().abs().max().item()
 
 
+def bf16_tol_paths(want) -> float:
+    """Four bf16 ulps of the largest value, for two bf16 runs of several
+    layers that differ in more than the order of one sum: the kernels
+    against ``impl="concat"`` (whose dense attend rounds q.k to bf16
+    before the softmax), or a session in a batch against the session
+    alone through 32 layers (cuBLAS picks other GEMM algorithms for
+    another M).  Each run's logits then carry about two ulps of
+    rounding, so their difference can reach four:
+    ``scripts/stream_precision_probe.py`` measures 0.85-1.35 x
+    ``bf16_tol`` for such pairs at 32 layers, and 1.16-1.19 x between the
+    dense oracle and the same oracle with a float32 attention; 8d's
+    ``batch_witness`` shows the online prefill's 4-lane batch as far
+    from its lanes run alone as the engine's stream batch is."""
+    return 2.0 ** -5 * want.float().abs().max().item()
+
+
 def check(name: str, err: float, tol: float):
     log(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:.1e})")
     if not err <= tol:
@@ -283,12 +314,15 @@ def check_segmented(torch, F, dattn, quantize_kv, card):
 
 
 # the phase-2 shapes of segmented attention (LLaMA-7B heads, bf16 q):
-# decode over a 480-token cache (bf16 and int8), an ingest (64 tokens +
-# 8 <COMP>), a 448-token prefill, a serve query over lane-major stacks
-# with per-lane lengths and layer ids, and a GQA decode (32/8 heads)
+# decode over a 480-token cache (bf16 and int8), a streaming single
+# token (B2 over a 72-key memory and a full 4096-token window: phase
+# 8a's split-K shape), an ingest (64 tokens + 8 <COMP>), a 448-token
+# prefill, a serve query over lane-major stacks with per-lane lengths
+# and layer ids, and a GQA decode (32/8 heads)
 SEG_CASES = [
     dict(label="decode", Sq=1, clen=480),
     dict(label="decode int8", Sq=1, clen=480, int8=True),
+    dict(label="stream decode", Sq=1, clen=4096, B=2, cap=4096, mem=72),
     dict(label="ingest", Sq=72, clen=0),
     dict(label="prefill", Sq=448, clen=0),
     dict(label="serve query", Sq=32, clen=None, B=8, cap=256),
@@ -297,7 +331,7 @@ SEG_CASES = [
 
 
 def timed_segmented(torch, F, dattn, quantize_kv, rn, card, *, label, Sq,
-                    clen, int8=False, B=4, Hkv=32, cap=512):
+                    clen, int8=False, B=4, Hkv=32, cap=512, mem=32):
     """One segmented-attention shape: checked against the plain version,
     then timed beside it, SDPA over the explicit concatenation of the
     valid keys (with the CCM mask; GQA through ``enable_gqa``) and the
@@ -352,7 +386,7 @@ def timed_segmented(torch, F, dattn, quantize_kv, rn, card, *, label, Sq,
             cache = seg_dict(ck8, cv8, k_scale=cks, v_scale=cvs, length=clen,
                              layer=layer) if int8 else \
                 seg_dict(ck, cv, length=clen, layer=layer)
-            return [seg_dict(mk, mv, length=32), cache, self_seg]
+            return [seg_dict(mk, mv, length=mem), cache, self_seg]
     segs4 = [segs_at(i) for i in range(4)]
     out = dattn.segmented_flash_attention(q, segs4[0], idx, one, scale)
     want = dattn.plain(q, segs4[0], idx, one, scale)
@@ -1233,6 +1267,16 @@ def main_path(torch, PI, ops, params, cfg, mode, cache_dtype, card,
     return counts
 
 
+def fp32_layers(torch, tree, dev, n: int = 2, layers: bool = False):
+    """A float32 copy on ``dev`` of a parameter tree cut to its first
+    ``n`` layers."""
+    if isinstance(tree, dict):
+        return {k: fp32_layers(torch, v, dev, n, layers or k == "layers")
+                for k, v in tree.items()}
+    t = tree[:n] if layers else tree
+    return t.detach().to(device=dev, dtype=torch.float32).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the whole path, CUDA kernels vs CPU plain versions
 # ---------------------------------------------------------------------------
@@ -1241,14 +1285,6 @@ def cross_check(torch, PI, params_bf16, cfg, devices=("cuda", "cpu")):
     B, T, LC, PROMPT, CACHE = 2, 17, 32, 64, 66
     c2 = cfg.replace(n_layers=2, compute_dtype="float32",
                      param_dtype="float32")
-
-    def to(t, dev, layers=False):
-        """float32 copy on ``dev``; under ``layers`` the first 2 layers."""
-        if isinstance(t, dict):
-            return {k: to(v, dev, layers or k == "layers")
-                    for k, v in t.items()}
-        t = t[:2] if layers else t
-        return t.to(device=dev, dtype=torch.float32).contiguous()
 
     runs = {}
     gen = torch.Generator().manual_seed(5)
@@ -1259,7 +1295,7 @@ def cross_check(torch, PI, params_bf16, cfg, devices=("cuda", "cpu")):
               for _ in range(4)]
     for dev in devices:
         t0 = time.perf_counter()
-        pp = to(params_bf16, dev)
+        pp = fp32_layers(torch, params_bf16, dev)
         st = PI.init_online_state(c2, B, CACHE, device=dev)
         for ch in chunks:
             st = PI.ingest_context(pp, c2, st, ch.to(dev))
@@ -1422,13 +1458,6 @@ def train_cross_check(torch, PI, TR, PT, PD, PP, segment_layout, params_bf16,
     batch = PD.sample_kv_batch(PD.ShardableIndexIterator(3, B).key_for(0),
                                layout, B, device="cpu")
 
-    def to(t, dev, layers=False):
-        if isinstance(t, dict):
-            return {k: to(v, dev, layers or k == "layers")
-                    for k, v in t.items()}
-        t = t[:2] if layers else t
-        return t.detach().to(device=dev, dtype=torch.float32).contiguous()
-
     def close(name, a, b):
         lim = 1e-3 * b.abs().max().item()
         err = max_err(a.cpu(), b)
@@ -1441,7 +1470,7 @@ def train_cross_check(torch, PI, TR, PT, PD, PP, segment_layout, params_bf16,
         res = {}
         for dev in devices:
             t0 = time.perf_counter()
-            pp = to(params_bf16, dev)
+            pp = fp32_layers(torch, params_bf16, dev)
             tp, fp = PP.partition(pp, TR.trainable_mask_for(cm, pp))
             leaves = PP.leaves(tp)
             for _, x in leaves:
@@ -1470,7 +1499,7 @@ def train_cross_check(torch, PI, TR, PT, PD, PP, segment_layout, params_bf16,
             f"max|d| / limit {worst:.3f}; cuda {tc:.1f} s, cpu {tpu:.1f} s")
 
         # (b) parallel = online on the card
-        pp = to(params_bf16, devices[0])
+        pp = fp32_layers(torch, params_bf16, devices[0])
         toks = batch["tokens"].to(devices[0])
         with torch.no_grad():
             lg = PT.train_forward(pp, cm, toks, layout)
@@ -1719,6 +1748,438 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: CCM streaming (sink + sliding window + compressed memory)
+# ---------------------------------------------------------------------------
+
+def stack_lanes(torch, STR, states):
+    """B=1 stream states -> one lane-batched state (lane-major tensors,
+    per-lane counters: the layout the serve engine's arena step packs)."""
+    import numpy as np
+    from repro_torch.core.memory import MemState
+
+    def t(get):
+        return torch.stack([get(s)[:, 0] for s in states])
+
+    def c(get):
+        return np.array([get(s) for s in states], np.int64)
+    mem = MemState(k=t(lambda s: s.mem.k), v=t(lambda s: s.mem.v),
+                   slots=c(lambda s: s.mem.slots),
+                   steps=c(lambda s: s.mem.steps),
+                   stream_pos=c(lambda s: s.mem.stream_pos), lane_major=True)
+    return STR.StreamState(win_k=t(lambda s: s.win_k),
+                           win_v=t(lambda s: s.win_v),
+                           win_len=c(lambda s: s.win_len), mem=mem,
+                           pos=c(lambda s: s.pos), lane_major=True)
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def stream_full_width(torch, STR, ops, params, cfg, card, *, B: int = 2,
+                      n_chunks: int = 72, n_single: int = 16):
+    """8a: ``n_chunks`` chunks of ``stream_chunk`` tokens then
+    ``n_single`` single-token steps through ``stream_step`` (the default
+    stream config: W 4096, sink 4, chunk 64, 64 memory groups), checking
+    the window bound, the memory's group count and finite logits after
+    every step.  The step of the second eviction (the mma.sync route)
+    and the last single-token step (the split-K route over the full
+    window and the memory) are each held to the same step with
+    ``impl="concat"`` (the dense oracle attend) from a clone.
+    Returns (launch counts, host ms per step kind, the eviction count)."""
+    c = cfg.ccm
+    W, cc, m = c.stream_window, c.stream_chunk, c.comp_len
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(31)
+    toks = torch.randint(0, cfg.vocab_size, (B, n_chunks * cc + n_single),
+                         generator=gen, device=dev)
+    steps = [toks[:, i * cc:(i + 1) * cc] for i in range(n_chunks)] \
+        + [toks[:, n_chunks * cc + j:][:, :1] for j in range(n_single)]
+    torch.cuda.reset_peak_memory_stats()
+    st = STR.init_stream_state(cfg, B, device=dev)
+    ms = {"chunk": [], "evict": [], "single": []}
+    evictions, held = 0, None
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for i, t in enumerate(steps):
+        evicting = bool(STR.eviction_pending(cfg, st, t.shape[1]))
+        if evicting and evictions == 1:
+            held = [clone_state(torch, st), t]
+        if i == len(steps) - 1:
+            single = (clone_state(torch, st), t)
+        t0 = time.perf_counter()
+        lg, st = STR.stream_step(params, cfg, st, t)
+        finite = bool(torch.isfinite(lg).all())
+        ms["evict" if evicting else "chunk" if t.shape[1] > 1
+           else "single"].append((time.perf_counter() - t0) * 1e3)
+        evictions += evicting
+        if held is not None and len(held) == 2:
+            held += [lg.clone(), st.mem.k[:, :, (evictions - 1) * m:
+                                           evictions * m].clone()]
+        if not finite or not st.win_len <= W or st.mem.slots != evictions:
+            raise AssertionError(
+                f"8a step {i}: finite {finite}, win_len {st.win_len}, "
+                f"slots {st.mem.slots} after {evictions} evictions")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if evictions < 1 or held is None:
+        raise AssertionError(f"8a: {evictions} evictions")
+    # the held steps again from their clones, with the dense oracle attend
+    before, t, got, grp = held
+    want, wst = STR.stream_step(params, cfg, before, t, impl="concat")
+    wgrp = wst.mem.k[:, :, m:2 * m]
+    del before, wst
+    before, t = single
+    if st.win_len != before.win_len + 1:
+        raise AssertionError(f"8a: the held single-token step evicted "
+                             f"({before.win_len} -> {st.win_len})")
+    keys = before.mem.slots * m + before.win_len + 1    # memory, window, self
+    want1, _ = STR.stream_step(params, cfg, before, t, impl="concat")
+    del before
+    for name, a, b in (("eviction step logits", got, want),
+                       ("eviction step compressed group", grp, wgrp),
+                       (f"single-token step ({keys} keys) logits", lg,
+                        want1)):
+        err = max_err(a, b)
+        check(f"8a {name} vs impl=concat ({err / bf16_tol(b):.3f} x "
+              "bf16_tol)", err, bf16_tol_paths(b))
+    mean = {k: sum(v) / max(len(v), 1) for k, v in ms.items()}
+    log(f"  8a: {len(steps)} steps ({n_chunks} x {cc} + {n_single} x 1 "
+        f"tokens, B={B}), {evictions} evictions, final win_len "
+        f"{st.win_len}, slots {st.mem.slots}, pos {st.pos}; host ms per "
+        f"chunk step {mean['chunk']:.2f}, per eviction step "
+        f"{mean['evict']:.2f} (each: {[round(x, 1) for x in ms['evict']]}),"
+        f" per single-token step {mean['single']:.2f}; peak {peak:.2f} GiB "
+        f"[{card}]")
+    log(f"  8a: launches {counts}")
+    # one eviction step under the profiler (after the counts: not counted)
+    chunk = steps[0]
+
+    def evict1():
+        nonlocal st
+        if not STR.eviction_pending(cfg, st, cc):
+            raise AssertionError("8a: the profiled step would not evict")
+        _, st = STR.stream_step(params, cfg, st, chunk)
+    profile_window(torch, evict1, f"8a 1 eviction step (chunk {cc}, B={B})",
+                   card)
+    # the window shift alone, on the (now spent) window's k: the rows
+    # behind the first block read once and written once, the last block
+    # zeroed
+    x = st.win_k
+    row = x.numel() // W * x.element_size()
+    nbytes = row * (2 * (W - c.stream_sink - cc) + cc)
+    bms, by = bound(nbytes, 0, PEAK_BF16)
+    shift = device_ms(torch, lambda i: STR._shift_window(
+        x, c.stream_sink, cc, False, None), iters=5)
+    log(f"  8a: window shift of one tensor ({tuple(x.shape)} bf16, "
+        f"{nbytes / 2 ** 30:.2f} GiB moved): {shift:.4f} ms device, bound "
+        f"{bms:.4f} ms ({by}); an eviction shifts k and v [{card}]")
+    del st, x
+    torch.cuda.empty_cache()
+    return counts, mean, evictions
+
+
+def stream_modes(torch, STR, ops, params, cfg, card, *, n_chunks: int = 16):
+    """8b: 4 layers at full width, W 512, chunk 64, 4 memory groups:
+    concat through the memory-full branch, merge and the StreamingLLM
+    baseline (ccm_on=False), ``n_chunks`` chunks each, the last step held
+    to ``impl="concat"``; then ``stream_step_lanes`` over 4 lanes with
+    staggered fill, each lane held to its run alone and the lanes with no
+    eviction pending left bit-equal.  Returns the launch counts."""
+    import numpy as np
+    c = dataclasses.replace(cfg.ccm, stream_window=512, stream_chunk=64,
+                            stream_mem_slots=4)
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(32)
+    cc, W = c.stream_chunk, c.stream_window
+    total = {}
+    for label, mode, ccm_on in (("concat", "concat", True),
+                                ("merge", "merge", True),
+                                ("baseline", "concat", False)):
+        rcfg = cfg.replace(ccm=dataclasses.replace(c, mode=mode))
+        toks = torch.randint(0, cfg.vocab_size, (2, n_chunks * cc),
+                             generator=gen, device=dev)
+        st = STR.init_stream_state(rcfg, 2, device=dev)
+        evictions = 0
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for i in range(n_chunks):
+            t = toks[:, i * cc:(i + 1) * cc]
+            evictions += bool(STR.eviction_pending(rcfg, st, cc))
+            if i == n_chunks - 1:
+                before = clone_state(torch, st)
+            lg, st = STR.stream_step(params, rcfg, st, t, ccm_on=ccm_on)
+            if not bool(torch.isfinite(lg).all()) or st.win_len > W:
+                raise AssertionError(f"8b {label} step {i}: win_len "
+                                     f"{st.win_len}")
+        add_counts(total, ops.launch_counts())
+        want_slots = (min(evictions, 4) if mode == "concat" else 1) \
+            if ccm_on else 0
+        if st.mem.slots != want_slots or evictions != n_chunks - W // cc:
+            raise AssertionError(f"8b {label}: slots {st.mem.slots} after "
+                                 f"{evictions} evictions")
+        want, _ = STR.stream_step(params, rcfg, before, t, ccm_on=ccm_on,
+                                  impl="concat")
+        err = max_err(lg, want)
+        check(f"8b {label}: last step vs impl=concat ({evictions} "
+              f"evictions, slots {st.mem.slots}; {err / bf16_tol(want):.3f}"
+              " x bf16_tol)", err, bf16_tol_paths(want))
+        del st, before
+
+    # stream_step_lanes over staggered lanes: lane 0 evicts with a full
+    # memory (its oldest group drops), lane 2 evicts for the first time,
+    # lanes 1 and 3 do not evict
+    rcfg = cfg.replace(ccm=c)
+    warm = [12, 3, 8, 0]
+    ops.reset_launch_counts()
+    lanes = []
+    for n in warm:
+        st = STR.init_stream_state(rcfg, 1, device=dev)
+        for _ in range(n):
+            t = torch.randint(0, cfg.vocab_size, (1, cc), generator=gen,
+                              device=dev)
+            _, st = STR.stream_step(params, rcfg, st, t)
+        lanes.append(st)
+    packed = stack_lanes(torch, STR, lanes)
+    pending = STR.eviction_pending(rcfg, packed, np.full(4, cc))
+    if list(pending) != [True, False, True, False]:
+        raise AssertionError(f"8b lanes: pending {pending}")
+    keep = clone_state(torch, packed)
+    toks = torch.randint(0, cfg.vocab_size, (4, 1, cc), generator=gen,
+                         device=dev)
+    lg, new = STR.stream_step_lanes(params, rcfg, packed, toks)
+    torch.cuda.synchronize()
+    add_counts(total, ops.launch_counts())
+    worst = 0.0
+    for i, lane in enumerate(lanes):
+        want, _ = STR.stream_step(params, rcfg, lane, toks[i])
+        err, tol = max_err(lg[i, 0], want[0]), bf16_tol(want)
+        worst = max(worst, err / tol)
+        if not err <= tol:
+            raise AssertionError(f"8b lane {i}: {err} > {tol}")
+    for i in (1, 3):
+        wl = int(keep.win_len[i])
+        same = torch.equal(new.mem.k[i], keep.mem.k[i]) \
+            and torch.equal(new.mem.v[i], keep.mem.v[i]) \
+            and torch.equal(new.win_k[i][:, :wl], keep.win_k[i][:, :wl]) \
+            and torch.equal(new.win_v[i][:, :wl], keep.win_v[i][:, :wl]) \
+            and new.mem.slots[i] == keep.mem.slots[i] \
+            and new.mem.steps[i] == keep.mem.steps[i]
+        if not same:
+            raise AssertionError(f"8b lane {i} (no eviction) changed")
+    if list(new.mem.slots) != [4, 0, 1, 0]:
+        raise AssertionError(f"8b lanes: slots {new.mem.slots}")
+    log(f"  8b lanes: stream_step_lanes over 4 lanes (pending "
+        f"{[bool(p) for p in pending]}): worst max_abs_err / bf16_tol "
+        f"against each lane alone {worst:.3f}; the 2 lanes with no "
+        "eviction bit-equal")
+    log(f"  8b: launches {total}")
+    return total
+
+
+def stream_cross_check(torch, STR, params_bf16, cfg,
+                       devices=("cuda", "cpu")):
+    """8c: 2 layers at full width in float32, CUDA against the CPU's
+    plain versions, over 10 chunks of 32 through a 128-token window and a
+    2-group memory (6 evictions; the memory is full from the second on,
+    so the oldest group drops 4 times)."""
+    B, N = 2, 10
+    c2 = cfg.replace(n_layers=2, compute_dtype="float32",
+                     param_dtype="float32",
+                     ccm=dataclasses.replace(cfg.ccm, stream_window=128,
+                                             stream_chunk=32,
+                                             stream_mem_slots=2))
+    cc = c2.ccm.stream_chunk
+    gen = torch.Generator().manual_seed(33)
+    toks = torch.randint(0, c2.vocab_size, (B, N * cc), generator=gen)
+    runs = {}
+    for dev in devices:
+        t0 = time.perf_counter()
+        pp = fp32_layers(torch, params_bf16, dev)
+        st = STR.init_stream_state(c2, B, device=dev)
+        logits = []
+        for i in range(N):
+            lg, st = STR.stream_step(pp, c2, st,
+                                     toks[:, i * cc:(i + 1) * cc].to(dev))
+            logits.append(lg)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = (logits, st, time.perf_counter() - t0)
+        del pp
+    (lc, sc, tc), (lp, sp, tp) = (runs[d] for d in devices)
+    worst = 0.0
+    pairs = [(f"logits {i}", a, b) for i, (a, b) in enumerate(zip(lc, lp))]
+    pairs += [("win_k", sc.win_k, sp.win_k), ("win_v", sc.win_v, sp.win_v),
+              ("mem.k", sc.mem.k, sp.mem.k), ("mem.v", sc.mem.v, sp.mem.v)]
+    for name, a, b in pairs:
+        lim = 1e-3 * b.abs().max().item()
+        err = max_err(a.cpu(), b)
+        worst = max(worst, err / lim)
+        if not err <= lim:
+            raise AssertionError(f"8c {name}: {err} > {lim}")
+    ints = [(s.win_len, s.pos, s.mem.slots, s.mem.steps, s.mem.stream_pos)
+            for s in (sc, sp)]
+    if ints[0] != ints[1] or sc.mem.slots != 2 or sc.mem.steps != 6:
+        raise AssertionError(f"8c counters {ints}")
+    log(f"  8c: 2 layers fp32, {N} chunks of {cc} through a "
+        f"{c2.ccm.stream_window}-token window, {sc.mem.steps} evictions "
+        f"(memory full: slots {sc.mem.slots}/2): worst max|d| / (1e-3 "
+        f"max|.|) = {worst:.3f} over logits and state; cuda {tc:.1f} s, "
+        f"cpu {tp:.1f} s")
+
+
+def stream_serve_phase(torch, STR, ops, params, cfg, card, *,
+                       n_sessions: int = 6, n_slots: int = 4,
+                       n_req: int = 12, seed: int = 41):
+    """8d: ``ServeEngine`` stream sessions (``stream_window=512``):
+    ``n_sessions`` sessions on ``n_slots`` stream slots, ``n_req`` rounds
+    of one 33-64-token request each (token bucket 64 = the stream chunk),
+    so evictions fire on some lanes of a batch and not on others and
+    stream rows are offloaded and restored by LRU.  Every answer is held
+    to the session run alone through ``stream_step`` on the card.
+    Returns the launch counts of the engine's drains."""
+    import numpy as np
+    from repro_torch.serve import ServeEngine
+    scfg = cfg.replace(ccm=dataclasses.replace(cfg.ccm, stream_window=512))
+    W, cc = scfg.ccm.stream_window, scfg.ccm.stream_chunk
+    dev = params["embed"].device
+    rs = np.random.default_rng(seed)
+    sids = [f"s{i}" for i in range(n_sessions)]
+    chunks = {sid: [rs.integers(0, cfg.vocab_size, int(rs.integers(33, 65))
+                                ).astype(np.int32) for _ in range(n_req)]
+              for sid in sids}
+    # the rounds in which some sessions' windows overflow and others' not
+    fill = {sid: 0 for sid in sids}
+    mixed = 0
+    for r in range(n_req):
+        ev = []
+        for sid in sids:
+            n = len(chunks[sid][r])
+            ev.append(fill[sid] + n > W)
+            fill[sid] = fill[sid] + n - (cc if ev[-1] else 0)
+        mixed += any(ev) and not all(ev)
+    if not mixed:
+        raise AssertionError("8d: no round mixes evicting and other lanes")
+    eng = ServeEngine(params, scfg, n_slots=1, cache_len=64,
+                      stream_slots=n_slots, device=dev)
+    mgr = eng._mgr["stream"]
+    for sid in sids:
+        eng.create_session(sid, kind="stream")
+    reqs = {sid: [] for sid in sids}
+
+    def tally():
+        snap = eng.metrics_snapshot()["metrics"]
+
+        def tot(name, **lab):
+            return sum(v["value"] for v in snap[name]["values"]
+                       if all(v["labels"].get(k) == x for k, x in lab.items()))
+        return (int(tot("serve_batches_total", kind="stream")),
+                int(tot("offload_sessions_total", dir="offload")),
+                int(tot("offload_sessions_total", dir="restore")),
+                tot("serve_dispatch_seconds_total", kind="stream"))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in range(n_req):
+        for sid in sids[r % n_sessions:] + sids[:r % n_sessions]:
+            reqs[sid].append(eng.stream(sid, chunks[sid][r]).request)
+        eng.run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+    nb, off, res, disp = tally()
+    errs = mgr.arena.consistency_errors()
+    if errs or off <= 0 or res <= 0:
+        raise AssertionError(f"8d: consistency {errs}, offloads {off}, "
+                             f"restores {res}")
+    log(f"  8d: {n_sessions} stream sessions on {n_slots} slots, {n_req} "
+        f"requests each ({mixed} rounds mix evicting and other lanes): "
+        f"{nb} stream batches, {ms:.1f} ms, {ms / nb:.1f} ms per batch; "
+        f"host dispatch {disp * 1e3:.1f} ms; offload {off} rows, restore "
+        f"{res} rows of {mgr.arena.state_bytes / 1e6:.1f} MB [{card}]")
+    log(f"  8d: launches {counts}")
+    worst, alone = 0.0, {}
+    for sid in sids:
+        st = STR.init_stream_state(scfg, 1, device=dev)
+        for t, req in zip(chunks[sid], reqs[sid]):
+            want, st = STR.stream_step(params, scfg, st,
+                                       torch.as_tensor(t, device=dev)[None])
+            want = want[0].float().cpu()
+            alone.setdefault(sid, want)
+            if not req.done or req.result is None:
+                raise AssertionError(f"8d: {sid} request not delivered")
+            got = torch.from_numpy(req.result)
+            err, tol = max_err(got, want), bf16_tol_paths(want)
+            worst = max(worst, err / bf16_tol(want))
+            if got.shape != want.shape or not err <= tol:
+                raise AssertionError(f"8d: {sid} logits differ from the "
+                                     f"session run alone: {err} > {tol}")
+    log(f"  8d: {n_sessions * n_req} answers match their single-session "
+        f"runs within bf16_tol_paths: worst max_abs_err / bf16_tol = "
+        f"{worst:.3f}")
+    batch_witness(torch, STR, params, scfg,
+                  {sid: chunks[sid][0] for sid in sids[:n_slots]},
+                  {sid: reqs[sid][0].result for sid in sids[:n_slots]},
+                  alone)
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def batch_witness(torch, STR, params, cfg, toks, engine, alone):
+    """Where 8d's gap to the session alone comes from.  A first request
+    starts from an empty window and memory, so the engine's 4-lane batch
+    of first requests can be run again outside it, from the same padded
+    tokens: through ``stream_step_lanes`` (S4) and through the online
+    path's ``prefill`` (P4, phase 7's path).  Each lane is then compared
+    with the engine (E), with the session's stream step alone (A) and
+    with the online prefill alone (P1).  S4 and P4 must agree with E
+    within bf16_tol; the logged ratios S4 vs A and P4 vs P1 show how far
+    a 4-lane batch of 64-token rows lands from one unpadded row, with no
+    engine and no stream op involved in the second."""
+    import numpy as np
+    from repro_torch.core import inference as PI
+    dev = params["embed"].device
+    sids = list(toks)
+    cc = cfg.ccm.stream_chunk
+    n = np.array([len(toks[s]) for s in sids])
+    buf = np.zeros((len(sids), 1, cc), np.int32)
+    for i, s in enumerate(sids):
+        buf[i, 0, :n[i]] = toks[s]
+    tk = torch.as_tensor(buf, device=dev)
+    lanes = stack_lanes(torch, STR, [STR.init_stream_state(cfg, 1, device=dev)
+                                     for _ in sids])
+    s4, _ = STR.stream_step_lanes(params, cfg, lanes, tk, lengths=n)
+    on = PI.init_online_state(cfg, len(sids), cfg.ccm.stream_window,
+                              device=dev)
+    zero = np.zeros(len(sids), np.int64)       # per-lane counters, as packed
+    on = on._replace(cache=on.cache._replace(length=zero), pos=zero)
+    p4, _ = PI.prefill(params, cfg, on, tk[:, 0], full_logits=True,
+                       valid_len=n)
+    ratios = {"E vs S4": [], "S4 vs P4": [], "S4 vs A": [], "P4 vs P1": []}
+    for i, s in enumerate(sids):
+        one = torch.as_tensor(toks[s], device=dev)[None]
+        p1, _ = PI.prefill(params, cfg, PI.init_online_state(
+            cfg, 1, cfg.ccm.stream_window, device=dev), one, full_logits=True)
+        e = torch.from_numpy(engine[s])
+        s4_i, p4_i = s4[i, 0, :n[i]].float().cpu(), p4[i, :n[i]].float().cpu()
+        pairs = (("E vs S4", e, s4_i), ("S4 vs P4", s4_i, p4_i),
+                 ("S4 vs A", s4_i, alone[s]),
+                 ("P4 vs P1", p4_i, p1[0].float().cpu()))
+        for name, a, b in pairs:
+            ratios[name].append(max_err(a, b) / bf16_tol(b))
+        for name in ("E vs S4", "S4 vs P4"):
+            if not ratios[name][-1] <= 1.0:
+                raise AssertionError(f"8d witness {s}: {name} "
+                                     f"{ratios[name][-1]:.3f} x bf16_tol")
+    log("  8d witness, the first requests' 4-lane batch again outside the "
+        "engine (x bf16_tol per lane): " + "; ".join(
+            f"{k} {[round(x, 3) for x in v]}" for k, v in ratios.items()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1727,6 +2188,7 @@ def main() -> int:
     import torch.nn.functional as F
     from repro_torch.configs import llama_7b_paper
     from repro_torch.core import inference as PI
+    from repro_torch.core import streaming as STR
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import cond_lora as clora
     from repro_torch.kernels import decode_attention as dattn
@@ -1825,22 +2287,49 @@ def main() -> int:
                 card, label="4L concat+int8", n_sessions=6, n_slots=4,
                 seed=23, recompress=True)
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    log("phase 8: CCM streaming (sink + sliding window + compressed memory)")
+    log("  8a: LLaMA-7B (32 layers, bf16, concat), the default stream "
+        "config (W 4096, sink 4, chunk 64, 64 groups), B=2")
+    stream_counts, _, n_evict = stream_full_width(torch, STR, ops, params,
+                                                  cfg, card)
+    L = cfg.n_layers
+    want = dict(segmented_attention=L * (72 + 16 + n_evict),
+                segmented_attention_mma=L * (72 + n_evict),
+                segmented_attention_splitk=L * 16,
+                cond_lora=4 * L * n_evict, cond_lora_wgmma=4 * L * n_evict)
+    got = {k: stream_counts[k] for k in want}
+    if got != want or stream_counts["kv_merge_update"]:
+        raise AssertionError(f"8a: launches {stream_counts} != {want}")
+    log("  8b: 4 layers at full width, W 512, chunk 64, 4 memory groups")
+    add_counts(stream_counts, stream_modes(torch, STR, ops, p4, cfg.replace(
+        n_layers=4), card))
+    log("  8c: cross-check, 2 layers full width fp32, CUDA vs CPU")
+    stream_cross_check(torch, STR, params, cfg)
+    log("  8d: the serve engine's stream sessions, LLaMA-7B (32 layers, "
+        "bf16, concat, W 512)")
+    stream_serve = stream_serve_phase(torch, STR, ops, params, cfg, card)
+    add_counts(stream_counts, stream_serve)
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     del params, p4
 
     # the tensor-core routes' launches in each main-path phase (3: online,
-    # 5: training, 7: the 32-layer serve engine)
+    # 5: training, 7: the 32-layer serve engine, 8: streaming)
     by_phase = {k: {"3": totals[k], "5": train_counts.get(k, 0),
-                    "7": serve_counts[k]}
+                    "7": serve_counts[k], "8": stream_counts[k]}
                 for k in ("segmented_attention_splitk",
                           "segmented_attention_mma", "cond_lora_wgmma",
                           "ccm_attention_mma", "ccm_attention_backward_mma")}
-    for k, need in (("segmented_attention_splitk", "3"),
-                    ("segmented_attention_mma", "37"),
-                    ("cond_lora_wgmma", "357"),
+    for k, need in (("segmented_attention_splitk", "38"),
+                    ("segmented_attention_mma", "378"),
+                    ("cond_lora_wgmma", "3578"),
                     ("ccm_attention_mma", "5"),
                     ("ccm_attention_backward_mma", "5")):
         if any(by_phase[k][ph] <= 0 for ph in need):
             raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
+    for k in ("kv_merge_update", "session_gather", "session_scatter"):
+        if stream_counts[k] <= 0:
+            raise AssertionError(f"{k}: no launch in phase 8")
     log(f"  tensor-core route launches by phase: {by_phase}")
     rows = [
         dict(name="segmented_attention", route="cuda",
@@ -1867,9 +2356,11 @@ def main() -> int:
              source="src/repro_torch/csrc/kv_merge.cu",
              replaces="src/repro/kernels/kv_merge.py:27",
              launches=totals["kv_merge_update"]
-             + merge_counts["kv_merge_update"],
+             + merge_counts["kv_merge_update"]
+             + stream_counts["kv_merge_update"],
              launches_by_phase={"3": totals["kv_merge_update"],
-                                "7": merge_counts["kv_merge_update"]},
+                                "7": merge_counts["kv_merge_update"],
+                                "8": stream_counts["kv_merge_update"]},
              **merge),
         dict(name="ccm_attention", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
@@ -1894,11 +2385,19 @@ def main() -> int:
         dict(name="session_gather", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
              replaces="src/repro/kernels/session_gather.py:30",
-             launches=serve_counts["session_gather"], **gather),
+             launches=serve_counts["session_gather"]
+             + stream_counts["session_gather"],
+             launches_by_phase={"7": serve_counts["session_gather"],
+                                "8": stream_counts["session_gather"]},
+             **gather),
         dict(name="session_scatter", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
              replaces="src/repro/kernels/session_gather.py:56",
-             launches=serve_counts["session_scatter"], **scatter),
+             launches=serve_counts["session_scatter"]
+             + stream_counts["session_scatter"],
+             launches_by_phase={"7": serve_counts["session_scatter"],
+                                "8": stream_counts["session_scatter"]},
+             **scatter),
     ]
     for r in rows:
         if r["launches"] <= 0:

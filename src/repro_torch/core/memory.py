@@ -7,8 +7,9 @@
 
 The counters (``slots``, ``steps``, ``stream_pos``) are host ints: the
 port runs eagerly and every update is known on the host, so no layer
-loop waits on the device for them.  ``update_memory`` and
-``recompress_memory`` write ``k``/``v`` IN PLACE and return a new
+loop waits on the device for them.  ``update_memory``,
+``evict_oldest`` and ``recompress_memory`` write ``k``/``v`` IN PLACE
+and return a new
 ``MemState`` over the same tensors; a caller that needs the old memory
 keeps a clone.
 
@@ -152,6 +153,36 @@ def update_memory(cfg: ModelConfig, mem: MemState, h_k: torch.Tensor,
             slots = int(slots)
     return mem._replace(slots=slots, steps=t_new,
                         stream_pos=mem.stream_pos + n_new_tokens)
+
+
+def evict_oldest(mem: MemState, comp_len: int, lanes=None) -> MemState:
+    """Concat-mode streaming: drop the oldest <COMP> group (paper Fig. 9),
+    IN PLACE.  The memory rolls by ``-comp_len`` along the token axis (the
+    dropped group lands in the last, now invalid, slot) and ``slots``
+    becomes ``max(slots - 1, 0)``.  A merge-mode memory holds one group,
+    so its roll is the identity and only the counter moves, as in the
+    reference.
+
+    ``lanes`` (B,) bool limits the eviction to those lanes; every other
+    lane's tensors and counters stay bit-exact."""
+    B = mem.k.shape[0 if mem.lane_major else 1]
+    sel = np.ones(B, bool) if lanes is None \
+        else np.asarray(lanes, bool).reshape(B)
+    if mem.k.shape[2] != comp_len:
+        if sel.all():
+            for x in (mem.k, mem.v):
+                x.copy_(torch.roll(x, -comp_len, dims=2))
+        else:
+            for b in np.flatnonzero(sel):
+                for x in (mem.k, mem.v):
+                    lx = mem.lane(int(b), x)             # (L, M, Hkv, hd)
+                    lx.copy_(torch.roll(lx, -comp_len, dims=1))
+    dropped = np.maximum(mem.slots - 1, 0)
+    if lanes is None:
+        slots = dropped if isinstance(mem.slots, np.ndarray) else int(dropped)
+    else:
+        slots = np.where(sel, dropped, per_lane(mem.slots, B))
+    return mem._replace(slots=slots)
 
 
 def recompress_memory(cfg: ModelConfig, mem: MemState,

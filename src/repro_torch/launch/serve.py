@@ -1,5 +1,5 @@
-"""Multi-tenant session steps for the serve engine (port of
-``repro/launch/serve.py``, the single-device arena steps).
+"""Serving step builders (port of ``repro/launch/serve.py``): the
+single-batch stream step and the single-device multi-tenant arena steps.
 
 The reference vmaps the single-session ops over a batch packed from many
 independent sessions.  The port runs such a batch natively: the packed
@@ -10,9 +10,14 @@ through the same layer loop a single session (B=1) takes.  The arena
 gather and scatter are the hand-written ``session_gather`` /
 ``session_scatter`` kernels (``kernels/ops.py``) on the card.
 
-Not ported here: the batched single-stream step builders, ``stream``
-sessions (the streaming slice) and ``make_sharded_arena_step`` (the
-multi-device slice).
+Session ops: ``ingest`` and ``query`` over ``OnlineState`` rows,
+``stream`` over ``StreamState`` rows (`core.streaming.stream_step_lanes`:
+the eviction runs on the lanes whose window overflows, and on no other).
+
+Not ported here: the online single-batch builders (``make_prefill_step``,
+``make_decode_step``, ``make_ingest_step``; the port calls
+``core.inference`` directly), and ``dist=`` / ``make_sharded_arena_step``
+(the multi-device slice).
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from repro_torch.models.config import ModelConfig
 
 # the state leaves each op writes; the arena step scatters only these
 # (ingest never writes the KV cache, query never writes the memory)
-_WRITES = {"ingest": ("mem", "pos"), "query": ("cache", "pos")}
+_WRITES = {"ingest": ("mem", "pos"), "query": ("cache", "pos"),
+           "stream": ("win_k", "win_v", "win_len", "mem", "pos")}
 
 
 def ragged_family(cfg: ModelConfig) -> bool:
@@ -45,38 +51,65 @@ def _unfold(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[:2] + (1,) + x.shape[2:])
 
 
-def to_lanes(state: I.OnlineState) -> I.OnlineState:
-    """Packed arena rows -> the lane-major lane state ``core.inference``
-    takes (views of the same tensors, the same counter arrays)."""
-    c, m = state.cache, state.mem
+def to_lanes(state):
+    """Packed arena rows (``OnlineState`` or ``StreamState``) -> the
+    lane-major lane state ``core.inference`` / ``core.streaming`` take
+    (views of the same tensors, the same counter arrays)."""
+    m = state.mem
+    mem = None if m is None else m._replace(k=_fold(m.k), v=_fold(m.v),
+                                            lane_major=True)
+    if isinstance(state, STR.StreamState):
+        return state._replace(win_k=_fold(state.win_k),
+                              win_v=_fold(state.win_v), mem=mem,
+                              lane_major=True)
+    c = state.cache
     cache = None if c is None else I.KVCache(
         k=_fold(c.k), v=_fold(c.v), length=c.length,
         k_scale=None if c.k_scale is None else _fold(c.k_scale),
         v_scale=None if c.v_scale is None else _fold(c.v_scale),
         lane_major=True)
-    mem = None if m is None else m._replace(k=_fold(m.k), v=_fold(m.v),
-                                            lane_major=True)
     return state._replace(cache=cache, mem=mem)
 
 
-def from_lanes(state: I.OnlineState) -> I.OnlineState:
+def from_lanes(state):
     """The inverse of `to_lanes` (views again)."""
-    c, m = state.cache, state.mem
+    m = state.mem
+    mem = None if m is None else m._replace(k=_unfold(m.k), v=_unfold(m.v),
+                                            lane_major=False)
+    if isinstance(state, STR.StreamState):
+        return state._replace(win_k=_unfold(state.win_k),
+                              win_v=_unfold(state.win_v), mem=mem,
+                              lane_major=False)
+    c = state.cache
     cache = None if c is None else I.KVCache(
         k=_unfold(c.k), v=_unfold(c.v), length=c.length,
         k_scale=None if c.k_scale is None else _unfold(c.k_scale),
         v_scale=None if c.v_scale is None else _unfold(c.v_scale))
-    mem = None if m is None else m._replace(k=_unfold(m.k), v=_unfold(m.v),
-                                            lane_major=False)
     return state._replace(cache=cache, mem=mem)
+
+
+def make_stream_step(cfg: ModelConfig, dist=None) -> Callable:
+    """Single-batch streaming step: (params, st, tokens (B, c)) ->
+    (logits (B, c, V), st), one user stream per batch (shared counters).
+    ``dist=`` raises."""
+    if dist is not None:
+        raise NotImplementedError(
+            "a sharded stream step (dist=) comes with the multi-device "
+            "slice of the port")
+
+    def fn(params, st, tokens):
+        return STR.stream_step(params, cfg, st, tokens)
+    return fn
 
 
 def session_vmap(cfg: ModelConfig, op: str, ragged: bool = False) -> Callable:
     """Lane-batched session op over packed arena rows:
     (params, state (B, ...), tokens (B, 1, l), lengths (B,)).
 
-    'ingest' -> state; 'query' -> (logits (B, 1, l, V), state).  Query is
-    a prefill of I(t) over [Mem, cache, self] with per-token logits.  The
+    'ingest' -> state; 'query' / 'stream' -> (logits (B, 1, l, V), state).
+    Query is a prefill of I(t) over [Mem, cache, self] with per-token
+    logits; stream is `core.streaming.stream_step_lanes` (eviction on the
+    lanes whose window overflows, then the chunk into the window).  The
     returned state shares the input's tensors (written in place).
 
     ``ragged``: each lane's tokens are padded up to a shared token bucket
@@ -87,18 +120,19 @@ def session_vmap(cfg: ModelConfig, op: str, ragged: bool = False) -> Callable:
     if ragged and not ragged_family(cfg):
         raise ValueError(
             f"ragged session batching unsupported for family {cfg.family!r}")
-    if op == "stream":
-        raise NotImplementedError(
-            "stream sessions come with the streaming slice of the port")
     if op not in _WRITES:
         raise ValueError(f"unknown session op {op!r}")
 
     def fn(params, state, tokens, lengths):
         lanes = to_lanes(state)
-        dev = lanes.cache.k.device
+        dev = (lanes.win_k if op == "stream" else lanes.cache.k).device
         tk = torch.as_tensor(np.asarray(tokens), device=dev)
-        tk = tk.reshape(tk.shape[0], tk.shape[-1])
         vl = np.asarray(lengths, np.int64).reshape(-1) if ragged else None
+        if op == "stream":
+            logits, new = STR.stream_step_lanes(params, cfg, lanes, tk,
+                                                lengths=vl)
+            return logits, from_lanes(new)
+        tk = tk.reshape(tk.shape[0], tk.shape[-1])
         if op == "ingest":
             return from_lanes(I.ingest_context(params, cfg, lanes, tk,
                                                valid_len=vl))
@@ -136,10 +170,7 @@ def make_arena_step(cfg: ModelConfig, op: str,
         else:
             out, new = vf(params, state, tokens, lengths)
         for name in writes:
-            if name == "pos":
-                slabs.pos[ids] = np.asarray(new.pos)
-            else:
-                scatter_rows(getattr(slabs, name), ids, getattr(new, name))
+            scatter_rows(getattr(slabs, name), ids, getattr(new, name))
         return out, slabs
     return fn
 

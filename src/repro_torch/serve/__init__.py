@@ -28,8 +28,9 @@ device feasible.  This package is that serving layer:
                  budget walked down the recompress -> offload -> shed
                  degradation ladder (cheapest lever first)
   engine.py    — the main loop wiring admission -> scheduler ->
-                 arena steps (stream sessions and session sharding raise
-                 until their slices are ported)
+                 arena steps, online and stream sessions in arenas of
+                 their own (session sharding raises until its slice is
+                 ported)
 """
 from repro_torch.serve.admission import (Admitted, AdmissionController,
                                          Queued, Shed, TenantQuota, Verdict)

@@ -1,12 +1,13 @@
 """Fixed-shape device memory arena for per-session serving state (port of
 ``repro/serve/arena.py``).
 
-Every session's ``OnlineState`` is one *row* of a set of preallocated
-slabs: each tensor leaf of the single-session template (inner batch 1)
-becomes a slab of shape ``(n_rows,) + leaf.shape`` on the arena's device,
-and each counter leaf (``pos``, ``cache.length``, ``mem.slots`` /
-``steps`` / ``stream_pos``, host ints in the port) a host int64 numpy
-array of shape ``(n_rows,)``.  Slot ids are handed out from a free-list;
+Every session's ``OnlineState`` (``StreamState`` in a stream arena) is
+one *row* of a set of preallocated slabs: each tensor leaf of the
+single-session template (inner batch 1) becomes a slab of shape
+``(n_rows,) + leaf.shape`` on the arena's device, and each counter leaf
+(``pos``, ``cache.length`` or ``win_len``, ``mem.slots`` / ``steps`` /
+``stream_pos``, host ints in the port) a host int64 numpy array of shape
+``(n_rows,)``.  Slot ids are handed out from a free-list;
 nothing is reallocated per session.
 
 REFCOUNTED ROWS: a live row is held by one or more logical references —
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import inference as I
+from repro_torch.core import streaming as STR
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.session_gather import MAX_IDS
@@ -135,6 +137,12 @@ def online_template(cfg: ModelConfig, cache_len: int,
     return I.init_online_state(cfg, 1, cache_len, mem_slots, device="meta")
 
 
+def stream_template(cfg: ModelConfig):
+    """Single-session (inner batch 1) StreamState of shapes only (tensors
+    on the ``meta`` device, counters 0)."""
+    return STR.init_stream_state(cfg, 1, device="meta")
+
+
 class SessionArena:
     """Slab allocator + pack/unpack for one state template."""
 
@@ -176,6 +184,11 @@ class SessionArena:
                    device: DeviceLike = None) -> "SessionArena":
         return cls(online_template(cfg, cache_len, mem_slots), n_slots,
                    n_shards, device)
+
+    @classmethod
+    def for_stream(cls, cfg: ModelConfig, n_slots: int, n_shards: int = 1,
+                   device: DeviceLike = None) -> "SessionArena":
+        return cls(stream_template(cfg), n_slots, n_shards, device)
 
     # -- shard geometry ------------------------------------------------
     def shard_slots(self, shard: int) -> range:

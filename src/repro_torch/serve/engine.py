@@ -1,5 +1,5 @@
 """Multi-tenant serve engine: admission -> scheduler -> arena -> steps
-(port of ``repro/serve/engine.py``, single device, online sessions).
+(port of ``repro/serve/engine.py``, single device).
 
 Drives the whole subsystem: submits pass ADMISSION CONTROL
 (`serve.admission`: bounded ingress, per-tenant quotas, overflow
@@ -27,8 +27,11 @@ stderr when an exception escapes a drain.  All timing is host-side, on
 the injected clock, around dispatch; a drain ends in one device
 synchronize.
 
-Not in this slice (they raise ``NotImplementedError``): streaming
-sessions (``stream_slots > 0``; the streaming slice) and sharded serving
+Online sessions (ingest/query over ``OnlineState``) and streaming
+sessions (``stream`` over ``StreamState``) live in separate arenas since
+their state templates differ; ``stream_slots=0`` skips the second arena.
+
+Not in this slice (it raises ``NotImplementedError``): sharded serving
 (``n_shards > 1``, ``mesh=``; the multi-device slice).
 """
 from __future__ import annotations
@@ -133,8 +136,13 @@ class ServeEngine:
         builder (default `launch.serve.make_arena_step`); the serve
         simulation harness injects a control-plane-only null step.
 
-        Not in this slice: ``stream_slots > 0`` (stream sessions, the
-        streaming slice), ``n_shards > 1`` and ``mesh=`` (sharded
+        Stream sessions: ``stream_slots > 0`` builds a second arena of
+        ``StreamState`` rows (``stream_max_resident`` resident at most)
+        with its own LRU offload and restore; ``create_session(sid,
+        kind="stream")`` opens one and ``stream(sid, tokens)`` feeds it
+        chunks of at most ``cfg.ccm.stream_chunk`` tokens.
+
+        Not in this slice: ``n_shards > 1`` and ``mesh=`` (sharded
         serving, the multi-device slice) raise ``NotImplementedError``;
         the arguments stay so that callers keep the reference's
         signature.
@@ -171,10 +179,6 @@ class ServeEngine:
         ``Observability.tracing()`` for request spans and latency
         histograms, or inject a `ManualClock` for deterministic
         timestamps (the simulation harness does both)."""
-        if stream_slots:
-            raise NotImplementedError(
-                "stream sessions (stream_slots > 0) come with the streaming "
-                "slice of the port")
         if n_shards != 1 or mesh is not None:
             raise NotImplementedError(
                 "sharded serving (n_shards > 1, mesh=) comes with the "
@@ -215,15 +219,32 @@ class ServeEngine:
         self.mesh = None
         self.obs = obs if obs is not None else Observability()
         self._build_metrics()
+        mgr_kw = dict(batched_offload=batched_offload,
+                      async_offload=async_offload,
+                      cost_model=offload_cost_model,
+                      resident_quota_of=self._resident_quota_of,
+                      obs=self.obs)
         self._mgr: Dict[str, SessionManager] = {
             "online": SessionManager(
                 SessionArena.for_online(cfg, n_slots, cache_len, mem_slots,
                                         device=self.device),
                 max_resident, replay_fn=self._make_replay("online"),
-                batched_offload=batched_offload,
-                async_offload=async_offload, cost_model=offload_cost_model,
-                resident_quota_of=self._resident_quota_of, obs=self.obs),
+                **mgr_kw),
         }
+        if stream_slots:
+            c = cfg.ccm
+            if c.stream_sink + c.stream_chunk > c.stream_window:
+                # stream_step raises this at its first call, mid-drain,
+                # after batches were popped; fail at construction instead
+                raise ValueError(
+                    f"stream_sink ({c.stream_sink}) + stream_chunk "
+                    f"({c.stream_chunk}) exceeds stream_window "
+                    f"({c.stream_window})")
+            self._mgr["stream"] = SessionManager(
+                SessionArena.for_stream(cfg, stream_slots,
+                                        device=self.device),
+                stream_max_resident, replay_fn=self._make_replay("stream"),
+                **mgr_kw)
         self.prefix_cache: Optional[PrefixCache] = None
         if prefix_cache:
             self.prefix_cache = PrefixCache(

@@ -91,19 +91,39 @@ def test_only_the_obs_clock_reads_a_stdlib_timer(path):
         assert not _TIMER.search(code), path
 
 
+_ENGINE_CASES = {
+    # sharded serving comes with the multi-device slice
+    "n_shards": (dict(n_shards=2, device="cpu"), NotImplementedError,
+                 "multi-device"),
+    "mesh": (dict(mesh=object(), device="cpu"), NotImplementedError,
+             "multi-device"),
+    # no card: the engine raises unless given device="cpu"
+    "no-device": (dict(n_slots=2, cache_len=8), RuntimeError,
+                  "no CUDA device"),
+    "no-device-stream": (dict(n_slots=2, cache_len=8, stream_slots=2),
+                         RuntimeError, "no CUDA device"),
+    # stream sessions are ported: a stream arena on the CPU
+    "stream-arena": (dict(n_slots=2, cache_len=8, stream_slots=2,
+                          device="cpu"), None, None),
+}
+
+
+@pytest.mark.parametrize("case", list(_ENGINE_CASES))
 def test_serve_engine_needs_a_device_and_refuses_unported_options(
-        monkeypatch):
+        monkeypatch, case):
     from repro_torch.configs import llama_7b_paper
     from repro_torch.serve import ServeEngine
 
     cfg = llama_7b_paper.smoke(compute_dtype="float32")
-    for kw, slice_name in ((dict(stream_slots=2), "streaming"),
-                           (dict(n_shards=2), "multi-device"),
-                           (dict(mesh=object()), "multi-device")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            ServeEngine(None, cfg, device="cpu", **kw)
+    kw, exc, match = _ENGINE_CASES[case]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ServeEngine(None, cfg, n_slots=2, cache_len=8)
-    eng = ServeEngine(None, cfg, n_slots=2, cache_len=8, device="cpu")
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            ServeEngine(None, cfg, **kw)
+        return
+    eng = ServeEngine(None, cfg, **kw)
+    stream = eng._mgr["stream"].arena
+    assert stream.slabs.win_k.device.type == "cpu"
+    assert tuple(stream.slabs.win_k.shape) == (
+        3, cfg.n_layers, 1, cfg.ccm.stream_window, cfg.n_kv_heads, cfg.hd)
     assert eng._mgr["online"].arena.slabs.cache.k.device.type == "cpu"

@@ -1,13 +1,18 @@
 """Port parity for the serve slice: the arena step, the pressure and COW
 arena helpers, and the whole `ServeEngine` on identical traffic, against
-``repro`` on shared weights (tiny config, float32, CPU).
+``repro`` on shared weights (tiny config, float32, CPU); stream sessions
+(the stream arena step and the engine's stream op) against ``repro``'s
+arena step and its single-session ``stream_step``.
 
 Tolerances: logits and float state leaves atol 1e-4 (float32; the port
 batches lanes natively where the reference vmaps single-session ops, so
 sums run in another order).  int8 cache values may differ by one
 quantum where rounding sits on a tie (|dq| <= 1), their scales atol
-1e-6.  Counters, slots, verdicts and metric counters must be equal.
+1e-6.  Counters, slots, verdicts and metric counters must be equal.  Stream
+logits and float state atol 1e-5; a stream row offloaded and restored,
+and every stream lane with no eviction pending, must come back bit-equal.
 """
+import dataclasses
 import functools
 
 import jax
@@ -16,12 +21,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import streaming as JST
 from repro.launch import serve as JSRV
 from repro.models import transformer as JT
 from repro.models.config import CCMConfig as JCCM, ModelConfig as JCfg
 from repro.obs import ManualClock as JClock, Observability as JObs
 from repro.serve import PressurePolicy as JPolicy, ServeEngine as JEngine
 from repro.serve.arena import SessionArena as JArena
+from repro_torch.core import streaming as PST
+from repro_torch.kernels import ops as POPS
 from repro_torch.launch import serve as PSRV
 from repro_torch.models.config import CCMConfig as PCCM, ModelConfig as PCfg
 from repro_torch.obs import ManualClock as PClock, Observability as PObs
@@ -448,3 +456,292 @@ def test_full_batch_over_shared_rows_is_served(scenario):
     snap = pe.metrics_snapshot()["metrics"]
     assert sum(v["value"] for v in snap["serve_requests_total"]["values"]) \
         > 0
+
+
+# ---------------------------------------------------------------------------
+# stream sessions
+# ---------------------------------------------------------------------------
+
+STREAM_ATOL = 1e-5
+_jstream = jax.jit(JST.stream_step, static_argnums=(1,))
+
+
+def _stream_cfgs(mode="concat"):
+    """A 16-token window with a 2-token sink, chunks of 4, 4 memory
+    groups (the reference's stream-engine tests)."""
+    s = dict(stream_window=16, stream_sink=2, stream_chunk=4,
+             stream_mem_slots=4)
+    jc, pc = _cfgs(mode)
+    return (jc.replace(ccm=dataclasses.replace(jc.ccm, **s)),
+            pc.replace(ccm=dataclasses.replace(pc.ccm, **s)))
+
+
+def _stream_arenas(jc, pc, jp, pp, warm):
+    """Both packages' stream arenas, row i warmed by chunks of the token
+    counts ``warm[i]`` (the scratch row last); returns the slabs and the
+    port's warm states."""
+    from repro_torch.serve.arena import tree_map
+    jslabs = JArena.for_stream(jc, len(warm)).slabs
+    pa = PArena.for_stream(pc, len(warm), device="cpu")
+    states = []
+    for i, w in enumerate(warm):
+        js = JST.init_stream_state(jc, 1)
+        ps = PST.init_stream_state(pc, 1, device="cpu")
+        for j, n in enumerate(w):
+            t = _toks(100 * i + j, n)[None]
+            _, js = _jstream(jp, jc, js, jnp.asarray(t))
+            _, ps = PST.stream_step(pp, pc, ps, torch.from_numpy(t))
+        jslabs = jax.tree.map(lambda s, r: s.at[i].set(r), jslabs, js)
+        pa.write_slot(i, ps)
+        states.append(tree_map(lambda x: x.clone()
+                               if isinstance(x, torch.Tensor) else x, ps))
+    return jslabs, pa.slabs, states
+
+
+_STREAM_TENSORS = (("win_k",), ("win_v",), ("mem", "k"), ("mem", "v"))
+_STREAM_COUNTERS = (("win_len",), ("pos",), ("mem", "slots"),
+                    ("mem", "steps"), ("mem", "stream_pos"))
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["exact", "ragged"])
+def test_stream_arena_step_gates_eviction_per_lane(ragged):
+    """One stream arena step over staggered rows: row 0 evicts with a
+    full memory (its oldest group drops), row 3 holds 14 of 16 window
+    rows (it evicts on 4 more tokens, not on 2 in the ragged case), rows
+    1 and 2 do not evict, and a pad lane runs on the scratch row.  Logits
+    and every slab leaf match the reference's arena step; rows with no
+    eviction keep their memory bit-equal; in the ragged case each lane
+    also equals its unpadded run alone."""
+    jc, pc = _stream_cfgs()
+    jp, pp = _params(pc)
+    jslabs, pslabs, states = _stream_arenas(
+        jc, pc, jp, pp, [[4] * 8, [4], [], [4, 4, 4, 2]])
+    ids = [3, 0, 1, 2, 4]
+    toks = _toks(9, (5, 1, 4))
+    lengths = np.array([2, 4, 3, 1, 4] if ragged else [4] * 5, np.int32)
+    mem_before = pslabs.mem.k.clone()
+    jout, jslabs = JSRV.make_arena_step(jc, "stream", ragged)(
+        jp, jslabs, jnp.asarray(ids, jnp.int32), jnp.asarray(toks),
+        jnp.asarray(lengths))
+    pout, pslabs = PSRV.make_arena_step(pc, "stream", ragged)(
+        pp, pslabs, ids, toks, lengths)
+    assert tuple(pout.shape) == (5, 1, 4, 128)
+    for i in range(4):
+        np.testing.assert_allclose(
+            pout[i, 0, :lengths[i]].numpy(),
+            np.asarray(jout)[i, 0, :lengths[i]], atol=STREAM_ATOL, rtol=0)
+    for path in _STREAM_TENSORS:
+        np.testing.assert_allclose(
+            _get(pslabs, path).numpy()[:4],
+            np.asarray(_get(jslabs, path))[:4], atol=STREAM_ATOL, rtol=0,
+            err_msg=str(path))
+    for path in _STREAM_COUNTERS:
+        np.testing.assert_array_equal(
+            _get(pslabs, path)[:4], np.asarray(_get(jslabs, path))[:4],
+            err_msg=str(path))
+    evicted = [0] if ragged else [0, 3]
+    assert list(pslabs.mem.slots[:4]) == [4, 0, 0, 0 if ragged else 1]
+    for row in {0, 1, 2, 3} - set(evicted):
+        assert torch.equal(pslabs.mem.k[row], mem_before[row])
+    if ragged:
+        for lane, row in enumerate(ids[:4]):
+            vl = int(lengths[lane])
+            want, st = PST.stream_step(
+                pp, pc, states[row],
+                torch.from_numpy(toks[lane, :, :vl]))
+            np.testing.assert_allclose(pout[lane, 0, :vl].numpy(),
+                                       want[0].numpy(), atol=STREAM_ATOL,
+                                       rtol=0)
+            assert (st.win_len, st.pos, st.mem.slots) == (
+                pslabs.win_len[row], pslabs.pos[row],
+                pslabs.mem.slots[row])
+
+
+def test_stream_batch_without_overflow_runs_no_compression(monkeypatch):
+    """The compression pass is the only gated (conditional-LoRA) op of a
+    stream step: a batch where no lane's window overflows makes no
+    ``cond_lora`` call and leaves every memory bit-equal; one pending
+    lane makes one call per projection and layer."""
+    jc, pc = _stream_cfgs()
+    jp, pp = _params(pc)
+    _, pslabs, _ = _stream_arenas(jc, pc, jp, pp, [[4, 4], [4], [4] * 4])
+    calls = []
+    real = POPS.cond_lora
+
+    def counting(*a, **kw):
+        calls.append(a[0].shape[0])
+        return real(*a, **kw)
+    monkeypatch.setattr(POPS, "cond_lora", counting)
+    step = PSRV.make_arena_step(pc, "stream", True)
+    mem_before = pslabs.mem.k.clone()
+    step(pp, pslabs, [0, 1], _toks(3, (2, 1, 4)), np.array([4, 4]))
+    assert calls == [] and torch.equal(pslabs.mem.k, mem_before)
+    step(pp, pslabs, [0, 1, 2], _toks(4, (3, 1, 4)), np.array([4, 4, 4]))
+    m = pc.ccm.comp_len
+    assert calls == [m] * (4 * pc.n_layers)       # one lane's <COMP> rows
+    assert list(pslabs.mem.slots[:3]) == [0, 0, 1]
+
+
+def _stream_engine(pc, pp, **kw):
+    common = dict(n_slots=1, cache_len=8, stream_slots=2,
+                  batch_buckets=(1, 2), device="cpu")
+    common.update(kw)
+    return PEngine(pp, pc, **common)
+
+
+@pytest.mark.parametrize("mode", ["concat", "merge"])
+def test_engine_stream_sessions_match_reference(mode):
+    """Three stream sessions on two stream slots (LRU offload and restore
+    of stream rows), eight ragged chunks of 1-4 tokens each (token
+    buckets), so the windows overflow at different steps in different
+    lanes of a batch.  Every answer equals the reference's
+    ``stream_step`` of the session alone on the same weights."""
+    jc, pc = _stream_cfgs(mode)
+    jp, pp = _params(pc)
+    eng = _stream_engine(pc, pp)
+    sids = ["a", "b", "c"]
+    for sid in sids:
+        eng.create_session(sid, kind="stream")
+    rs = np.random.default_rng(5)
+    chunks = {sid: [_toks(10 * i + r, int(rs.integers(1, 5)))
+                    for r in range(8)] for i, sid in enumerate(sids)}
+    reqs = {sid: [] for sid in sids}
+    for r in range(8):
+        for sid in sids[r % 3:] + sids[:r % 3]:
+            reqs[sid].append(eng.stream(sid, chunks[sid][r]).request)
+        eng.run()
+    for sid in sids:
+        st = JST.init_stream_state(jc, 1)
+        for t, req in zip(chunks[sid], reqs[sid]):
+            lg, st = _jstream(jp, jc, st, jnp.asarray(t)[None])
+            assert req.done
+            np.testing.assert_allclose(req.result, np.asarray(lg[0]),
+                                       atol=STREAM_ATOL, rtol=0)
+    snap = eng.metrics_snapshot()["metrics"]
+    moved = {v["labels"]["dir"]: v["value"]
+             for v in snap["offload_sessions_total"]["values"]}
+    assert moved["offload"] > 0 and moved["restore"] > 0
+    assert eng._mgr["stream"].arena.consistency_errors() == []
+
+
+def test_engine_stream_replay_matches_reference():
+    """Two stream sessions on one stream slot with a cost model that
+    always prefers recompute: every switch drops the other session's row
+    and replays its history into the slot (the replay pads each request
+    as live traffic does, clamped to ``stream_chunk``).  Token buckets
+    above the chunk size exercise the scheduler's stream cap: every
+    stream step runs at 4 tokens.  The answers equal the reference's
+    ``stream_step`` of each session alone."""
+    from repro_torch.serve import OffloadCostModel
+    jc, pc = _stream_cfgs()
+    jp, pp = _params(pc)
+    eng = _stream_engine(pc, pp, stream_slots=1, batch_buckets=(1,),
+                         token_buckets=(8, 16),
+                         offload_cost_model=OffloadCostModel(
+                             host_bandwidth=1.0))
+    rs = np.random.default_rng(6)
+    chunks = {sid: [_toks(20 * i + r, int(rs.integers(1, 5)))
+                    for r in range(6)] for i, sid in enumerate("ab")}
+    reqs = {sid: [] for sid in "ab"}
+    for sid in "ab":
+        eng.create_session(sid, kind="stream")
+    for r in range(6):
+        for sid in "ab":
+            reqs[sid].append(eng.stream(sid, chunks[sid][r]).request)
+            eng.run()
+    for sid in "ab":
+        st = JST.init_stream_state(jc, 1)
+        for t, req in zip(chunks[sid], reqs[sid]):
+            lg, st = _jstream(jp, jc, st, jnp.asarray(t)[None])
+            np.testing.assert_allclose(req.result, np.asarray(lg[0]),
+                                       atol=STREAM_ATOL, rtol=0)
+    snap = eng.metrics_snapshot()["metrics"]
+    decisions = {v["labels"]["decision"]: v["value"]
+                 for v in snap["offload_decisions_total"]["values"]}
+    assert decisions.get("recompute", 0) >= 5
+    assert {tl for op, _, tl, _ in eng._seen_shapes if op == "stream"} \
+        == {4}
+
+
+def test_stream_batches_capped_by_stream_arena():
+    """A stream batch must fit the (smaller) stream arena even when the
+    online arena is larger."""
+    _, pc = _stream_cfgs()
+    _, pp = _params(pc)
+    eng = _stream_engine(pc, pp, n_slots=8, batch_buckets=(1, 2, 4, 8))
+    reqs = []
+    for s in range(3):
+        eng.create_session(f"t{s}", kind="stream")
+        reqs.append(eng.stream(f"t{s}", _toks(60 + s, 4)).request)
+    eng.run()
+    assert all(r.done and r.result.shape == (4, 128) for r in reqs)
+    snap = eng.metrics_snapshot()["metrics"]
+    lanes = {v["labels"]["kind"]: v["value"]
+             for v in snap["serve_lanes_total"]["values"]}
+    batches = {v["labels"]["kind"]: v["value"]
+               for v in snap["serve_batches_total"]["values"]}
+    assert batches["stream"] >= 2 and lanes["stream"] <= 2 * batches["stream"]
+
+
+_GUARDS = {
+    "ingest-on-stream": lambda e: e.ingest("s", _toks(0, 3)),
+    "stream-on-online": lambda e: e.stream("o", _toks(0, 3)),
+    "chunk-over-quantum": lambda e: e.stream("s", _toks(0, 5)),
+    "block-over-window": lambda e: _stream_engine(
+        e.cfg.replace(ccm=dataclasses.replace(e.cfg.ccm, stream_window=4)),
+        e.params),
+}
+
+
+@pytest.mark.parametrize("case", list(_GUARDS))
+def test_stream_session_guards(case):
+    """A stream session refuses ingest (and an online session stream), a
+    chunk longer than ``stream_chunk`` is refused at submit, and an
+    eviction block that cannot fit behind the sink at construction."""
+    _, pc = _stream_cfgs()
+    _, pp = _params(pc)
+    eng = _stream_engine(pc, pp)
+    eng.create_session("s", kind="stream")
+    eng.create_session("o")
+    with pytest.raises(ValueError):
+        _GUARDS[case](eng)
+    assert eng.queue_depth() == 0
+
+
+def test_stream_row_offload_restore_is_bit_exact():
+    """A stream session's row (window, memory and counters) offloaded to
+    the host and restored comes back bit-equal, and the session goes on
+    streaming from it."""
+    from repro_torch.serve.arena import tree_leaves
+    _, pc = _stream_cfgs()
+    _, pp = _params(pc)
+    eng = _stream_engine(pc, pp)
+    eng.create_session("u", kind="stream")
+    for r in range(6):
+        eng.stream("u", _toks(r, 4))
+    eng.run()
+    mgr = eng._mgr["stream"]
+    before = mgr.arena.read_slot(mgr.sessions["u"].slot)
+    assert before.mem.slots == 2 and before.win_len == 16
+    assert eng.offload_session("u").status == "offloaded"
+    assert not mgr.sessions["u"].resident
+    mgr.activate_batch(["u"])
+    after = mgr.arena.read_slot(mgr.sessions["u"].slot)
+    for a, b in zip(tree_leaves(before), tree_leaves(after)):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    req = eng.stream("u", _toks(9, 4)).request
+    eng.run()
+    assert req.done and np.isfinite(req.result).all()
+
+
+def test_null_stream_step_shapes():
+    """The control-plane step of a stream op: zero logits of the contract
+    shape (B, 1, l, V), the slabs untouched."""
+    _, pc = _stream_cfgs()
+    arena = PArena.for_stream(pc, 2, device="cpu")
+    before = arena.slabs.win_k.clone()
+    out, slabs = PSRV.make_null_step(pc, "stream", True)(
+        None, arena.slabs, [0, 2], np.zeros((2, 1, 3), np.int32),
+        np.array([3, 1]))
+    assert out.shape == (2, 1, 3, 128) and not out.any()
+    assert slabs is arena.slabs and torch.equal(slabs.win_k, before)
