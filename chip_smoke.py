@@ -62,26 +62,43 @@ Phases (any failure raises, and the script exits non-zero):
      sessions (32 layers, window 512): 6 sessions on 4 stream slots, 12
      requests of 33-64 tokens each, every answer held to the session
      run alone;
+  9. the dense model zoo of the port's registry (SmolLM-360M,
+     Qwen2-0.5B, CodeQwen1.5-7B, Gemma-2B) at their published widths,
+     random weights from seed 0 in each config's own ``param_dtype``,
+     one model at a time: (a) phase 3's online path at full depth,
+     concat and merge with a bf16 cache (and concat with an int8 cache
+     for Gemma-2B), with a profiled decode and its float32 weight-cast
+     share; (b) phase 4's cross-check; (d) phase 7's serve engine; (e)
+     8b's streaming at 4 layers; (c) 2 AdamW steps with the config's own
+     ``train_mode`` (full training for all but CodeQwen1.5-7B), every
+     trainable leaf moved and every frozen one unchanged, with phase 6's
+     cross-check for Qwen2-0.5B and Gemma-2B.  CodeQwen1.5-7B trains and
+     serves at 4 layers;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
-launches in phases 3, 5, 7 and 8), then the result line.  Phase 2 also
+launches in phases 3, 5, 7, 8 and 9), then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward on
 its float32 and bf16 routes, the bf16 cases with per-lane (B, S)
 metadata, a layout with no <COMP> key and hd 72, the backward run twice
 and bit-equal; kv_cummean forward and reverse as one launch for the
 k + v groups of a layer, read in place from strided <COMP> groups and
 sliced gradients, timed as the median of three profiler windows;
-cond_lora's autograd) and the arena's session gather/scatter against
-their plain versions.
+cond_lora's autograd, dW included) and the arena's session
+gather/scatter against their plain versions, and times the zoo's
+shapes: segmented attention at 15/5, 14/2 (hd 64) and 8/1 (hd 256),
+cond_lora at the zoo's projections, CCM attention at 8/1 hd 256 and
+14/2 hd 64, the merge update at Gemma-2B's memory.
 Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -307,7 +324,7 @@ def check_segmented(torch, F, dattn, quantize_kv, card):
         raise AssertionError("decode lane with no key is not exactly 0")
 
     results = {}
-    for case in SEG_CASES:
+    for case in SEG_CASES + SEG_ZOO_CASES:
         results[case["label"]] = timed_segmented(torch, F, dattn, quantize_kv,
                                                  rn, card, **case)
     return results
@@ -328,19 +345,32 @@ SEG_CASES = [
     dict(label="serve query", Sq=32, clen=None, B=8, cap=256),
     dict(label="decode GQA 32/8", Sq=1, clen=480, Hkv=8),
 ]
+# the zoo's heads (phase 9): decode over a 480-token cache at SmolLM's
+# 15/5, Qwen2's 14/2 (hd 64) and Gemma's 8/1 (hd 256), and a 448-token
+# prefill at Qwen2's and Gemma's
+SEG_ZOO_CASES = [
+    dict(label="decode 15/5 hd64", Sq=1, clen=480, H=15, Hkv=5, D=64),
+    dict(label="decode 14/2 hd64", Sq=1, clen=480, H=14, Hkv=2, D=64),
+    dict(label="decode 8/1 hd256", Sq=1, clen=480, H=8, Hkv=1, D=256),
+    dict(label="prefill 14/2 hd64", Sq=448, clen=0, H=14, Hkv=2, D=64),
+    dict(label="prefill 8/1 hd256", Sq=448, clen=0, H=8, Hkv=1, D=256),
+]
 
 
 def timed_segmented(torch, F, dattn, quantize_kv, rn, card, *, label, Sq,
-                    clen, int8=False, B=4, Hkv=32, cap=512, mem=32):
+                    clen, int8=False, B=4, Hkv=32, cap=512, mem=32, H=32,
+                    D=128):
     """One segmented-attention shape: checked against the plain version,
     then timed beside it, SDPA over the explicit concatenation of the
     valid keys (with the CCM mask; GQA through ``enable_gqa``) and the
     bound.  Four layers (or four layer-id sets) rotate so that the timed
     reads exceed the 50 MB L2.  ``clen=None`` is the serve query: lane-
     major (B, L, S, H, D) memory and cache with per-lane lengths and
-    per-lane layer ids."""
+    per-lane layer ids.  The zoo's GQA and MQA caches (0.5-2 MB a layer)
+    stay in the 50 MB L2 across the four layers rotated here, where a
+    model's other work between two layers would evict them."""
     dev = "cuda"
-    H, D, L = 32, 128, 32
+    L = 32
     G = H // Hkv
     decode = Sq <= 2
     serve = clen is None
@@ -485,8 +515,10 @@ def check_cond_lora(torch, clora, card):
     K, ranks 1/13/64 that the wrapper pads to a multiple of 8, float32 on
     the CUDA-core route at 1e-4 x max|plain|), then the main path's
     shapes (K = N = 4096, r = 8) gated, ungated and with bias, each timed
-    beside its plain version, the library call and the bound.  Returns
-    {M: row}."""
+    beside its plain version, the library call and the bound, then the
+    zoo's projections at M = 288 (SmolLM's K 960 -> N 320, Qwen2's
+    896 -> 128, Gemma's 2048 -> 256, and 2048 -> 2048 with a bias).
+    Returns {M (LLaMA-7B) or "M K N": row}."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(2)
     bf = torch.bfloat16
@@ -509,15 +541,21 @@ def check_cond_lora(torch, clora, card):
         check(f"cond_lora M{M} K{K} N{N} r{r} {str(dt)[6:]} with bias",
               max_err(out, want), tol)
 
-    K = N = 4096
     r = 8
-    ws = [rn(K, N, std=K ** -0.5) for _ in range(4)]   # 4 x 33.5 MB > L2
-    a, b = rn(r, K, std=K ** -0.5), rn(r, N, std=0.05)
-    bias = rn(N)
     rows = {}
     # M = 288: an online ingest (4 lanes x 72); 576: an 8-lane serve
-    # ingest; 4864: a training step (4 x 1216)
-    for M in (288, 576, 4864):
+    # ingest; 4864: a training step (4 x 1216).  The zoo's weights
+    # (0.2-8.4 MB) stay in the L2 across the four rotated here.
+    for M, K, N, with_bias in ((288, 4096, 4096, False),
+                               (576, 4096, 4096, False),
+                               (4864, 4096, 4096, False),
+                               (288, 960, 320, False), (288, 896, 128, False),
+                               (288, 2048, 256, False),
+                               (288, 2048, 2048, True)):
+        ws = [rn(K, N, std=K ** -0.5) for _ in range(4)]  # LLaMA: > L2
+        a, b = rn(r, K, std=K ** -0.5), rn(r, N, std=0.05)
+        bias = rn(N)
+        tb = bias if with_bias else None
         x = rn(M, K)
         gate = ((torch.arange(M, device=dev) % 72) >= 64).float()
         errs = []
@@ -531,20 +569,25 @@ def check_cond_lora(torch, clora, card):
             check(f"cond_lora {gname} M{M} K{K} N{N} r{r}", errs[-1],
                   bf16_tol(want))
         g2 = gate.to(bf)[:, None]
+        lb = 0 if tb is None else tb
         t = timings(
             torch,
-            lambda i: clora.cond_lora_matmul(x, ws[i % 4], a, b, gate, 2.0),
+            lambda i: clora.cond_lora_matmul(x, ws[i % 4], a, b, gate, 2.0,
+                                             bias=tb),
             "cond_lora",
-            lambda i: clora.plain(x, ws[i % 4], a, b, gate, 2.0),
-            lambda i: x @ ws[i % 4] + g2 * ((x @ a.T) @ b) * 2.0)
-        nbytes = 2 * (M * K + K * N + r * K + r * N + M * N) + 4 * M
+            lambda i: clora.plain(x, ws[i % 4], a, b, gate, 2.0, bias=tb),
+            lambda i: x @ ws[i % 4] + lb + g2 * ((x @ a.T) @ b) * 2.0)
+        nbytes = 2 * (M * K + K * N + r * K + r * N + M * N
+                      + (N if with_bias else 0)) + 4 * M
         ops_ = 2.0 * M * K * N + 2.0 * M * K * r + 2.0 * M * r * N
         bms, by = bound(nbytes, ops_, PEAK_BF16)
-        report(f"cond_lora M{M} (library: x@W + gate*(x@A^T@B)*s)", t, bms,
+        key = M if K == 4096 else \
+            f"M{M} K{K} N{N}{' bias' if with_bias else ''}"
+        report(f"cond_lora {key} (library: x@W + gate*(x@A^T@B)*s)", t, bms,
                by, card)
-        rows[M] = dict(max_abs_err=errs[0], ms=t["ms"],
-                       plain_ms=t["plain_ms"], library_ms=t["library_ms"],
-                       bound_ms=bms, bound_by=by)
+        rows[key] = dict(max_abs_err=errs[2 if with_bias else 0], ms=t["ms"],
+                         plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+                         bound_ms=bms, bound_by=by)
         del x
     return rows
 
@@ -664,8 +707,41 @@ def check_kv_merge(torch, kvm, card):
         f"(two torch.lerp_ with a (B,) bf16 weight tensor), bound "
         f"{bms:.4f} ms ({by}) [{card}]")
     del sets, lsets, off
+
+    # Gemma-2B's merge memory (18 layers, B4, 8 <COMP> rows, MQA hd 256):
+    # 0.3 MB a tensor, so 48 sets of four rotate past the 50 MB L2
+    gs = (18, B, m, 1, 256)
+    case(f"k+v a=1/3 {gs} (Gemma-2B)", [rn(gs), rn(gs)], [rn(gs), rn(gs)],
+         1.0 / 3, 1, 8)
+    g_err = errs[-1]
+    gsets = [[rn(gs) for _ in range(4)] for _ in range(48)]
+
+    def g_pair(i):
+        mk, mv, hk, hv = gsets[i % 48]
+        kvm.kv_merge_update_lanes_((mk, mv), (hk, hv), 1.0 / 3, 1)
+
+    def g_plain(i):
+        mk, mv, hk, hv = gsets[i % 48]
+        mk.copy_(kvm.plain_lanes(mk, hk, 1.0 / 3, 1))
+        mv.copy_(kvm.plain_lanes(mv, hv, 1.0 / 3, 1))
+
+    def g_lerp(i):
+        mk, mv, hk, hv = gsets[i % 48]
+        mk.lerp_(hk, 1.0 / 3)
+        mv.lerp_(hv, 1.0 / 3)
+    tg = timings(torch, g_pair, "kv_merge_kernel", g_plain, g_lerp)
+    gn = math.prod(gs)
+    gbms, gby = bound(2 * 3 * gn * 2, 2 * 3.0 * gn, PEAK_F32)
+    report(f"kv_merge k+v {gs} (Gemma-2B; library: two torch.lerp_)", tg,
+           gbms, gby, card)
+    del gsets
     return dict(max_abs_err=max(errs), ms=t["ms"], plain_ms=t["plain_ms"],
-                library_ms=t["library_ms"], bound_ms=bms, bound_by=by)
+                library_ms=t["library_ms"], bound_ms=bms, bound_by=by,
+                shapes=[dict(shape=f"k+v {gs} bf16 (Gemma-2B)",
+                             max_abs_err=g_err, ms=tg["ms"],
+                             plain_ms=tg["plain_ms"],
+                             library_ms=tg["library_ms"], bound_ms=gbms,
+                             bound_by=gby)])
 
 
 def check_session_gather(torch, sg, card):
@@ -824,14 +900,48 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
             != (n_bf, n_bf):
         raise AssertionError("a bf16 case missed the tensor-core route")
 
-    # -- the training shape: LLaMA-7B heads, concat layout, bf16
+    # -- the training shape: LLaMA-7B heads, concat layout, bf16; then
+    #    the zoo's at the same layout: Gemma's MQA 8/1 at hd 256 and
+    #    Qwen2's GQA 14/2 at hd 64
+    fwd_row, bwd_row = timed_ccm(torch, F, ca, segment_layout, card, rn,
+                                 32, 32, 128)
+    zoo = []
+    for Hq, Hkv, D in ((8, 1, 256), (14, 2, 64)):
+        f, b = timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D)
+        zoo += [dict(f, shape=f"forward B4 S1216 {Hq}/{Hkv} hd{D}"),
+                dict(b, shape=f"backward B4 S1216 {Hq}/{Hkv} hd{D}")]
+    fwd_row["shapes"] = [r for r in zoo if r["shape"].startswith("forward")]
+    bwd_row["shapes"] = [r for r in zoo if r["shape"].startswith("backward")]
+    return fwd_row, bwd_row
+
+
+def timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D):
+    """CCM attention at the training shape (B4, the concat layout of 16
+    steps of 64 + 8 <COMP> and a 64-token tail, S 1216) with Hq query
+    and Hkv key/value heads of width D, bf16: forward and backward held
+    to the plain version, then each timed beside it, SDPA with the CCM
+    mask (``enable_gqa`` where Hq > Hkv) and the bound.  Returns the
+    (forward, backward) rows."""
+    dev = "cuda"
     lay = segment_layout(16, 64, 8, 64)                  # S = 1216
-    B, H, S, D = 4, 32, lay.seq_len, 128
+    B, S = 4, lay.seq_len
+    H = Hq
+    gqa = Hq != Hkv
+    tag = f"B4 {Hq}/{Hkv} S{S} hd{D}"
     idx, seg, comp = ccm_meta(torch, lay, dev)
     meta = (idx, seg, idx, seg, comp, None)
     scale = D ** -0.5
-    sets = [tuple(rn(B, H, S, D, dtype=torch.bfloat16) for _ in range(4))
-            for _ in range(4)]                           # 4 x 160 MB > L2
+    bf = torch.bfloat16
+    # 4 sets (LLaMA-7B: 4 x 160 MB > L2)
+    sets = [(rn(B, Hq, S, D, dtype=bf), rn(B, Hkv, S, D, dtype=bf),
+             rn(B, Hkv, S, D, dtype=bf), rn(B, Hq, S, D, dtype=bf))
+            for _ in range(4)]
+
+    def grads(fn, q, k, v, do):
+        q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = fn(q, k, v)
+        return (out,) + torch.autograd.grad(out, (q, k, v), do)
+
     q, k, v, do = sets[0]
     got = grads(lambda a, b, c: ca.ccm_attention(a, b, c, *meta, scale),
                 q, k, v, do)
@@ -841,26 +951,28 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
     for name, a, b in zip(("fwd", "dq", "dk", "dv"), got, want):
         errs[name] = max_err(a, b)
         top = b.float().abs().max().item()
-        check(f"ccm_attention {name} B4 H32 S{S} hd128 bf16 (training shape)",
+        check(f"ccm_attention {name} {tag} bf16 (training shape)",
               errs[name], 2.0 ** (-6 if name == "fwd" else -5) * top)
     del got, want
     # the (q, k) pairs the CCM mask lets through: the work this data needs
     mask = (idx[None, :] <= idx[:, None]) \
         & ((seg[None, :] == seg[:, None]) | comp[None, :])
     pairs = int(mask.sum().item()) * B * H
-    nq, nk = -(-S // 16), -(-S // 32)      # the float32 route's 16 x 32 tiles
-    padded = torch.zeros(nq * 16, nk * 32, dtype=torch.bool, device=dev)
-    padded[:S, :S] = mask
-    kept = int(padded.reshape(nq, 16, nk, 32).any(3).any(1).sum().item())
-    pl = ca.plan(*meta, B, S, S, dev)
-    nat = int(pl.k_count[:, :pl.nk].sum().item())
-    cmp_ = int(pl.k_count[:, pl.nk:].sum().item())
-    log(f"  ccm_attention training shape: {pairs / (B * H * S * S):.4f} of "
-        f"the S x S pairs visible; the float32 route's tile skip keeps "
-        f"{kept} of {nq * nk} 16 x 32 tiles, the bf16 route's two streams "
-        f"{nat} natural + {cmp_} <COMP> = {nat + cmp_} of {pl.nq * pl.nk} "
-        f"64 x 64 tiles ({pairs / (B * H) / ((nat + cmp_) * 64 * 64):.3f} "
-        f"of their pairs visible)")
+    if (Hq, Hkv, D) == (32, 32, 128):
+        nq, nk = -(-S // 16), -(-S // 32)  # the float32 route's 16 x 32 tiles
+        padded = torch.zeros(nq * 16, nk * 32, dtype=torch.bool, device=dev)
+        padded[:S, :S] = mask
+        kept = int(padded.reshape(nq, 16, nk, 32).any(3).any(1).sum().item())
+        pl = ca.plan(*meta, B, S, S, dev)
+        nat = int(pl.k_count[:, :pl.nk].sum().item())
+        cmp_ = int(pl.k_count[:, pl.nk:].sum().item())
+        log(f"  ccm_attention training shape: {pairs / (B * H * S * S):.4f} "
+            f"of the S x S pairs visible; the float32 route's tile skip "
+            f"keeps {kept} of {nq * nk} 16 x 32 tiles, the bf16 route's two "
+            f"streams {nat} natural + {cmp_} <COMP> = {nat + cmp_} of "
+            f"{pl.nq * pl.nk} 64 x 64 tiles "
+            f"({pairs / (B * H) / ((nat + cmp_) * 64 * 64):.3f} of their "
+            "pairs visible)")
     plan_ms = device_ms(torch, lambda i: ca.plan(*meta, B, S, S, dev), 10)
     log(f"  ccm_attention plan() at the training shape: {plan_ms:.4f} ms "
         f"device, built once per set of metadata [{card}]")
@@ -873,16 +985,19 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
 
     def fwd_l(i):
         return F.scaled_dot_product_attention(*sets[i % 4][:3],
-                                              attn_mask=mask, scale=scale)
+                                              attn_mask=mask, scale=scale,
+                                              enable_gqa=gqa)
     t_f = timings(torch, fwd_k, "ccm_attention_fwd", fwd_p, fwd_l)
-    nb = 2 * (4 * B * H * S * D) + 4 * B * H * S      # q, k, v, o + lse
+    qo = 2 * B * Hq * S * D                       # q and o (or dO, dq)
+    kv = 2 * B * Hkv * S * D                      # k and v (or dk, dv)
+    nb = 2 * (qo + kv) + 4 * B * Hq * S           # bf16 + the log-sum-exp
     bms, by = bound(nb, 4.0 * D * pairs, PEAK_BF16)
-    report("ccm_attention forward (library: SDPA with the CCM mask)", t_f,
-           bms, by, card)
+    report(f"ccm_attention forward {tag} (library: SDPA with the CCM mask)",
+           t_f, bms, by, card)
     fwd_row = dict(max_abs_err=errs["fwd"], ms=t_f["ms"],
                    plain_ms=t_f["plain_ms"], library_ms=t_f["library_ms"],
                    bound_ms=bms, bound_by=by, plan_ms=plan_ms)
-    log(f"  ccm_attention forward: {bms / t_f['ms']:.3f} of the bound, "
+    log(f"  ccm_attention forward {tag}: {bms / t_f['ms']:.3f} of the bound, "
         f"{t_f['library_ms'] / t_f['ms']:.2f}x the library's speed [{card}]")
 
     # backward only: the graphs are built once, outside the timing
@@ -894,8 +1009,10 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
     g1 = ca.ccm_attention_bwd(*saved[0], *meta, scale)
     g2 = ca.ccm_attention_bwd(*saved[0], *meta, scale)
     if not all(torch.equal(a, b) for a, b in zip(g1, g2)):
-        raise AssertionError("ccm_attention backward: two calls differ")
-    log("  ccm_attention backward: two calls on the same inputs bit-equal")
+        raise AssertionError(f"ccm_attention backward {tag}: two calls "
+                             "differ")
+    log(f"  ccm_attention backward {tag}: two calls on the same inputs "
+        "bit-equal")
     del g1, g2
 
     def retained(fn):
@@ -915,7 +1032,7 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
     t_pb = dict(plain_ms=device_ms(torch, bwd_p, 5))
     del plain_g
     lib_g = retained(lambda a, b, c: F.scaled_dot_product_attention(
-        a, b, c, attn_mask=mask, scale=scale))
+        a, b, c, attn_mask=mask, scale=scale, enable_gqa=gqa))
 
     def bwd_l(i):
         o, xs, dd = lib_g[i % 4]
@@ -924,12 +1041,14 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
                call_ms=time_ms(torch, bwd_k, 20),
                library_ms=device_ms(torch, bwd_l, 20), **t_pb)
     del lib_g
-    nb = 2 * (8 * B * H * S * D) + 8 * B * H * S     # q k v o dO -> dq dk dv
+    # q k v o dO -> dq dk dv, the log-sum-exp and the row sums of dO * O
+    nb = 2 * (2 * qo + 2 * kv) + 8 * B * Hq * S
     bms, by = bound(nb, 10.0 * D * pairs, PEAK_BF16)
-    report("ccm_attention backward (library: SDPA backward)", t_b, bms, by,
-           card)
-    log(f"  ccm_attention backward: {bms / t_b['ms']:.3f} of the bound, "
-        f"{t_b['library_ms'] / t_b['ms']:.2f}x the library's speed [{card}]")
+    report(f"ccm_attention backward {tag} (library: SDPA backward)", t_b,
+           bms, by, card)
+    log(f"  ccm_attention backward {tag}: {bms / t_b['ms']:.3f} of the "
+        f"bound, {t_b['library_ms'] / t_b['ms']:.2f}x the library's speed "
+        f"[{card}]")
     bwd_row = dict(max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]),
                    ms=t_b["ms"], plain_ms=t_b["plain_ms"],
                    library_ms=t_b["library_ms"], bound_ms=bms, bound_by=by)
@@ -1087,7 +1206,8 @@ def check_kv_cummean(torch, kvm, card):
 
 def check_cond_lora_grad(torch, clora, card):
     """cond_lora under autograd (kernel forward, matmul backward) against
-    autograd through the plain version: dx, dA, dB and dbias."""
+    autograd through the plain version: dx, dW (full training), dA, dB
+    and dbias."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(7)
     for M, K, N, dt in ((288, 512, 384, torch.float32),
@@ -1100,11 +1220,12 @@ def check_cond_lora_grad(torch, clora, card):
         gate = ((torch.arange(M, device=dev) % 72) >= 64).float()
         res = []
         for fn in (clora.cond_lora, clora.plain):
-            xs = [t.detach().requires_grad_(True) for t in (x, a, b, bias)]
-            y = fn(xs[0], w, xs[1], xs[2], gate, 2.0, xs[3])
+            xs = [t.detach().requires_grad_(True)
+                  for t in (x, w, a, b, bias)]
+            y = fn(*xs[:4], gate, 2.0, xs[4])
             res.append(torch.autograd.grad(y, xs, dy))
         torch.cuda.synchronize()
-        for name, got, want in zip(("dx", "dA", "dB", "dbias"), *res):
+        for name, got, want in zip(("dx", "dW", "dA", "dB", "dbias"), *res):
             top = want.float().abs().max().item()
             # bf16: the base product dy @ W^T is rounded to bf16 before the
             # LoRA term is added, then the sum is rounded again (4 ulps)
@@ -1117,12 +1238,14 @@ def check_cond_lora_grad(torch, clora, card):
 # phase 3: the main path at full width and depth
 # ---------------------------------------------------------------------------
 
-def profile_window(torch, fn, label: str, card: str, warmup: bool = True):
+def profile_window(torch, fn, label: str, card: str, warmup: bool = True,
+                   stats: dict = None):
     """Device busy time, span and top kernels of one call of ``fn`` under
     ``torch.profiler`` (after one warm-up call unless ``warmup`` is
     False); returns {kernel name: device ms} (None when the profiler
-    recorded no device event).  The profiler's own host overhead
-    stretches the span, so the idle share is an upper bound."""
+    recorded no device event) and, with ``stats``, stores busy_ms,
+    span_ms and idle there.  The profiler's own host overhead stretches
+    the span, so the idle share is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if warmup:
@@ -1145,6 +1268,8 @@ def profile_window(torch, fn, label: str, card: str, warmup: bool = True):
     log(f"  profile {label}: device busy {busy:.3f} ms of a {span:.3f} ms "
         f"span, idle share {1 - busy / span:.3f}, {len(evs)} device events "
         f"[{card}]")
+    if stats is not None:
+        stats.update(busy_ms=busy, span_ms=span, idle=1 - busy / span)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"    {ms:9.3f} ms  {name[:100]}")
     return by_name
@@ -1169,8 +1294,23 @@ def clone_state(torch, st):
     return c(st)
 
 
+def f32_cast_ms(by_name) -> float:
+    """Device ms of the copy kernels that read float32 (their element
+    lambda takes a ``float``): the casts of float32 weights to the bf16
+    compute dtype, with the few small float32 activation casts (norm
+    outputs) beside them."""
+    return sum(ms for name, ms in (by_name or {}).items()
+               if "copy" in name and "(float)" in name)
+
+
 def main_path(torch, PI, ops, params, cfg, mode, cache_dtype, card,
-              profile: bool = False):
+              profile: bool = False, record: dict = None):
+    """B=4 lanes, 4 ingests of 64-token contexts, a 448-token prefill
+    into a 512-token cache and 32 greedy tokens (twice: the explicit
+    loop and ``generate``), with the launches of every kernel held to
+    what the path implies; with ``record``, host ms per step kind (and,
+    with ``profile``, the profiled decode steps' idle share and float32
+    cast share) are stored there.  Returns the launch counts."""
     B, T, LC, PROMPT, CACHE, NEW = 4, 4, 64, 448, 512, 32
     ccm = dataclasses.replace(cfg.ccm, mode=mode)
     rcfg = cfg.replace(kv_cache_dtype=cache_dtype, ccm=ccm)
@@ -1253,6 +1393,10 @@ def main_path(torch, PI, ops, params, cfg, mode, cache_dtype, card,
         f"ms/step), generate {B * NEW / generate_ms * 1e3:.2f} tok/s "
         f"({generate_ms:.1f} ms) [{card}]")
     log(f"  {name}: launches {counts} (as the path implies)")
+    if record is not None:
+        record.update(ingest_ms=ingest_ms, prefill_ms=prefill_ms,
+                      decode_ms=decode_ms / (NEW - 1),
+                      generate_ms=generate_ms)
     if profile:         # after the counts: these launches are not counted
         def decode3():
             nonlocal st
@@ -1262,7 +1406,17 @@ def main_path(torch, PI, ops, params, cfg, mode, cache_dtype, card,
         def ingest1():
             nonlocal st
             st = PI.ingest_context(params, rcfg, st, chunks[0])
-        profile_window(torch, decode3, f"{name} 3 decode steps", card)
+        stats = {}
+        by = profile_window(torch, decode3, f"{name} 3 decode steps", card,
+                            stats=stats)
+        if stats:
+            cast = f32_cast_ms(by)
+            stats.update(cast_ms=cast, cast_share=cast / stats["busy_ms"])
+            log(f"  {name}: float32 -> bf16 copies {cast:.3f} ms of the "
+                f"{stats['busy_ms']:.3f} busy ms of 3 decode steps "
+                f"({stats['cast_share']:.3f}) [{card}]")
+        if record is not None:
+            record["decode_profile"] = stats
         profile_window(torch, ingest1, f"{name} 1 ingest", card)
     return counts
 
@@ -1344,12 +1498,18 @@ def cross_check(torch, PI, params_bf16, cfg, devices=("cuda", "cpu")):
 # phase 5: training at full width and depth
 # ---------------------------------------------------------------------------
 
-def train_phase(torch, ops, clora, TR, T, PD, PA, PP, segment_layout,
-                params, cfg, card):
-    """3 concat + 2 merge AdamW steps of LLaMA-7B through
-    ``make_train_step`` (B=4, S=1216), then one gradient-free
-    ``train_forward``; returns the launch counts of the 5 steps."""
-    import dataclasses as dc
+def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
+                cfg, card, modes, label: str):
+    """AdamW steps through ``make_train_step``, one per entry of ``modes``
+    ("concat" or "merge"), with the config's own ``train_mode`` (B=4,
+    the layout of 16 steps of 64 + 8 <COMP> and a 64-token tail,
+    S=1216): each step's launches held to the path's, every trainable
+    leaf moved at every step (seen on a strided sample of at most 2^20
+    of its elements: no second copy of a model's parameters) and every
+    frozen leaf bitwise unchanged.  Returns a namespace with the step
+    functions and configs by mode, the partition, the optimizer state,
+    the batch and layout, the launch counts and {step_ms, peak_gib,
+    losses}."""
     dev = params["embed"].device
     layout = segment_layout(16, 64, 8, 64)
     B = 4
@@ -1360,12 +1520,9 @@ def train_phase(torch, ops, clora, TR, T, PD, PA, PP, segment_layout,
     # lr 1e-3 from step 1: an update of ~lr moves every bf16 comp_embed
     # value (|x| ~ 0.02, one bf16 ulp ~ 1.2e-4)
     ocfg = PA.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
-    train0 = {"/".join(p): x.detach().clone() for p, x in PP.leaves(tp)}
-    frozen0 = {"/".join(p): x.clone() for p, x in PP.leaves(fp)}
-    merge_cfg = cfg.replace(ccm=dc.replace(cfg.ccm, mode="merge",
-                                           merge_alpha=None))
-    steps = [("concat", cfg)] * 3 + [("merge", merge_cfg)] * 2
-    fns = {m: TR.make_train_step(c, layout, ocfg) for m, c in steps}
+    cfgs = {"concat": cfg, "merge": cfg.replace(ccm=dataclasses.replace(
+        cfg.ccm, mode="merge", merge_alpha=None))}
+    fns = {m: TR.make_train_step(cfgs[m], layout, ocfg) for m in set(modes)}
     L = cfg.n_layers
     want_step = {
         "concat": {"ccm_attention": 2 * L, "ccm_attention_backward": L,
@@ -1374,46 +1531,66 @@ def train_phase(torch, ops, clora, TR, T, PD, PA, PP, segment_layout,
                    "cond_lora": 4 * 2 * L, "cond_lora_wgmma": 4 * 2 * L},
         "merge": {"kv_cummean": 2 * L, "kv_cummean_backward": L,
                   "cond_lora": 4 * 2 * L, "cond_lora_wgmma": 4 * 2 * L}}
+
+    def sample(x):
+        flat = x.detach().reshape(-1)
+        return flat[::max(1, flat.numel() >> 20)].clone()
+    frozen0 = {"/".join(p): x.clone() for p, x in PP.leaves(fp)}
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     clora.backward_calls = 0
-    totals = {}
-    losses = []
-    for i, (mode, _) in enumerate(steps):
-        before = ops.launch_counts()
+    ms, losses, peak = [], [], 0.0
+    for i, mode in enumerate(modes):
+        before = {"/".join(p): sample(x) for p, x in PP.leaves(tp)}
+        c0 = ops.launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         tp, opt, metrics, _ = fns[mode](tp, fp, opt, batch, None)
-        loss = metrics["loss"].item()
+        losses.append(metrics["loss"].item())
         torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) * 1e3
-        after = ops.launch_counts()
-        step_counts = {k: after[k] - before[k] for k in after
-                       if after[k] != before[k]}
-        losses.append(loss)
-        log(f"  train step {i + 1} ({mode}): loss {loss:.4f}, grad norm "
-            f"{metrics['grad_norm'].item():.4f}, {dt:.1f} ms, peak "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
-            f"launches {step_counts} [{card}]")
-        if step_counts != want_step[mode]:
-            raise AssertionError(f"step {i + 1} launches {step_counts} != "
-                                 f"{want_step[mode]}")
-    totals = ops.launch_counts()
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite training loss {losses}")
-    if clora.backward_calls != 5 * 4 * L:
-        raise AssertionError(f"cond_lora autograd backward ran "
-                             f"{clora.backward_calls} times, want {20 * L}")
-    for k, x in PP.leaves(tp):
-        if torch.equal(x.detach(), train0["/".join(k)]):
-            raise AssertionError(f"trainable leaf {'/'.join(k)} unchanged")
+        ms.append((time.perf_counter() - t0) * 1e3)
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+        c1 = ops.launch_counts()
+        got = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+        log(f"  {label} step {i + 1} ({mode}, {cfg.train_mode}): loss "
+            f"{losses[-1]:.4f}, grad norm {metrics['grad_norm'].item():.4f}"
+            f", {ms[-1]:.1f} ms, peak {peak:.2f} GiB, launches {got} "
+            f"[{card}]")
+        if got != want_step[mode] or not math.isfinite(losses[-1]):
+            raise AssertionError(f"{label} step {i + 1}: loss {losses[-1]}, "
+                                 f"launches {got} != {want_step[mode]}")
+        still = [k for k, x in (("/".join(p), x) for p, x in PP.leaves(tp))
+                 if torch.equal(sample(x), before[k])]
+        if still:
+            raise AssertionError(f"{label} step {i + 1}: trainable leaves "
+                                 f"unchanged {still}")
     for k, x in PP.leaves(fp):
         if not torch.equal(x, frozen0["/".join(k)]):
-            raise AssertionError(f"frozen leaf {'/'.join(k)} changed")
-    log(f"  {len(train0)} trainable leaves all changed, {len(frozen0)} "
-        f"frozen leaves bitwise unchanged; opt step {opt.step}")
-    del frozen0, train0
-    for mode, c in (("concat", cfg), ("merge", merge_cfg)):
+            raise AssertionError(f"{label}: frozen leaf {'/'.join(k)} "
+                                 "changed")
+    if clora.backward_calls != len(modes) * 4 * L:
+        raise AssertionError(f"{label}: cond_lora autograd backward ran "
+                             f"{clora.backward_calls} times, want "
+                             f"{len(modes) * 4 * L}")
+    log(f"  {label}: {len(PP.leaves(tp))} trainable leaves moved at every "
+        f"step, {len(frozen0)} frozen leaves bitwise unchanged; opt step "
+        f"{opt.step}, peak {peak:.2f} GiB")
+    return types.SimpleNamespace(
+        fns=fns, cfgs=cfgs, tp=tp, fp=fp, opt=opt, batch=batch,
+        layout=layout, counts=ops.launch_counts(),
+        record=dict(step_ms=ms, peak_gib=peak, losses=losses))
+
+
+def train_phase(torch, ops, clora, TR, T, PD, PA, PP, segment_layout,
+                params, cfg, card):
+    """3 concat + 2 merge AdamW steps of LLaMA-7B (``train_steps``), then
+    one gradient-free ``train_forward`` and one profiled step of each
+    mode; returns the launch counts of the 5 steps."""
+    run = train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout,
+                      params, cfg, card, ["concat"] * 3 + ["merge"] * 2,
+                      "train")
+    batch, layout = run.batch, run.layout
+    for mode, c in run.cfgs.items():
         with torch.no_grad():
             T.train_forward(params, c, batch["tokens"], layout)
             torch.cuda.synchronize()
@@ -1422,21 +1599,22 @@ def train_phase(torch, ops, clora, TR, T, PD, PA, PP, segment_layout,
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         if not bool(torch.isfinite(lg).all()) \
-                or lg.shape != (B, 64, cfg.vocab_size):
+                or lg.shape != (4, 64, cfg.vocab_size):
             raise AssertionError(f"train_forward {mode}: bad logits")
         log(f"  train_forward {mode} (no grad, B4 S1216, tail logits): "
             f"{ms:.1f} ms [{card}]")
     # one profiled step of each mode (after the counts: not counted)
     for mode in ("concat", "merge"):
-        by = profile_window(torch, lambda: fns[mode](tp, fp, opt, batch, None),
-                            f"1 {mode} train step", card)
+        by = profile_window(torch, lambda: run.fns[mode](
+            run.tp, run.fp, run.opt, batch, None), f"1 {mode} train step",
+            card)
         ccm = {n.split("<")[0].split()[-1]: ms for n, ms in (by or {}).items()
                if "ccm_attention" in n}
         if ccm:
             log(f"  CCM attention in the profiled {mode} step: "
                 + ", ".join(f"{n} {ms:.3f} ms" for n, ms in sorted(ccm.items()))
                 + f"; {sum(ccm.values()):.3f} ms in all [{card}]")
-    return totals
+    return run.counts
 
 
 # ---------------------------------------------------------------------------
@@ -1532,7 +1710,8 @@ def first_layers(tree, n: int):
 def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
                 n_sessions: int, n_slots: int, seed: int,
                 async_offload: bool = False, recompress: bool = False,
-                stagger: bool = False, detail: bool = False):
+                stagger: bool = False, detail: bool = False,
+                record: dict = None, paths_witness: bool = False):
     """Drive ``ServeEngine`` through its entry points: ``n_sessions``
     sessions over 3 tenants, two of them opened with the same
     ``prefix_tokens`` (a prefix-cache hit), 3 ragged contexts of 33-64
@@ -1543,7 +1722,11 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
     recompression after the ingests.  Every query's logits are then held
     against the same session run alone (B=1) through ``ingest_context``
     / ``prefill`` on the card; an offloaded-then-restored row must come
-    back bit-equal.  Returns the kernel launches of the engine's run."""
+    back bit-equal.  With ``paths_witness`` the queries are held to
+    ``bf16_tol_paths`` and ``serve_witness`` runs.  Returns the kernel
+    launches of the engine's run; with ``record``, ms per ingest and
+    query batch, the arena row's MB and the worst query error (x
+    bf16_tol) are stored there."""
     import numpy as np
     from repro_torch.core.memory import recompress_memory
     from repro_torch.serve import PressurePolicy, ServeEngine
@@ -1690,7 +1873,8 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
         f"launches {counts}")
 
     # every query against the session run alone (B=1) on the card
-    worst = 0.0
+    worst, alone, ratio = 0.0, {}, {}
+    hold = bf16_tol_paths if paths_witness else bf16_tol
     for sid, req in reqs.items():
         if not req.done or req.result is None:
             raise AssertionError(f"{label}: query of {sid} not delivered")
@@ -1709,13 +1893,21 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
         got = torch.from_numpy(req.result)
         if got.shape != want.shape or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{label}: {sid} logits {got.shape}")
-        err, tol = max_err(got, want), bf16_tol(want)
-        worst = max(worst, err / tol)
+        err, tol = max_err(got, want), hold(want)
+        ratio[sid] = err / bf16_tol(want)
+        worst = max(worst, ratio[sid])
+        alone[sid] = want
         if not err <= tol:
             raise AssertionError(f"{label}: {sid} logits differ from the "
                                  f"single-session run: {err} > {tol}")
-    log(f"  {label}: {len(reqs)} queries match their single-session runs: "
-        f"worst max_abs_err / bf16_tol = {worst:.3f}")
+    log(f"  {label}: {len(reqs)} queries match their single-session runs "
+        f"within {hold.__name__}: worst max_abs_err / bf16_tol = "
+        f"{worst:.3f}")
+    if paths_witness:
+        for s in ("fork", recompressed):        # not one session's contexts
+            ratio.pop(s, None)
+        serve_witness(torch, PI, params, cfg, ctx, qry, ratio, alone,
+                      {s: reqs[s].result for s in ratio}, label=label)
 
     # an offloaded row comes back bit-equal (host clock for the rates)
     sid = next(s for s in sids if mgr.sessions[s].resident)
@@ -1743,9 +1935,56 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
     if detail:
         log(f"  {label}: ms per ingest batch {[round(x, 1) for x in ingest_ms]}, "
             f"per query batch {query_ms:.1f} [{card}]")
+    if record is not None:
+        record.update(ingest_ms=ingest_ms, query_ms=query_ms,
+                      row_mb=gb * 1e3, worst_x_bf16_tol=worst)
     del eng
     torch.cuda.empty_cache()
     return counts
+
+
+def serve_witness(torch, PI, params, cfg, ctx, qry, ratio, alone, engine, *,
+                  label: str, n: int = 8):
+    """Where a served answer's gap to its session alone comes from.  The
+    ``n`` sessions whose engine answers (E) lie farthest from their runs
+    alone (A) are driven again outside the engine, as one batch of ``n``
+    lanes (B) through ``ingest_context`` and ``prefill`` with per-lane
+    ``valid_len``: each round's contexts padded to the engine's 64-token
+    bucket, the queries to 32.  B vs A as large as E vs A says that the
+    gap is a batch's (cuBLAS picks other GEMM algorithms for another M,
+    as ``bf16_tol_paths`` says), not the engine's."""
+    import numpy as np
+    dev = params["embed"].device
+    sids = sorted(ratio, key=lambda s: -ratio[s])[:n]
+
+    def padded(seqs, width):
+        vl = np.array([len(x) for x in seqs], np.int64)
+        buf = np.zeros((len(seqs), width), np.int32)
+        for i, x in enumerate(seqs):
+            buf[i, :vl[i]] = x
+        return torch.as_tensor(buf, device=dev), vl
+    st = PI.init_online_state(cfg, len(sids), 256, device=dev)
+    zero = np.zeros(len(sids), np.int64)       # per-lane counters, as packed
+    st = st._replace(cache=st.cache._replace(length=zero.copy()),
+                     mem=st.mem._replace(slots=zero.copy(), steps=zero.copy(),
+                                         stream_pos=zero.copy()),
+                     pos=zero.copy())
+    for r in range(3):
+        tk, vl = padded([ctx[s][r] for s in sids], 64)
+        st = PI.ingest_context(params, cfg, st, tk, valid_len=vl)
+    tq, vq = padded([qry[s] for s in sids], 32)
+    lg, _ = PI.prefill(params, cfg, st, tq, full_logits=True, valid_len=vq)
+    out = {"E vs A": [], "B vs A": [], "E vs B": []}
+    for i, s in enumerate(sids):
+        b, e = lg[i, :vq[i]].float().cpu(), torch.from_numpy(engine[s])
+        for name, x, y in (("E vs A", e, alone[s]), ("B vs A", b, alone[s]),
+                           ("E vs B", e, b)):
+            out[name].append(max_err(x, y) / bf16_tol(y))
+    log(f"  {label} witness, the {len(sids)} farthest sessions again as one "
+        f"batch outside the engine (x bf16_tol per lane; {sids}): "
+        + "; ".join(f"{k} {[round(x, 3) for x in v]}"
+                    for k, v in out.items()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1882,13 +2121,15 @@ def stream_full_width(torch, STR, ops, params, cfg, card, *, B: int = 2,
     return counts, mean, evictions
 
 
-def stream_modes(torch, STR, ops, params, cfg, card, *, n_chunks: int = 16):
+def stream_modes(torch, STR, ops, params, cfg, card, *, n_chunks: int = 16,
+                 tag: str = "8b"):
     """8b: 4 layers at full width, W 512, chunk 64, 4 memory groups:
     concat through the memory-full branch, merge and the StreamingLLM
     baseline (ccm_on=False), ``n_chunks`` chunks each, the last step held
     to ``impl="concat"``; then ``stream_step_lanes`` over 4 lanes with
     staggered fill, each lane held to its run alone and the lanes with no
-    eviction pending left bit-equal.  Returns the launch counts."""
+    eviction pending left bit-equal (messages tagged ``tag``).  Returns
+    the launch counts."""
     import numpy as np
     c = dataclasses.replace(cfg.ccm, stream_window=512, stream_chunk=64,
                             stream_mem_slots=4)
@@ -1913,18 +2154,18 @@ def stream_modes(torch, STR, ops, params, cfg, card, *, n_chunks: int = 16):
                 before = clone_state(torch, st)
             lg, st = STR.stream_step(params, rcfg, st, t, ccm_on=ccm_on)
             if not bool(torch.isfinite(lg).all()) or st.win_len > W:
-                raise AssertionError(f"8b {label} step {i}: win_len "
+                raise AssertionError(f"{tag} {label} step {i}: win_len "
                                      f"{st.win_len}")
         add_counts(total, ops.launch_counts())
         want_slots = (min(evictions, 4) if mode == "concat" else 1) \
             if ccm_on else 0
         if st.mem.slots != want_slots or evictions != n_chunks - W // cc:
-            raise AssertionError(f"8b {label}: slots {st.mem.slots} after "
+            raise AssertionError(f"{tag} {label}: slots {st.mem.slots} after "
                                  f"{evictions} evictions")
         want, _ = STR.stream_step(params, rcfg, before, t, ccm_on=ccm_on,
                                   impl="concat")
         err = max_err(lg, want)
-        check(f"8b {label}: last step vs impl=concat ({evictions} "
+        check(f"{tag} {label}: last step vs impl=concat ({evictions} "
               f"evictions, slots {st.mem.slots}; {err / bf16_tol(want):.3f}"
               " x bf16_tol)", err, bf16_tol_paths(want))
         del st, before
@@ -1946,7 +2187,7 @@ def stream_modes(torch, STR, ops, params, cfg, card, *, n_chunks: int = 16):
     packed = stack_lanes(torch, STR, lanes)
     pending = STR.eviction_pending(rcfg, packed, np.full(4, cc))
     if list(pending) != [True, False, True, False]:
-        raise AssertionError(f"8b lanes: pending {pending}")
+        raise AssertionError(f"{tag} lanes: pending {pending}")
     keep = clone_state(torch, packed)
     toks = torch.randint(0, cfg.vocab_size, (4, 1, cc), generator=gen,
                          device=dev)
@@ -1959,7 +2200,7 @@ def stream_modes(torch, STR, ops, params, cfg, card, *, n_chunks: int = 16):
         err, tol = max_err(lg[i, 0], want[0]), bf16_tol(want)
         worst = max(worst, err / tol)
         if not err <= tol:
-            raise AssertionError(f"8b lane {i}: {err} > {tol}")
+            raise AssertionError(f"{tag} lane {i}: {err} > {tol}")
     for i in (1, 3):
         wl = int(keep.win_len[i])
         same = torch.equal(new.mem.k[i], keep.mem.k[i]) \
@@ -1969,14 +2210,14 @@ def stream_modes(torch, STR, ops, params, cfg, card, *, n_chunks: int = 16):
             and new.mem.slots[i] == keep.mem.slots[i] \
             and new.mem.steps[i] == keep.mem.steps[i]
         if not same:
-            raise AssertionError(f"8b lane {i} (no eviction) changed")
+            raise AssertionError(f"{tag} lane {i} (no eviction) changed")
     if list(new.mem.slots) != [4, 0, 1, 0]:
-        raise AssertionError(f"8b lanes: slots {new.mem.slots}")
-    log(f"  8b lanes: stream_step_lanes over 4 lanes (pending "
+        raise AssertionError(f"{tag} lanes: slots {new.mem.slots}")
+    log(f"  {tag} lanes: stream_step_lanes over 4 lanes (pending "
         f"{[bool(p) for p in pending]}): worst max_abs_err / bf16_tol "
         f"against each lane alone {worst:.3f}; the 2 lanes with no "
         "eviction bit-equal")
-    log(f"  8b: launches {total}")
+    log(f"  {tag}: launches {total}")
     return total
 
 
@@ -2180,6 +2421,119 @@ def batch_witness(torch, STR, params, cfg, toks, engine, alone):
             f"{k} {[round(x, 3) for x in v]}" for k, v in ratios.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the dense model zoo at full width
+# ---------------------------------------------------------------------------
+
+# the dense configs of the port's registry (configs/registry.py)
+ZOO = ("smollm-360m", "qwen2-0.5b", "codeqwen1.5-7b", "gemma-2b")
+# depth cuts of 9c and 9d (never width): CodeQwen1.5-7B trains and serves
+# at 4 layers, its kernel shapes being LLaMA-7B's of phases 5 and 7
+ZOO_DEPTH = {"codeqwen1.5-7b": 4}
+# the configs whose served answers land more than bf16_tol from their
+# sessions alone (up to 1.54 x for SmolLM-360M and 1.46 x for Qwen2-0.5B
+# on an H100, PERF.md), held to bf16_tol_paths beside serve_witness
+ZOO_BATCH_GAP = ("smollm-360m", "qwen2-0.5b")
+
+
+def zoo_train(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
+              cfg, card):
+    """9c: 2 concat steps (``train_steps``), then one more under the
+    profiler (not counted).  Returns (launch counts, {step_ms, peak_gib,
+    losses, profile})."""
+    run = train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout,
+                      params, cfg, card, ["concat"] * 2, f"9c {cfg.name}")
+    stats = {}
+    profile_window(torch, lambda: run.fns["concat"](
+        run.tp, run.fp, run.opt, run.batch, None),
+        f"9c {cfg.name} 1 train step", card, warmup=False, stats=stats)
+    for _, x in PP.leaves(run.tp):
+        x.requires_grad_(False)
+    del run.opt, run.tp, run.fp
+    torch.cuda.empty_cache()
+    return run.counts, dict(run.record, profile=stats)
+
+
+def zoo_phase(torch, m, card):
+    """Phase 9: each dense config of the port's registry at its published
+    widths, random weights from seed 0 in its own ``param_dtype``:
+    9a the online path at full depth (concat and merge with a bf16
+    cache, and concat with an int8 cache for Gemma-2B's hd 256), 9b the
+    cross-check of 2 float32 layers (CUDA against the CPU), 9d the serve
+    engine (12 sessions on 8 slots, as phase 7), 9e streaming at 4
+    layers (as 8b), then 9c training with the config's ``train_mode``
+    (and, for Qwen2-0.5B and Gemma-2B, phase 6's cross-check of 2
+    float32 layers).  Each model is freed before the next.  Returns (the
+    launch counts of 9a, 9c, 9d and 9e, {arch: record})."""
+    total, rec = {}, {}
+    for arch in ZOO:
+        cfg = m.get_config(arch)
+        log(f"  {arch}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+            f"{cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.hd}, d_ff {cfg.d_ff} "
+            f"({cfg.activation}), vocab {cfg.vocab_size}, qkv_bias "
+            f"{cfg.qkv_bias}, tied {cfg.tie_embeddings}, embed_scale "
+            f"{cfg.embed_scale}, rope theta {cfg.rope_theta:g}, "
+            f"{cfg.param_dtype} params, train_mode {cfg.train_mode}, "
+            f"{cfg.param_count() / 1e9:.3f} B params")
+        t0 = time.perf_counter()
+        params = m.init_lm(cfg, seed=0)
+        randomize_lora_b(torch, params, seed=100)
+        torch.cuda.synchronize()
+        log(f"  {arch}: init {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+        r = rec[arch] = {}
+        modes = [("concat", "bfloat16"), ("merge", "bfloat16")]
+        if arch == "gemma-2b":
+            modes.append(("concat", "int8"))
+        for mode, cdt in modes:
+            add_counts(total, main_path(
+                torch, m.PI, m.ops, params, cfg, mode, cdt, card,
+                profile=(mode, cdt) == ("concat", "bfloat16"),
+                record=r.setdefault(f"{mode}+{cdt}", {})))
+        log(f"  9b {arch}: cross-check, 2 layers full width fp32, CUDA vs "
+            "CPU")
+        cross_check(torch, m.PI, params, cfg)
+        n = ZOO_DEPTH.get(arch, cfg.n_layers)
+        pn, cn = first_layers(params, n), cfg.replace(n_layers=n)
+        log(f"  9d {arch}: the serve engine ({n} layers, concat, bf16 "
+            "cache): 12 sessions on 8 slots, 3 tenants")
+        add_counts(total, serve_phase(
+            torch, m.ops, m.PI, pn, cn, card, label=f"9d {arch} {n}L",
+            n_sessions=12, n_slots=8, seed=24, record=r.setdefault(
+                "serve", {}), paths_witness=arch in ZOO_BATCH_GAP))
+        log(f"  9e {arch}: streaming, 4 layers at full width, W 512")
+        add_counts(total, stream_modes(
+            torch, m.STR, m.ops, first_layers(params, 4),
+            cfg.replace(n_layers=4), card, tag=f"9e {arch}"))
+        log(f"  9c {arch}: training ({cfg.train_mode}, {n} layers, B4 "
+            "S1216)")
+        counts, r["train"] = zoo_train(torch, m.ops, m.clora, m.TR, m.PD,
+                                       m.PA, m.PP, m.segment_layout, pn, cn,
+                                       card)
+        add_counts(total, counts)
+        if arch in ("qwen2-0.5b", "gemma-2b"):
+            train_cross_check(torch, m.PI, m.TR, m.PT, m.PD, m.PP,
+                              m.segment_layout, params, cfg)
+        del params, pn
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, r in rec.items():
+        on = r["concat+bfloat16"]
+        prof = on.get("decode_profile", {})
+        log(f"  9 summary {arch}: concat+bf16 host ms per ingest "
+            f"{[round(x, 2) for x in on['ingest_ms']]}, prefill "
+            f"{on['prefill_ms']:.2f}, decode step {on['decode_ms']:.2f} "
+            f"(merge {r['merge+bfloat16']['decode_ms']:.2f}); decode idle "
+            f"{prof.get('idle', float('nan')):.3f}, float32 casts "
+            f"{prof.get('cast_share', float('nan')):.3f} of busy; serve ms "
+            f"per query batch {r['serve']['query_ms']:.1f}, row "
+            f"{r['serve']['row_mb']:.1f} MB; train ms "
+            f"{[round(x, 1) for x in r['train']['step_ms']]} (idle "
+            f"{r['train']['profile'].get('idle', float('nan')):.3f}), peak "
+            f"{r['train']['peak_gib']:.2f} GiB [{card}]")
+    return total, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2187,6 +2541,7 @@ def main() -> int:
         return 2
     import torch.nn.functional as F
     from repro_torch.configs import llama_7b_paper
+    from repro_torch.configs.registry import get_config
     from repro_torch.core import inference as PI
     from repro_torch.core import streaming as STR
     from repro_torch.kernels import _build, ops
@@ -2312,24 +2667,37 @@ def main() -> int:
     add_counts(stream_counts, stream_serve)
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     del params, p4
+    gc.collect()             # phase 3-8 closures may hold LLaMA-7B's state
+    torch.cuda.empty_cache()
+
+    log("phase 9: the dense model zoo at full width, from the port's "
+        f"registry: {', '.join(ZOO)}")
+    torch.cuda.reset_peak_memory_stats()
+    zoo_counts, _ = zoo_phase(torch, types.SimpleNamespace(
+        get_config=get_config, init_lm=init_lm, PI=PI, STR=STR, ops=ops,
+        clora=clora, TR=TR, PT=PT, PD=PD, PA=PA, PP=PP,
+        segment_layout=segment_layout), card)
+    log(f"  phase 9 launches: {zoo_counts}")
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     # the tensor-core routes' launches in each main-path phase (3: online,
-    # 5: training, 7: the 32-layer serve engine, 8: streaming)
+    # 5: training, 7: the 32-layer serve engine, 8: streaming, 9: the zoo)
     by_phase = {k: {"3": totals[k], "5": train_counts.get(k, 0),
-                    "7": serve_counts[k], "8": stream_counts[k]}
+                    "7": serve_counts[k], "8": stream_counts[k],
+                    "9": zoo_counts[k]}
                 for k in ("segmented_attention_splitk",
                           "segmented_attention_mma", "cond_lora_wgmma",
                           "ccm_attention_mma", "ccm_attention_backward_mma")}
-    for k, need in (("segmented_attention_splitk", "38"),
-                    ("segmented_attention_mma", "378"),
-                    ("cond_lora_wgmma", "3578"),
-                    ("ccm_attention_mma", "5"),
-                    ("ccm_attention_backward_mma", "5")):
+    for k, need in (("segmented_attention_splitk", "389"),
+                    ("segmented_attention_mma", "3789"),
+                    ("cond_lora_wgmma", "35789"),
+                    ("ccm_attention_mma", "59"),
+                    ("ccm_attention_backward_mma", "59")):
         if any(by_phase[k][ph] <= 0 for ph in need):
             raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
     for k in ("kv_merge_update", "session_gather", "session_scatter"):
-        if stream_counts[k] <= 0:
-            raise AssertionError(f"{k}: no launch in phase 8")
+        if stream_counts[k] <= 0 or zoo_counts[k] <= 0:
+            raise AssertionError(f"{k}: no launch in phase 8 or 9")
     log(f"  tensor-core route launches by phase: {by_phase}")
     rows = [
         dict(name="segmented_attention", route="cuda",
@@ -2357,10 +2725,12 @@ def main() -> int:
              replaces="src/repro/kernels/kv_merge.py:27",
              launches=totals["kv_merge_update"]
              + merge_counts["kv_merge_update"]
-             + stream_counts["kv_merge_update"],
+             + stream_counts["kv_merge_update"]
+             + zoo_counts["kv_merge_update"],
              launches_by_phase={"3": totals["kv_merge_update"],
                                 "7": merge_counts["kv_merge_update"],
-                                "8": stream_counts["kv_merge_update"]},
+                                "8": stream_counts["kv_merge_update"],
+                                "9": zoo_counts["kv_merge_update"]},
              **merge),
         dict(name="ccm_attention", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
@@ -2386,17 +2756,20 @@ def main() -> int:
              source="src/repro_torch/csrc/session_gather.cu",
              replaces="src/repro/kernels/session_gather.py:30",
              launches=serve_counts["session_gather"]
-             + stream_counts["session_gather"],
+             + stream_counts["session_gather"] + zoo_counts["session_gather"],
              launches_by_phase={"7": serve_counts["session_gather"],
-                                "8": stream_counts["session_gather"]},
+                                "8": stream_counts["session_gather"],
+                                "9": zoo_counts["session_gather"]},
              **gather),
         dict(name="session_scatter", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
              replaces="src/repro/kernels/session_gather.py:56",
              launches=serve_counts["session_scatter"]
-             + stream_counts["session_scatter"],
+             + stream_counts["session_scatter"]
+             + zoo_counts["session_scatter"],
              launches_by_phase={"7": serve_counts["session_scatter"],
-                                "8": stream_counts["session_scatter"]},
+                                "8": stream_counts["session_scatter"],
+                                "9": zoo_counts["session_scatter"]},
              **scatter),
     ]
     for r in rows:

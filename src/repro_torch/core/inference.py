@@ -37,7 +37,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, require_dense
 
 
 class KVCache(NamedTuple):
@@ -99,8 +99,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def init_online_state(cfg: ModelConfig, batch: int, max_cache_len: int,
                       mem_slots: Optional[int] = None,
                       device: DeviceLike = None) -> OnlineState:
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r}: the port covers 'dense'")
+    require_dense(cfg)
     dev = resolve_device(device)
     mem = init_memory(cfg, batch, mem_slots, device=dev) \
         if cfg.ccm.enabled else None

@@ -29,7 +29,7 @@ from repro_torch.core.memory import (Counter, MemState, evict_oldest,
                                      init_memory, mem_layers, per_lane,
                                      recompress_memory, update_memory)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, require_dense
 
 
 class StreamState(NamedTuple):
@@ -47,8 +47,7 @@ class StreamState(NamedTuple):
 
 def init_stream_state(cfg: ModelConfig, batch: int,
                       device: DeviceLike = None) -> StreamState:
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r}: the port covers 'dense'")
+    require_dense(cfg)
     dev = resolve_device(device)
     c = cfg.ccm
     shape = (max(mem_layers(cfg), 1), batch, c.stream_window,

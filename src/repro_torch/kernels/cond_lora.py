@@ -21,12 +21,13 @@ products (the reference gets the same cotangents from XLA's autodiff of
 the jnp ``cond_linear``, outside any Pallas kernel):
 
     dx    = dy @ W^T + s * ((g * dy) @ B^T) @ A
+    dW    = x^T @ dy                  (full training only)
     dA    = s * ((g * dy) @ B^T)^T @ x
     dB    = s * (x @ A^T)^T @ (g * dy)
     dbias = sum_rows(dy)
 
-``W`` is frozen (LoRA-only training): a ``W`` that requires a gradient
-raises.
+``dW`` is computed only when ``W`` requires a gradient
+(``train_mode="full"``); under LoRA-only training ``W`` is frozen.
 """
 from __future__ import annotations
 
@@ -151,7 +152,7 @@ class _CondLoRA(torch.autograd.Function):
         x, w, a, b, gate = ctx.saved_tensors
         s = ctx.scale
         need = ctx.needs_input_grad
-        dx = da = db = dbias = None
+        dx = dw = da = db = dbias = None
         dy32 = dy.float()
         gdy = dy32 * gate[:, None]                       # (M, N) float32
         if need[0] or need[2]:
@@ -161,19 +162,18 @@ class _CondLoRA(torch.autograd.Function):
                 dx = dx.to(x.dtype)
             if need[2]:
                 da = (u.T @ x.float()).to(a.dtype)
+        if need[1]:
+            dw = x.T @ dy.to(x.dtype)                    # (K, N) in w's dtype
         if need[3]:
             db = (((x.float() @ a.float().T) * s).T @ gdy).to(b.dtype)
         if ctx.has_bias and need[6]:
             dbias = dy32.sum(0).to(dy.dtype)
-        return dx, None, da, db, None, None, dbias
+        return dx, dw, da, db, None, None, dbias
 
 
 def cond_lora(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, gate: torch.Tensor, scale: float,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``cond_lora_matmul`` under autograd: gradients reach x, a, b and
-    bias.  ``w`` must not require a gradient (it is frozen)."""
-    if w.requires_grad:
-        raise ValueError("cond_lora: W requires a gradient, but the kernel "
-                         "has no dW (W is frozen under train_mode='lora')")
+    bias, and ``w`` where it requires one (full training)."""
     return _CondLoRA.apply(x, w, a, b, gate, float(scale), bias)

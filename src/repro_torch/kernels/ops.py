@@ -61,7 +61,7 @@ def cond_lora(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, gate: torch.Tensor, scale: float,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (M,K) @ w (K,N) (+bias) + gate * (x @ a.T @ b) * scale — fused.
-    Differentiable in x, a, b and bias (``w`` is frozen)."""
+    Differentiable in x, w, a, b and bias."""
     if x.is_cuda:
         return _lora.cond_lora(x, w, a, b, gate.detach().float().contiguous(),
                                scale, bias)

@@ -1,7 +1,8 @@
 """Unified model / CCM configuration (port of ``repro/models/config.py``).
 
-The two dataclasses are copied field for field, so a reference config and
-its port describe the same model.  ``cdtype``/``pdtype`` return torch
+The two dataclasses are copied field for field, their properties
+(``param_count`` included) line for line, so a reference config and its
+port describe the same model.  ``cdtype``/``pdtype`` return torch
 dtypes.  ``attn_impl`` only tells ``"concat"`` (the dense masked oracle:
 the materialized concatenation on the segmented path, ``attend_dense`` in
 training) apart from every other value, which goes to the hand-written
@@ -40,6 +41,11 @@ class CCMConfig:
     def mem_slots(self) -> int:
         """Number of <COMP>-group slots held in memory at T."""
         return self.max_steps if self.mode == "concat" else 1
+
+    @property
+    def mem_len(self) -> int:
+        """Length (tokens) of the compressed memory at T."""
+        return self.mem_slots * self.comp_len
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +99,10 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.n_heads)
 
     @property
+    def q_groups(self) -> int:
+        return self.n_heads // max(self.n_kv_heads, 1)
+
+    @property
     def cdtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
 
@@ -100,5 +110,57 @@ class ModelConfig:
     def pdtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba2 inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    # rough parameter counts (the reference's roofline MODEL_FLOPS = 6*N*D)
+    def param_count(self, active_only: bool = False) -> int:
+        d, f, hd = self.d_model, self.d_ff, self.hd
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        attn = d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads \
+            + hd * self.n_heads * d
+        if self.activation in ("swiglu", "geglu"):
+            ffn = 3 * d * f
+        else:
+            ffn = 2 * d * f
+        if self.n_experts:
+            e = self.top_k if active_only else self.n_experts
+            ffn = ffn * max(e, 1)
+        per_layer = attn + ffn
+        if self.family == "ssm":
+            di, ds = self.d_inner, self.ssm_state
+            per_layer = d * (2 * di + 2 * ds + self.ssm_heads) + di * d \
+                + self.ssm_conv * (di + 2 * ds)
+        if self.family == "hybrid":
+            di, ds = self.d_inner, self.ssm_state
+            mamba = d * (2 * di + 2 * ds + self.ssm_heads) + di * d \
+                + self.ssm_conv * (di + 2 * ds)
+            per_layer = mamba  # shared attn counted once below
+        total = emb + self.n_layers * per_layer
+        if self.family == "hybrid" and self.attn_every:
+            total += attn + 3 * d * f  # one shared block
+        if self.family == "encdec":
+            total += self.n_enc_layers * (attn + ffn) + self.n_layers * attn  # cross-attn
+        return int(total)
+
+
+def require_dense(cfg: ModelConfig) -> None:
+    """The port runs the dense family only so far: any other family's
+    config is valid, but its model code is not ported yet."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}): the port runs the 'dense' "
+            "family only; the other families are ROADMAP queue 1 item 5")

@@ -20,7 +20,7 @@ from repro_torch.core import masks as M
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, require_dense
 
 Params = Dict[str, Any]
 
@@ -52,8 +52,7 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
     """Random weights with the reference init's distributions, drawn from
     a ``torch.Generator`` seeded with ``seed`` (the numbers differ from
     the reference's).  Runs on the card unless ``device="cpu"``."""
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r}: the port covers 'dense'")
+    require_dense(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -95,7 +94,11 @@ def embed_tokens(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
         cm = comp_mask[..., None].to(cfg.cdtype)
         x = x * (1 - cm) + comp_vec * cm
     if cfg.embed_scale:
-        x = x * (cfg.d_model ** 0.5)
+        # sqrt(d) rounded to the compute dtype first, as the reference
+        # does (jnp.asarray(d ** 0.5, cdtype)): in bf16 the product then
+        # rounds as the reference's does
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype,
+                             device=x.device)
     return x
 
 
@@ -135,9 +138,7 @@ def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                    q_info=None, k_info=None, comp_gate=None, positions=None,
                    merge_ctx=None) -> torch.Tensor:
     """Run the decoder stack on embedded inputs x (B, S, d)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r}: the port covers "
-                                  "'dense'")
+    require_dense(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     for li in range(cfg.n_layers):
         body = functools.partial(

@@ -674,7 +674,29 @@ def test_cond_lora_backward_formula_matches_autograd(bias):
 
 
 def test_cond_lora_refuses_trainable_w():
-    w = torch.zeros(8, 8, requires_grad=True)
-    with pytest.raises(ValueError, match="frozen"):
-        pcl.cond_lora(torch.zeros(2, 8), w, torch.zeros(1, 8),
-                      torch.zeros(1, 8), torch.zeros(2), 2.0)
+    """W was frozen (a trainable W raised) until full training came to the
+    card; a W that requires a gradient now gets dW = x^T dy from the
+    Function's backward (called directly: its forward needs the card),
+    against autograd through the plain version (float32, atol 1e-5 x
+    max), and a frozen W still gets none."""
+    import types
+    rs = np.random.default_rng(17)
+    x, dy = (_t(rs.normal(size=s).astype(np.float32)) for s in ((24, 40),
+                                                             (24, 32)))
+    w = _t(rs.normal(size=(40, 32)).astype(np.float32))
+    a = _t(rs.normal(size=(4, 40)).astype(np.float32))
+    b = _t(rs.normal(size=(4, 32)).astype(np.float32))
+    gate = (torch.arange(24) % 3 == 0).float()
+    need = (True, True, True, True, False, False, False)
+    ctx = types.SimpleNamespace(saved_tensors=(x, w, a, b, gate), scale=2.0,
+                                has_bias=False, needs_input_grad=need)
+    got = pcl._CondLoRA.backward(ctx, dy)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, a, b)]
+    y = pref.cond_lora_ref(leaves[0], leaves[1], leaves[2], leaves[3], gate,
+                           2.0)
+    want = torch.autograd.grad(y, leaves, dy)
+    for g, wv in zip(got[:4], want):
+        np.testing.assert_allclose(g.numpy(), wv.numpy(),
+                                   atol=1e-5 * wv.abs().max().item(), rtol=0)
+    ctx.needs_input_grad = (True, False) + need[2:]
+    assert pcl._CondLoRA.backward(ctx, dy)[1] is None
