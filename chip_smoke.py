@@ -74,8 +74,19 @@ Phases (any failure raises, and the script exits non-zero):
      trainable leaf moved and every frozen one unchanged, with phase 6's
      cross-check for Qwen2-0.5B and Gemma-2B.  CodeQwen1.5-7B trains and
      serves at 4 layers;
+ 10. (run between phases 8 and 9, on the LLaMA-7B weights phases 3-8
+     hold) the paper's §4.1 baselines and the rest of the dense family's
+     single-device surface: (a) 2 AdamW steps of Gisting-online and 2 of
+     the Compressive Transformer at LLaMA-7B's full width and depth (B=4,
+     S=1216, LoRA-only; compressive's LoRA gradients are exactly 0, as
+     in the reference), each with a profiled step; (b) phase 6's
+     cross-check of 2 float32 layers for both (compressive in full
+     training); (c) the gradient codecs (int8, top-k, 3 error-feedback
+     rounds) on the card against the CPU on a gradient tree shaped as
+     LLaMA-7B's LoRA leaves; (d) ``scripts/serve_metrics_torch.py``'s
+     demo engine on the card against the CPU;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
-launches in phases 3, 5, 7, 8 and 9), then the result line.  Phase 2 also
+launches in phases 3, 5, 7, 8, 9 and 10), then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward on
 its float32 and bf16 routes, the bf16 cases with per-lane (B, S)
 metadata, a layout with no <COMP> key and hd 72, the backward run twice
@@ -1501,15 +1512,20 @@ def cross_check(torch, PI, params_bf16, cfg, devices=("cuda", "cpu")):
 def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
                 cfg, card, modes, label: str):
     """AdamW steps through ``make_train_step``, one per entry of ``modes``
-    ("concat" or "merge"), with the config's own ``train_mode`` (B=4,
-    the layout of 16 steps of 64 + 8 <COMP> and a 64-token tail,
-    S=1216): each step's launches held to the path's, every trainable
-    leaf moved at every step (seen on a strided sample of at most 2^20
-    of its elements: no second copy of a model's parameters) and every
-    frozen leaf bitwise unchanged.  Returns a namespace with the step
-    functions and configs by mode, the partition, the optimizer state,
-    the batch and layout, the launch counts and {step_ms, peak_gib,
-    losses}."""
+    ("concat", "merge", or the paper's baselines "gisting" and
+    "compressive", which take precedence over the mode), with the
+    config's own ``train_mode`` (B=4, the layout of 16 steps of 64 + 8
+    <COMP> and a 64-token tail, S=1216): each step's launches held to
+    the path's, every trainable leaf moved at every step (seen on a
+    strided sample of at most 2^20 of its elements: no second copy of a
+    model's parameters) and every frozen leaf bitwise unchanged.
+    Compressive pools raw tokens only, so the <COMP> rows where the LoRA
+    fires reach no loss position: under LoRA-only training its gradient
+    norm must be exactly 0 and every trainable leaf bitwise unchanged,
+    as in the reference.  Returns a namespace with the step functions
+    and configs by mode, the partition, the optimizer state, the batch
+    and layout, the launch counts and {step_ms, peak_gib, losses,
+    grad_norms, backward_calls}."""
     dev = params["embed"].device
     layout = segment_layout(16, 64, 8, 64)
     B = 4
@@ -1522,15 +1538,19 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
     ocfg = PA.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
     cfgs = {"concat": cfg, "merge": cfg.replace(ccm=dataclasses.replace(
         cfg.ccm, mode="merge", merge_alpha=None))}
+    for method in ("gisting", "compressive"):
+        cfgs[method] = cfg.replace(ccm=dataclasses.replace(cfg.ccm,
+                                                           method=method))
     fns = {m: TR.make_train_step(cfgs[m], layout, ocfg) for m in set(modes)}
     L = cfg.n_layers
+    lora = {"cond_lora": 4 * 2 * L, "cond_lora_wgmma": 4 * 2 * L}
     want_step = {
         "concat": {"ccm_attention": 2 * L, "ccm_attention_backward": L,
                    "ccm_attention_mma": 2 * L,
-                   "ccm_attention_backward_mma": L,
-                   "cond_lora": 4 * 2 * L, "cond_lora_wgmma": 4 * 2 * L},
-        "merge": {"kv_cummean": 2 * L, "kv_cummean_backward": L,
-                  "cond_lora": 4 * 2 * L, "cond_lora_wgmma": 4 * 2 * L}}
+                   "ccm_attention_backward_mma": L, **lora},
+        "merge": {"kv_cummean": 2 * L, "kv_cummean_backward": L, **lora},
+        # the baselines attend densely, as the reference does
+        "gisting": lora, "compressive": lora}
 
     def sample(x):
         flat = x.detach().reshape(-1)
@@ -1539,10 +1559,10 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     clora.backward_calls = 0
-    ms, losses, peak = [], [], 0.0
+    ms, losses, norms, bwd, peak = [], [], [], [], 0.0
     for i, mode in enumerate(modes):
         before = {"/".join(p): sample(x) for p, x in PP.leaves(tp)}
-        c0 = ops.launch_counts()
+        c0, b0 = ops.launch_counts(), clora.backward_calls
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         tp, opt, metrics, _ = fns[mode](tp, fp, opt, batch, None)
@@ -1552,16 +1572,24 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
         peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
         c1 = ops.launch_counts()
         got = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+        norms.append(metrics["grad_norm"].item())
+        bwd.append(clora.backward_calls - b0)
         log(f"  {label} step {i + 1} ({mode}, {cfg.train_mode}): loss "
-            f"{losses[-1]:.4f}, grad norm {metrics['grad_norm'].item():.4f}"
-            f", {ms[-1]:.1f} ms, peak {peak:.2f} GiB, launches {got} "
-            f"[{card}]")
+            f"{losses[-1]:.4f}, grad norm {norms[-1]:.4f}, {ms[-1]:.1f} ms, "
+            f"peak {peak:.2f} GiB, launches {got}, cond_lora autograd "
+            f"backwards {bwd[-1]} [{card}]")
         if got != want_step[mode] or not math.isfinite(losses[-1]):
             raise AssertionError(f"{label} step {i + 1}: loss {losses[-1]}, "
                                  f"launches {got} != {want_step[mode]}")
         still = [k for k, x in (("/".join(p), x) for p, x in PP.leaves(tp))
                  if torch.equal(sample(x), before[k])]
-        if still:
+        if mode == "compressive" and cfg.train_mode == "lora":
+            moved = sorted(set(before) - set(still))
+            if norms[-1] != 0.0 or moved:
+                raise AssertionError(f"{label} step {i + 1}: compressive "
+                                     f"grad norm {norms[-1]}, LoRA leaves "
+                                     f"moved {moved}; want 0 and none")
+        elif still:
             raise AssertionError(f"{label} step {i + 1}: trainable leaves "
                                  f"unchanged {still}")
     for k, x in PP.leaves(fp):
@@ -1572,13 +1600,16 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
         raise AssertionError(f"{label}: cond_lora autograd backward ran "
                              f"{clora.backward_calls} times, want "
                              f"{len(modes) * 4 * L}")
-    log(f"  {label}: {len(PP.leaves(tp))} trainable leaves moved at every "
-        f"step, {len(frozen0)} frozen leaves bitwise unchanged; opt step "
-        f"{opt.step}, peak {peak:.2f} GiB")
+    moved = "none of the" if "compressive" in modes \
+        and cfg.train_mode == "lora" else "all"
+    log(f"  {label}: {moved} {len(PP.leaves(tp))} trainable leaves moved "
+        f"at every step, {len(frozen0)} frozen leaves bitwise unchanged; "
+        f"opt step {opt.step}, peak {peak:.2f} GiB")
     return types.SimpleNamespace(
         fns=fns, cfgs=cfgs, tp=tp, fp=fp, opt=opt, batch=batch,
         layout=layout, counts=ops.launch_counts(),
-        record=dict(step_ms=ms, peak_gib=peak, losses=losses))
+        record=dict(step_ms=ms, peak_gib=peak, losses=losses,
+                    grad_norms=norms, backward_calls=bwd))
 
 
 def train_phase(torch, ops, clora, TR, T, PD, PA, PP, segment_layout,
@@ -1621,13 +1652,26 @@ def train_phase(torch, ops, clora, TR, T, PD, PA, PP, segment_layout,
 # phase 6: training cross-check (CUDA vs CPU) and parallel = online
 # ---------------------------------------------------------------------------
 
+# train_cross_check's cases: (label, CCMConfig fields, train_mode or None
+# for the config's own, whether the path has an online counterpart)
+CCM_CASES = (("concat", dict(mode="concat"), None, True),
+             ("merge", dict(mode="merge"), None, True))
+# the paper's baselines live in the training forward only; compressive
+# trains in full, its LoRA and comp_embed gradients being exactly 0
+BASELINE_CASES = (("gisting", dict(method="gisting"), None, False),
+                  ("compressive", dict(method="compressive", mode="merge"),
+                   "full", False))
+
+
 def train_cross_check(torch, PI, TR, PT, PD, PP, segment_layout, params_bf16,
-                      cfg, devices=("cuda", "cpu")):
+                      cfg, devices=("cuda", "cpu"), cases=CCM_CASES):
     """2 layers at full width in float32: (a) loss, tail logits and every
     trainable gradient leaf on CUDA (kernels) against the CPU (plain
-    versions), concat and merge; (b) on the card, the parallel forward's
-    tail logits against t ingests + prefill (the online kernels).
-    Tolerance 1e-3 x max|.| per tensor (float32 sums in other orders)."""
+    versions), for each of ``cases``; (b) on the card, for the CCM
+    modes, the parallel forward's tail logits against t ingests +
+    prefill (the online kernels).  Tolerance 1e-3 x max|.| per tensor
+    (float32 sums in other orders); a compressive LoRA or comp_embed
+    gradient must be exactly 0 on both devices."""
     import dataclasses as dc
     c2 = cfg.replace(n_layers=2, compute_dtype="float32",
                      param_dtype="float32")
@@ -1643,8 +1687,9 @@ def train_cross_check(torch, PI, TR, PT, PD, PP, segment_layout, params_bf16,
             raise AssertionError(f"{name}: {err} > {lim}")
         return err / lim
 
-    for mode in ("concat", "merge"):
-        cm = c2.replace(ccm=dc.replace(c2.ccm, mode=mode))
+    for mode, fields, train_mode, online in cases:
+        cm = c2.replace(ccm=dc.replace(c2.ccm, **fields),
+                        train_mode=train_mode or c2.train_mode)
         res = {}
         for dev in devices:
             t0 = time.perf_counter()
@@ -1668,13 +1713,22 @@ def train_cross_check(torch, PI, TR, PT, PD, PP, segment_layout, params_bf16,
         (lc, gc_, grc, tc), (lp, gp, grp, tpu) = (res[d] for d in devices)
         worst = max(close(f"{mode} loss", lc, lp),
                     close(f"{mode} tail logits", gc_, gp))
+        zero = []
         for k in grp:
+            if mode == "compressive" and ("lora" in k or "comp_embed" in k):
+                if grp[k].any() or grc[k].any():
+                    raise AssertionError(f"{mode} gradient {k} is not 0")
+                zero.append(k)
+                continue
             if not grp[k].abs().max().item() > 0:
                 raise AssertionError(f"{mode} gradient {k} is all zero")
             worst = max(worst, close(f"{mode} grad {k}", grc[k], grp[k]))
-        log(f"  train cross-check {mode}: loss {lc.item():.6f} vs "
-            f"{lp.item():.6f}, logits + {len(grp)} gradient leaves, worst "
+        log(f"  train cross-check {mode} ({cm.train_mode}): loss "
+            f"{lc.item():.6f} vs {lp.item():.6f}, logits + {len(grp)} "
+            f"gradient leaves ({len(zero)} exactly 0 on both), worst "
             f"max|d| / limit {worst:.3f}; cuda {tc:.1f} s, cpu {tpu:.1f} s")
+        if not online:
+            continue
 
         # (b) parallel = online on the card
         pp = fp32_layers(torch, params_bf16, devices[0])
@@ -2534,6 +2588,162 @@ def zoo_phase(torch, m, card):
     return total, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paper's baselines in training, the gradient codecs and the
+# serve-metrics demo
+# ---------------------------------------------------------------------------
+
+def baselines_train(torch, m, params, cfg, card):
+    """10a: 2 AdamW steps of each baseline (``train_steps``: Gisting-online,
+    then the Compressive Transformer, LoRA-only) at the full width and
+    depth of ``params``, then one more step of each under the profiler
+    (not counted).  Returns (launch counts, {method: record})."""
+    counts, rec = {}, {}
+    for method in ("gisting", "compressive"):
+        run = train_steps(torch, m.ops, m.clora, m.TR, m.PD, m.PA, m.PP,
+                          m.segment_layout, params, cfg, card, [method] * 2,
+                          f"10a {method}")
+        add_counts(counts, run.counts)
+        stats = {}
+        profile_window(torch, lambda: run.fns[method](
+            run.tp, run.fp, run.opt, run.batch, None),
+            f"10a 1 {method} train step", card, warmup=False, stats=stats)
+        rec[method] = dict(run.record, profile=stats, counts={
+            k: v for k, v in run.counts.items() if v})
+        for _, x in m.PP.leaves(run.tp):
+            x.requires_grad_(False)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+    for method, r in rec.items():
+        log(f"  10a summary {method}: ms per step "
+            f"{[round(x, 1) for x in r['step_ms']]}, peak "
+            f"{r['peak_gib']:.2f} GiB, idle share of a profiled step "
+            f"{r['profile'].get('idle', float('nan')):.3f}, losses "
+            f"{[round(x, 4) for x in r['losses']]} (finite), grad norms "
+            f"{[round(x, 4) for x in r['grad_norms']]}, launches over the "
+            f"2 steps {r['counts']}, cond_lora autograd backwards per step "
+            f"{r['backward_calls']} [{card}]")
+    return counts, rec
+
+
+def codec_check(torch, PG, PP, like, card, rounds: int = 3):
+    """10c: the gradient codecs on the card against the CPU on a gradient
+    tree shaped as ``like`` (LLaMA-7B's trainable LoRA leaves and
+    comp_embed, in their dtypes), drawn from seed 10: the int8 ``q``
+    equal, ``scale`` within 1 float32 ulp, the top-k outputs (and so
+    their masks) equal, and the residuals of ``rounds`` error-feedback
+    rounds per codec within 1 float32 ulp of max|residual| per leaf.
+    Returns {codec: event-timed ms per error-feedback round on the
+    card}."""
+    import numpy as np
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def draw(r):
+        return PP.tree_map(lambda _, x: None if x is None else (
+            torch.randn(x.shape, generator=gen, device="cuda") * (r + 1)
+        ).to(x.dtype), like)
+    g0 = draw(0)
+    n = sum(x.numel() for _, x in PP.leaves(g0))
+    worst = dict(scale_ulps=0.0, q=0, topk=0)
+    for path, x in PP.leaves(g0):
+        xf = x.float()
+        qc, sc = PG.quantize_int8(xf)
+        qp, sp = PG.quantize_int8(xf.cpu())
+        ulp = float(np.spacing(np.float32(sp.item())))
+        worst["scale_ulps"] = max(worst["scale_ulps"],
+                                  abs(sc.item() - sp.item()) / ulp)
+        worst["q"] += int((qc.cpu() != qp).sum())
+        tc, tp_ = PG.topk_sparsify(xf, 0.01), PG.topk_sparsify(xf.cpu(), 0.01)
+        worst["topk"] += int(((tc.cpu() != 0) != (tp_ != 0)).sum()) \
+            + int((tc.cpu() != tp_).sum())
+    log(f"  10c int8 / topk on {len(PP.leaves(g0))} leaves, {n} elements: "
+        f"q differs at {worst['q']}, scale within {worst['scale_ulps']:.1f} "
+        f"ulp, topk outputs and masks differ at {worst['topk']}")
+    if worst["q"] or worst["scale_ulps"] > 1.0 or worst["topk"]:
+        raise AssertionError(f"10c codecs: card against CPU {worst}")
+    ms = {}
+    for codec in ("int8", "topk"):
+        efc, efp = PG.init_ef(g0), PG.init_ef(PP.tree_map(
+            lambda _, x: None if x is None else x.cpu(), g0))
+        rel = 0.0
+        for r in range(rounds):
+            g = draw(r)
+            _, efc = PG.compress_with_ef(g, efc, codec)
+            _, efp = PG.compress_with_ef(PP.tree_map(
+                lambda _, x: None if x is None else x.cpu(), g), efp, codec)
+            for (path, a), (_, b) in zip(PP.leaves(efc.residual),
+                                         PP.leaves(efp.residual)):
+                lim = float(np.spacing(np.float32(b.abs().max().item())))
+                err = max_err(a.cpu(), b)
+                if not err <= lim:
+                    raise AssertionError(f"10c {codec} round {r + 1} "
+                                         f"{'/'.join(path)}: residual "
+                                         f"max|d| {err} > {lim}")
+                rel = max(rel, err / lim)
+        ms[codec] = time_ms(torch, lambda i: PG.compress_with_ef(
+            g0, efc, codec), iters=5, warmup=1)
+        log(f"  10c {codec}: {rounds} error-feedback rounds, residuals "
+            f"card vs CPU worst max|d| / (1 float32 ulp of max|r|) "
+            f"{rel:.3f}; {ms[codec]:.3f} ms per round on the card [{card}]")
+    return ms
+
+
+def _metric_counters(snap):
+    """The counter families of a metrics snapshot, timing families and
+    the padded byte count excluded."""
+    timing = ("seconds", "bandwidth", "lateness", "latency")
+    return {name: fam["values"] for name, fam in snap.items()
+            if fam["type"] == "counter" and name != "offload_bytes_total"
+            and not any(t in name for t in timing)}
+
+
+def _families(text):
+    return sorted(ln.split()[2] for ln in text.splitlines()
+                  if ln.startswith("# TYPE "))
+
+
+def serve_metrics_check(torch, ops, card):
+    """10d: ``scripts/serve_metrics_torch.py``'s demo engine on the card
+    against the same demo on the CPU: equal counters (timing families
+    excluded) and the same Prometheus families.  Returns the card run's
+    launch counts."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "serve_metrics_torch", ROOT / "scripts" / "serve_metrics_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card_eng = mod.demo_engine("cuda")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    cpu_eng = mod.demo_engine("cpu")
+    t_cpu = time.perf_counter() - t0
+    a = _metric_counters(card_eng.metrics_snapshot()["metrics"])
+    b = _metric_counters(cpu_eng.metrics_snapshot()["metrics"])
+    fa = _families(card_eng.metrics_prometheus())
+    fb = _families(cpu_eng.metrics_prometheus())
+    if a != b or fa != fb:
+        diff = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        raise AssertionError(f"10d: counters differ at {diff}, or the "
+                             f"Prometheus families ({len(fa)} vs {len(fb)})")
+    snap = card_eng.metrics_snapshot()["metrics"]
+    offl = {v["labels"]["dir"]: v["value"]
+            for v in snap["offload_sessions_total"]["values"]}
+    log(f"  10d serve-metrics demo (n_shards=1): {len(a)} counter families "
+        f"equal card vs CPU, {len(fa)} Prometheus families equal; offloads "
+        f"{offl}; launches {({k: v for k, v in counts.items() if v})}; "
+        f"card {t_card:.1f} s, cpu {t_cpu:.1f} s [{card}]")
+    if not (counts["cond_lora"] and counts["segmented_attention"]
+            and counts["session_gather"] and counts["session_scatter"]):
+        raise AssertionError(f"10d: a kernel never launched: {counts}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2556,6 +2766,7 @@ def main() -> int:
     from repro_torch.models import transformer as PT
     from repro_torch.models.transformer import init_lm
     from repro_torch.optim import adamw as PA
+    from repro_torch.optim import grad_compress as PG
     from repro_torch.optim import partition as PP
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2666,8 +2877,31 @@ def main() -> int:
     stream_serve = stream_serve_phase(torch, STR, ops, params, cfg, card)
     add_counts(stream_counts, stream_serve)
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    del params, p4
-    gc.collect()             # phase 3-8 closures may hold LLaMA-7B's state
+
+    log("phase 10: the paper's baselines in training, the gradient codecs "
+        "and the serve-metrics demo (run before phase 9, on the LLaMA-7B "
+        "weights phases 3-8 hold)")
+    del p4
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  10a: LLaMA-7B (32 layers, bf16, LoRA), 2 AdamW steps of "
+        "Gisting-online and 2 of the Compressive Transformer (B4, S1216)")
+    m10 = types.SimpleNamespace(ops=ops, clora=clora, TR=TR, PD=PD, PA=PA,
+                                PP=PP, segment_layout=segment_layout)
+    base_counts, _ = baselines_train(torch, m10, params, cfg, card)
+    log("  10b: cross-check, 2 layers full width fp32, CUDA vs CPU")
+    train_cross_check(torch, PI, TR, PT, PD, PP, segment_layout, params, cfg,
+                      cases=BASELINE_CASES)
+    log("  10c: the gradient codecs, card vs CPU, on LLaMA-7B's LoRA leaves")
+    codec_check(torch, PG, PP, PP.partition(
+        params, TR.trainable_mask_for(cfg, params))[0], card)
+    log("  10d: the serve-metrics demo (scripts/serve_metrics_torch.py), "
+        "card vs CPU")
+    add_counts(base_counts, serve_metrics_check(torch, ops, card))
+    log(f"  phase 10 launches: {base_counts}")
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del params
+    gc.collect()             # phase 3-10 closures may hold LLaMA-7B's state
     torch.cuda.empty_cache()
 
     log("phase 9: the dense model zoo at full width, from the port's "
@@ -2681,10 +2915,11 @@ def main() -> int:
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     # the tensor-core routes' launches in each main-path phase (3: online,
-    # 5: training, 7: the 32-layer serve engine, 8: streaming, 9: the zoo)
+    # 5: training, 7: the 32-layer serve engine, 8: streaming, 9: the zoo,
+    # 10: the baselines' training and the serve-metrics demo)
     by_phase = {k: {"3": totals[k], "5": train_counts.get(k, 0),
                     "7": serve_counts[k], "8": stream_counts[k],
-                    "9": zoo_counts[k]}
+                    "9": zoo_counts[k], "10": base_counts.get(k, 0)}
                 for k in ("segmented_attention_splitk",
                           "segmented_attention_mma", "cond_lora_wgmma",
                           "ccm_attention_mma", "ccm_attention_backward_mma")}
@@ -2695,6 +2930,8 @@ def main() -> int:
                     ("ccm_attention_backward_mma", "59")):
         if any(by_phase[k][ph] <= 0 for ph in need):
             raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
+    if by_phase["cond_lora_wgmma"]["10"] <= 0:
+        raise AssertionError(f"cond_lora_wgmma: no launch in phase 10")
     for k in ("kv_merge_update", "session_gather", "session_scatter"):
         if stream_counts[k] <= 0 or zoo_counts[k] <= 0:
             raise AssertionError(f"{k}: no launch in phase 8 or 9")
@@ -2756,20 +2993,23 @@ def main() -> int:
              source="src/repro_torch/csrc/session_gather.cu",
              replaces="src/repro/kernels/session_gather.py:30",
              launches=serve_counts["session_gather"]
-             + stream_counts["session_gather"] + zoo_counts["session_gather"],
+             + stream_counts["session_gather"] + zoo_counts["session_gather"]
+             + base_counts["session_gather"],
              launches_by_phase={"7": serve_counts["session_gather"],
                                 "8": stream_counts["session_gather"],
-                                "9": zoo_counts["session_gather"]},
+                                "9": zoo_counts["session_gather"],
+                                "10": base_counts["session_gather"]},
              **gather),
         dict(name="session_scatter", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
              replaces="src/repro/kernels/session_gather.py:56",
              launches=serve_counts["session_scatter"]
              + stream_counts["session_scatter"]
-             + zoo_counts["session_scatter"],
+             + zoo_counts["session_scatter"] + base_counts["session_scatter"],
              launches_by_phase={"7": serve_counts["session_scatter"],
                                 "8": stream_counts["session_scatter"],
-                                "9": zoo_counts["session_scatter"]},
+                                "9": zoo_counts["session_scatter"],
+                                "10": base_counts["session_scatter"]},
              **scatter),
     ]
     for r in rows:

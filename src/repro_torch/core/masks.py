@@ -92,6 +92,13 @@ def ccm_mask_concat(seg_ids: torch.Tensor, comp_mask: torch.Tensor,
     return (k_idx <= q_idx) & (same | k_comp_mask[None, :])
 
 
+def causal_mask(q_len: int, k_len: int, q_offset: int = 0,
+                device=None) -> torch.Tensor:
+    """(Q, K) plain causal mask; ``q_offset`` shifts query indices."""
+    q = torch.arange(q_len, device=device)[:, None] + q_offset
+    return torch.arange(k_len, device=device)[None, :] <= q
+
+
 def merge_slot_mask(seg_ids: torch.Tensor, t_steps: int) -> torch.Tensor:
     """(Q, T) mask over virtual memory slots: segment j attends the slot
     holding Mem(j-1) only (slot s holds Mem(s+1))."""
@@ -177,6 +184,11 @@ def merge_virtual_kv(k: torch.Tensor, v: torch.Tensor,
 def expand_slot_mask(slot_mask: torch.Tensor, comp_len: int) -> torch.Tensor:
     """(Q, T) -> (Q, T*comp_len) by repeating each slot column."""
     return torch.repeat_interleave(slot_mask, comp_len, dim=1)
+
+
+def apply_mask(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Additive -inf masking; ``mask`` broadcastable to ``logits``."""
+    return torch.where(mask, logits, torch.full_like(logits, NEG_INF))
 
 
 # ---------------------------------------------------------------------------

@@ -175,6 +175,54 @@ def segmented_attention_ref(q, segs: Sequence[Dict[str, Any]], q_idx, q_seg,
     return out.transpose(1, 2)
 
 
+def segmented_attention_lanes_ref(q, segs: Sequence[Dict[str, Any]], q_idx,
+                                  q_seg, scale: float) -> torch.Tensor:
+    """Batched oracle for lane-batched segmented attention: a plain
+    Python loop over lanes, each lane attending its OWN segment slices
+    through :func:`segmented_attention_ref`.
+
+    q (N, Sq, Hq, D) with N the lane axis; each seg a dict: non-layered
+    k/v (N, S, Hkv, D); layered ``lane_major`` k/v (N, L, S, Hkv, D)
+    (scales (N, L, S, Hkv)) or layer-major (L, N, S, Hkv, D);
+    length/layer () or (N,); idx/seg/comp/valid (S,) or (N, S).
+    q_idx/q_seg (Sq,) or (N, Sq).
+    """
+    N, Sq = q.shape[:2]
+    q_idx = _lanes(q_idx, N, torch.int32, q.device).expand(N, Sq)
+    q_seg = _lanes(q_seg, N, torch.int32, q.device).expand(N, Sq)
+
+    def lane(x, i):
+        x = torch.as_tensor(x)
+        return x[i] if x.ndim else x
+
+    outs = []
+    for i in range(N):
+        per = []
+        for s in segs:
+            layered = s.get("layer") is not None
+            d = {"layer": None if not layered else int(lane(s["layer"], i))}
+            for key in ("k", "v", "k_scale", "v_scale"):
+                a = s.get(key)
+                if a is None:
+                    d[key] = None
+                elif layered and s.get("lane_major"):
+                    d[key] = a[i][:, None]          # (L, S, ..) -> (L,1,S,..)
+                elif layered:
+                    d[key] = a[:, i:i + 1]
+                else:
+                    d[key] = a[i:i + 1]
+            d["length"] = None if s.get("length") is None \
+                else int(lane(s["length"], i))
+            for key in ("idx", "seg", "comp", "valid"):
+                a = s.get(key)
+                d[key] = None if a is None \
+                    else (a[i] if torch.as_tensor(a).ndim == 2 else a)
+            per.append(d)
+        outs.append(segmented_attention_ref(q[i:i + 1], per, q_idx[i],
+                                            q_seg[i], scale))
+    return torch.cat(outs, dim=0)
+
+
 def merge_partials(m: torch.Tensor, l: torch.Tensor,
                    acc: torch.Tensor) -> torch.Tensor:
     """The split-K decode's combine: splits' running-softmax states over

@@ -10,10 +10,13 @@ are timed on ``repro_torch.obs.clock``'s monotonic clock, the port's one
 reader of the stdlib clock (``scripts/check_no_stray_timers.py``); a
 test injects its own ``clock=``.
 
-Not ported: gradient compression on the data-parallel reduce
-(``grad_codec`` other than "none"), ``DistContext`` meshes and
-``jit_train_step`` (pjit); both raise.  The loop runs on the CUDA card
-unless ``device="cpu"``.
+``grad_codec`` ("int8", "topk") compresses gradients on the
+data-parallel reduce only: on one device it is accepted and the step
+trains exactly as with "none", as the reference does with ``dist=None``
+(no error-feedback residual is allocated; the reference allocates one
+and never reads it).  Not ported:
+``DistContext`` meshes and ``jit_train_step`` (pjit); ``dist=`` raises.
+The loop runs on the CUDA card unless ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -35,13 +38,10 @@ from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_update,
 from repro_torch.optim.losses import next_token_loss
 
 
-def _single_device(dist, grad_codec: str) -> None:
+def _single_device(dist) -> None:
     if dist is not None:
         raise NotImplementedError("DistContext (multi-device training) is "
                                   "not ported")
-    if grad_codec != "none":
-        raise NotImplementedError(f"grad_codec {grad_codec!r}: gradient "
-                                  "compression is not ported")
 
 
 def trainable_mask_for(cfg: ModelConfig, params) -> Any:
@@ -52,7 +52,7 @@ def trainable_mask_for(cfg: ModelConfig, params) -> Any:
 
 def _loss_fn(tp, fp, cfg: ModelConfig, layout: M.SegmentLayout,
              batch: Dict[str, torch.Tensor], dist=None) -> torch.Tensor:
-    _single_device(dist, "none")
+    _single_device(dist)
     params = PT.merge(tp, fp)
     logits = T.train_forward(params, cfg, batch["tokens"], layout)
     tail = batch["tokens"][:, layout.seq_len - layout.tail_len:]
@@ -64,8 +64,10 @@ def make_train_step(cfg: ModelConfig, layout: M.SegmentLayout,
                     grad_codec: str = "none") -> Callable:
     """Returns step(train_params, frozen_params, opt_state, batch, ef)
     -> (train_params, opt_state, metrics, ef).  Train params and moments
-    are updated in place; ``ef`` (error feedback) is passed through."""
-    _single_device(dist, grad_codec)
+    are updated in place.  ``grad_codec`` acts on the data-parallel
+    reduce only, so on one device ``ef`` (the error-feedback state) is
+    passed through unchanged."""
+    _single_device(dist)
 
     def step(tp, fp, opt: AdamWState, batch, ef=None):
         leaves = [x for _, x in PT.leaves(tp)]
@@ -110,7 +112,7 @@ class TrainLoop:
                  dist=None, ckpt_every: int = 50, grad_codec: str = "none",
                  device: DeviceLike = None,
                  clock: Optional[Callable[[], float]] = None):
-        _single_device(dist, grad_codec)
+        _single_device(dist)
         self.device = resolve_device(device)
         self.cfg, self.layout, self.opt_cfg = cfg, layout, opt_cfg
         self.batch_size = batch_size
@@ -118,9 +120,10 @@ class TrainLoop:
         self.trainable = trainable_mask_for(cfg, params)
         self.tp, self.fp = PT.partition(params, self.trainable)
         self.opt = init_adamw(self.tp)
-        self.ef = None
+        self.ef = None          # one device: no reduce, no residual
         self.it = ShardableIndexIterator(seed, batch_size)
-        self.step_fn = make_train_step(cfg, layout, opt_cfg)
+        self.step_fn = make_train_step(cfg, layout, opt_cfg,
+                                       grad_codec=grad_codec)
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
         self.ckpt_every = ckpt_every
         self.clock = clock if clock is not None else perf_counter

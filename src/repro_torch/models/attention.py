@@ -9,7 +9,9 @@ here (no materialized head repetition).  Softmax statistics in float32.
 hand-written CCM flash-attention kernel op (``kernels/ops.ccm_attention``,
 differentiable).  So the default ``"dense"`` reaches the kernel here,
 while in the reference it names ``attend_dense``; ``"chunked"`` also maps
-to the kernel (``attend_chunked`` is not ported).
+to the kernel.  ``attend_chunked``, the reference's double-blocked
+online-softmax attend in plain arrays, is kept as a plain torch function
+that no path of the port calls.
 
 ``attend_segments`` is the decode / ingest / prefill hot path: a q block
 attends an ordered list of KV segments ``[mem | cache(:length) | self]``
@@ -53,6 +55,18 @@ def plain_causal_info(length: int, offset: int = 0,
                    comp=torch.ones((length,), dtype=torch.bool, device=device))
 
 
+def mem_key_info(length: int, valid: Optional[torch.Tensor] = None,
+                 device=None) -> KeyInfo:
+    """Memory keys: always visible (idx=-1, comp=True)."""
+    return KeyInfo(idx=torch.full((length,), -1, dtype=torch.int32,
+                                  device=device),
+                   seg=torch.zeros((length,), dtype=torch.int32,
+                                   device=device),
+                   comp=torch.ones((length,), dtype=torch.bool,
+                                   device=device),
+                   valid=valid)
+
+
 def concat_info(a: KeyInfo, b: KeyInfo) -> KeyInfo:
     def valid(x: KeyInfo):
         return x.valid if x.valid is not None \
@@ -92,6 +106,75 @@ def attend_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v)
     return out.reshape(B, Sq, Hq, D)
+
+
+def _pad_to(x: torch.Tensor, mult: int, dim: int, fill=0) -> torch.Tensor:
+    pad = (-x.shape[dim]) % mult
+    if pad == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, torch.full(shape, fill, dtype=x.dtype,
+                                    device=x.device)], dim=dim)
+
+
+def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_info: KeyInfo, k_info: KeyInfo, scale: float,
+                   q_chunk: int = 512, k_chunk: int = 1024) -> torch.Tensor:
+    """Double-blocked online-softmax attention with the CCM mask,
+    evaluated per (q block, k block) from the per-token metadata and never
+    materialized at S x S; memory per step O(B * Hq * q_chunk * k_chunk).
+    Key validity (Sk,).  Plain torch: no path of the port calls it (the
+    card's flash attention is the CCM kernel)."""
+    B, Sq0, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    dev = q.device
+    valid = k_info.valid if k_info.valid is not None \
+        else torch.ones((k.shape[1],), dtype=torch.bool, device=dev)
+
+    q = _pad_to(q, q_chunk, 1)
+    qi_idx = _pad_to(q_info.idx, q_chunk, 0, fill=-(10 ** 9))
+    qi_seg = _pad_to(q_info.seg, q_chunk, 0, fill=-1)
+    k, v = _pad_to(k, k_chunk, 1), _pad_to(v, k_chunk, 1)
+    ki_idx = _pad_to(k_info.idx, k_chunk, 0, fill=10 ** 9)
+    ki_seg = _pad_to(k_info.seg, k_chunk, 0, fill=-2)
+    ki_comp = _pad_to(k_info.comp, k_chunk, 0, fill=False)
+    ki_valid = _pad_to(valid, k_chunk, 0, fill=False)
+
+    Sq, Sk = q.shape[1], k.shape[1]
+    qg = q.reshape(B, Sq, Hkv, G, D)
+    outs = []
+    for q0 in range(0, Sq, q_chunk):
+        qblk = qg[:, q0:q0 + q_chunk]
+        qidx, qseg = qi_idx[q0:q0 + q_chunk], qi_seg[q0:q0 + q_chunk]
+        m_i = torch.full((B, Hkv, G, q_chunk), NEG_INF, dtype=torch.float32,
+                         device=dev)
+        l_i = torch.zeros((B, Hkv, G, q_chunk), dtype=torch.float32,
+                          device=dev)
+        acc = torch.zeros((B, Hkv, G, q_chunk, D), dtype=torch.float32,
+                          device=dev)
+        for k0 in range(0, Sk, k_chunk):
+            sl = slice(k0, k0 + k_chunk)
+            logits = torch.einsum("bqhgd,bkhd->bhgqk", qblk,
+                                  k[:, sl]).float() * scale
+            msk = (ki_idx[None, sl] <= qidx[:, None]) \
+                & ((ki_seg[None, sl] == qseg[:, None]) | ki_comp[None, sl]) \
+                & ki_valid[None, sl]
+            logits = torch.where(msk[None, None, None], logits,
+                                 torch.full_like(logits, NEG_INF))
+            m_new = torch.maximum(m_i, logits.amax(-1))
+            alpha = torch.exp(m_i - m_new)
+            p = torch.exp(logits - m_new[..., None])
+            l_i = l_i * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(q.dtype), v[:, sl])
+            m_i = m_new
+        out = acc / torch.clamp(l_i[..., None], min=1e-37)
+        outs.append(out.to(q.dtype))
+    # (B, Hkv, G, Sq, D) -> (B, Sq, Hq, D)
+    out = torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+    return out[:, :Sq0]
 
 
 def attend(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,

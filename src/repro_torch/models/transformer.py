@@ -16,6 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core import baselines as BL
 from repro_torch.core import masks as M
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
@@ -119,8 +120,9 @@ def _attn_mlp_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
     q, k, v = A.qkv_project(cfg, lp["attn"], h, comp_gate,
                             positions if cfg.pos_embed == "rope" else None)
     if merge_ctx is not None:
-        # merge mode: dense attend over [virtual slots | raw keys], as the
-        # reference does (no kernel computes it there either)
+        # merge mode and the baselines: dense attend over [virtual slots |
+        # raw keys], as the reference does (no kernel computes it there
+        # either)
         slots_fn = merge_ctx.get("slots_fn")
         if slots_fn is not None:
             mem_k, mem_v = slots_fn(k, v)
@@ -153,6 +155,17 @@ def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
 # CCM parallel training forward (paper Fig. 3 / Alg. 1)
 # ===========================================================================
 
+@functools.lru_cache(maxsize=None)
+def _pool_index(t_steps: int, chunk_len: int, comp_len: int, tail_len: int,
+                device: torch.device) -> torch.Tensor:
+    """The compressive pooling table of ``segment_layout(t_steps,
+    chunk_len, comp_len, tail_len)`` (the layout's only constructor),
+    planned once per layout and device and kept there."""
+    lay = M.segment_layout(t_steps, chunk_len, comp_len, tail_len)
+    return BL.compressive_pool_index(lay.seg_ids, lay.comp_mask, t_steps,
+                                     comp_len).to(device)
+
+
 def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   layout: M.SegmentLayout,
                   logits_slice: Optional[Tuple[int, int]] = None,
@@ -163,12 +176,12 @@ def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     tail (input/output) region only.  Concat mode attends through the
     CCM flash-attention kernel; merge mode builds the virtual memory
     slots (running mean through the ``kv_cummean`` kernel, or the EMA)
-    and attends densely over [slots | raw keys].
+    and attends densely over [slots | raw keys].  The paper's baselines
+    (``cfg.ccm.method`` "gisting" or "compressive", ``core/baselines``)
+    take precedence over the mode, as in the reference, and attend
+    densely: gisting under its own (S, S) mask, compressive over
+    [mean-pooled raw slots | raw keys].
     """
-    if cfg.ccm.enabled and cfg.ccm.method != "ccm":
-        raise NotImplementedError(f"CCM method {cfg.ccm.method!r}: the "
-                                  "gisting and compressive baselines are "
-                                  "not ported")
     if cfg.pos_embed == "learned":
         raise NotImplementedError("learned position embeddings are not "
                                   "ported")
@@ -190,7 +203,21 @@ def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
     merge_ctx = None
     q_info = k_info = None
-    if use_ccm and cfg.ccm.mode == "merge":
+    if use_ccm and cfg.ccm.method == "gisting":
+        merge_ctx = {"mask": BL.gisting_online_mask(seg, comp,
+                                                    layout.t_steps),
+                     "slots_fn": None}
+    elif use_ccm and cfg.ccm.method == "compressive":
+        raw_mask = M.intra_segment_causal(seg, comp)
+        slot_mask = BL.compressive_slot_mask(seg, layout.t_steps,
+                                             layout.comp_len)
+        index = _pool_index(layout.t_steps, layout.chunk_len,
+                            layout.comp_len, layout.tail_len, dev)
+        merge_ctx = {
+            "mask": torch.cat([slot_mask, raw_mask], dim=1),
+            "slots_fn": functools.partial(BL.compressive_virtual_kv,
+                                          index=index)}
+    elif use_ccm and cfg.ccm.mode == "merge":
         raw_mask = M.intra_segment_causal(seg, comp)
         slot_mask = M.expand_slot_mask(M.merge_slot_mask(seg, layout.t_steps),
                                        layout.comp_len)

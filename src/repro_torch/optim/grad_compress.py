@@ -1,0 +1,100 @@
+"""Gradient compression for the data-parallel reduce, with error feedback
+(port of ``repro/optim/grad_compress.py``).
+
+Two codecs:
+  int8  - per-tensor symmetric quantization; 4x wire reduction.
+  topk  - magnitude top-k% sparsification with error feedback (Lin et
+          al., Deep Gradient Compression): residuals accumulate locally so
+          the update stays unbiased over time.
+
+Trees are the port's nested dicts; None leaves (the frozen side of a
+partition) stay None.  The codecs and the error-feedback step run on the
+device of the gradients.  ``compressed_psum`` needs a process group and
+raises until the multi-device slice of the port lands; on one device
+``launch/train.py`` passes the error-feedback state through unchanged,
+as the reference does.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.optim.partition import tree_map
+
+
+class EFState(NamedTuple):
+    residual: Any   # same structure as grads
+
+
+def init_ef(grads_like: Any) -> EFState:
+    return EFState(residual=tree_map(
+        lambda _, g: None if g is None else
+        torch.zeros(g.shape, dtype=torch.float32, device=g.device),
+        grads_like))
+
+
+# --- int8 codec ------------------------------------------------------------
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q int8, scale 0-d): q = clip(round(x / scale), -127, 127) with
+    scale = (max|x| + 1e-12) / 127, rounding half to even as
+    ``jnp.round`` does."""
+    amax = x.abs().max() + 1e-12
+    # a tensor divisor: CUDA divides by a host scalar as a multiply by its
+    # reciprocal, one ulp away from the reference's true division
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+# --- top-k codec -----------------------------------------------------------
+
+def topk_sparsify(x: torch.Tensor, frac: float) -> torch.Tensor:
+    """Keep the top ``frac`` fraction of entries by magnitude (a dense
+    mask: the wire format would transmit (indices, values); this models
+    the value selection and the error it leaves behind).  Every entry at
+    or above the k-th magnitude is kept, ties included, so more than k
+    may survive."""
+    flat = x.reshape(-1)
+    k = max(int(flat.shape[0] * frac), 1)
+    thresh = torch.topk(flat.abs(), k).values[-1]
+    return x * (x.abs() >= thresh)
+
+
+# --- error-feedback compress step -------------------------------------------
+
+def compress_with_ef(grads: Any, ef: EFState, codec: str = "int8",
+                     topk_frac: float = 0.01):
+    """Returns (compressed_grads, new_ef); compressed + new residual ==
+    grads + old residual.  The residual is float32 whatever the
+    gradient's dtype."""
+
+    def one(g, r):
+        gf = g.to(torch.float32) + r
+        if codec == "int8":
+            out = dequantize_int8(*quantize_int8(gf))
+        elif codec == "topk":
+            out = topk_sparsify(gf, topk_frac)
+        else:
+            out = gf
+        return out, gf - out
+
+    pairs = tree_map(lambda _, g, r: None if g is None else one(g, r),
+                     grads, ef.residual)
+    comp = tree_map(lambda _, p: None if p is None else p[0], pairs)
+    resid = tree_map(lambda _, p: None if p is None else p[1], pairs)
+    return comp, EFState(residual=resid)
+
+
+def compressed_psum(grads: Any, axis_name, ef: Optional[EFState] = None,
+                    codec: str = "none", topk_frac: float = 0.01):
+    """The reference's psum over the data-parallel axis (with the codec and
+    error feedback) needs a process group."""
+    raise NotImplementedError("compressed_psum (a data-parallel reduce) "
+                              "comes with the multi-device slice of the "
+                              "port")

@@ -1,6 +1,8 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor the reference package ``repro``, and the port's entry
-points refuse to run without a device when no CUDA card is present."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's CLIs (``examples/train_online_torch.py``,
+``scripts/serve_metrics_torch.py``) import neither ``jax`` nor the
+reference package ``repro``, and the port's entry points refuse to run
+without a device when no CUDA card is present."""
 import os
 import re
 import subprocess
@@ -36,11 +38,42 @@ def test_port_imports_without_jax_or_repro():
     assert len(MODULES) >= 15
 
 
+CLIS = [ROOT / "examples" / "train_online_torch.py",
+        ROOT / "scripts" / "serve_metrics_torch.py"]
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py"] + CLIS,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_has_no_jax_or_repro_import(path):
     assert not _IMPORT.search(path.read_text()), path
+
+
+@pytest.mark.parametrize("cli", CLIS, ids=lambda p: p.name)
+def test_clis_run_without_jax_and_need_a_device(cli):
+    """Each CLI runs with ``jax`` and ``repro`` unimportable (``--help``)
+    and, with no card and no ``--device``, raises the port's no-device
+    error rather than falling back to the CPU."""
+    stub = ("import sys, runpy\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            "import torch\n"
+            "torch.cuda.is_available = lambda: False\n"
+            "sys.argv = [sys.argv[1]] + sys.argv[2:]\n"
+            "runpy.run_path(sys.argv[0], run_name='__main__')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    help_ = subprocess.run([sys.executable, "-c", stub, str(cli), "--help"],
+                           capture_output=True, text=True, env=env,
+                           timeout=120, cwd=ROOT)
+    assert help_.returncode == 0, help_.stderr
+    assert "--device" in help_.stdout
+    run = subprocess.run([sys.executable, "-c", stub, str(cli), "--steps",
+                          "1"] if "train" in cli.name else
+                         [sys.executable, "-c", stub, str(cli)],
+                         capture_output=True, text=True, env=env,
+                         timeout=120, cwd=ROOT)
+    assert run.returncode != 0
+    assert "no CUDA device" in run.stderr
 
 
 def test_entry_points_need_a_device(monkeypatch):

@@ -14,6 +14,7 @@ and every stream lane with no eviction pending, must come back bit-equal.
 """
 import dataclasses
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -329,10 +330,14 @@ class _TraceRunner:
     """Applies `simulation.random_events` traces to one engine (the
     subset of `simulation.ServeSimulation`'s rules the comparison needs:
     sessions are created on first use, closed sids stay closed, and
-    caller-contract errors are skipped the same way in both engines)."""
+    caller-contract errors are skipped the same way in both engines).
+    Each event advances the engine's manual clock by 1 s, and a submit's
+    relative deadline becomes an absolute one on it, as the simulation
+    does."""
 
     def __init__(self, eng):
         self.eng, self.closed = eng, set()
+        self.clock = eng.obs.clock
 
     def _ensure(self, sid, tenant):
         if sid in self.eng._kind:
@@ -345,6 +350,7 @@ class _TraceRunner:
     def apply(self, ev):
         eng, kind = self.eng, ev[0]
         out = None
+        self.clock.advance(1.0)
         if kind == "create" and len(ev) == 4:
             _, sid, tenant, plen = ev
             if sid not in eng._kind and sid not in self.closed:
@@ -358,11 +364,14 @@ class _TraceRunner:
                 out = _verdict(eng.fork_session(parent, child))
         elif kind == "submit":
             _, sid, op, length, prio, tenant = ev[:6]
+            rel = ev[6] if len(ev) > 6 else None
             if self._ensure(sid, tenant) and not (
                     op == "query"
                     and eng._cached.get(sid, 0) + length > eng.cache_len):
                 out = _verdict(getattr(eng, op)(
-                    sid, np.zeros(length, np.int32), priority=prio))
+                    sid, np.zeros(length, np.int32), priority=prio,
+                    deadline=None if rel is None
+                    else self.clock.now() + float(rel)))
         elif kind == "run":
             eng.run(max_batches=ev[1])
         elif kind == "offload":
@@ -395,6 +404,159 @@ def test_null_step_traces_match_reference(seed):
         want, got = jd.apply(ev), pd.apply(ev)
         assert got == want, ev
         assert got[2] == []
+
+
+_DEADLINES = (None, 1, 3, 10)
+# the control plane beyond the null-step default: (engine options, with
+# JAX/port pairs of TenantQuota / PressurePolicy built per package;
+# random_events options)
+_PLANE = {
+    "deadlines": ({}, dict(rel_deadlines=_DEADLINES)),
+    "slo-quotas": (dict(quotas={"t0": dict(max_resident=1, slo_seconds=4.0),
+                                "t1": dict(slo_seconds={"query": 2.0})}),
+                   dict(rel_deadlines=(None, None, 5))),
+    "block": (dict(admission_policy="block", max_queued_tokens=24,
+                   max_backlog=4, quotas={"t0": dict(max_queued_tokens=8)}),
+              dict(rel_deadlines=_DEADLINES)),
+    "shed-lowest-priority": (
+        dict(admission_policy="shed-lowest-priority", max_queued_tokens=20,
+             quotas={"t0": dict(max_queued_tokens=8, max_resident=1)}),
+        dict(rel_deadlines=_DEADLINES)),
+    "reject-new": (dict(admission_policy="reject-new", max_queued_tokens=20,
+                        quotas={"t1": dict(max_queued_tokens=6)}),
+                   dict(rel_deadlines=_DEADLINES)),
+    "derived-buckets": (dict(bucket_policy="derived",
+                             bucket_refit_interval=4), {}),
+    "pressure": (dict(pressure=dict(capacity_tokens=60)), {}),
+    "no-edf": (dict(edf=False), dict(rel_deadlines=_DEADLINES)),
+    "async-offload": (dict(async_offload=True),
+                      dict(rel_deadlines=_DEADLINES)),
+}
+
+
+def _plane_engines(setting):
+    from repro.serve import TenantQuota as JQuota
+    from repro_torch.serve import TenantQuota as PQuota
+
+    opts, _ = _PLANE[setting]
+    jc, pc = _cfgs()
+    kw = dict(n_slots=3, cache_len=64, batch_buckets=(1, 2, 4),
+              token_buckets=(2, 4, 8, 16), aging=4, max_resident=2)
+    kw.update({k: v for k, v in opts.items()
+               if k not in ("quotas", "pressure")})
+    jkw, pkw = dict(kw), dict(kw)
+    if "quotas" in opts:
+        jkw["tenant_quotas"] = {t: JQuota(**q)
+                                for t, q in opts["quotas"].items()}
+        pkw["tenant_quotas"] = {t: PQuota(**q)
+                                for t, q in opts["quotas"].items()}
+    if "pressure" in opts:
+        jkw["pressure_policy"] = JPolicy(**opts["pressure"])
+        pkw["pressure_policy"] = PPolicy(**opts["pressure"])
+    je = JEngine(None, jc, step_factory=JSRV.make_null_step,
+                 obs=JObs(clock=JClock()), **jkw)
+    pe = PEngine(None, pc, step_factory=PSRV.make_null_step,
+                 obs=PObs(clock=PClock()), device="cpu", **pkw)
+    return je, pe
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+@pytest.mark.parametrize("setting", list(_PLANE))
+def test_control_plane_traces_match_reference(setting, seed):
+    """Seeded traces with fork and prefix events through both engines
+    under deadlines, SLO quotas, the three admission policies with
+    quotas and backlogs, derived token buckets, memory pressure,
+    ``edf=False`` and async offload: equal verdicts, slot state and
+    queue accounting after every event, and equal counters at the end."""
+    from simulation import FORK_SIDS, PREFIX_LENS, random_events
+
+    je, pe = _plane_engines(setting)
+    jd, pd = _TraceRunner(je), _TraceRunner(pe)
+    events = random_events(np.random.RandomState(seed), 100,
+                           fork_sids=FORK_SIDS, prefix_lens=PREFIX_LENS,
+                           **_PLANE[setting][1])
+    events.append(("run", 50))
+    for ev in events:
+        want, got = jd.apply(ev), pd.apply(ev)
+        assert got == want, ev
+        assert got[2] == []
+    assert _counters(pe) == _counters(je)
+    if setting == "derived-buckets":
+        assert pe.scheduler.token_buckets == je.scheduler.token_buckets
+
+
+# ---------------------------------------------------------------------------
+# scripts/serve_metrics_torch.py against scripts/serve_metrics.py
+# ---------------------------------------------------------------------------
+
+def _script(name):
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _families(text):
+    return sorted(line.split()[2] for line in text.splitlines()
+                  if line.startswith("# TYPE "))
+
+
+def test_serve_metrics_script_matches_reference_demo(monkeypatch, tmp_path):
+    """The port's demo (``n_shards=1``) against the reference script's own
+    ``demo_engine`` with ``repro.serve.ServeEngine`` held to
+    ``n_shards=1``: equal counters (timing families excluded), the same
+    Prometheus families, and ``--from-json`` re-rendering the saved
+    snapshot."""
+    import repro.serve
+
+    ref, port = _script("serve_metrics"), _script("serve_metrics_torch")
+
+    class OneShard(JEngine):
+        def __init__(self, *a, **kw):
+            kw["n_shards"] = 1
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(repro.serve, "ServeEngine", OneShard)
+    je = ref.demo_engine()
+    pe = port.demo_engine("cpu")
+    assert pe.n_shards == je.n_shards == 1
+    assert _counters(pe) == _counters(je)
+    snap = pe.metrics_snapshot()["metrics"]
+    verdicts = {v["labels"]["verdict"]: v["value"]
+                for v in snap["admission_verdicts_total"]["values"]}
+    assert verdicts["queued"] > 0 and verdicts["pumped"] > 0
+    offl = {v["labels"]["dir"]: v["value"]
+            for v in snap["offload_sessions_total"]["values"]}
+    assert offl["offload"] > 0 and offl["restore"] > 0
+    assert _families(pe.metrics_prometheus()) \
+        == _families(je.metrics_prometheus())
+
+    out = tmp_path / "snap.json"
+    assert port.main(["--device", "cpu", "--out", str(out)]) == 0
+    saved = json.loads(out.read_text())
+    assert set(saved) == set(pe.metrics_snapshot())
+    prom = tmp_path / "snap.prom"
+    assert port.main(["--from-json", str(out), "--format", "prometheus",
+                      "--out", str(prom)]) == 0
+    from repro_torch.obs.metrics import render_prometheus
+    text = prom.read_text()
+    assert text.rstrip("\n") == render_prometheus(saved["metrics"]).rstrip(
+        "\n")
+    assert _families(text) == _families(pe.metrics_prometheus())
+    # a bare registry re-renders alike, and JSON round-trips unchanged
+    bare = tmp_path / "bare.json"
+    bare.write_text(json.dumps(saved["metrics"]))
+    again = tmp_path / "again.prom"
+    assert port.main(["--from-json", str(bare), "--format", "prometheus",
+                      "--out", str(again)]) == 0
+    assert again.read_text() == text
+    back = tmp_path / "back.json"
+    assert port.main(["--from-json", str(out), "--out", str(back)]) == 0
+    assert json.loads(back.read_text()) == saved
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Port parity for the CCM parallel training path: ``train_forward``, the
 loss and its gradients, ``make_train_step`` over three AdamW steps and
 ``TrainLoop`` restarts, against ``repro`` on the same weights and tokens
-(drawn by the reference and handed to both packages as numpy).
+(drawn by the reference and handed to both packages as numpy).  The
+paper's baselines (``ccm.method`` "gisting" and "compressive") run in both
+modes: the method takes precedence over the mode, in both packages.
 
 The reference runs its default ``attn_impl="dense"`` (jnp attend) and,
 for the forward, ``"pallas"`` (its CCM flash-attention kernel in
@@ -11,7 +13,6 @@ version is the plain ``ccm_attention_ref``.
 
 Tolerance (float32 on the CPU): 1e-4 x max|reference| per tensor.
 """
-import dataclasses
 
 import jax
 import numpy as np
@@ -40,8 +41,9 @@ MODEL = dict(name="t", family="dense", n_layers=2, d_model=64, n_heads=4,
              n_kv_heads=2, d_ff=128, vocab_size=128, compute_dtype="float32")
 
 
-def _cfgs(mode="concat", alpha=None, **kw):
-    ccm = dict(comp_len=M, max_steps=T_STEPS, mode=mode, merge_alpha=alpha)
+def _cfgs(mode="concat", alpha=None, method="ccm", **kw):
+    ccm = dict(comp_len=M, max_steps=T_STEPS, mode=mode, merge_alpha=alpha,
+               method=method)
     return (JCfg(**MODEL, ccm=JCCM(**ccm), **kw),
             PCfg(**MODEL, ccm=PCCM(**ccm), **kw))
 
@@ -86,12 +88,15 @@ def _jflat(tree):
             for path, x in flat}
 
 
-@pytest.mark.parametrize("mode,alpha,impl", [
-    ("concat", None, "dense"), ("concat", None, "pallas"),
-    ("merge", None, "dense"), ("merge", 0.3, "dense")])
-def test_train_forward_matches_reference(mode, alpha, impl):
+@pytest.mark.parametrize("method,mode,alpha,impl", [
+    ("ccm", "concat", None, "dense"), ("ccm", "concat", None, "pallas"),
+    ("ccm", "merge", None, "dense"), ("ccm", "merge", 0.3, "dense"),
+    ("gisting", "concat", None, "dense"), ("gisting", "merge", None, "dense"),
+    ("compressive", "concat", None, "dense"),
+    ("compressive", "merge", None, "dense")])
+def test_train_forward_matches_reference(method, mode, alpha, impl):
     """The reference's kernel ('pallas') runs in concat mode only."""
-    jcfg, pcfg = _cfgs(mode, alpha, attn_impl=impl)
+    jcfg, pcfg = _cfgs(mode, alpha, method, attn_impl=impl)
     jparams, pparams = _params(jcfg, pcfg)
     jl, pl = _layouts()
     jb, pb = _batch(1)
@@ -122,10 +127,18 @@ def _jax_loss_grads(jcfg, jl, jparams, jb):
     return float(loss), _jflat(grads)
 
 
-@pytest.mark.parametrize("mode,alpha", [("concat", None), ("merge", None),
-                                        ("merge", 0.3)])
-def test_loss_and_gradients_match_reference(mode, alpha):
-    jcfg, pcfg = _cfgs(mode, alpha)
+@pytest.mark.parametrize("method,mode,alpha,train_mode", [
+    ("ccm", "concat", None, "lora"), ("ccm", "merge", None, "lora"),
+    ("ccm", "merge", 0.3, "lora"), ("gisting", "concat", None, "lora"),
+    ("gisting", "merge", None, "lora"),
+    ("compressive", "concat", None, "lora"),
+    ("compressive", "merge", None, "full")])
+def test_loss_and_gradients_match_reference(method, mode, alpha, train_mode):
+    """Compressive pools raw tokens only: the <COMP> rows, where the LoRA
+    fires, reach no loss position, so the LoRA and comp_embed gradients
+    are exactly 0 in both packages; full training holds the pooling's
+    gradient through the base weights."""
+    jcfg, pcfg = _cfgs(mode, alpha, method, train_mode=train_mode)
     jparams, pparams = _params(jcfg, pcfg)
     jl, pl = _layouts()
     jb, pb = _batch(3)
@@ -139,15 +152,22 @@ def test_loss_and_gradients_match_reference(mode, alpha):
     _close(loss.item(), want_loss, "loss")
     got = {"/".join(p): g.numpy() for (p, _), g in zip(leaves, grads)}
     assert set(got) == set(want_grads)
-    assert len(got) == 9          # 4 projections x (a, b) + comp_embed
+    if train_mode == "lora":
+        assert len(got) == 9      # 4 projections x (a, b) + comp_embed
     for k in got:
+        if method == "compressive" and ("lora" in k or "comp_embed" in k):
+            assert not want_grads[k].any() and not got[k].any(), k
+            continue
         assert np.abs(want_grads[k]).max() > 0, k
         _close(got[k], want_grads[k], k)
 
 
-@pytest.mark.parametrize("mode", ["concat", "merge"])
-def test_three_train_steps_match_reference(mode):
-    jcfg, pcfg = _cfgs(mode)
+@pytest.mark.parametrize("method,mode,train_mode", [
+    ("ccm", "concat", "lora"), ("ccm", "merge", "lora"),
+    ("gisting", "concat", "lora"), ("compressive", "merge", "full")])
+def test_three_train_steps_match_reference(method, mode, train_mode):
+    """Compressive trains in full: its LoRA gradients are exactly 0."""
+    jcfg, pcfg = _cfgs(mode, method=method, train_mode=train_mode)
     jparams, pparams = _params(jcfg, pcfg)
     jl, pl = _layouts()
     ocfg = dict(lr=1e-3, warmup_steps=2, total_steps=6, weight_decay=0.01)
@@ -229,18 +249,10 @@ def test_parallel_equals_online_in_port(mode):
                                logits[:, -1].numpy(), atol=2e-4, rtol=0)
 
 
-def test_unported_training_options_raise():
+def test_multi_device_training_raises():
     _, pcfg = _cfgs("concat")
-    _, params = _params(*_cfgs("concat"))
     _, pl = _layouts()
-    _, pb = _batch(1)
-    for method in ("gisting", "compressive"):
-        c = pcfg.replace(ccm=dataclasses.replace(pcfg.ccm, method=method))
-        with pytest.raises(NotImplementedError):
-            PT.train_forward(params, c, pb["tokens"], pl)
-    with pytest.raises(NotImplementedError):
-        PTR.make_train_step(pcfg, pl, PA.AdamWConfig(), grad_codec="int8")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="multi-device"):
         PTR.make_train_step(pcfg, pl, PA.AdamWConfig(), dist=object())
 
 
@@ -255,3 +267,52 @@ def test_params_to_numpy_inverts_params_from_numpy():
         for k in path:
             y = y[k.key]
         assert np.array_equal(np.asarray(x, np.float32), y), path
+
+
+def _example():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" \
+        / "train_online_torch.py"
+    spec = importlib.util.spec_from_file_location("_train_online_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_train_online_example_resumes_on_the_cpu(tmp_path, capsys,
+                                                 monkeypatch):
+    """``examples/train_online_torch.py --device cpu``: 4 steps with a
+    checkpoint every 2, then a second run resumes at step 4 and trains
+    to 6; an int8 codec on one device logs the losses of "none";
+    ``--ablate-lora`` exits with its message."""
+    ex = _example()
+    monkeypatch.setattr(ex, "CKPT_EVERY", 2)
+    args = ["--arch", "llama-7b", "--smoke", "--device", "cpu", "--batch",
+            "2", "--lr", "1e-2"]
+    ck = str(tmp_path / "ck")
+    assert ex.main(args + ["--steps", "4", "--ckpt", ck]) == 0
+    first = capsys.readouterr().out
+    assert "resumed" not in first and "final loss" in first
+    def steps():
+        return sorted(int(p.name.split("_")[1])
+                      for p in (tmp_path / "ck").iterdir()
+                      if p.name.startswith("step_"))
+    assert steps() == [2, 4]
+    assert ex.main(args + ["--steps", "6", "--ckpt", ck]) == 0
+    second = capsys.readouterr().out
+    assert "resumed from checkpoint at step 4" in second
+    assert steps() == [2, 4, 6]
+    finals = []
+    for codec in ("none", "int8"):
+        assert ex.main(args + ["--steps", "3", "--ckpt",
+                               str(tmp_path / codec), "--grad-codec",
+                               codec]) == 0
+        finals.append([ln for ln in capsys.readouterr().out.splitlines()
+                       if ln.startswith("final loss")])
+    assert finals[0] == finals[1] and finals[0]
+    with pytest.raises(SystemExit) as exc:
+        ex.main(["--ablate-lora"])
+    assert exc.value.code == 2
+    assert "benchmarks/common.py" in capsys.readouterr().err
