@@ -85,8 +85,24 @@ Phases (any failure raises, and the script exits non-zero):
      rounds) on the card against the CPU on a gradient tree shaped as
      LLaMA-7B's LoRA leaves; (d) ``scripts/serve_metrics_torch.py``'s
      demo engine on the card against the CPU;
+ 11. (run after phase 9) the recurrent families of the port's registry,
+     mamba2-370m (48 Mamba2 layers, no CCM) and zamba2-1.2b (38 Mamba2
+     layers and 6 shared-attention sites, MHA 32/32 hd 64, CCM at the
+     sites) at their published widths and full depth, random float32
+     weights from seed 0, one model at a time: (a) B=4, 4 ingests, a
+     256-token prefill and 32 greedy tokens (zamba2 in concat and merge),
+     launches held to the path, a profiled decode; (b) float32 CUDA vs CPU
+     cross-check of the online path and ``train_forward`` with gradients
+     at a depth cut (zamba2: 2 groups of 4 and a remainder of 1); (d) the
+     serve engine, 12 sessions on 8 slots with a fork and offload/restore,
+     at full depth: in float32, every answer held to its session run
+     alone in float64 on the CPU; in bf16, the witness of the bf16 batch
+     gap (batched and alone both against float32, and batched against 8
+     copies of the session in one batch); (c)
+     2-3 full-training AdamW steps (zamba2: 2 concat and 1 merge), every
+     leaf moved; (e) the SSD scan alone beside its bound;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
-launches in phases 3, 5, 7, 8, 9 and 10), then the result line.  Phase 2 also
+launches in phases 3, 5, 7, 8, 9, 10 and 11), then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward on
 its float32 and bf16 routes, the bf16 cases with per-lane (B, S)
 metadata, a layout with no <COMP> key and hd 72, the backward run twice
@@ -97,7 +113,12 @@ cond_lora's autograd, dW included) and the arena's session
 gather/scatter against their plain versions, and times the zoo's
 shapes: segmented attention at 15/5, 14/2 (hd 64) and 8/1 (hd 256),
 cond_lora at the zoo's projections, CCM attention at 8/1 hd 256 and
-14/2 hd 64, the merge update at Gemma-2B's memory.
+14/2 hd 64, the merge update at Gemma-2B's memory; and zamba2-1.2b's
+as phase 11 runs them: segmented attention at 32/32 hd 64 (decode, a
+256-token prefill, a 64-token ingest, the lane-major serve query),
+cond_lora at M 256 and 512, K 2048 N 2048, the merge update at its
+memory (6, 4, 8, 32, 64) layer-major and lane-major, CCM attention and
+the kv_cummean pair at its S 1152 layout.
 Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
@@ -351,7 +372,7 @@ SEG_CASES = [
     dict(label="decode", Sq=1, clen=480),
     dict(label="decode int8", Sq=1, clen=480, int8=True),
     dict(label="stream decode", Sq=1, clen=4096, B=2, cap=4096, mem=72),
-    dict(label="ingest", Sq=72, clen=0),
+    dict(label="ingest", Sq=72, clen=0, ncomp=8),
     dict(label="prefill", Sq=448, clen=0),
     dict(label="serve query", Sq=32, clen=None, B=8, cap=256),
     dict(label="decode GQA 32/8", Sq=1, clen=480, Hkv=8),
@@ -365,19 +386,32 @@ SEG_ZOO_CASES = [
     dict(label="decode 8/1 hd256", Sq=1, clen=480, H=8, Hkv=1, D=256),
     dict(label="prefill 14/2 hd64", Sq=448, clen=0, H=14, Hkv=2, D=64),
     dict(label="prefill 8/1 hd256", Sq=448, clen=0, H=8, Hkv=1, D=256),
+    # zamba2-1.2b's shared attention (phase 11): MHA 32/32 at hd 64, a
+    # decode over a 480-token cache, its 256-token prefill, its ingest (56
+    # tokens + 8 <COMP>) and its serve query (11d: B8, 32 tokens over the
+    # lane-major stacks of its 6 sites, a 64-token cache)
+    dict(label="decode 32/32 hd64 zamba2", Sq=1, clen=480, H=32, Hkv=32,
+         D=64),
+    dict(label="prefill 32/32 hd64 zamba2", Sq=256, clen=0, H=32, Hkv=32,
+         D=64),
+    dict(label="ingest 32/32 hd64 zamba2", Sq=64, clen=0, ncomp=8, H=32,
+         Hkv=32, D=64),
+    dict(label="serve query 32/32 hd64 zamba2", Sq=32, clen=None, B=8,
+         cap=64, Lr=6, H=32, Hkv=32, D=64),
 ]
 
 
 def timed_segmented(torch, F, dattn, quantize_kv, rn, card, *, label, Sq,
                     clen, int8=False, B=4, Hkv=32, cap=512, mem=32, H=32,
-                    D=128):
+                    D=128, ncomp=0, Lr=8):
     """One segmented-attention shape: checked against the plain version,
     then timed beside it, SDPA over the explicit concatenation of the
     valid keys (with the CCM mask; GQA through ``enable_gqa``) and the
     bound.  Four layers (or four layer-id sets) rotate so that the timed
-    reads exceed the 50 MB L2.  ``clen=None`` is the serve query: lane-
-    major (B, L, S, H, D) memory and cache with per-lane lengths and
-    per-lane layer ids.  The zoo's GQA and MQA caches (0.5-2 MB a layer)
+    reads exceed the 50 MB L2.  The last ``ncomp`` query rows are <COMP>
+    rows (an ingest).  ``clen=None`` is the serve query: lane-major (B,
+    Lr, S, H, D) memory (128 rows) and cache (``cap`` rows) with per-lane
+    lengths and per-lane layer ids.  The zoo's GQA and MQA caches (0.5-2 MB a layer)
     stay in the 50 MB L2 across the four layers rotated here, where a
     model's other work between two layers would evict them."""
     dev = "cuda"
@@ -392,19 +426,19 @@ def timed_segmented(torch, F, dattn, quantize_kv, rn, card, *, label, Sq,
     ar = torch.arange(Sq, device=dev, dtype=torch.int32)
     idx = ar + 2 ** 30 if decode else ar
     comp = torch.zeros(Sq, device=dev, dtype=torch.bool)
-    if Sq == 72:                                  # ingest: <COMP> rows last
-        comp[64:] = True
+    if ncomp:                                     # ingest: <COMP> rows last
+        comp[Sq - ncomp:] = True
     one = torch.ones_like(idx)
     self_seg = seg_dict(sk, sv, idx=idx, seg=one, comp=comp)
     if serve:
-        Lr = 8                                    # layers held per lane row
         mk, mv = rn(B, Lr, 128, Hkv, D, dtype=bf), rn(B, Lr, 128, Hkv, D,
                                                       dtype=bf)
         ck, cv = rn(B, Lr, cap, Hkv, D, dtype=bf), rn(B, Lr, cap, Hkv, D,
                                                       dtype=bf)
         ml = torch.tensor([128, 0, 8, 64, 120, 16, 128, 40][:B], device=dev,
                           dtype=torch.int32)
-        cl = torch.tensor([cap, 0, 1, 100, 200, 37, cap - 1, 128][:B],
+        cl = torch.tensor([min(c, cap) for c in (cap, 0, 1, 100, 200, 37,
+                                                 cap - 1, 128)][:B],
                           device=dev, dtype=torch.int32)
         gl = torch.Generator(device=dev).manual_seed(9)
         lids = [torch.randint(0, Lr, (B,), generator=gl, device=dev,
@@ -556,13 +590,19 @@ def check_cond_lora(torch, clora, card):
     rows = {}
     # M = 288: an online ingest (4 lanes x 72); 576: an 8-lane serve
     # ingest; 4864: a training step (4 x 1216).  The zoo's weights
-    # (0.2-8.4 MB) stay in the L2 across the four rotated here.
+    # (0.2-8.4 MB; zamba2-1.2b's M 256) stay in the L2 across the four
+    # rotated here.
     for M, K, N, with_bias in ((288, 4096, 4096, False),
                                (576, 4096, 4096, False),
                                (4864, 4096, 4096, False),
                                (288, 960, 320, False), (288, 896, 128, False),
                                (288, 2048, 256, False),
-                               (288, 2048, 2048, True)):
+                               (288, 2048, 2048, True),
+                               # zamba2-1.2b's shared block at an online
+                               # ingest (4 lanes x 64, MHA 32 x 64) and
+                               # at a serve ingest (8 lanes x 64)
+                               (256, 2048, 2048, False),
+                               (512, 2048, 2048, False)):
         ws = [rn(K, N, std=K ** -0.5) for _ in range(4)]  # LLaMA: > L2
         a, b = rn(r, K, std=K ** -0.5), rn(r, N, std=0.05)
         bias = rn(N)
@@ -719,40 +759,55 @@ def check_kv_merge(torch, kvm, card):
         f"{bms:.4f} ms ({by}) [{card}]")
     del sets, lsets, off
 
+    def zoo_row(label, shp, a, axis, nsets):
+        """One zoo merge memory: checked, then timed (``nsets`` sets of
+        four rotate past the 50 MB L2) beside its plain version, two
+        ``lerp_`` and the bound.  Lane-major (``axis`` 0) takes per-lane
+        ``a`` and an h that is a transposed view, as the serve engine
+        does."""
+        def h_of(shape):
+            return transposed(shape) if axis == 0 else rn(shape)
+        case(f"k+v {label} {shp}", [rn(shp), rn(shp)], [h_of(shp), h_of(shp)],
+             a, axis, 8)
+        err = errs[-1]
+        zs = [[rn(shp), rn(shp), h_of(shp), h_of(shp)] for _ in range(nsets)]
+        w = a if axis else torch.tensor(a, device=dev, dtype=bf).reshape(
+            (-1,) + (1,) * (len(shp) - 1))
+
+        def z_pair(i):
+            mk, mv, hk, hv = zs[i % nsets]
+            kvm.kv_merge_update_lanes_((mk, mv), (hk, hv), a, axis)
+
+        def z_plain(i):
+            mk, mv, hk, hv = zs[i % nsets]
+            mk.copy_(kvm.plain_lanes(mk, hk, a, axis))
+            mv.copy_(kvm.plain_lanes(mv, hv, a, axis))
+
+        def z_lerp(i):
+            mk, mv, hk, hv = zs[i % nsets]
+            mk.lerp_(hk, w)
+            mv.lerp_(hv, w)
+        tz = timings(torch, z_pair, "kv_merge_kernel", z_plain, z_lerp)
+        zn = math.prod(shp)
+        zbms, zby = bound(2 * 3 * zn * 2, 2 * 3.0 * zn, PEAK_F32)
+        report(f"kv_merge k+v {label} {shp} (library: two torch.lerp_)", tz,
+               zbms, zby, card)
+        return dict(shape=f"k+v {shp} bf16 ({label})", max_abs_err=err,
+                    ms=tz["ms"], plain_ms=tz["plain_ms"],
+                    library_ms=tz["library_ms"], bound_ms=zbms, bound_by=zby)
+
     # Gemma-2B's merge memory (18 layers, B4, 8 <COMP> rows, MQA hd 256):
-    # 0.3 MB a tensor, so 48 sets of four rotate past the 50 MB L2
-    gs = (18, B, m, 1, 256)
-    case(f"k+v a=1/3 {gs} (Gemma-2B)", [rn(gs), rn(gs)], [rn(gs), rn(gs)],
-         1.0 / 3, 1, 8)
-    g_err = errs[-1]
-    gsets = [[rn(gs) for _ in range(4)] for _ in range(48)]
-
-    def g_pair(i):
-        mk, mv, hk, hv = gsets[i % 48]
-        kvm.kv_merge_update_lanes_((mk, mv), (hk, hv), 1.0 / 3, 1)
-
-    def g_plain(i):
-        mk, mv, hk, hv = gsets[i % 48]
-        mk.copy_(kvm.plain_lanes(mk, hk, 1.0 / 3, 1))
-        mv.copy_(kvm.plain_lanes(mv, hv, 1.0 / 3, 1))
-
-    def g_lerp(i):
-        mk, mv, hk, hv = gsets[i % 48]
-        mk.lerp_(hk, 1.0 / 3)
-        mv.lerp_(hv, 1.0 / 3)
-    tg = timings(torch, g_pair, "kv_merge_kernel", g_plain, g_lerp)
-    gn = math.prod(gs)
-    gbms, gby = bound(2 * 3 * gn * 2, 2 * 3.0 * gn, PEAK_F32)
-    report(f"kv_merge k+v {gs} (Gemma-2B; library: two torch.lerp_)", tg,
-           gbms, gby, card)
-    del gsets
+    # 0.3 MB a tensor, so 48 sets of four rotate past the 50 MB L2;
+    # zamba2-1.2b's (6 sites, B4, 8 rows, MHA 32 x 64; 0.8 MB a tensor,
+    # 24 sets): the online path's call (shared a) and, lane-major with
+    # per-lane a, the serve engine's
+    zoo = [zoo_row("Gemma-2B", (18, B, m, 1, 256), 1.0 / 3, 1, 48),
+           zoo_row("zamba2-1.2b", (6, B, m, 32, 64), 1.0 / 3, 1, 24),
+           zoo_row("zamba2-1.2b lane-major, per-lane a, h transposed",
+                   (B, 6, m, 32, 64), lanes, 0, 24)]
     return dict(max_abs_err=max(errs), ms=t["ms"], plain_ms=t["plain_ms"],
                 library_ms=t["library_ms"], bound_ms=bms, bound_by=by,
-                shapes=[dict(shape=f"k+v {gs} bf16 (Gemma-2B)",
-                             max_abs_err=g_err, ms=tg["ms"],
-                             plain_ms=tg["plain_ms"],
-                             library_ms=tg["library_ms"], bound_ms=gbms,
-                             bound_by=gby)])
+                shapes=zoo)
 
 
 def check_session_gather(torch, sg, card):
@@ -913,28 +968,41 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
 
     # -- the training shape: LLaMA-7B heads, concat layout, bf16; then
     #    the zoo's at the same layout: Gemma's MQA 8/1 at hd 256 and
-    #    Qwen2's GQA 14/2 at hd 64
+    #    Qwen2's GQA 14/2 at hd 64; then zamba2-1.2b's shared attention
+    #    (MHA 32/32 hd 64) at its training layout (phase 11c, S 1152)
     fwd_row, bwd_row = timed_ccm(torch, F, ca, segment_layout, card, rn,
                                  32, 32, 128)
     zoo = []
-    for Hq, Hkv, D in ((8, 1, 256), (14, 2, 64)):
-        f, b = timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D)
-        zoo += [dict(f, shape=f"forward B4 S1216 {Hq}/{Hkv} hd{D}"),
-                dict(b, shape=f"backward B4 S1216 {Hq}/{Hkv} hd{D}")]
+    for Hq, Hkv, D, lay, tag in ((8, 1, 256, ZOO_LAYOUT, ""),
+                                 (14, 2, 64, ZOO_LAYOUT, ""),
+                                 (32, 32, 64, ZAMBA_LAYOUT, " zamba2")):
+        f, b = timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
+                         lay)
+        S = segment_layout(*lay).seq_len
+        zoo += [dict(f, shape=f"forward B4 S{S} {Hq}/{Hkv} hd{D}{tag}"),
+                dict(b, shape=f"backward B4 S{S} {Hq}/{Hkv} hd{D}{tag}")]
     fwd_row["shapes"] = [r for r in zoo if r["shape"].startswith("forward")]
     bwd_row["shapes"] = [r for r in zoo if r["shape"].startswith("backward")]
     return fwd_row, bwd_row
 
 
-def timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D):
-    """CCM attention at the training shape (B4, the concat layout of 16
-    steps of 64 + 8 <COMP> and a 64-token tail, S 1216) with Hq query
-    and Hkv key/value heads of width D, bf16: forward and backward held
-    to the plain version, then each timed beside it, SDPA with the CCM
-    mask (``enable_gqa`` where Hq > Hkv) and the bound.  Returns the
-    (forward, backward) rows."""
+# the training layouts (t_steps, chunk, comp_len, tail): phases 5 and 9
+# (S 1216), and zamba2-1.2b's in phase 11c (S 1152, nine SSD chunks of
+# 128)
+ZOO_LAYOUT = (16, 64, 8, 64)
+ZAMBA_LAYOUT = (16, 56, 8, 128)
+
+
+def timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
+              layout=ZOO_LAYOUT):
+    """CCM attention at a training shape (B4; by default the concat
+    layout of 16 steps of 64 + 8 <COMP> and a 64-token tail, S 1216) with
+    Hq query and Hkv key/value heads of width D, bf16: forward and
+    backward held to the plain version, then each timed beside it, SDPA
+    with the CCM mask (``enable_gqa`` where Hq > Hkv) and the bound.
+    Returns the (forward, backward) rows."""
     dev = "cuda"
-    lay = segment_layout(16, 64, 8, 64)                  # S = 1216
+    lay = segment_layout(*layout)
     B, S = 4, lay.seq_len
     H = Hq
     gqa = Hq != Hkv
@@ -1129,19 +1197,27 @@ def check_kv_cummean(torch, kvm, card):
             check(f"kv_cummean reverse {name} (width {width})", errs_r[-1],
                   tol(dwant))
 
-    def groups(x):
+    def groups(x, lc=lc):
         """The (B, T, m*H*D) <COMP> groups of x (B, S, H, D), in place."""
-        return x[:, :T * (lc + m)].reshape(B, T, lc + m, H * D)[
+        Hx, Dx = x.shape[2:]
+        return x[:, :T * (lc + m)].reshape(B, T, lc + m, Hx * Dx)[
             :, :, lc:].flatten(2)
 
-    def cat_grad():
+    def cat_grad(S=S, H=H, D=D):
         """The slot part of the gradient of cat([slots, raw], 1)."""
         full = rn(B, T * m + S, H, D)
-        return full[:, :T * m].reshape(B, T, R)
+        return full[:, :T * m].reshape(B, T, m * H * D)
 
     case(f"k+v <COMP> groups of (B, S, H, D) = {(B, S, H, D)}, gradient "
          f"sliced from cat's", [groups(rn(B, S, H, D)) for _ in range(2)],
          [cat_grad(), cat_grad()], 8)
+    # zamba2-1.2b's training layout (16, 56, 8, 128): S 1152, MHA 32 x 64
+    ZT, zlc, ZH, ZD = ZAMBA_LAYOUT[0], ZAMBA_LAYOUT[1], 32, 64
+    ZS, ZR = ZT * (zlc + m) + ZAMBA_LAYOUT[3], m * ZH * ZD
+    case(f"k+v <COMP> groups of (B, S, H, D) = {(B, ZS, ZH, ZD)} "
+         "(zamba2-1.2b), gradient sliced from cat's",
+         [groups(rn(B, ZS, ZH, ZD), zlc) for _ in range(2)],
+         [cat_grad(ZS, ZH, ZD), cat_grad(ZS, ZH, ZD)], 8)
     case(f"k+v {(B, T, R)} float32", [rn(B, T, R, dtype=f32)
                                       for _ in range(2)],
          [rn(B, T, R, dtype=f32) for _ in range(2)], 4)
@@ -1208,10 +1284,29 @@ def check_kv_cummean(torch, kvm, card):
             ("", False, kvm.plain_cummean, lib_fwd),
             (" reverse", True, kvm.plain_reverse, lib_rev))]
     del sets, singles
+    # zamba2-1.2b's pair, read in place from the <COMP> groups of its
+    # S 1152 layout as its merge training step reads them (4 sets of two
+    # 18.9 MB activations rotate past the L2)
+    zsets = [tuple(groups(rn(B, ZS, ZH, ZD), zlc) for _ in range(2))
+             for _ in range(4)]
+    n_el = 2 * B * ZT * ZR
+    zamba = [timed(
+        f"kv_cummean{name} k+v {(B, ZT, ZR)} bf16 from the <COMP> groups of "
+        f"{(B, ZS, ZH, ZD)} (zamba2-1.2b)",
+        lambda i: kvm.kv_cummean_launch(zsets[i % 4], reverse=r),
+        lambda i: [plain(x, 1) for x in zsets[i % 4]],
+        lambda i: [lib(x) for x in zsets[i % 4]], 2 * n_el * 2, n_el)
+        for name, r, plain, lib in (
+            ("", False, kvm.plain_cummean, lib_fwd),
+            (" reverse", True, kvm.plain_reverse, lib_rev))]
+    del zsets
+    zshape = f"k+v {(B, ZT, ZR)} bf16 (zamba2-1.2b, strided)"
+    zamba[0].update(shape=zshape, max_abs_err=max(errs[2:4]))
+    zamba[1].update(shape=zshape, max_abs_err=max(errs_r[2:4]))
     fwd.update(max_abs_err=max(errs), shape=f"k+v {(B, T, R)} bf16",
-               single=single[0])
+               single=single[0], shapes=[zamba[0]])
     rev.update(max_abs_err=max(errs_r), shape=f"k+v {(B, T, R)} bf16",
-               single=single[1])
+               single=single[1], shapes=[zamba[1]])
     return fwd, rev
 
 
@@ -1287,8 +1382,9 @@ def profile_window(torch, fn, label: str, card: str, warmup: bool = True,
 
 def randomize_lora_b(torch, params, seed: int, std: float = 0.05):
     """The reference initialises LoRA b = 0, which would leave the gate
-    unexercised: draw it at random (comp_embed is random already)."""
-    lora = params["layers"]["attn"]["lora"]
+    unexercised: draw it at random (comp_embed is random already).  The
+    hybrid's LoRA is its shared attention block's."""
+    lora = params.get("shared_attn", params["layers"])["attn"]["lora"]
     for i, name in enumerate(("q", "k", "v", "o")):
         b = lora[name]["b"]
         gen = torch.Generator(device=b.device).manual_seed(seed + i)
@@ -1510,12 +1606,14 @@ def cross_check(torch, PI, params_bf16, cfg, devices=("cuda", "cpu")):
 # ---------------------------------------------------------------------------
 
 def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
-                cfg, card, modes, label: str):
+                cfg, card, modes, label: str, layout=ZOO_LAYOUT):
     """AdamW steps through ``make_train_step``, one per entry of ``modes``
     ("concat", "merge", or the paper's baselines "gisting" and
     "compressive", which take precedence over the mode), with the
-    config's own ``train_mode`` (B=4, the layout of 16 steps of 64 + 8
-    <COMP> and a 64-token tail, S=1216): each step's launches held to
+    config's own ``train_mode`` (B=4, by default the layout of 16 steps
+    of 64 + 8 <COMP> and a 64-token tail, S=1216; the kernels launch at
+    the attention layers, none for mamba2-370m and at the 6 shared sites
+    for zamba2-1.2b): each step's launches held to
     the path's, every trainable leaf moved at every step (seen on a
     strided sample of at most 2^20 of its elements: no second copy of a
     model's parameters) and every frozen leaf bitwise unchanged.
@@ -1526,8 +1624,9 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
     and configs by mode, the partition, the optimizer state, the batch
     and layout, the launch counts and {step_ms, peak_gib, losses,
     grad_norms, backward_calls}."""
+    from repro_torch.core.memory import mem_layers
     dev = params["embed"].device
-    layout = segment_layout(16, 64, 8, 64)
+    layout = segment_layout(*layout)
     B = 4
     batch = PD.sample_kv_batch(PD.ShardableIndexIterator(0, B).key_for(0),
                                layout, B, device=dev)
@@ -1542,7 +1641,7 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
         cfgs[method] = cfg.replace(ccm=dataclasses.replace(cfg.ccm,
                                                            method=method))
     fns = {m: TR.make_train_step(cfgs[m], layout, ocfg) for m in set(modes)}
-    L = cfg.n_layers
+    L = mem_layers(cfg)                   # the attention layers
     lora = {"cond_lora": 4 * 2 * L, "cond_lora_wgmma": 4 * 2 * L}
     want_step = {
         "concat": {"ccm_attention": 2 * L, "ccm_attention_backward": L,
@@ -1551,6 +1650,8 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
         "merge": {"kv_cummean": 2 * L, "kv_cummean_backward": L, **lora},
         # the baselines attend densely, as the reference does
         "gisting": lora, "compressive": lora}
+    want_step = {m: {k: v for k, v in w.items() if v}
+                 for m, w in want_step.items()}
 
     def sample(x):
         flat = x.detach().reshape(-1)
@@ -2744,6 +2845,564 @@ def serve_metrics_check(torch, ops, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the recurrent families (Mamba2, the Zamba2 hybrid) at full width
+# ---------------------------------------------------------------------------
+
+RECURRENT = ("mamba2-370m", "zamba2-1.2b")
+# per config: the online ingest's context tokens (with the <COMP> group at
+# the hybrid's sites the SSD block is 64 tokens, within one chunk); the
+# float32 depth cut of 11b (the hybrid's: 2 groups of 4 Mamba2 layers,
+# each followed by the shared block, and a remainder of 1; float32
+# gradients through more layers lie past the 1e-3 limit from float64,
+# scripts/recurrent_xcheck_probe.py) and its context tokens; and the
+# training layout (S 1280 = 5 SSD chunks of 256; S 1152 = 9 of 128: a
+# block must be at most ssm_chunk tokens or a multiple of it)
+REC = {"mamba2-370m": dict(lc=64, xcut=dict(n_layers=2), xlc=62,
+                           layout=(16, 62, 2, 256), modes=("concat",) * 2),
+       "zamba2-1.2b": dict(lc=56, xcut=dict(n_layers=9, attn_every=4),
+                           xlc=56, layout=ZAMBA_LAYOUT,
+                           modes=("concat", "concat", "merge"))}
+
+
+def recurrent_online(torch, m, params, cfg, mode, card, record):
+    """11a: B=4 lanes, 4 ingests of ``REC[...]["lc"]`` context tokens, a
+    256-token prefill into a 320-token cache and 32 greedy tokens (twice:
+    the explicit loop and ``generate``), the launches held to what the
+    path implies (none for mamba2; at the hybrid's 6 shared-attention
+    sites, as phase 3 per layer), the counters and state shapes checked;
+    host ms per step kind and a profiled decode (idle share, float32
+    cast share) stored in ``record``.  Returns the launch counts."""
+    from repro_torch.core.memory import mem_layers
+    PI, ops = m.PI, m.ops
+    B, T, PROMPT, CACHE, NEW = 4, 4, 256, 320, 32
+    lc = REC[cfg.name]["lc"]
+    rcfg = cfg.replace(ccm=dataclasses.replace(cfg.ccm, mode=mode))
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    chunks = [torch.randint(0, cfg.vocab_size, (B, lc), generator=gen,
+                            device=dev) for _ in range(T)]
+    prompt = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen,
+                           device=dev)
+    st = PI.init_online_state(rcfg, B, CACHE, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ingest_ms = []
+    for ch in chunks:
+        t0 = time.perf_counter()
+        st = PI.ingest_context(params, rcfg, st, ch)
+        torch.cuda.synchronize()
+        ingest_ms.append((time.perf_counter() - t0) * 1e3)
+    st_ingested = clone_state(torch, st)
+    t0 = time.perf_counter()
+    logits, st = PI.prefill(params, rcfg, st, prompt)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    toks = [logits[:, -1].argmax(-1)]
+    finite = bool(torch.isfinite(logits).all())
+    t0 = time.perf_counter()
+    for _ in range(NEW - 1):
+        lg, st = PI.decode_step(params, rcfg, st, toks[-1][:, None])
+        finite &= bool(torch.isfinite(lg).all())
+        toks.append(lg[:, -1].argmax(-1))
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    manual = torch.stack(toks, 1).to(torch.int32)
+    t0 = time.perf_counter()
+    gen_toks = PI.generate(params, rcfg, st_ingested, prompt, NEW)
+    torch.cuda.synchronize()
+    generate_ms = (time.perf_counter() - t0) * 1e3
+    counts = ops.launch_counts()
+
+    name = f"11a {cfg.name} {mode if cfg.ccm.enabled else 'no CCM'}"
+    if not finite or not bool(torch.isfinite(st.ssm.ssm).all()):
+        raise AssertionError(f"{name}: non-finite logits or SSD state")
+    if not torch.equal(gen_toks, manual):
+        raise AssertionError(f"{name}: generate tokens differ from the "
+                             "prefill + decode_step loop")
+    sites, mlen = mem_layers(cfg), cfg.ccm.comp_len if cfg.ccm.enabled else 0
+    want_counts = {k: 0 for k in counts}
+    want_counts.update({"segmented_attention": sites * (T + 2 * NEW),
+                        "segmented_attention_mma": sites * (T + 2),
+                        "segmented_attention_splitk": sites * 2 * (NEW - 1),
+                        "cond_lora": 4 * sites * T,
+                        "cond_lora_wgmma": 4 * sites * T,
+                        "kv_merge_update": T if sites and mode == "merge"
+                        else 0})
+    if counts != want_counts:
+        raise AssertionError(f"{name}: launches {counts} != {want_counts}")
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    want_state = dict(pos=T * (lc + mlen) + PROMPT + NEW - 1,
+                      ssm=(cfg.n_layers, B, H, P, N), dtype=cfg.cdtype)
+    got_state = dict(pos=st.pos, ssm=tuple(st.ssm.ssm.shape),
+                     dtype=st.ssm.ssm.dtype)
+    if sites:
+        want_state.update(slots=T if mode == "concat" else 1, steps=T,
+                          length=PROMPT + NEW - 1,
+                          cache=(sites, B, CACHE, cfg.n_kv_heads, cfg.hd))
+        got_state.update(slots=st.mem.slots, steps=st.mem.steps,
+                         length=st.cache.length,
+                         cache=tuple(st.cache.k.shape))
+    elif st.cache is not None or st.mem is not None:
+        raise AssertionError(f"{name}: an ssm state with a cache or memory")
+    if got_state != want_state:
+        raise AssertionError(f"{name}: state {got_state} != {want_state}")
+    log(f"  {name}: ingest ms {[round(t, 2) for t in ingest_ms]}, prefill "
+        f"{PROMPT} tok x {B} {prefill_ms:.2f} ms, decode "
+        f"{decode_ms / (NEW - 1):.2f} ms/step "
+        f"({B * (NEW - 1) / decode_ms * 1e3:.1f} tok/s), generate "
+        f"{generate_ms:.1f} ms [{card}]")
+    log(f"  {name}: launches {({k: v for k, v in counts.items() if v})} "
+        "(as the path implies)")
+    record.update(ingest_ms=ingest_ms, prefill_ms=prefill_ms,
+                  decode_ms=decode_ms / (NEW - 1), generate_ms=generate_ms)
+
+    def decode3():              # after the counts: these are not counted
+        nonlocal st
+        for _ in range(3):
+            _, st = PI.decode_step(params, rcfg, st, toks[-1][:, None])
+    stats = {}
+    by = profile_window(torch, decode3, f"{name} 3 decode steps", card,
+                        stats=stats)
+    if stats:
+        cast = f32_cast_ms(by)
+        stats.update(cast_ms=cast, cast_share=cast / stats["busy_ms"])
+        log(f"  {name}: float32 -> bf16 copies {cast:.3f} ms of the "
+            f"{stats['busy_ms']:.3f} busy ms of 3 decode steps "
+            f"({stats['cast_share']:.3f}) [{card}]")
+    record["decode_profile"] = stats
+    return counts
+
+
+def xcheck_inputs(torch, m, cfg, cut=None):
+    """11b's config (``cut`` of the layers, by default ``REC[...]
+    ["xcut"]``, in float32) and inputs on the host: 3 context chunks, a
+    64-token prompt, 4 forced decode tokens (B=2), and a training batch
+    over a 256-token layout."""
+    cut = cut or REC[cfg.name]["xcut"]
+    lc = REC[cfg.name]["xlc"]
+    c2 = cfg.replace(compute_dtype="float32", param_dtype="float32", **cut)
+    layout = m.segment_layout(3, lc, cfg.ccm.comp_len, 64)     # S = 256
+    B = 2
+    gen = torch.Generator().manual_seed(5)
+    return types.SimpleNamespace(
+        cfg=c2, layout=layout, B=B,
+        chunks=[torch.randint(0, c2.vocab_size, (B, lc), generator=gen)
+                for _ in range(3)],
+        prompt=torch.randint(0, c2.vocab_size, (B, 64), generator=gen),
+        forced=[torch.randint(0, c2.vocab_size, (B, 1), generator=gen)
+                for _ in range(4)],
+        batch=m.PD.sample_kv_batch(m.PD.ShardableIndexIterator(3, B)
+                                   .key_for(0), layout, B, device="cpu"))
+
+
+def xcheck_run(torch, m, params, inp, mode, dev):
+    """One 11b run of ``inp.cfg`` on ``dev``, its weights ``params`` cut
+    to its layers in its ``param_dtype``: the online path's logits and
+    final state, then ``train_forward``'s loss, tail logits and every
+    gradient (full training), all moved to the host."""
+    PI, TR, PT, PP = m.PI, m.TR, m.PT, m.PP
+    cm = inp.cfg.replace(ccm=dataclasses.replace(inp.cfg.ccm, mode=mode))
+    t0 = time.perf_counter()
+    pp = PP.tree_map(lambda _, x: x.to(cm.pdtype),
+                     fp32_layers(torch, params, dev, cm.n_layers))
+    st = PI.init_online_state(cm, inp.B, 72, device=dev)
+    for ch in inp.chunks:
+        st = PI.ingest_context(pp, cm, st, ch.to(dev))
+    lg, st = PI.prefill(pp, cm, st, inp.prompt.to(dev), full_logits=True)
+    logits = [lg]
+    for tok in inp.forced:
+        lg, st = PI.decode_step(pp, cm, st, tok.to(dev))
+        logits.append(lg)
+    tp, fp = PP.partition(pp, TR.trainable_mask_for(cm, pp))
+    leaves = PP.leaves(tp)
+    for _, x in leaves:
+        x.requires_grad_(True)
+    b = {k: v.to(dev) for k, v in inp.batch.items()}
+    lay = inp.layout
+    tl = PT.train_forward(PP.merge(tp, fp), cm, b["tokens"], lay)
+    loss = TR.next_token_loss(tl, b["tokens"][:, lay.seq_len - lay.tail_len:],
+                              b["loss_mask"])
+    grads = torch.autograd.grad(loss, [x for _, x in leaves])
+    state = {"ssm.ssm": st.ssm.ssm, "ssm.conv": st.ssm.conv}
+    ints = (st.pos,)
+    if st.cache is not None:
+        state.update({"mem.k": st.mem.k, "mem.v": st.mem.v,
+                      "cache.k": st.cache.k, "cache.v": st.cache.v})
+        ints += (st.mem.slots, st.mem.steps, st.cache.length)
+    return types.SimpleNamespace(
+        logits=[x.detach().cpu() for x in logits],
+        state={k: v.cpu() for k, v in state.items()}, ints=ints,
+        loss=loss.detach().cpu(), train_logits=tl.detach().cpu(),
+        grads={"/".join(p): g.cpu() for (p, _), g in zip(leaves, grads)},
+        secs=time.perf_counter() - t0)
+
+
+def xcheck_compare(a, b, mode, worst, over):
+    """Every tensor of run ``a`` against run ``b`` at 1e-3 x max|b|:
+    updates ``worst`` ({what: max|d| / limit}) and lists the tensors past
+    the limit in ``over``.  Counters must be equal."""
+    def close(what, x, y):
+        lim = 1e-3 * y.abs().max().item()
+        err = max_err(x, y)
+        if not err <= lim:
+            over.append(f"{what} {mode} {err / lim:.2f}x")
+        key = " ".join(what.split()[:2])
+        worst[key] = max(worst.get(key, 0.0), err / lim)
+    for i, (x, y) in enumerate(zip(a.logits, b.logits)):
+        close(f"online logits {i}", x, y)
+    for k in b.state:
+        close(f"state leaves {k}", a.state[k], b.state[k])
+    if a.ints != b.ints:
+        raise AssertionError(f"counters differ: {a.ints} vs {b.ints}")
+    close("train loss", a.loss, b.loss)
+    close("train logits", a.train_logits, b.train_logits)
+    for k in b.grads:
+        if not b.grads[k].abs().max().item() > 0:
+            raise AssertionError(f"gradient {k} is all zero")
+        close(f"train gradients {k}", a.grads[k], b.grads[k])
+
+
+def recurrent_cross_check(torch, m, params, cfg, modes):
+    """11b: the first layers at full width in float32 (``REC[...]
+    ["xcut"]``: for the hybrid 2 groups of 4 Mamba2 layers, each followed
+    by its shared-attention site, and a remainder of 1), CUDA (kernels)
+    against the CPU (plain versions): the online path (3 ingests, a
+    64-token prefill, 4 forced decode steps: logits and every state
+    leaf) and ``train_forward`` over a 256-token layout (loss, tail
+    logits and the gradient of every leaf, full training), each within
+    1e-3 x max|.|; counters equal."""
+    inp = xcheck_inputs(torch, m, cfg)
+    worst, over, secs = {}, [], [0.0, 0.0]
+    for mode in modes:
+        a = xcheck_run(torch, m, params, inp, mode, "cuda")
+        b = xcheck_run(torch, m, params, inp, mode, "cpu")
+        xcheck_compare(a, b, mode, worst, over)
+        secs = [secs[0] + a.secs, secs[1] + b.secs]
+    log(f"  11b {cfg.name} ({inp.cfg.n_layers} layers fp32, "
+        f"{REC[cfg.name]['xcut']}, {', '.join(modes)}): {len(b.state)} "
+        f"state leaves, {len(b.grads)} gradient leaves; worst max|d| / "
+        "(1e-3 max|.|): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(worst.items()))
+        + f"; cuda {secs[0]:.1f} s, cpu {secs[1]:.1f} s")
+    if over:
+        raise AssertionError(f"11b {cfg.name}: past 1e-3 x max|.|: {over}")
+
+
+def recurrent_serve(torch, m, params, cfg, card, record):
+    """11d: ``ServeEngine``, 12 sessions over 3 tenants on 8 slots (LRU
+    offload and restore), 3 contexts of ``REC[...]["lc"]`` tokens each
+    and one 32-token query (exact lengths: a recurrent state cannot skip
+    pad tokens), one fork of a resident session.  Run twice on the same
+    traffic at full depth.  (1) float32 compute: every answer (B32) held
+    within 1e-3 x max|logit| of its session run alone in float64 on the
+    CPU (F64), the lane check at every published layer (a lane leak puts
+    another session's logits there, ~1000 x the limit); the session
+    alone in float32 on the card (A32) is printed beside.  (2) the
+    config's bf16: each answer (B) and the session alone in bf16 (A)
+    against A32 (F), in units of bf16_tol(F) (held: d(B, F) within 2x of
+    d(A, F), largest and median), and d(B, A) against the spread of
+    batching alone, d(A8, A), with A8 the session as lane 0 of an 8-lane
+    online batch of its own copies (held: d(B, A) within 2x of d(A8, A),
+    largest and median).  In bf16, d(A, F) reaches the scale of the
+    logits at this depth, so (2) witnesses rounding and (1) is the lane
+    check.  A row offloaded and restored comes back bit-equal.  Returns
+    the bf16 run's launch counts."""
+    import numpy as np
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.arena import tree_leaves
+    PI, ops = m.PI, m.ops
+    rs = np.random.default_rng(24)
+    dev = params["embed"].device
+    V, lc = cfg.vocab_size, REC[cfg.name]["lc"]
+    sids = [f"s{i}" for i in range(12)]
+    ctx = {s: [rs.integers(0, V, lc).astype(np.int32) for _ in range(3)]
+           for s in sids}
+    qry = {s: rs.integers(0, V, 32).astype(np.int32)
+           for s in sids + ["fork"]}
+
+    def alone(c, p, sid, lanes=1):
+        """The session run alone, or as lane 0 of ``lanes`` copies of
+        itself, on the device of ``p``."""
+        src = sid if sid != "fork" else parent
+        d = p["embed"].device
+        st = PI.init_online_state(c, lanes, 64, device=d)
+        for x in ctx[src]:
+            st = PI.ingest_context(p, c, st, torch.as_tensor(
+                x, device=d)[None].expand(lanes, -1))
+        lg, _ = PI.prefill(p, c, st, torch.as_tensor(
+            qry[sid], device=d)[None].expand(lanes, -1), full_logits=True)
+        return lg[0].double().cpu()
+
+    def serve(c, p, tag):
+        nonlocal parent
+        eng = ServeEngine(p, c, n_slots=8, cache_len=64, device=dev)
+        mgr = eng._mgr["online"]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i, sid in enumerate(sids):
+            eng.create_session(sid, tenant=f"t{i % 3}")
+        for r in range(3):
+            for sid in sids:
+                eng.ingest(sid, ctx[sid][r])
+            eng.run()
+        parent = next(s for s in reversed(sids) if mgr.sessions[s].resident)
+        eng.fork_session(parent, "fork")
+        eng.run()
+        torch.cuda.synchronize()
+        ingest_ms = (time.perf_counter() - t0) * 1e3
+        order = [parent, "fork"] + [s for s in sids if s != parent]
+        reqs = {s: eng.query(s, qry[s]).request for s in order}
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        query_ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        snap = eng.metrics_snapshot()["metrics"]
+        moved = {v["labels"]["dir"]: int(v["value"])
+                 for v in snap["offload_sessions_total"]["values"]}
+        nb = {k: int(sum(v["value"] for v in snap["serve_batches_total"][
+            "values"] if v["labels"].get("kind") == k))
+            for k in ("ingest", "query")}
+        forks = int(snap["serve_fork_total"]["values"][0]["value"])
+        errs = mgr.arena.consistency_errors()
+        if errs or moved["offload"] <= 0 or moved["restore"] <= 0 \
+                or forks != 1 or eng.ragged:
+            raise AssertionError(f"11d {cfg.name} {tag}: consistency {errs}, "
+                                 f"moved {moved}, forks {forks}")
+        out = {}
+        for sid, req in reqs.items():
+            if not req.done or req.result is None \
+                    or req.result.shape != (32, V) \
+                    or not np.isfinite(req.result).all():
+                raise AssertionError(f"11d {cfg.name} {tag}: query of {sid}")
+            out[sid] = torch.from_numpy(req.result)
+        # an offloaded row comes back bit-equal
+        sid = next(s for s in sids if mgr.sessions[s].resident)
+        before = mgr.arena.read_slot(mgr.sessions[sid].slot)
+        eng.offload_session(sid)
+        mgr.sync()
+        mgr.activate_batch([sid])
+        after = mgr.arena.read_slot(mgr.sessions[sid].slot)
+        if not all(torch.equal(a, b) if isinstance(a, torch.Tensor)
+                   else a == b for a, b in zip(tree_leaves(before),
+                                               tree_leaves(after))):
+            raise AssertionError(f"11d {cfg.name} {tag}: {sid}'s row "
+                                 "changed over an offload and restore")
+        row_mb = mgr.arena.state_bytes / 1e6
+        log(f"  11d {cfg.name} {tag}: batches {nb}, offloads "
+            f"{moved['offload']}, restores {moved['restore']}, fork 1; "
+            f"ingests + fork {ingest_ms:.1f} ms, query drain {query_ms:.1f} "
+            f"ms; row {row_mb:.1f} MB, restored bit-equal; launches "
+            f"{({k: v for k, v in counts.items() if v})} [{card}]")
+        del eng
+        torch.cuda.empty_cache()
+        return out, counts, dict(ingest_ms=ingest_ms, query_ms=query_ms,
+                                 row_mb=row_mb, batches=nb, parent=parent)
+
+    parent = None
+    c32 = cfg.replace(compute_dtype="float32")
+    e32, _, rec32 = serve(c32, params, f"float32 {cfg.n_layers} layers")
+    c64 = cfg.replace(compute_dtype="float64", param_dtype="float64")
+    p64 = m.PP.tree_map(lambda _, x: x.double(), fp32_layers(
+        torch, params, "cpu", cfg.n_layers))
+    a32, dB32, dA32 = {}, {}, {}
+    t0 = time.perf_counter()
+    for sid, got in e32.items():
+        f64 = alone(c64, p64, sid)
+        a32[sid] = alone(c32, params, sid)
+        lim = 1e-3 * f64.abs().max().item()
+        dB32[sid] = max_err(got, f64) / lim
+        dA32[sid] = max_err(a32[sid], f64) / lim
+    del p64
+    f64_s = time.perf_counter() - t0
+    d32 = (("B32", dB32), ("A32", dA32))
+    med32 = {k: float(np.median(list(d.values()))) for k, d in d32}
+    top32 = {k: max(d.values()) for k, d in d32}
+    log(f"  11d {cfg.name} float32 at {cfg.n_layers} layers against the "
+        "float64 sessions alone (x 1e-3 max|logit|): served B32 median "
+        f"{med32['B32']:.4f} max {top32['B32']:.4f}, alone A32 median "
+        f"{med32['A32']:.4f} max {top32['A32']:.4f}; {len(e32)} float64 "
+        f"sessions on the CPU in {f64_s:.1f} s [{card}]")
+    over = {k: v for k, v in dB32.items() if not v <= 1.0}
+    if over:
+        raise AssertionError(f"11d {cfg.name} float32: served answers past "
+                             f"1e-3 x max|logit| from float64: {over}")
+
+    # (2) bf16 at full depth: the witness of where the gap comes from
+    ebf, counts, rec = serve(cfg, params, "bf16")
+    if rec["parent"] != rec32["parent"]:
+        raise AssertionError(f"11d {cfg.name}: the two runs forked "
+                             f"{rec32['parent']} and {rec['parent']}")
+    dA, dB, gap, spread, same = {}, {}, {}, {}, 0
+    for sid, got in ebf.items():
+        f32 = a32[sid]
+        a = alone(cfg, params, sid)
+        a8 = alone(cfg, params, sid, lanes=8)
+        tol, tol_a = bf16_tol(f32), bf16_tol(a)
+        dA[sid] = max_err(a, f32) / tol
+        dB[sid] = max_err(got, f32) / tol
+        gap[sid] = max_err(got, a) / tol_a
+        spread[sid] = max_err(a8, a) / tol_a
+        same += max_err(got, a8) == 0
+    ds = (("A", dA), ("B", dB), ("gap", gap), ("spread", spread))
+    med = {k: float(np.median(list(d.values()))) for k, d in ds}
+    top = {k: max(d.values()) for k, d in ds}
+    log(f"  11d {cfg.name} bf16 witness (x bf16_tol of the float32 session "
+        f"alone F): served B vs F median {med['B']:.2f} max {top['B']:.2f}; "
+        f"alone A vs F median {med['A']:.2f} max {top['A']:.2f}; B vs A "
+        f"median {med['gap']:.2f} max {top['gap']:.2f}, A8 (8 copies) vs A "
+        f"median {med['spread']:.2f} max {top['spread']:.2f} (x "
+        f"bf16_tol(A)); B bit-equal to A8 in {same} of {len(ebf)}; per "
+        "session B/A "
+        f"{[round(dB[s] / dA[s], 2) for s in sorted(dA)]} [{card}]")
+    for k in ("max", "median"):
+        pick = top if k == "max" else med
+        b, a = pick["B"], pick["A"]
+        if not (b <= 2 * a and a <= 2 * b):
+            raise AssertionError(
+                f"11d {cfg.name}: bf16 served answers lie {b:.2f} x "
+                f"bf16_tol from float32 ({k}), the sessions alone {a:.2f}: "
+                "not within 2x")
+        if not pick["gap"] <= 2 * pick["spread"]:
+            raise AssertionError(
+                f"11d {cfg.name}: bf16 served answers lie {pick['gap']:.2f} "
+                f"x bf16_tol from their sessions alone ({k}), 8 copies of a "
+                f"session {pick['spread']:.2f}: not within 2x")
+    record.update(rec, witness=dict(median=med, max=top, same=same),
+                  f64=dict(median=med32, max=top32, secs=f64_s))
+    return counts
+
+
+def ssm_ops(torch, m, card):
+    """11e: the SSD pieces alone at the phase's shapes (plain PyTorch, no
+    kernel: jnp in the reference too), device time beside the least time
+    the card could take (float32 operations of the chunked scan, or the
+    bytes of one decode step's state read and write)."""
+    from repro_torch.models import ssm as SSM
+    rows = {}
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf = torch.bfloat16
+    for arch, B, S in (("mamba2-370m", 4, 256), ("mamba2-370m", 4, 1280),
+                       ("zamba2-1.2b", 4, 1152)):
+        cfg = m.get_config(arch)
+        H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        Q = min(cfg.ssm_chunk, S)
+        x = torch.randn(B, S, H, P, generator=g, device="cuda").to(bf)
+        dt = torch.rand(B, S, H, generator=g, device="cuda") * 0.1
+        A = -torch.rand(H, generator=g, device="cuda")
+        Bm = torch.randn(B, S, N, generator=g, device="cuda").to(bf)
+        Cm = torch.randn(B, S, N, generator=g, device="cuda").to(bf)
+        ms = device_ms(torch, lambda i: SSM.ssd_chunked(x, dt, A, Bm, Cm, Q),
+                       10)
+        call = time_ms(torch, lambda i: SSM.ssd_chunked(x, dt, A, Bm, Cm, Q),
+                       10, 2)
+        # multiply-adds per chunk: scores C.B^T (Q x Q x N) and y_diag
+        # (Q x Q x P per head) in bf16, the chunk states and y_off (Q x P x
+        # N per head each) in float32; the bf16 part counted at the
+        # tensor cores' rate, in float32-equivalent operations
+        nc = S // Q
+        ops_bf = 2.0 * B * nc * (Q * Q * N + H * Q * Q * P)
+        ops_f32 = 2.0 * B * nc * 2 * H * Q * P * N
+        nbytes = 2 * (x.numel() + Bm.numel() + Cm.numel()) + 4 * dt.numel() \
+            + 4 * A.numel() + 2 * x.numel() + 2 * B * H * P * N
+        bms, by = bound(nbytes, ops_f32 + ops_bf * PEAK_F32 / PEAK_BF16,
+                        PEAK_F32)
+        key = f"ssd_chunked {arch} B{B} S{S}"
+        rows[key] = dict(ms=ms, call_ms=call, bound_ms=bms, bound_by=by)
+        log(f"  11e {key} H{H} P{P} N{N} chunk {Q}: {ms:.4f} ms device "
+            f"({call:.4f} ms per back-to-back call), bound {bms:.4f} ms "
+            f"({by}), {bms / ms:.3f} of the bound [{card}]")
+    return rows
+
+
+def recurrent_phase(torch, m, card):
+    """Phase 11: each recurrent config of the port's registry at its
+    published widths and full depth, random float32 weights from seed 0,
+    one model at a time: 11a the online path (zamba2-1.2b in concat and
+    merge), 11b the CUDA vs CPU cross-check, 11d the serve engine with
+    the bf16 witness, then 11c full training; 11e the SSD ops alone.
+    Returns (the launch counts of 11a, 11c and 11d's bf16 run, {arch:
+    record})."""
+    total, rec = {}, {}
+    for arch in RECURRENT:
+        cfg = m.get_config(arch)
+        log(f"  {arch}: {cfg.family}, {cfg.n_layers} layers, d "
+            f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads "
+            f"x {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+            f"{cfg.ssm_chunk}, vocab {cfg.vocab_size}"
+            + (f", {cfg.n_layers // cfg.attn_every} shared attention sites "
+               f"{cfg.n_heads}/{cfg.n_kv_heads} hd {cfg.hd}, d_ff {cfg.d_ff},"
+               f" CCM comp_len {cfg.ccm.comp_len}" if cfg.attn_every else
+               ", no CCM")
+            + f", {cfg.param_dtype} params, {cfg.compute_dtype} compute, "
+            f"{cfg.param_count() / 1e9:.3f} B params")
+        t0 = time.perf_counter()
+        params = m.init_lm(cfg, seed=0)
+        if cfg.ccm.enabled:
+            randomize_lora_b(torch, params, seed=100)
+        torch.cuda.synchronize()
+        log(f"  {arch}: init {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated")
+        r = rec[arch] = {}
+        modes = ("concat", "merge") if cfg.ccm.enabled else ("concat",)
+        for mode in modes:
+            add_counts(total, recurrent_online(
+                torch, m, params, cfg, mode, card,
+                r.setdefault(mode if cfg.ccm.enabled else "none", {})))
+        log(f"  11b {arch}: cross-check, full width fp32 cut to "
+            f"{REC[arch]['xcut']}, CUDA vs CPU (online path and "
+            "train_forward with gradients)")
+        recurrent_cross_check(torch, m, params, cfg, modes)
+        log(f"  11d {arch}: the serve engine ({cfg.n_layers} layers, exact "
+            "lengths): 12 sessions on 8 slots, 3 tenants")
+        add_counts(total, recurrent_serve(torch, m, params, cfg, card,
+                                          r.setdefault("serve", {})))
+        lay = REC[arch]["layout"]
+        log(f"  11c {arch}: full training, {len(REC[arch]['modes'])} AdamW "
+            f"steps ({', '.join(REC[arch]['modes'])}"
+            f"{'' if cfg.ccm.enabled else ': no CCM'}), B4, layout {lay}")
+        run = train_steps(torch, m.ops, m.clora, m.TR, m.PD, m.PA, m.PP,
+                          m.segment_layout, params, cfg, card,
+                          list(REC[arch]["modes"]), f"11c {arch}",
+                          layout=lay)
+        add_counts(total, run.counts)
+        stats = {}
+        profile_window(torch, lambda: run.fns["concat"](
+            run.tp, run.fp, run.opt, run.batch, None),
+            f"11c {arch} 1 train step", card, warmup=False, stats=stats)
+        r["train"] = dict(run.record, profile=stats)
+        for _, x in m.PP.leaves(run.tp):
+            x.requires_grad_(False)
+        del params, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    ops_rows = ssm_ops(torch, m, card)
+    for arch, r in rec.items():
+        for mode in ("none", "concat", "merge"):
+            if mode not in r:
+                continue
+            on, prof = r[mode], r[mode].get("decode_profile", {})
+            log(f"  11 summary {arch} {mode}: host ms per ingest "
+                f"{[round(x, 2) for x in on['ingest_ms']]}, prefill "
+                f"{on['prefill_ms']:.2f}, decode step {on['decode_ms']:.2f}; "
+                f"decode idle {prof.get('idle', float('nan')):.3f}, float32 "
+                f"casts {prof.get('cast_share', float('nan')):.3f} of busy "
+                f"[{card}]")
+        sv, tr = r["serve"], r["train"]
+        log(f"  11 summary {arch}: serve ms per query drain "
+            f"{sv['query_ms']:.1f}, row {sv['row_mb']:.1f} MB, float32 "
+            f"answers at most {sv['f64']['max']['B32']:.4f} x 1e-3 "
+            f"max|logit| from float64, bf16 witness max B "
+            f"{sv['witness']['max']['B']:.2f} / A "
+            f"{sv['witness']['max']['A']:.2f} x bf16_tol; train ms "
+            f"{[round(x, 1) for x in tr['step_ms']]} (idle "
+            f"{tr['profile'].get('idle', float('nan')):.3f}), peak "
+            f"{tr['peak_gib']:.2f} GiB [{card}]")
+    return total, rec, ops_rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2914,27 +3573,43 @@ def main() -> int:
     log(f"  phase 9 launches: {zoo_counts}")
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
+    log("phase 11: the recurrent families at full width, from the port's "
+        f"registry: {', '.join(RECURRENT)}")
+    torch.cuda.reset_peak_memory_stats()
+    t11 = time.perf_counter()
+    rec_counts, _, _ = recurrent_phase(torch, types.SimpleNamespace(
+        get_config=get_config, init_lm=init_lm, PI=PI, ops=ops, clora=clora,
+        TR=TR, PT=PT, PD=PD, PA=PA, PP=PP, segment_layout=segment_layout),
+        card)
+    log(f"  phase 11 launches: {({k: v for k, v in rec_counts.items() if v})}")
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+        f"GiB; phase 11 took {time.perf_counter() - t11:.1f} s")
+
     # the tensor-core routes' launches in each main-path phase (3: online,
     # 5: training, 7: the 32-layer serve engine, 8: streaming, 9: the zoo,
-    # 10: the baselines' training and the serve-metrics demo)
+    # 10: the baselines' training and the serve-metrics demo, 11: the
+    # recurrent families)
     by_phase = {k: {"3": totals[k], "5": train_counts.get(k, 0),
                     "7": serve_counts[k], "8": stream_counts[k],
-                    "9": zoo_counts[k], "10": base_counts.get(k, 0)}
+                    "9": zoo_counts[k], "10": base_counts.get(k, 0),
+                    "11": rec_counts[k]}
                 for k in ("segmented_attention_splitk",
                           "segmented_attention_mma", "cond_lora_wgmma",
                           "ccm_attention_mma", "ccm_attention_backward_mma")}
-    for k, need in (("segmented_attention_splitk", "389"),
-                    ("segmented_attention_mma", "3789"),
-                    ("cond_lora_wgmma", "35789"),
-                    ("ccm_attention_mma", "59"),
-                    ("ccm_attention_backward_mma", "59")):
+    for k, need in (("segmented_attention_splitk", ("3", "8", "9", "11")),
+                    ("segmented_attention_mma", ("3", "7", "8", "9", "11")),
+                    ("cond_lora_wgmma", ("3", "5", "7", "8", "9", "10",
+                                         "11")),
+                    ("ccm_attention_mma", ("5", "9", "11")),
+                    ("ccm_attention_backward_mma", ("5", "9", "11"))):
         if any(by_phase[k][ph] <= 0 for ph in need):
             raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
-    if by_phase["cond_lora_wgmma"]["10"] <= 0:
-        raise AssertionError(f"cond_lora_wgmma: no launch in phase 10")
     for k in ("kv_merge_update", "session_gather", "session_scatter"):
-        if stream_counts[k] <= 0 or zoo_counts[k] <= 0:
-            raise AssertionError(f"{k}: no launch in phase 8 or 9")
+        if stream_counts[k] <= 0 or zoo_counts[k] <= 0 or rec_counts[k] <= 0:
+            raise AssertionError(f"{k}: no launch in phase 8, 9 or 11")
+    for k in ("kv_cummean", "kv_cummean_backward"):
+        if train_counts[k] <= 0 or rec_counts[k] <= 0:
+            raise AssertionError(f"{k}: no launch in phase 5 or 11")
     log(f"  tensor-core route launches by phase: {by_phase}")
     rows = [
         dict(name="segmented_attention", route="cuda",
@@ -2963,11 +3638,13 @@ def main() -> int:
              launches=totals["kv_merge_update"]
              + merge_counts["kv_merge_update"]
              + stream_counts["kv_merge_update"]
-             + zoo_counts["kv_merge_update"],
+             + zoo_counts["kv_merge_update"]
+             + rec_counts["kv_merge_update"],
              launches_by_phase={"3": totals["kv_merge_update"],
                                 "7": merge_counts["kv_merge_update"],
                                 "8": stream_counts["kv_merge_update"],
-                                "9": zoo_counts["kv_merge_update"]},
+                                "9": zoo_counts["kv_merge_update"],
+                                "11": rec_counts["kv_merge_update"]},
              **merge),
         dict(name="ccm_attention", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
@@ -2984,32 +3661,42 @@ def main() -> int:
         dict(name="kv_cummean", route="cuda",
              source="src/repro_torch/csrc/kv_cummean.cu",
              replaces="src/repro/kernels/kv_merge.py:65",
-             launches=train_counts["kv_cummean"], **cummean),
+             launches=train_counts["kv_cummean"] + rec_counts["kv_cummean"],
+             launches_by_phase={"5": train_counts["kv_cummean"],
+                                "11": rec_counts["kv_cummean"]},
+             **cummean),
         dict(name="kv_cummean_backward", route="cuda",
              source="src/repro_torch/csrc/kv_cummean.cu",
              replaces="src/repro/kernels/kv_merge.py:65",
-             launches=train_counts["kv_cummean_backward"], **cummean_bwd),
+             launches=train_counts["kv_cummean_backward"]
+             + rec_counts["kv_cummean_backward"],
+             launches_by_phase={"5": train_counts["kv_cummean_backward"],
+                                "11": rec_counts["kv_cummean_backward"]},
+             **cummean_bwd),
         dict(name="session_gather", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
              replaces="src/repro/kernels/session_gather.py:30",
              launches=serve_counts["session_gather"]
              + stream_counts["session_gather"] + zoo_counts["session_gather"]
-             + base_counts["session_gather"],
+             + base_counts["session_gather"] + rec_counts["session_gather"],
              launches_by_phase={"7": serve_counts["session_gather"],
                                 "8": stream_counts["session_gather"],
                                 "9": zoo_counts["session_gather"],
-                                "10": base_counts["session_gather"]},
+                                "10": base_counts["session_gather"],
+                                "11": rec_counts["session_gather"]},
              **gather),
         dict(name="session_scatter", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
              replaces="src/repro/kernels/session_gather.py:56",
              launches=serve_counts["session_scatter"]
              + stream_counts["session_scatter"]
-             + zoo_counts["session_scatter"] + base_counts["session_scatter"],
+             + zoo_counts["session_scatter"] + base_counts["session_scatter"]
+             + rec_counts["session_scatter"],
              launches_by_phase={"7": serve_counts["session_scatter"],
                                 "8": stream_counts["session_scatter"],
                                 "9": zoo_counts["session_scatter"],
-                                "10": base_counts["session_scatter"]},
+                                "10": base_counts["session_scatter"],
+                                "11": rec_counts["session_scatter"]},
              **scatter),
     ]
     for r in rows:

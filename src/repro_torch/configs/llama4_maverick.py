@@ -4,7 +4,7 @@ d_ff=8192 (per expert) vocab=202048. Trains conditional LoRA only (paper
 regime — also the only memory-feasible mode at 400B on 256 v5e chips).
 Port of ``repro/configs/llama4_maverick.py``: configuration data only; the
 port's entry points raise NotImplementedError for this family
-until its model code is ported (ROADMAP queue 1 item 5)."""
+until its model code is ported (ROADMAP queue 1 item 3)."""
 from repro_torch.models.config import CCMConfig, ModelConfig
 
 

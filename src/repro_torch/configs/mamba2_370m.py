@@ -5,9 +5,9 @@ CCM is INAPPLICABLE (no attention KV to compress — DESIGN
 §Arch-applicability): the SSD state is the arch's own constant-size
 context memory. Implemented without the technique; all shapes lower the
 native train/prefill/decode programs.
-Port of ``repro/configs/mamba2_370m.py``: configuration data only; the
-port's entry points raise NotImplementedError for this family
-until its model code is ported (ROADMAP queue 1 item 5)."""
+Port of ``repro/configs/mamba2_370m.py``: the model code is
+``models/ssm.py`` and ``models/transformer.py`` (every path but
+streaming, which the reference has no version of for Mamba2 layers)."""
 from repro_torch.models.config import CCMConfig, ModelConfig
 
 

@@ -3,7 +3,7 @@
 d_ff=6400 (per expert) vocab=32064.
 Port of ``repro/configs/phi35_moe.py``: configuration data only; the
 port's entry points raise NotImplementedError for this family
-until its model code is ported (ROADMAP queue 1 item 5)."""
+until its model code is ported (ROADMAP queue 1 item 3)."""
 from repro_torch.models.config import CCMConfig, ModelConfig
 
 

@@ -4,7 +4,7 @@ d_ff=14336 vocab=131072. input_specs() provides precomputed patch
 embeddings (1024-dim ViT output, projected in-model).
 Port of ``repro/configs/pixtral_12b.py``: configuration data only; the
 port's entry points raise NotImplementedError for this family
-until its model code is ported (ROADMAP queue 1 item 5)."""
+until its model code is ported (ROADMAP queue 1 item 3)."""
 from repro_torch.models.config import CCMConfig, ModelConfig
 
 

@@ -4,7 +4,7 @@ precomputed frame embeddings). [arXiv:2212.04356]
 CCM applies to decoder self-attention (long transcription history).
 Port of ``repro/configs/whisper_tiny.py``: configuration data only; the
 port's entry points raise NotImplementedError for this family
-until its model code is ported (ROADMAP queue 1 item 5)."""
+until its model code is ported (ROADMAP queue 1 item 3)."""
 from repro_torch.models.config import CCMConfig, ModelConfig
 
 

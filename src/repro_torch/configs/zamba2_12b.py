@@ -2,9 +2,9 @@
 [arXiv:2411.15242] 38L d_model=2048, shared attn 32H (kv=32) d_ff=8192,
 vocab=32000, ssm_state=64. CCM compresses the shared attention sites' KV;
 the Mamba2 state is the arch's native fixed-size memory (DESIGN §5).
-Port of ``repro/configs/zamba2_12b.py``: configuration data only; the
-port's entry points raise NotImplementedError for this family
-until its model code is ported (ROADMAP queue 1 item 5)."""
+Port of ``repro/configs/zamba2_12b.py``: the model code is
+``models/ssm.py`` and ``models/transformer.py`` (every path but
+streaming, which the reference has no version of for Mamba2 layers)."""
 from repro_torch.models.config import CCMConfig, ModelConfig
 
 

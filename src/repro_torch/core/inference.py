@@ -1,5 +1,5 @@
 """Online inference: g_comp / g_update / memory-conditioned decoding
-(port of ``repro/core/inference.py``, dense family).
+(port of ``repro/core/inference.py``; dense, ssm and hybrid families).
 
 Contexts c(t) are compressed into memory (never cached raw); inputs I(t)
 are prefilled into a bounded KV cache attending [Mem(t), cache, I(t)];
@@ -22,6 +22,15 @@ memory lengths (per-lane kernel metadata) and write offsets.
 ``valid_len`` (an int or B ints) marks ragged lanes padded up to a token
 bucket: pad tokens are masked out of attention and frozen out of every
 state write, and the counters advance by the valid length only.
+
+Recurrent families: Mamba2 layers (ssm, and the hybrid's backbone) carry
+an ``SSMState`` of per-layer SSD and conv states in the compute dtype,
+overwritten in place layer by layer ((B, L, ...) when lane-major).  The
+ssm family has no cache and no memory; the hybrid keeps both at its
+shared-attention sites (``mem_layers`` of them).  A recurrent update
+cannot skip pad tokens, so ``valid_len`` raises for both, and a
+non-decode block must be at most ``ssm_chunk`` tokens or a multiple of
+it (the reference's SSD chunking).
 """
 from __future__ import annotations
 
@@ -37,7 +46,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.config import ModelConfig, require_dense
+from repro_torch.models.config import ModelConfig, require_ported
 
 
 class KVCache(NamedTuple):
@@ -69,9 +78,20 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return q.to(dtype) * scale[..., None].to(dtype)
 
 
+class SSMState(NamedTuple):
+    ssm: torch.Tensor      # (L, B, H, P, N) compute dtype
+    conv: torch.Tensor     # (L, B, K-1, C); both (B, L, ...) lane-major
+    lane_major: bool = False
+
+    def layer(self, x: torch.Tensor, li: int) -> torch.Tensor:
+        """Layer ``li`` of a state leaf: (B, ...)."""
+        return x[:, li] if self.lane_major else x[li]
+
+
 class OnlineState(NamedTuple):
     cache: Optional[KVCache] = None
     mem: Optional[MemState] = None
+    ssm: Optional[SSMState] = None
     pos: Counter = 0       # virtual stream position
 
 
@@ -96,15 +116,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                    length=0)
 
 
+def init_ssm_state(cfg: ModelConfig, batch: int,
+                   device: DeviceLike = None) -> SSMState:
+    dev = resolve_device(device)
+    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    K, C = cfg.ssm_conv, cfg.d_inner + 2 * cfg.ssm_state
+    Ls = cfg.n_layers
+    return SSMState(
+        ssm=torch.zeros((Ls, batch, H, P, N), dtype=cfg.cdtype, device=dev),
+        conv=torch.zeros((Ls, batch, max(K - 1, 1), C), dtype=cfg.cdtype,
+                         device=dev))
+
+
 def init_online_state(cfg: ModelConfig, batch: int, max_cache_len: int,
                       mem_slots: Optional[int] = None,
                       device: DeviceLike = None) -> OnlineState:
-    require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
+    ssm = init_ssm_state(cfg, batch, dev) if cfg.has_mamba else None
+    if cfg.family == "ssm":
+        return OnlineState(ssm=ssm, pos=0)
     mem = init_memory(cfg, batch, mem_slots, device=dev) \
         if cfg.ccm.enabled else None
     return OnlineState(cache=init_cache(cfg, batch, max_cache_len, device=dev),
-                       mem=mem, pos=0)
+                       mem=mem, ssm=ssm, pos=0)
 
 
 # ---------------------------------------------------------------------------
@@ -154,19 +189,27 @@ def _positions(pos: Counter, rel: torch.Tensor, B: int) -> torch.Tensor:
     return rel + p[:, None]
 
 
-def _attn_stack_pass(params, cfg: ModelConfig, x, positions, *,
-                     comp_gate, q_info, self_info, state: OnlineState,
-                     write_to_cache: bool, collect_comp: Optional[int],
-                     impl=None, valid_len=None):
-    """Runs the dense layer stack over a block of new tokens.
+def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
+                q_info, self_info, state: OnlineState, write_to_cache: bool,
+                collect_comp: Optional[int], decode: bool = False,
+                impl=None, valid_len=None):
+    """Runs the layer stack (`transformer.layer_plan`) over a block of new
+    tokens.
 
+    Attention layers (dense) and shared-attention sites (hybrid; site
+    ``gi`` reads and writes cache and memory layer ``gi``) attend
+    [mem | cache | self]; Mamba2 layers run on ``state.ssm`` (chunked SSD,
+    or the recurrence when ``decode``) and overwrite its layer IN PLACE.
+    Every plan starts with a Mamba2 layer where it has one, so a block
+    the SSD chunking refuses raises before any state is written.
     Returns (x, new_cache, comp_kv); comp_kv is the (L, B, m, Hkv, hd)
-    pair of <COMP> keys/values when ``collect_comp`` (the first <COMP> row
-    of the block; the group is its last m rows) is given.  ``valid_len``
-    (ragged lanes): cache writes past it are frozen and the length
-    counter advances by it instead of the padded block length.
+    pair of <COMP> keys/values per attention layer when ``collect_comp``
+    (the first <COMP> row of the block; the group is its last m rows) is
+    given.  ``valid_len`` (ragged lanes): cache writes past it are frozen
+    and the length counter advances by it instead of the padded block
+    length.
     """
-    cache, mem = state.cache, state.mem
+    cache, mem, ssm = state.cache, state.mem, state.ssm
     B, S = x.shape[:2]
     dev = x.device
     mem_valid = _lane_len(mem.valid_len(cfg.ccm.comp_len), B, dev) \
@@ -174,11 +217,21 @@ def _attn_stack_pass(params, cfg: ModelConfig, x, positions, *,
     quant = cache is not None and cache.quantized
     cache_len = _lane_len(cache.length, B, dev) if cache is not None \
         else None
+    write = write_to_cache and cache is not None
     plan = M.plan_block_write(cache.length, S, cache.k.shape[2], valid_len,
-                              device=dev) if write_to_cache else None
+                              device=dev) if write else None
     comp_k, comp_v = [], []
-    for li in range(cfg.n_layers):
-        lp = T.layer_params(params, li)
+    for kind, li in T.layer_plan(cfg):
+        if kind == "mamba":
+            st = {"ssm": ssm.layer(ssm.ssm, li),
+                  "conv": ssm.layer(ssm.conv, li)}
+            x, new = T._mamba_block(cfg, T.layer_params(params, li), x, st,
+                                    decode)
+            st["ssm"].copy_(new["ssm"])
+            st["conv"].copy_(new["conv"])
+            continue
+        lp = params["shared_attn"] if kind == "site" \
+            else T.layer_params(params, li)
         hn = L.apply_norm(cfg, lp["ln1"], x)
         q, k_new, v_new = A.qkv_project(
             cfg, lp["attn"], hn, comp_gate,
@@ -197,7 +250,7 @@ def _attn_stack_pass(params, cfg: ModelConfig, x, positions, *,
         x = x + A.out_project(cfg, lp["attn"], o, comp_gate)
         hn = L.apply_norm(cfg, lp["ln2"], x)
         x = x + L.apply_mlp(cfg, lp["mlp"], hn)
-        if write_to_cache:
+        if write:
             if quant:
                 qk, sk = quantize_kv(k_new)
                 qv, sv = quantize_kv(v_new)
@@ -212,12 +265,19 @@ def _attn_stack_pass(params, cfg: ModelConfig, x, positions, *,
             comp_v.append(v_new[:, collect_comp:])
 
     new_cache = cache
-    if write_to_cache and cache is not None:
+    if write:
         adv = S if valid_len is None else valid_len
         new_cache = cache._replace(length=cache.length + adv)
     comp_kv = (torch.stack(comp_k), torch.stack(comp_v)) \
         if collect_comp is not None else None
     return x, new_cache, comp_kv
+
+
+def _no_ragged(cfg: ModelConfig, valid_len, what: str) -> None:
+    if cfg.has_mamba and valid_len is not None:
+        raise ValueError(
+            f"ragged {what} (valid_len) unsupported for {cfg.family!r}: "
+            "recurrent state updates cannot skip pad tokens")
 
 
 # ---------------------------------------------------------------------------
@@ -247,8 +307,18 @@ def ingest_context(params, cfg: ModelConfig, state: OnlineState,
     and only the first ``valid_len`` tokens of each lane are real.  Pad
     tokens are masked out of attention, the <COMP> group keeps the RoPE
     positions of the unpadded layout, and the counters advance by
-    ``valid_len + m``: the state equals ingesting the unpadded chunk."""
+    ``valid_len + m``: the state equals ingesting the unpadded chunk.
+
+    The ssm family has no attention to compress: the context only runs
+    through the Mamba2 layers and advances their state."""
     B, lc = chunk_tokens.shape
+    _no_ragged(cfg, valid_len, "ingest")
+    if cfg.family == "ssm":
+        x = T.embed_tokens(cfg, params, chunk_tokens)
+        _stack_pass(params, cfg, x, None, comp_gate=None, q_info=None,
+                    self_info=None, state=state, write_to_cache=False,
+                    collect_comp=None)
+        return state._replace(pos=state.pos + lc)
     m = cfg.ccm.comp_len
     dev = chunk_tokens.device
     S = lc + m
@@ -269,7 +339,7 @@ def ingest_context(params, cfg: ModelConfig, state: OnlineState,
     x = T.embed_tokens(cfg, params, tokens, comp_mask, comp_off)
     comp_gate = comp_mask.to(cfg.cdtype)[None].expand(B, S)
     info = _self_info(ar.to(torch.int32), comp_mask, k_valid)
-    x, _, comp_kv = _attn_stack_pass(
+    x, _, comp_kv = _stack_pass(
         params, cfg, x, positions, comp_gate=comp_gate, q_info=info,
         self_info=info, state=state, write_to_cache=False, collect_comp=lc)
     new_mem = update_memory(cfg, state.mem, comp_kv[0], comp_kv[1], consumed)
@@ -289,6 +359,7 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
     the counters.  Logits at pad positions are garbage, so a ragged call
     needs ``full_logits`` and the caller slices by its valid length."""
     B, S = tokens.shape
+    _no_ragged(cfg, valid_len, "prefill")
     if valid_len is not None and not full_logits:
         raise ValueError(
             "ragged prefill (valid_len) requires full_logits=True: the "
@@ -301,7 +372,7 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
     x = T.embed_tokens(cfg, params, tokens)
     info = _self_info(ar.to(torch.int32),
                       torch.zeros_like(ar, dtype=torch.bool), k_valid)
-    x, new_cache, _ = _attn_stack_pass(
+    x, new_cache, _ = _stack_pass(
         params, cfg, x, positions, comp_gate=None, q_info=info,
         self_info=info, state=state, write_to_cache=True, collect_comp=None,
         impl=impl, valid_len=valid_len)
@@ -312,17 +383,18 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
 def decode_step(params, cfg: ModelConfig, state: OnlineState,
                 tokens: torch.Tensor, impl: Optional[str] = None):
     """One-token decode attending [Mem, cache, self]. tokens (B, 1).  The
-    self keys carry index 2**30 + i, past every cached index."""
+    self keys carry index 2**30 + i, past every cached index.  Mamba2
+    layers take the per-token recurrence."""
     B, S = tokens.shape
     ar = torch.arange(S, device=tokens.device)
     positions = _positions(state.pos, ar, B)
     x = T.embed_tokens(cfg, params, tokens)
     info = _self_info((ar + 2 ** 30).to(torch.int32),
                       torch.zeros_like(ar, dtype=torch.bool))
-    x, new_cache, _ = _attn_stack_pass(
+    x, new_cache, _ = _stack_pass(
         params, cfg, x, positions, comp_gate=None, q_info=info,
         self_info=info, state=state, write_to_cache=True, collect_comp=None,
-        impl=impl)
+        decode=True, impl=impl)
     logits = T.lm_logits(params, cfg, x)
     return logits, state._replace(cache=new_cache, pos=state.pos + S)
 

@@ -29,7 +29,7 @@ from repro_torch.core.memory import (Counter, MemState, evict_oldest,
                                      init_memory, mem_layers, per_lane,
                                      recompress_memory, update_memory)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.config import ModelConfig, require_dense
+from repro_torch.models.config import ModelConfig, require_ported
 
 
 class StreamState(NamedTuple):
@@ -47,7 +47,12 @@ class StreamState(NamedTuple):
 
 def init_stream_state(cfg: ModelConfig, batch: int,
                       device: DeviceLike = None) -> StreamState:
-    require_dense(cfg)
+    require_ported(cfg)
+    if cfg.has_mamba:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}): no streaming path in the "
+            "reference (its compress_from_kv reads attention KV that "
+            "Mamba2 layers lack)")
     dev = resolve_device(device)
     c = cfg.ccm
     shape = (max(mem_layers(cfg), 1), batch, c.stream_window,
@@ -84,7 +89,7 @@ def compress_from_kv(params, cfg: ModelConfig, mem: MemState,
                         torch.ones(m, dtype=torch.bool, device=dev))
     block = I.KVCache(k=blk_k, v=blk_v, length=blk_k.shape[2],
                       lane_major=mem.lane_major)
-    _, _, (hk, hv) = I._attn_stack_pass(
+    _, _, (hk, hv) = I._stack_pass(
         params, cfg, x.contiguous(), I._positions(pos0, off, B),
         comp_gate=torch.ones((B, m), dtype=cfg.cdtype, device=dev),
         q_info=info, self_info=info, state=I.OnlineState(cache=block, mem=mem),

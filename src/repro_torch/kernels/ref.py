@@ -2,7 +2,8 @@
 ``repro/kernels/ref.py``).
 
 Each one computes what its kernel computes, in float32 with one rounding
-to the output type, as the Pallas kernels do.  The kernel ops run these
+to the output type, as the Pallas kernels do (float64 inputs, which no
+kernel takes, stay float64: ``widen``).  The kernel ops run these
 for tensors on the CPU; ``chip_smoke.py`` holds each CUDA/Triton kernel
 against them on the card.
 """
@@ -13,6 +14,12 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 NEG_INF = -1e30
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """x in the type its arithmetic runs in: float32, or float64 for a
+    float64 x (so a float64 run on the CPU is float64 throughout)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _lanes(x, B: int, dtype, device) -> torch.Tensor:
@@ -44,12 +51,12 @@ def ccm_attention_ref(q, k, v, q_idx, q_seg, k_idx, k_seg, k_comp, k_valid,
     mask = (ki[:, None, :] <= qi[:, :, None]) \
         & ((ks[:, None, :] == qs[:, :, None]) | kc[:, None, :]) \
         & kv[:, None, :]                                   # (B, Sq, Sk)
-    qg = q.float().reshape(B, Hkv, G, Sq, D)
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    qg = widen(q).reshape(B, Hkv, G, Sq, D)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(qg.dtype)) * scale
     m = mask[:, None, None]
     logits = torch.where(m, logits, torch.full_like(logits, NEG_INF))
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(qg.dtype))
     out = torch.where(mask.any(-1)[:, None, None, :, None], out,
                       torch.zeros_like(out))
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
@@ -142,7 +149,7 @@ def segmented_attention_ref(q, segs: Sequence[Dict[str, Any]], q_idx, q_seg,
     for s in segs:
         k, v = _seg_layer_view(s, "k", B), _seg_layer_view(s, "v", B)
         ksc, vsc = _seg_layer_view(s, "k_scale", B), _seg_layer_view(s, "v_scale", B)
-        k, v = k.float(), v.float()
+        k, v = widen(k), widen(v)
         if ksc is not None:
             k = k * ksc[..., None].float()
             v = v * vsc[..., None].float()
@@ -245,12 +252,13 @@ def cond_lora_ref(x, w, a, b, gate, scale: float,
                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x@w (+bias) + gate * ((x@a^T)@b) * scale, in float32, cast to
     x.dtype.  x (M, K); w (K, N); a (r, K); b (r, N); gate (M,)."""
-    xf = x.float()
-    y = xf @ w.float()
+    xf = widen(x)
+    f = xf.dtype
+    y = xf @ w.to(f)
     if bias is not None:
-        y = y + bias.float()
-    d = ((xf @ a.float().T) @ b.float()) * scale
-    return (y + d * gate.float()[:, None]).to(x.dtype)
+        y = y + bias.to(f)
+    d = ((xf @ a.to(f).T) @ b.to(f)) * scale
+    return (y + d * gate.to(f)[:, None]).to(x.dtype)
 
 
 def kv_merge_ref(mem, h, a: float) -> torch.Tensor:
@@ -264,20 +272,21 @@ def kv_merge_lanes_ref(mem, h, a, lane_axis: int = 0) -> torch.Tensor:
     float32, cast once to mem.dtype.  ``a`` is one host float, or one per
     index of ``lane_axis`` (0 or 1) of mem; ``h`` may have any strides and
     another float dtype."""
-    a32 = torch.as_tensor(a, dtype=torch.float32, device=mem.device)
+    f = torch.promote_types(widen(mem).dtype, h.dtype)
+    a32 = torch.as_tensor(a, dtype=f, device=mem.device)
     if a32.ndim:
         a32 = a32.reshape((-1,) + (1,) * (mem.ndim - 1 - lane_axis))
-    return ((1 - a32) * mem.float() + a32 * h.float()).to(mem.dtype)
+    return ((1 - a32) * mem.to(f) + a32 * h.to(f)).to(mem.dtype)
 
 
 def kv_cummean_ref(h: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Running means of h along ``dim`` (merge-mode training), in float32
     with one rounding to h.dtype.  Under autograd its backward is the
     plain version of the kernel's reverse pass."""
-    csum = torch.cumsum(h.float(), dim=dim)
+    csum = torch.cumsum(widen(h), dim=dim)
     shape = [1] * h.ndim
     shape[dim] = h.shape[dim]
-    denom = torch.arange(1, h.shape[dim] + 1, dtype=torch.float32,
+    denom = torch.arange(1, h.shape[dim] + 1, dtype=csum.dtype,
                          device=h.device).reshape(shape)
     return (csum / denom).to(h.dtype)
 
@@ -295,9 +304,10 @@ def kv_cummean_reverse_ref(g: torch.Tensor, dim: int = 0) -> torch.Tensor:
     rounding to g.dtype."""
     shape = [1] * g.ndim
     shape[dim] = g.shape[dim]
-    denom = torch.arange(1, g.shape[dim] + 1, dtype=torch.float32,
+    w = widen(g)
+    denom = torch.arange(1, g.shape[dim] + 1, dtype=w.dtype,
                          device=g.device).reshape(shape)
-    w = (g.float() / denom).flip(dim)
+    w = (w / denom).flip(dim)
     return torch.cumsum(w, dim=dim).flip(dim).to(g.dtype)
 
 

@@ -31,15 +31,16 @@ from repro_torch.core import streaming as STR
 from repro_torch.models.config import ModelConfig
 
 # the state leaves each op writes; the arena step scatters only these
-# (ingest never writes the KV cache, query never writes the memory)
-_WRITES = {"ingest": ("mem", "pos"), "query": ("cache", "pos"),
+# (ingest never writes the KV cache, query never writes the memory; both
+# advance the Mamba2 states of the recurrent families, None elsewhere)
+_WRITES = {"ingest": ("mem", "ssm", "pos"), "query": ("cache", "ssm", "pos"),
            "stream": ("win_k", "win_v", "win_len", "mem", "pos")}
 
 
 def ragged_family(cfg: ModelConfig) -> bool:
     """Whether masked token lanes are supported: attention archs only —
     SSM/hybrid recurrent scans cannot skip pad tokens."""
-    return cfg.family not in ("ssm", "hybrid")
+    return not cfg.has_mamba
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:
@@ -62,13 +63,15 @@ def to_lanes(state):
         return state._replace(win_k=_fold(state.win_k),
                               win_v=_fold(state.win_v), mem=mem,
                               lane_major=True)
-    c = state.cache
+    c, r = state.cache, state.ssm
     cache = None if c is None else I.KVCache(
         k=_fold(c.k), v=_fold(c.v), length=c.length,
         k_scale=None if c.k_scale is None else _fold(c.k_scale),
         v_scale=None if c.v_scale is None else _fold(c.v_scale),
         lane_major=True)
-    return state._replace(cache=cache, mem=mem)
+    ssm = None if r is None else I.SSMState(
+        ssm=_fold(r.ssm), conv=_fold(r.conv), lane_major=True)
+    return state._replace(cache=cache, mem=mem, ssm=ssm)
 
 
 def from_lanes(state):
@@ -80,12 +83,14 @@ def from_lanes(state):
         return state._replace(win_k=_unfold(state.win_k),
                               win_v=_unfold(state.win_v), mem=mem,
                               lane_major=False)
-    c = state.cache
+    c, r = state.cache, state.ssm
     cache = None if c is None else I.KVCache(
         k=_unfold(c.k), v=_unfold(c.v), length=c.length,
         k_scale=None if c.k_scale is None else _unfold(c.k_scale),
         v_scale=None if c.v_scale is None else _unfold(c.v_scale))
-    return state._replace(cache=cache, mem=mem)
+    ssm = None if r is None else I.SSMState(ssm=_unfold(r.ssm),
+                                            conv=_unfold(r.conv))
+    return state._replace(cache=cache, mem=mem, ssm=ssm)
 
 
 def make_stream_step(cfg: ModelConfig, dist=None) -> Callable:
@@ -125,7 +130,7 @@ def session_vmap(cfg: ModelConfig, op: str, ragged: bool = False) -> Callable:
 
     def fn(params, state, tokens, lengths):
         lanes = to_lanes(state)
-        dev = (lanes.win_k if op == "stream" else lanes.cache.k).device
+        dev = params["embed"].device
         tk = torch.as_tensor(np.asarray(tokens), device=dev)
         vl = np.asarray(lengths, np.int64).reshape(-1) if ragged else None
         if op == "stream":

@@ -29,6 +29,7 @@ import torch
 from repro_torch.core import lora as lora_lib
 from repro_torch.core.masks import NEG_INF
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import widen
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -99,7 +100,7 @@ def attend_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * scale
+    logits = widen(torch.einsum("bqhgd,bkhd->bhgqk", qg, k)) * scale
     if mask is not None:
         mask = mask[None, None, None] if mask.ndim == 2 else mask[:, None, None]
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))

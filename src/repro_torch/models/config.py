@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+           "float16": torch.float16, "float64": torch.float64}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +115,11 @@ class ModelConfig:
         return self.family == "ssm"
 
     @property
+    def has_mamba(self) -> bool:
+        """Whether the stack runs Mamba2 layers (ssm, hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def d_inner(self) -> int:
         """Mamba2 inner width."""
         return self.ssm_expand * self.d_model
@@ -157,10 +162,14 @@ class ModelConfig:
         return int(total)
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    """The port runs the dense family only so far: any other family's
-    config is valid, but its model code is not ported yet."""
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    """The port runs the dense, ssm and hybrid families so far: any other
+    family's config is valid, but its model code is not ported yet."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}): the port runs the 'dense' "
-            "family only; the other families are ROADMAP queue 1 item 5")
+            f"family {cfg.family!r} ({cfg.name}): not ported yet; the port "
+            f"runs {', '.join(map(repr, PORTED_FAMILIES))} (the other "
+            "families are ROADMAP queue 1 item 3)")

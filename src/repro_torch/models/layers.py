@@ -11,6 +11,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ref import widen
 from repro_torch.models.config import ModelConfig
 
 
@@ -56,19 +57,19 @@ def init_mlp(gen, cfg: ModelConfig, d: int, f: int,
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
+    xf = widen(x)
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.float())).to(x.dtype)   # stored as (1 + scale)
+    return (y * (1.0 + scale.to(xf.dtype))).to(x.dtype)   # stored as (1 + scale)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
-    xf = x.float()
+    xf = widen(x)
     mu = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, keepdim=True, unbiased=False)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    return (y * scale.to(xf.dtype) + bias.to(xf.dtype)).to(x.dtype)
 
 
 def apply_norm(cfg: ModelConfig, p: Dict[str, torch.Tensor],

@@ -1,12 +1,16 @@
-"""Model assembly for the dense family (port of
-``repro/models/transformer.py``: init, embeddings, logits and the CCM
-parallel training forward).
+"""Model assembly for the dense, ssm (Mamba2) and hybrid (Zamba2)
+families (port of ``repro/models/transformer.py``: init, embeddings,
+logits and the CCM parallel training forward).
 
 Params keep the reference tree: a nested dict with the same key paths and
 the same stacked leading layer axis (``layers/attn/wq`` is (L, d, Hq*hd)).
 The reference's ``lax.scan`` over layers is a Python loop over views of
 the stacked leaves; ``cfg.remat`` becomes ``torch.utils.checkpoint`` per
-layer when gradients are on (the reference's ``jax.checkpoint``).
+layer when gradients are on (the reference's ``jax.checkpoint``).  The
+hybrid runs ``n_layers // attn_every`` groups of Mamba2 layers, each
+followed by the one shared attention block (``params["shared_attn"]``,
+with its own conditional LoRA), then the remaining Mamba2 layers; CCM
+acts at those shared-attention sites.
 """
 from __future__ import annotations
 
@@ -21,12 +25,16 @@ from repro_torch.core import masks as M
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig, require_dense
+from repro_torch.models import ssm as SSM
+from repro_torch.models.config import ModelConfig, require_ported
 
 Params = Dict[str, Any]
 
 
 def _init_block(gen, cfg: ModelConfig, device) -> Params:
+    if cfg.has_mamba:
+        return {"ln1": L.init_norm(cfg, cfg.d_model, device),
+                "mamba": SSM.init_mamba(gen, cfg, cfg.d_model, device)}
     return {"ln1": L.init_norm(cfg, cfg.d_model, device),
             "attn": A.init_attention(gen, cfg, device),
             "ln2": L.init_norm(cfg, cfg.d_model, device),
@@ -53,7 +61,7 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
     """Random weights with the reference init's distributions, drawn from
     a ``torch.Generator`` seeded with ``seed`` (the numbers differ from
     the reference's).  Runs on the card unless ``device="cpu"``."""
-    require_dense(cfg)
+    require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -72,6 +80,12 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
         if i == 0:
             p["layers"] = _empty_stack(blk, cfg.n_layers)
         _copy_layer(p["layers"], blk, i)
+    if cfg.family == "hybrid":
+        p["shared_attn"] = {
+            "ln1": L.init_norm(cfg, cfg.d_model, dev),
+            "attn": A.init_attention(gen, cfg, dev),
+            "ln2": L.init_norm(cfg, cfg.d_model, dev),
+            "mlp": L.init_mlp(gen, cfg, cfg.d_model, cfg.d_ff, dev)}
     return p
 
 
@@ -136,17 +150,51 @@ def _attn_mlp_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
     return x + L.apply_mlp(cfg, lp["mlp"], h)
 
 
+def _mamba_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                 state=None, decode: bool = False):
+    h = L.apply_norm(cfg, lp["ln1"], x)
+    out, new_state = SSM.apply_mamba(cfg, lp["mamba"], h, state, decode)
+    return x + out, new_state
+
+
+def layer_plan(cfg: ModelConfig):
+    """The stack's order as ("mamba", layer) and ("site", site) steps:
+    every layer of the ssm family; for the hybrid, each group of
+    ``attn_every`` Mamba2 layers followed by its shared-attention site,
+    then the remainder.  Dense stacks are ("attn", layer) steps."""
+    if cfg.family == "ssm":
+        return [("mamba", li) for li in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        g = cfg.attn_every
+        n_groups = cfg.n_layers // g
+        plan = []
+        for gi in range(n_groups):
+            plan += [("mamba", gi * g + j) for j in range(g)]
+            plan.append(("site", gi))
+        return plan + [("mamba", li)
+                       for li in range(n_groups * g, cfg.n_layers)]
+    return [("attn", li) for li in range(cfg.n_layers)]
+
+
 def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                    q_info=None, k_info=None, comp_gate=None, positions=None,
                    merge_ctx=None) -> torch.Tensor:
     """Run the decoder stack on embedded inputs x (B, S, d)."""
-    require_dense(cfg)
+    require_ported(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
-    for li in range(cfg.n_layers):
-        body = functools.partial(
-            _attn_mlp_block, cfg, layer_params(params, li), q_info=q_info,
-            k_info=k_info, comp_gate=comp_gate, positions=positions,
-            merge_ctx=merge_ctx)
+    attn = functools.partial(_attn_mlp_block, cfg, q_info=q_info,
+                             k_info=k_info, comp_gate=comp_gate,
+                             positions=positions, merge_ctx=merge_ctx)
+    for kind, i in layer_plan(cfg):
+        if kind == "mamba":
+            lp = layer_params(params, i)
+
+            def body(h, lp=lp):
+                return _mamba_block(cfg, lp, h)[0]
+        else:
+            body = functools.partial(
+                attn, params["shared_attn"] if kind == "site"
+                else layer_params(params, i))
         x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
     return x
 
@@ -191,7 +239,7 @@ def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     comp = layout.comp_mask.to(dev)
     pos = layout.positions.to(dev)
     comp_off = M.comp_offset_array(layout.comp_mask).long().to(dev)
-    use_ccm = cfg.ccm.enabled
+    use_ccm = cfg.ccm.enabled and not cfg.is_attention_free
 
     x = embed_tokens(cfg, params, tokens, comp if use_ccm else None,
                      comp_off)

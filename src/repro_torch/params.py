@@ -3,7 +3,8 @@
 ``params_from_numpy`` takes the reference's tree as numpy arrays (for a
 JAX tree, ``jax.tree.map(np.asarray, params)``) and returns the port's
 tree on ``device``: every leaf in ``cfg.pdtype`` except the LoRA ``a``/``b``
-factors, which stay float32 as the reference initialises them.  Key paths
+factors and the Mamba2 ``a_log``/``dt_bias``/``d_skip`` vectors, which stay
+float32 as the reference initialises them.  Key paths
 and the stacked leading layer axis are kept as they are.
 ``params_to_numpy`` is the inverse: the port's tree as numpy arrays
 (bf16 leaves as float32, which holds every bf16 value exactly).
@@ -27,14 +28,20 @@ def _leaf(arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
+# leaves the reference creates in float32 whatever ``param_dtype`` is
+# (``repro/models/ssm.py`` ``init_mamba``)
+_F32_LEAVES = ("a_log", "dt_bias", "d_skip")
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device: DeviceLike = None) -> Dict[str, Any]:
     dev = resolve_device(device)
 
-    def walk(t, in_lora: bool):
+    def walk(t, f32: bool):
         if isinstance(t, dict):
-            return {k: walk(v, in_lora or k == "lora") for k, v in t.items()}
-        return _leaf(t, torch.float32 if in_lora else cfg.pdtype, dev)
+            return {k: walk(v, f32 or k == "lora" or k in _F32_LEAVES)
+                    for k, v in t.items()}
+        return _leaf(t, torch.float32 if f32 else cfg.pdtype, dev)
 
     return walk(tree, False)
 

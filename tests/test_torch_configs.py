@@ -1,6 +1,7 @@
 """Port parity for the model zoo's configuration data: the registry, every
 config (full and smoke) with its properties, the refusal of the families
-the port does not run yet, and the embedding scale of ``embed_scale``
+the port does not run yet (and of streaming for the recurrent ones), and
+the embedding scale of ``embed_scale``
 configs rounded as the reference rounds it.
 
 Configs and properties must be equal (they are data and integer
@@ -18,6 +19,7 @@ from repro.models import transformer as JT
 from repro_torch.configs import registry as PR
 from repro_torch.core import inference as PI
 from repro_torch.core import streaming as PS
+from repro_torch.models import attention as PA
 from repro_torch.models import transformer as PT
 
 IDS = list(JR._MODULES)
@@ -62,9 +64,26 @@ def test_config_and_properties_match_reference(arch, smoke):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_family_raises_not_implemented(arch):
-    """The config is valid; the port has not reached its family yet."""
+    """The config is valid.  The recurrent families (mamba2-370m, zamba2-1.2b)
+    run the model and the online path, and refuse streaming as the
+    reference has no streaming path for Mamba2 layers; the port has not
+    reached the other families yet."""
     cfg = PR.get_config(arch, smoke=True, compute_dtype="float32")
-    match = f"family {cfg.family!r}.*ROADMAP queue 1 item 5"
+    if cfg.family in ("ssm", "hybrid"):
+        params = PT.init_lm(cfg, device="cpu")
+        info = PA.plain_causal_info(2)
+        x = PT.forward_hidden(params, cfg, torch.zeros(1, 2, cfg.d_model),
+                              q_info=info, k_info=info)
+        assert tuple(x.shape) == (1, 2, cfg.d_model)
+        st = PI.init_online_state(cfg, 1, 8, device="cpu")
+        assert tuple(st.ssm.ssm.shape) == (cfg.n_layers, 1, cfg.ssm_heads,
+                                           cfg.ssm_head_dim, cfg.ssm_state)
+        assert (st.cache is None) == (cfg.family == "ssm")
+        with pytest.raises(NotImplementedError,
+                           match="no streaming path in the reference"):
+            PS.init_stream_state(cfg, 1, device="cpu")
+        return
+    match = f"family {cfg.family!r}.*ROADMAP queue 1 item 3"
     with pytest.raises(NotImplementedError, match=match):
         PT.init_lm(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
