@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --phase2   # the card, the build and phase 2 only
+    python3 chip_smoke.py --phase12  # the card, the build and phase 12 only
+    python3 chip_smoke.py --phase12 pixtral-12b   # ... for these archs
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the build of the
@@ -101,8 +103,30 @@ Phases (any failure raises, and the script exits non-zero):
      copies of the session in one batch); (c)
      2-3 full-training AdamW steps (zamba2: 2 concat and 1 merge), every
      leaf moved; (e) the SSD scan alone beside its bound;
+ 12. (run after phase 11) the last three families of the port's
+     registry at their published widths, random weights from seed 0 in
+     each config's ``param_dtype``, one model at a time: whisper-tiny (4
+     + 4 layers, 1500 random frames, 448-token prefills), pixtral-12b
+     (40 layers, bf16, 1024 random patch rows of width 1024),
+     phi3.5-moe (16 of its 32 layers, bf16) and llama4-maverick (1 of 48
+     layers, 128 experts top-1): (a) the online path (B4, 4 ingests of
+     64, 32 greedy tokens; whisper's ``encode_cross`` at B4 through the
+     CCM kernel with every key <COMP>, then concat and merge; pixtral's
+     prefill of 1024 patch positions + 64 text tokens), launches held to
+     the path, a profiled decode; (d) 2 layers (whisper 2 + 2) in
+     float32, CUDA vs CPU, online state and full-training gradients
+     within 1e-3 x max|.| (not llama4); (c) the serve engine, 12 sessions
+     on 8 slots (text-only sessions, as the reference's engine; phi3.5
+     with the engine's expert ids pinned in each session run alone); (e)
+     streaming at 4 layers (MoE with the expert ids pinned in the run it
+     is held to); (b) 2-3 AdamW steps with the config's ``train_mode``
+     (whisper full, with its frames through the encoder; pixtral LoRA
+     with patches, S 1216; phi3.5 LoRA); llama4 runs (a)
+     only;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
-launches in phases 3, 5, 7, 8, 9, 10 and 11), then the result line.  Phase 2 also
+launches in phases 3, 5, 7, 8, 9, 10, 11 and 12, and the CCM kernel's
+phase-12 launches by whisper's encoder, read from the counters around
+each of its launches), then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward on
 its float32 and bf16 routes, the bf16 cases with per-lane (B, S)
 metadata, a layout with no <COMP> key and hd 72, the backward run twice
@@ -118,11 +142,17 @@ as phase 11 runs them: segmented attention at 32/32 hd 64 (decode, a
 256-token prefill, a 64-token ingest, the lane-major serve query),
 cond_lora at M 256 and 512, K 2048 N 2048, the merge update at its
 memory (6, 4, 8, 32, 64) layer-major and lane-major, CCM attention and
-the kv_cummean pair at its S 1152 layout.
+the kv_cummean pair at its S 1152 layout; and phase 12's: CCM attention
+forward and backward in whisper's encoder regime (B4, 6/6 hd 64, 1500
+frames, every key <COMP> at index 0; library: SDPA with no mask),
+cond_lora at pixtral's q, k/v and o projections (M 288), segmented
+attention decode and prefill at 32/8 and 40/8 hd 128, decode at 6/6 hd
+64.
 Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -245,6 +275,12 @@ def bf16_tol_paths(want) -> float:
     ``batch_witness`` shows the online prefill's 4-lane batch as far
     from its lanes run alone as the engine's stream batch is."""
     return 2.0 ** -5 * want.float().abs().max().item()
+
+
+def f32_lane_tol(want) -> float:
+    """1e-3 of the largest logit: a float32 answer against its session
+    alone (float32 sums in another order, as phase 4's cross-check)."""
+    return 1e-3 * want.float().abs().max().item()
 
 
 def check(name: str, err: float, tol: float):
@@ -398,6 +434,19 @@ SEG_ZOO_CASES = [
          Hkv=32, D=64),
     dict(label="serve query 32/32 hd64 zamba2", Sq=32, clen=None, B=8,
          cap=64, Lr=6, H=32, Hkv=32, D=64),
+    # phase 12's decoders: pixtral-12b's GQA 32/8 and llama4-maverick's
+    # 40/8 (G = 5) at hd 128, a decode over a 480-token cache and a
+    # 448-token prefill each; whisper-tiny's MHA 6/6 at hd 64
+    dict(label="decode 32/8 hd128 pixtral", Sq=1, clen=480, H=32, Hkv=8,
+         D=128),
+    dict(label="prefill 32/8 hd128 pixtral", Sq=448, clen=0, H=32, Hkv=8,
+         D=128),
+    dict(label="decode 40/8 hd128 llama4", Sq=1, clen=480, H=40, Hkv=8,
+         D=128),
+    dict(label="prefill 40/8 hd128 llama4", Sq=448, clen=0, H=40, Hkv=8,
+         D=128),
+    dict(label="decode 6/6 hd64 whisper", Sq=1, clen=480, H=6, Hkv=6,
+         D=64),
 ]
 
 
@@ -602,7 +651,12 @@ def check_cond_lora(torch, clora, card):
                                # ingest (4 lanes x 64, MHA 32 x 64) and
                                # at a serve ingest (8 lanes x 64)
                                (256, 2048, 2048, False),
-                               (512, 2048, 2048, False)):
+                               (512, 2048, 2048, False),
+                               # pixtral-12b's q, k/v and o projections
+                               # at an online ingest (phase 12)
+                               (288, 5120, 4096, False),
+                               (288, 5120, 1024, False),
+                               (288, 4096, 5120, False)):
         ws = [rn(K, N, std=K ** -0.5) for _ in range(4)]  # LLaMA: > L2
         a, b = rn(r, K, std=K ** -0.5), rn(r, N, std=0.05)
         bias = rn(N)
@@ -632,7 +686,7 @@ def check_cond_lora(torch, clora, card):
                       + (N if with_bias else 0)) + 4 * M
         ops_ = 2.0 * M * K * N + 2.0 * M * K * r + 2.0 * M * r * N
         bms, by = bound(nbytes, ops_, PEAK_BF16)
-        key = M if K == 4096 else \
+        key = M if (K, N) == (4096, 4096) else \
             f"M{M} K{K} N{N}{' bias' if with_bias else ''}"
         report(f"cond_lora {key} (library: x@W + gate*(x@A^T@B)*s)", t, bms,
                by, card)
@@ -969,16 +1023,20 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
     # -- the training shape: LLaMA-7B heads, concat layout, bf16; then
     #    the zoo's at the same layout: Gemma's MQA 8/1 at hd 256 and
     #    Qwen2's GQA 14/2 at hd 64; then zamba2-1.2b's shared attention
-    #    (MHA 32/32 hd 64) at its training layout (phase 11c, S 1152)
+    #    (MHA 32/32 hd 64) at its training layout (phase 11c, S 1152); then
+    #    whisper-tiny's encoder (MHA 6/6 hd 64 over its 1500 frames, every
+    #    key a <COMP> key at index 0 of segment 0: bidirectional)
     fwd_row, bwd_row = timed_ccm(torch, F, ca, segment_layout, card, rn,
                                  32, 32, 128)
     zoo = []
     for Hq, Hkv, D, lay, tag in ((8, 1, 256, ZOO_LAYOUT, ""),
                                  (14, 2, 64, ZOO_LAYOUT, ""),
-                                 (32, 32, 64, ZAMBA_LAYOUT, " zamba2")):
+                                 (32, 32, 64, ZAMBA_LAYOUT, " zamba2"),
+                                 (6, 6, 64, WHISPER_FRAMES,
+                                  " whisper encoder")):
         f, b = timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
                          lay)
-        S = segment_layout(*lay).seq_len
+        S = lay if isinstance(lay, int) else segment_layout(*lay).seq_len
         zoo += [dict(f, shape=f"forward B4 S{S} {Hq}/{Hkv} hd{D}{tag}"),
                 dict(b, shape=f"backward B4 S{S} {Hq}/{Hkv} hd{D}{tag}")]
     fwd_row["shapes"] = [r for r in zoo if r["shape"].startswith("forward")]
@@ -991,6 +1049,9 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
 # 128)
 ZOO_LAYOUT = (16, 64, 8, 64)
 ZAMBA_LAYOUT = (16, 56, 8, 128)
+# whisper's encoder regime (phase 12): Whisper's published n_audio_ctx,
+# 1500 frames, not a multiple of the 64-row tile
+WHISPER_FRAMES = 1500
 
 
 def timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
@@ -1000,14 +1061,22 @@ def timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
     Hq query and Hkv key/value heads of width D, bf16: forward and
     backward held to the plain version, then each timed beside it, SDPA
     with the CCM mask (``enable_gqa`` where Hq > Hkv) and the bound.
-    Returns the (forward, backward) rows."""
+    ``layout`` an int S is the encoder regime: every key a <COMP> key at
+    index 0 of segment 0, so every query sees every key, and the library
+    call is SDPA without a mask.  Returns the (forward, backward) rows."""
     dev = "cuda"
-    lay = segment_layout(*layout)
-    B, S = 4, lay.seq_len
+    encoder = isinstance(layout, int)
+    if encoder:
+        B, S = 4, layout
+        idx = seg = torch.zeros(S, device=dev, dtype=torch.int32)
+        comp = torch.ones(S, device=dev, dtype=torch.bool)
+    else:
+        lay = segment_layout(*layout)
+        B, S = 4, lay.seq_len
+        idx, seg, comp = ccm_meta(torch, lay, dev)
     H = Hq
     gqa = Hq != Hkv
-    tag = f"B4 {Hq}/{Hkv} S{S} hd{D}"
-    idx, seg, comp = ccm_meta(torch, lay, dev)
+    tag = f"B4 {Hq}/{Hkv} S{S} hd{D}{' encoder' if encoder else ''}"
     meta = (idx, seg, idx, seg, comp, None)
     scale = D ** -0.5
     bf = torch.bfloat16
@@ -1037,6 +1106,10 @@ def timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
     mask = (idx[None, :] <= idx[:, None]) \
         & ((seg[None, :] == seg[:, None]) | comp[None, :])
     pairs = int(mask.sum().item()) * B * H
+    if encoder:
+        if pairs != B * H * S * S:
+            raise AssertionError(f"{tag}: the encoder mask hides a pair")
+        mask = None              # the same function: SDPA with no mask
     if (Hq, Hkv, D) == (32, 32, 128):
         nq, nk = -(-S // 16), -(-S // 32)  # the float32 route's 16 x 32 tiles
         padded = torch.zeros(nq * 16, nk * 32, dtype=torch.bool, device=dev)
@@ -1411,14 +1484,21 @@ def f32_cast_ms(by_name) -> float:
 
 
 def main_path(torch, PI, ops, params, cfg, mode, cache_dtype, card,
-              profile: bool = False, record: dict = None):
-    """B=4 lanes, 4 ingests of 64-token contexts, a 448-token prefill
-    into a 512-token cache and 32 greedy tokens (twice: the explicit
-    loop and ``generate``), with the launches of every kernel held to
-    what the path implies; with ``record``, host ms per step kind (and,
-    with ``profile``, the profiled decode steps' idle share and float32
-    cast share) are stored there.  Returns the launch counts."""
-    B, T, LC, PROMPT, CACHE, NEW = 4, 4, 64, 448, 512, 32
+              profile: bool = False, record: dict = None,
+              prompt_len: int = 448, cache_len: int = 512, cross=None,
+              patches=None, tag: str = ""):
+    """B=4 lanes, 4 ingests of 64-token contexts, a ``prompt_len``-token
+    prefill (448) into a ``cache_len``-token cache (512) and 32 greedy
+    tokens (twice: the explicit loop and ``generate``), with the launches
+    of every kernel held to what the path implies; with ``record``, host
+    ms per step kind (and, with ``profile``, the profiled decode steps'
+    idle share and float32 cast share) are stored there.  ``cross``
+    (encdec) starts the state with the encoder's cross K/V; ``patches``
+    (vlm) go into the prefill, and ``generate`` (which takes none, as
+    the reference's) then runs the same prompt as text only and is held
+    to in-vocabulary tokens, not to the loop's.  Messages start with
+    ``tag``.  Returns the launch counts."""
+    B, T, LC, PROMPT, CACHE, NEW = 4, 4, 64, prompt_len, cache_len, 32
     ccm = dataclasses.replace(cfg.ccm, mode=mode)
     rcfg = cfg.replace(kv_cache_dtype=cache_dtype, ccm=ccm)
     dev = params["embed"].device
@@ -1427,7 +1507,8 @@ def main_path(torch, PI, ops, params, cfg, mode, cache_dtype, card,
                             device=dev) for _ in range(T)]
     prompt = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen,
                            device=dev)
-    st = PI.init_online_state(rcfg, B, CACHE, device=dev)
+    st = PI.init_online_state(rcfg, B, CACHE, device=dev)._replace(
+        cross=cross)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     ingest_ms = []
@@ -1438,7 +1519,7 @@ def main_path(torch, PI, ops, params, cfg, mode, cache_dtype, card,
         ingest_ms.append((time.perf_counter() - t0) * 1e3)
     st_ingested = clone_state(torch, st)
     t0 = time.perf_counter()
-    logits, st = PI.prefill(params, rcfg, st, prompt)
+    logits, st = PI.prefill(params, rcfg, st, prompt, patches=patches)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     toks = [logits[:, -1].argmax(-1)]
@@ -1457,10 +1538,14 @@ def main_path(torch, PI, ops, params, cfg, mode, cache_dtype, card,
     generate_ms = (time.perf_counter() - t0) * 1e3
     counts = ops.launch_counts()
 
-    name = f"{mode}+{cache_dtype}"
+    name = f"{tag}{mode}+{cache_dtype}"
     if not finite:
         raise AssertionError(f"{name}: non-finite logits")
-    if not torch.equal(gen_toks, manual):
+    if patches is not None:
+        if gen_toks.shape != manual.shape or not bool(
+                ((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"{name}: text-only generate tokens")
+    elif not torch.equal(gen_toks, manual):
         raise AssertionError(f"{name}: generate tokens differ from the "
                              "prefill + decode_step loop")
     L, m = cfg.n_layers, cfg.ccm.comp_len
@@ -1606,7 +1691,7 @@ def cross_check(torch, PI, params_bf16, cfg, devices=("cuda", "cpu")):
 # ---------------------------------------------------------------------------
 
 def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
-                cfg, card, modes, label: str, layout=ZOO_LAYOUT):
+                cfg, card, modes, label: str, layout=ZOO_LAYOUT, extra=None):
     """AdamW steps through ``make_train_step``, one per entry of ``modes``
     ("concat", "merge", or the paper's baselines "gisting" and
     "compressive", which take precedence over the mode), with the
@@ -1620,7 +1705,9 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
     Compressive pools raw tokens only, so the <COMP> rows where the LoRA
     fires reach no loss position: under LoRA-only training its gradient
     norm must be exactly 0 and every trainable leaf bitwise unchanged,
-    as in the reference.  Returns a namespace with the step functions
+    as in the reference.  ``extra`` adds the family's inputs to the batch
+    (``frames`` for encdec, whose encoder attends through the CCM kernel
+    in every mode, ``patches`` for vlm).  Returns a namespace with the step functions
     and configs by mode, the partition, the optimizer state, the batch
     and layout, the launch counts and {step_ms, peak_gib, losses,
     grad_norms, backward_calls}."""
@@ -1630,6 +1717,7 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
     B = 4
     batch = PD.sample_kv_batch(PD.ShardableIndexIterator(0, B).key_for(0),
                                layout, B, device=dev)
+    batch.update(extra or {})
     tp, fp = PP.partition(params, TR.trainable_mask_for(cfg, params))
     opt = PA.init_adamw(tp)
     # lr 1e-3 from step 1: an update of ~lr moves every bf16 comp_embed
@@ -1643,11 +1731,19 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
     fns = {m: TR.make_train_step(cfgs[m], layout, ocfg) for m in set(modes)}
     L = mem_layers(cfg)                   # the attention layers
     lora = {"cond_lora": 4 * 2 * L, "cond_lora_wgmma": 4 * 2 * L}
+    # the encoder's layers (encdec): one CCM forward each, recomputed
+    # and differentiated when its weights train
+    E = cfg.n_enc_layers if cfg.family == "encdec" else 0
+    Ef, Eb = (2 * E, E) if cfg.train_mode == "full" else (E, 0)
+    enc = {"ccm_attention": Ef, "ccm_attention_backward": Eb,
+           "ccm_attention_mma": Ef, "ccm_attention_backward_mma": Eb}
     want_step = {
-        "concat": {"ccm_attention": 2 * L, "ccm_attention_backward": L,
-                   "ccm_attention_mma": 2 * L,
-                   "ccm_attention_backward_mma": L, **lora},
-        "merge": {"kv_cummean": 2 * L, "kv_cummean_backward": L, **lora},
+        "concat": {"ccm_attention": 2 * L + Ef,
+                   "ccm_attention_backward": L + Eb,
+                   "ccm_attention_mma": 2 * L + Ef,
+                   "ccm_attention_backward_mma": L + Eb, **lora},
+        "merge": {"kv_cummean": 2 * L, "kv_cummean_backward": L, **lora,
+                  **enc},
         # the baselines attend densely, as the reference does
         "gisting": lora, "compressive": lora}
     want_step = {m: {k: v for k, v in w.items() if v}
@@ -1656,7 +1752,12 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
     def sample(x):
         flat = x.detach().reshape(-1)
         return flat[::max(1, flat.numel() >> 20)].clone()
-    frozen0 = {"/".join(p): x.clone() for p, x in PP.leaves(fp)}
+    # the frozen leaves' copy for the bitwise check lives on the host: a
+    # second copy on the card would not fit beside phi3.5-moe's 16 layers
+    t0 = time.perf_counter()
+    frozen0 = {"/".join(p): x.to("cpu", copy=True)
+               for p, x in PP.leaves(fp)}
+    copy_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     clora.backward_calls = 0
@@ -1693,10 +1794,12 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
         elif still:
             raise AssertionError(f"{label} step {i + 1}: trainable leaves "
                                  f"unchanged {still}")
-    for k, x in PP.leaves(fp):
-        if not torch.equal(x, frozen0["/".join(k)]):
+    t0 = time.perf_counter()
+    for k, x in PP.leaves(fp):              # one leaf at a time on the card
+        if not torch.equal(x, frozen0["/".join(k)].to(dev)):
             raise AssertionError(f"{label}: frozen leaf {'/'.join(k)} "
                                  "changed")
+    copy_s += time.perf_counter() - t0
     if clora.backward_calls != len(modes) * 4 * L:
         raise AssertionError(f"{label}: cond_lora autograd backward ran "
                              f"{clora.backward_calls} times, want "
@@ -1704,8 +1807,9 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
     moved = "none of the" if "compressive" in modes \
         and cfg.train_mode == "lora" else "all"
     log(f"  {label}: {moved} {len(PP.leaves(tp))} trainable leaves moved "
-        f"at every step, {len(frozen0)} frozen leaves bitwise unchanged; "
-        f"opt step {opt.step}, peak {peak:.2f} GiB")
+        f"at every step, {len(frozen0)} frozen leaves bitwise unchanged "
+        f"(host copy and compare {copy_s:.1f} s); opt step {opt.step}, peak "
+        f"{peak:.2f} GiB")
     return types.SimpleNamespace(
         fns=fns, cfgs=cfgs, tp=tp, fp=fp, opt=opt, batch=batch,
         layout=layout, counts=ops.launch_counts(),
@@ -1862,6 +1966,112 @@ def first_layers(tree, n: int):
     return {k: cut(v) if k == "layers" else v for k, v in tree.items()}
 
 
+@contextlib.contextmanager
+def moe_routes(pick):
+    """Runs ``pick(cfg, router_w, xf, route)`` in place of the MoE router
+    (``models/moe._route``; ``route`` is the port's own), and puts the
+    port's back after.  In bf16 a session batched with others and the
+    same session alone round differently, and where two experts' router
+    probabilities lie within that rounding, top-k picks another expert,
+    a different function of the token: the MoE checks record the expert
+    ids of one run and pin them in the run they compare it with."""
+    from repro_torch.models import moe as MOE
+    route = MOE._route
+    MOE._route = lambda cfg, w, xf: pick(cfg, w, xf, route)
+    try:
+        yield
+    finally:
+        MOE._route = route
+
+
+def recorded_routes(calls):
+    """A ``moe_routes`` pick that routes as the port does and appends each
+    call's expert ids (N, k) to ``calls``."""
+    def pick(cfg, w, xf, route):
+        tw, ti = route(cfg, w, xf)
+        calls.append(ti)
+        return tw, ti
+    return pick
+
+
+def pinned_routes(torch, calls, flips):
+    """A ``moe_routes`` pick that takes each call's expert ids from the
+    front of ``calls`` in place of the router's top-k, with the combine
+    weights ``_route`` gives its own picks: the router's float32 softmax
+    at those ids, renormalised.  Appends to ``flips`` the number of rows
+    whose own top-k (as a set) differs from the pinned one."""
+    def pick(cfg, w, xf, route):
+        if not calls:
+            raise AssertionError("pinned MoE routes: more router calls "
+                                 "than recorded")
+        ids = calls.pop(0)
+        if tuple(ids.shape) != (xf.shape[0], cfg.top_k):
+            raise AssertionError(f"pinned MoE routes: ids {tuple(ids.shape)}"
+                                 f" for {xf.shape[0]} rows")
+        own = route(cfg, w, xf)[1]
+        flips.append(int((own.sort(-1).values != ids.sort(-1).values)
+                         .any(-1).sum()))
+        probs = torch.softmax(xf.float() @ w.float(), dim=-1)
+        tw = probs.gather(1, ids)
+        return tw / tw.sum(-1, keepdim=True).clamp_min(1e-9), ids
+    return pick
+
+
+@contextlib.contextmanager
+def engine_routes(eng, ctx, routes):
+    """Records, while ``eng`` runs, the expert ids that the MoE router
+    picks for each request's real rows, as ``routes[(sid, stage, layer)]``:
+    stage is the index of the session's context that an ingest lane holds
+    (its tokens, then its <COMP> rows), or "q" for a query lane.  A
+    batch's lanes are its requests in order (``ServeEngine._run_batch``),
+    each padded to the batch's token bucket."""
+    import numpy as np
+    cur = {}
+    run_batch = eng._run_batch
+
+    def traced(batch):
+        cur.update(batch=batch, layer=0)
+        try:
+            run_batch(batch)
+        finally:
+            cur.clear()
+
+    def pick(cfg, w, xf, route):
+        tw, ti = route(cfg, w, xf)
+        if not cur:
+            raise AssertionError("the MoE router ran outside a batch")
+        b = cur["batch"]
+        ids = ti.view(b.bucket, -1, ti.shape[-1])
+        T = ids.shape[1]
+        extra = cfg.ccm.comp_len if b.kind == "ingest" else 0
+        if T != b.token_len + extra:
+            raise AssertionError(f"{b.kind} batch: {T} rows a lane")
+        for i, r in enumerate(b.requests):
+            vl = int(b.valid_lens[i])
+            toks = np.asarray(r.tokens[0])[:vl]
+            if b.kind == "ingest":
+                stage = [j for j, c in enumerate(ctx[r.sid])
+                         if len(c) == vl and np.array_equal(c, toks)]
+                if len(stage) != 1:
+                    raise AssertionError(f"{r.sid}: ingest of no context")
+                stage = stage[0]
+            else:
+                stage = "q"
+            rows = list(range(vl)) + list(range(b.token_len, T))
+            key = (r.sid, stage, cur["layer"])
+            if key in routes:
+                raise AssertionError(f"{key} routed twice")
+            routes[key] = ids[i, rows]
+        cur["layer"] += 1
+        return tw, ti
+    eng._run_batch = traced
+    try:
+        with moe_routes(pick):
+            yield routes
+    finally:
+        del eng._run_batch
+
+
 def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
                 n_sessions: int, n_slots: int, seed: int,
                 async_offload: bool = False, recompress: bool = False,
@@ -1878,7 +2088,11 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
     against the same session run alone (B=1) through ``ingest_context``
     / ``prefill`` on the card; an offloaded-then-restored row must come
     back bit-equal.  With ``paths_witness`` the queries are held to
-    ``bf16_tol_paths`` and ``serve_witness`` runs.  Returns the kernel
+    ``bf16_tol_paths`` and ``serve_witness`` runs.  A float32 config is
+    held to ``f32_lane_tol``.  MoE in bf16 records the engine's expert
+    ids (``engine_routes``) and runs each session alone with them pinned
+    (``pinned_routes``), held to ``bf16_tol_paths``; the session alone
+    with its own routing is measured beside it.  Returns the kernel
     launches of the engine's run; with ``record``, ms per ingest and
     query batch, the arena row's MB and the worst query error (x
     bf16_tol) are stored there."""
@@ -1904,6 +2118,10 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
                       async_offload=async_offload, pressure_policy=policy,
                       device=dev)
     mgr = eng._mgr["online"]
+    pin = cfg.family == "moe" and cfg.cdtype == torch.bfloat16
+    routes, pinning = {}, contextlib.ExitStack()
+    if pin:
+        pinning.enter_context(engine_routes(eng, ctx, routes))
 
     def tally():
         """Batches, host seconds of step dispatch (activation included),
@@ -1994,6 +2212,7 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
     reqs = {sid: eng.query(sid, qry[sid]).request for sid in order}
     query_ms, _ = drain("queries")
     counts = ops.launch_counts()
+    pinning.close()
 
     snap = eng.metrics_snapshot()["metrics"]
     moved = {v["labels"]["dir"]: int(v["value"])
@@ -2007,8 +2226,11 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
             or hits < 1 or forks != 1 or cow < 1:
         raise AssertionError(f"{label}: consistency {errs}, moved {moved}, "
                              f"prefix hits {hits}, forks {forks}, COW {cow}")
+    # the tensor-core routes take bf16 operands (float32 the CUDA-core ones)
+    tc = ("segmented_attention_mma", "cond_lora_wgmma") \
+        if cfg.cdtype == torch.bfloat16 else ()
     for k in ("session_gather", "session_scatter", "segmented_attention",
-              "segmented_attention_mma", "cond_lora", "cond_lora_wgmma"):
+              "cond_lora") + tc:
         if counts[k] <= 0:
             raise AssertionError(f"{label}: {k} never launched")
     ingest_batches = int(sum(v["value"]
@@ -2029,22 +2251,51 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
 
     # every query against the session run alone (B=1) on the card
     worst, alone, ratio = 0.0, {}, {}
-    hold = bf16_tol_paths if paths_witness else bf16_tol
+    hold = f32_lane_tol if cfg.cdtype == torch.float32 else \
+        bf16_tol_paths if paths_witness or pin else bf16_tol
+    unpinned = {}               # MoE in bf16: the session alone unpinned
+
+    def alone_routes(sid):
+        """The engine's expert ids for ``sid`` alone, call by call: its
+        three contexts (a fork's are its parent's, and a prefix hit's
+        first is the cached session's), then its query."""
+        src = parent if sid == "fork" else sid
+        nl = 1 + max(k[2] for k in routes)
+        out = []
+        for j in range(3):
+            s = src if (src, j, 0) in routes else p1
+            out += [routes[(s, j, li)] for li in range(nl)]
+        return out + [routes[(sid, "q", li)] for li in range(nl)]
+
+    def run_alone(c, sid):
+        src = parent if sid == "fork" else sid
+        st = PI.init_online_state(c, 1, 256, device=dev)
+        for x in ctx[src]:
+            st = PI.ingest_context(params, c, st,
+                                   torch.as_tensor(x, device=dev)[None])
+        if src == recompressed:
+            st = st._replace(mem=recompress_memory(
+                c, st.mem, eng.pressure.policy.recompress_group))
+        lg, _ = PI.prefill(params, c, st,
+                           torch.as_tensor(qry[sid], device=dev)[None],
+                           full_logits=True)
+        return lg[0].float().cpu()
     for sid, req in reqs.items():
         if not req.done or req.result is None:
             raise AssertionError(f"{label}: query of {sid} not delivered")
-        src = parent if sid == "fork" else sid
-        st = PI.init_online_state(cfg, 1, 256, device=dev)
-        for c in ctx[src]:
-            st = PI.ingest_context(params, cfg, st,
-                                   torch.as_tensor(c, device=dev)[None])
-        if src == recompressed:
-            st = st._replace(mem=recompress_memory(
-                cfg, st.mem, eng.pressure.policy.recompress_group))
-        want, _ = PI.prefill(params, cfg, st,
-                             torch.as_tensor(qry[sid], device=dev)[None],
-                             full_logits=True)
-        want = want[0].float().cpu()
+        if pin:
+            queue, flips = alone_routes(sid), []
+            n_rows = sum(x.shape[0] for x in queue)
+            with moe_routes(pinned_routes(torch, queue, flips)):
+                want = run_alone(cfg, sid)
+            if queue:
+                raise AssertionError(f"{label}: {sid} alone left "
+                                     f"{len(queue)} router calls unpinned")
+            nat = run_alone(cfg, sid)
+            unpinned[sid] = (sum(flips), n_rows, max_err(
+                torch.from_numpy(req.result), nat) / bf16_tol(nat))
+        else:
+            want = run_alone(cfg, sid)
         got = torch.from_numpy(req.result)
         if got.shape != want.shape or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{label}: {sid} logits {got.shape}")
@@ -2055,9 +2306,17 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
         if not err <= tol:
             raise AssertionError(f"{label}: {sid} logits differ from the "
                                  f"single-session run: {err} > {tol}")
-    log(f"  {label}: {len(reqs)} queries match their single-session runs "
-        f"within {hold.__name__}: worst max_abs_err / bf16_tol = "
-        f"{worst:.3f}")
+    if pin:
+        log(f"  {label}: each session alone with the engine's expert ids "
+            f"pinned, per session (rows its own router sends elsewhere / "
+            f"rows routed, served vs alone unpinned x bf16_tol, pinned x "
+            f"bf16_tol): "
+            + ", ".join(f"{s} {f}/{n} {u:.2f} {ratio[s]:.2f}"
+                        for s, (f, n, u) in unpinned.items())
+            + f" [{card}]")
+    log(f"  {label}: {len(reqs)} queries match their single-session runs"
+        f"{' (expert ids pinned)' if pin else ''} within {hold.__name__}: "
+        f"worst max_abs_err / bf16_tol = {worst:.3f}")
     if paths_witness:
         for s in ("fork", recompressed):        # not one session's contexts
             ratio.pop(s, None)
@@ -2283,9 +2542,14 @@ def stream_modes(torch, STR, ops, params, cfg, card, *, n_chunks: int = 16,
     baseline (ccm_on=False), ``n_chunks`` chunks each, the last step held
     to ``impl="concat"``; then ``stream_step_lanes`` over 4 lanes with
     staggered fill, each lane held to its run alone and the lanes with no
-    eviction pending left bit-equal (messages tagged ``tag``).  Returns
-    the launch counts."""
+    eviction pending left bit-equal (messages tagged ``tag``).  MoE pins
+    the expert ids of the run under test in the run it is held to
+    (``moe_routes``).  Returns the launch counts."""
     import numpy as np
+    pin = cfg.family == "moe"
+
+    def routes(pick):
+        return moe_routes(pick) if pin else contextlib.nullcontext()
     c = dataclasses.replace(cfg.ccm, stream_window=512, stream_chunk=64,
                             stream_mem_slots=4)
     dev = params["embed"].device
@@ -2305,9 +2569,11 @@ def stream_modes(torch, STR, ops, params, cfg, card, *, n_chunks: int = 16,
         for i in range(n_chunks):
             t = toks[:, i * cc:(i + 1) * cc]
             evictions += bool(STR.eviction_pending(rcfg, st, cc))
+            calls = []
             if i == n_chunks - 1:
                 before = clone_state(torch, st)
-            lg, st = STR.stream_step(params, rcfg, st, t, ccm_on=ccm_on)
+            with routes(recorded_routes(calls)):
+                lg, st = STR.stream_step(params, rcfg, st, t, ccm_on=ccm_on)
             if not bool(torch.isfinite(lg).all()) or st.win_len > W:
                 raise AssertionError(f"{tag} {label} step {i}: win_len "
                                      f"{st.win_len}")
@@ -2317,12 +2583,19 @@ def stream_modes(torch, STR, ops, params, cfg, card, *, n_chunks: int = 16,
         if st.mem.slots != want_slots or evictions != n_chunks - W // cc:
             raise AssertionError(f"{tag} {label}: slots {st.mem.slots} after "
                                  f"{evictions} evictions")
-        want, _ = STR.stream_step(params, rcfg, before, t, ccm_on=ccm_on,
-                                  impl="concat")
+        flips = []
+        with routes(pinned_routes(torch, calls, flips)):
+            want, _ = STR.stream_step(params, rcfg, before, t,
+                                      ccm_on=ccm_on, impl="concat")
+        if calls:
+            raise AssertionError(f"{tag} {label}: {len(calls)} router calls "
+                                 "not replayed")
+        pinned = f", expert ids pinned ({sum(flips)} rows routed elsewhere" \
+            " unpinned)" if pin else ""
         err = max_err(lg, want)
         check(f"{tag} {label}: last step vs impl=concat ({evictions} "
               f"evictions, slots {st.mem.slots}; {err / bf16_tol(want):.3f}"
-              " x bf16_tol)", err, bf16_tol_paths(want))
+              f" x bf16_tol{pinned})", err, bf16_tol_paths(want))
         del st, before
 
     # stream_step_lanes over staggered lanes: lane 0 evicts with a full
@@ -2346,12 +2619,26 @@ def stream_modes(torch, STR, ops, params, cfg, card, *, n_chunks: int = 16,
     keep = clone_state(torch, packed)
     toks = torch.randint(0, cfg.vocab_size, (4, 1, cc), generator=gen,
                          device=dev)
-    lg, new = STR.stream_step_lanes(params, rcfg, packed, toks)
+    calls = []
+    with routes(recorded_routes(calls)):
+        lg, new = STR.stream_step_lanes(params, rcfg, packed, toks)
     torch.cuda.synchronize()
     add_counts(total, ops.launch_counts())
-    worst = 0.0
+    worst, flips = 0.0, []
+    # MoE: the router ran over the 2 pending lanes' <COMP> rows (the
+    # evictions), then over the 4 lanes' chunks, once a layer each
+    nl = len(calls) // 2
     for i, lane in enumerate(lanes):
-        want, _ = STR.stream_step(params, rcfg, lane, toks[i])
+        j = [x for x in range(4) if pending[x]].index(i) if pending[i] \
+            else None
+        mine = ([c.view(2, -1, c.shape[-1])[j] for c in calls[:nl]]
+                if pending[i] else []) \
+            + [c.view(4, -1, c.shape[-1])[i] for c in calls[nl:]]
+        with routes(pinned_routes(torch, mine, flips)):
+            want, _ = STR.stream_step(params, rcfg, lane, toks[i])
+        if pin and mine:
+            raise AssertionError(f"{tag} lane {i}: {len(mine)} router calls "
+                                 "not replayed")
         err, tol = max_err(lg[i, 0], want[0]), bf16_tol(want)
         worst = max(worst, err / tol)
         if not err <= tol:
@@ -2370,8 +2657,10 @@ def stream_modes(torch, STR, ops, params, cfg, card, *, n_chunks: int = 16,
         raise AssertionError(f"{tag} lanes: slots {new.mem.slots}")
     log(f"  {tag} lanes: stream_step_lanes over 4 lanes (pending "
         f"{[bool(p) for p in pending]}): worst max_abs_err / bf16_tol "
-        f"against each lane alone {worst:.3f}; the 2 lanes with no "
-        "eviction bit-equal")
+        f"against each lane alone {worst:.3f}"
+        + (f" (expert ids pinned; {sum(flips)} rows routed elsewhere "
+           "unpinned)" if pin else "") + "; the 2 lanes with no eviction "
+        "bit-equal")
     log(f"  {tag}: launches {total}")
     return total
 
@@ -3403,6 +3692,370 @@ def recurrent_phase(torch, m, card):
     return total, rec, ops_rows
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the encoder-decoder, the VLM and MoE
+# ---------------------------------------------------------------------------
+
+FAMILIES = ("whisper-tiny", "pixtral-12b", "phi3.5-moe-42b-a6.6b",
+            "llama4-maverick-400b-a17b")
+# depth cuts (never width): phi3.5-moe's 32 layers hold 84 GB of experts
+# in bf16, llama4-maverick's 128 experts 32 GB a layer
+FAM_DEPTH = {"phi3.5-moe-42b-a6.6b": 16, "llama4-maverick-400b-a17b": 1}
+# whisper's published n_text_ctx (Radford et al. 2022): 448-token prefills
+WHISPER_TEXT = 448
+# per config: the online prefill (vlm: 1024 patch positions + 64 text
+# tokens) and its cache, the training layout and steps (None: online
+# only), and whether the engine's answers are held to bf16_tol_paths
+# beside serve_witness (pixtral's 40 bf16 layers; MoE's bf16 engine is
+# held to bf16_tol_paths with its expert ids pinned, see serve_phase)
+FAM = {"whisper-tiny": dict(prompt=WHISPER_TEXT, cache=512,
+                            layout=(16, 64, 4, 64),
+                            steps=("concat", "concat", "merge"),
+                            paths=False),
+       "pixtral-12b": dict(prompt=1024 + 64, cache=1152,
+                           layout=(16, 64, 8, 64),
+                           steps=("concat", "concat", "merge"), paths=True),
+       "phi3.5-moe-42b-a6.6b": dict(prompt=448, cache=512,
+                                    layout=(16, 64, 8, 64),
+                                    steps=("concat", "merge"), paths=False),
+       "llama4-maverick-400b-a17b": dict(prompt=448, cache=512,
+                                         layout=None, steps=(),
+                                         paths=False)}
+
+
+def family_inputs(torch, cfg, B, dev, seed, n_patches=None, n_frames=None):
+    """The family's non-token input, random from ``seed``: ``frames``
+    (encdec, (B, 1500, d) in the compute dtype: the encoder's
+    precomputed input) or ``patches`` (vlm, (B, 1024, 1024): ViT
+    outputs), else {}."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.family == "encdec":
+        return {"frames": torch.randn(
+            B, n_frames or WHISPER_FRAMES, cfg.d_model, generator=gen,
+            device=dev).to(cfg.cdtype)}
+    if cfg.family == "vlm":
+        return {"patches": torch.randn(
+            B, n_patches or cfg.n_frontend_tokens, 1024, generator=gen,
+            device=dev).to(cfg.cdtype)}
+    return {}
+
+
+def family_xcheck(torch, m, params, cfg, card):
+    """12d: the first 2 layers (whisper: 2 + 2) at full width in float32,
+    CUDA (kernels) against the CPU (plain versions): the online path (3
+    ingests of 32 tokens; for whisper the encoder's cross K/V of 1500
+    frames first; a prefill of 64 text tokens, for pixtral after 64 patch
+    positions; 4 forced decode steps: logits and every state leaf, cross
+    K/V included) and ``train_forward`` over a 3-step layout (S 152 +
+    3 m) with the family's input in full training (loss, tail logits and
+    the gradient of every leaf: encoder, patch projection, experts and
+    router included), each within 1e-3 x max|.|; counters equal.
+    Returns {what: worst max|d| / limit}."""
+    PI, TR, PT, PP = m.PI, m.TR, m.PT, m.PP
+    c2 = cfg.replace(n_layers=2, n_enc_layers=min(cfg.n_enc_layers, 2),
+                     compute_dtype="float32", param_dtype="float32",
+                     train_mode="full")
+    B = 2
+    gen = torch.Generator().manual_seed(5)
+    chunks = [torch.randint(0, c2.vocab_size, (B, 32), generator=gen)
+              for _ in range(3)]
+    n_p = 64 if cfg.family == "vlm" else 0
+    prompt = torch.randint(0, c2.vocab_size, (B, n_p + 64), generator=gen)
+    forced = [torch.randint(0, c2.vocab_size, (B, 1), generator=gen)
+              for _ in range(4)]
+    layout = m.segment_layout(3, 40, cfg.ccm.comp_len, 32)
+    batch = m.PD.sample_kv_batch(m.PD.ShardableIndexIterator(3, B)
+                                 .key_for(0), layout, B, device="cpu")
+    extra = family_inputs(torch, c2, B, "cpu", 6, n_patches=64)
+    batch.update(extra)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pp = fp32_layers(torch, params, dev)
+        st = PI.init_online_state(c2, B, 160, device=dev)
+        if cfg.family == "encdec":
+            st = st._replace(cross=PI.encode_cross(
+                pp, c2, extra["frames"].to(dev)))
+        for ch in chunks:
+            st = PI.ingest_context(pp, c2, st, ch.to(dev))
+        kw = {"patches": extra["patches"].to(dev)} if n_p else {}
+        lg, st = PI.prefill(pp, c2, st, prompt.to(dev), full_logits=True,
+                            **kw)
+        logits = [lg]
+        for tok in forced:
+            lg, st = PI.decode_step(pp, c2, st, tok.to(dev))
+            logits.append(lg)
+        state = {"mem.k": st.mem.k, "mem.v": st.mem.v,
+                 "cache.k": st.cache.k, "cache.v": st.cache.v}
+        if st.cross is not None:
+            state.update({"cross.k": st.cross[0], "cross.v": st.cross[1]})
+        ints = (st.pos, st.mem.slots, st.mem.steps, st.cache.length)
+        tp, fp = PP.partition(pp, TR.trainable_mask_for(c2, pp))
+        leaves = PP.leaves(tp)
+        for _, x in leaves:
+            x.requires_grad_(True)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        tkw = {k: b[k] for k in ("frames", "patches") if k in b}
+        tl = PT.train_forward(PP.merge(tp, fp), c2, b["tokens"], layout,
+                              **tkw)
+        loss = TR.next_token_loss(
+            tl, b["tokens"][:, layout.seq_len - layout.tail_len:],
+            b["loss_mask"])
+        grads = torch.autograd.grad(loss, [x for _, x in leaves])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = types.SimpleNamespace(
+            logits=[x.detach().cpu() for x in logits],
+            state={k: v.cpu() for k, v in state.items()}, ints=ints,
+            loss=loss.detach().cpu(), train_logits=tl.detach().cpu(),
+            grads={"/".join(p): g.cpu() for (p, _), g in zip(leaves,
+                                                             grads)},
+            secs=time.perf_counter() - t0)
+        del pp, tp, fp, leaves, grads, st
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    a, b = runs["cuda"], runs["cpu"]
+    if a.ints != b.ints:
+        raise AssertionError(f"12d {cfg.name}: counters {a.ints} vs {b.ints}")
+    worst, over = {}, []
+
+    def close(what, x, y, key):
+        lim = 1e-3 * y.abs().max().item()
+        err = max_err(x, y)
+        if not err <= lim:
+            over.append(f"{what} {err / lim:.2f}x")
+        worst[key] = max(worst.get(key, 0.0), err / lim)
+    for i, (x, y) in enumerate(zip(a.logits, b.logits)):
+        close(f"online logits {i}", x, y, "online logits")
+    for k in b.state:
+        close(f"state {k}", a.state[k], b.state[k], "state leaves")
+    close("train loss", a.loss, b.loss, "train loss")
+    close("train logits", a.train_logits, b.train_logits, "train logits")
+    for k in b.grads:
+        if not b.grads[k].abs().max().item() > 0:
+            raise AssertionError(f"12d {cfg.name}: gradient {k} is all zero")
+        close(f"gradient {k}", a.grads[k], b.grads[k], "gradients")
+    log(f"  12d {cfg.name} (2 layers fp32, full training): {len(b.state)} "
+        f"state leaves, {len(b.grads)} gradient leaves; worst max|d| / "
+        "(1e-3 max|.|): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(worst.items()))
+        + f"; cuda {a.secs:.1f} s, cpu {b.secs:.1f} s [{card}]")
+    if over:
+        raise AssertionError(f"12d {cfg.name}: past 1e-3 x max|.|: {over}")
+    return worst
+
+
+@contextlib.contextmanager
+def encoder_ccm_launches(PT, ops, tally):
+    """Adds to ``tally`` the CCM kernel's launches made for the encoder,
+    read from the launch counters around each forward and backward launch
+    whose key metadata ``PT.encode`` made: the launches inside ``encode``,
+    and its recompute and backward, which run later under autograd with
+    the same ``k_comp`` tensor."""
+    from repro_torch.kernels import ccm_attention as ca
+    fwd, bwd, encode = ca.ccm_attention_fwd, ca.ccm_attention_bwd, PT.encode
+    mine, inside = [], [False]         # the encoder's k_comp tensors, alive
+
+    def read(fn, comp_at):
+        def call(*a):
+            if inside[0] and not any(a[comp_at] is t for t in mine):
+                mine.append(a[comp_at])
+            c0 = ops.launch_counts()
+            out = fn(*a)
+            if any(a[comp_at] is t for t in mine):
+                add_counts(tally, {k: v - c0[k]
+                                   for k, v in ops.launch_counts().items()})
+            return out
+        return call
+
+    def enc(*a, **kw):
+        inside[0] = True
+        try:
+            return encode(*a, **kw)
+        finally:
+            inside[0] = False
+    ca.ccm_attention_fwd, ca.ccm_attention_bwd = read(fwd, 7), read(bwd, 10)
+    PT.encode = enc
+    try:
+        yield tally
+    finally:
+        ca.ccm_attention_fwd, ca.ccm_attention_bwd, PT.encode = \
+            fwd, bwd, encode
+
+
+def family_phase(torch, m, card, archs=FAMILIES):
+    """Phase 12: whisper-tiny, pixtral-12b, phi3.5-moe (16 of 32 layers)
+    and llama4-maverick (1 of 48 layers) at their published widths,
+    random weights from seed 0 in each config's ``param_dtype`` (LoRA b
+    drawn at random), one model at a time: 12a the online path (B4, 4
+    ingests of 64 tokens, 32 greedy tokens; whisper in concat and merge
+    after ``encode_cross`` over 1500 frames, with a 448-token prefill;
+    pixtral with a prefill of 1024 patch positions + 64 text tokens;
+    profiled decodes), 12d the float32 CUDA vs CPU cross-check (not
+    llama4), 12c the serve engine (12 sessions on 8 slots, text-only
+    decoders as in the reference), 12e streaming at 4 layers (whisper's
+    own depth), 12b 2-3 AdamW steps with the config's ``train_mode``
+    (whisper full with 1500 frames through the encoder's CCM forward and
+    backward; pixtral with patches).  Returns (the launch counts of 12a,
+    12b, 12c and 12e, {arch: record})."""
+    total, rec = {}, {}
+    for arch in archs:
+        f = FAM[arch]
+        cfg = m.get_config(arch)
+        if arch in FAM_DEPTH:
+            cfg = cfg.replace(n_layers=FAM_DEPTH[arch])
+        log(f"  {arch}: {cfg.family}, {cfg.n_layers} layers"
+            + (f" (+ {cfg.n_enc_layers} encoder)" if cfg.n_enc_layers
+               else "")
+            + f", d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} hd "
+            f"{cfg.hd}, d_ff {cfg.d_ff} ({cfg.activation}), vocab "
+            f"{cfg.vocab_size}"
+            + (f", {cfg.n_experts} experts top-{cfg.top_k}"
+               if cfg.n_experts else "")
+            + f", {cfg.pos_embed} positions, {cfg.param_dtype} params, "
+            f"train_mode {cfg.train_mode}, "
+            f"{cfg.param_count() / 1e9:.3f} B params at this depth")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = m.init_lm(cfg, seed=0)
+        randomize_lora_b(torch, params, seed=100)
+        torch.cuda.synchronize()
+        r = rec[arch] = {"init_s": time.perf_counter() - t0,
+                         "weights_gib": torch.cuda.memory_allocated() / 2 ** 30}
+        log(f"  {arch}: init {r['init_s']:.1f} s, {r['weights_gib']:.2f} "
+            "GiB allocated")
+        dev = params["embed"].device
+        cross, patches = None, None
+        enc = {}                    # the encoder's CCM launches, as read
+        if cfg.family == "encdec":
+            frames = family_inputs(torch, cfg, 4, dev, 12)["frames"]
+            m.ops.reset_launch_counts()
+            ms = []
+            with encoder_ccm_launches(m.PT, m.ops, enc):
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    cross = m.PI.encode_cross(params, cfg, frames)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            counts = m.ops.launch_counts()
+            E = cfg.n_enc_layers
+            want = {k: 0 for k in counts}
+            want.update(ccm_attention=3 * E, ccm_attention_mma=3 * E)
+            shape = (cfg.n_layers, 4, WHISPER_FRAMES, cfg.n_kv_heads, cfg.hd)
+            if counts != want or enc != want \
+                    or tuple(cross[0].shape) != shape \
+                    or not bool(torch.isfinite(cross[0]).all()):
+                raise AssertionError(f"12a {arch} encode_cross: launches "
+                                     f"{counts}, the encoder's {enc}, K "
+                                     f"{tuple(cross[0].shape)}")
+            add_counts(total, counts)
+            r["encode_cross_ms"] = ms
+            log(f"  12a {arch}: encode_cross B4 x {WHISPER_FRAMES} frames, "
+                f"{E} encoder layers (the CCM kernel, every key <COMP>): "
+                f"host ms {[round(x, 2) for x in ms]}; cross K/V "
+                f"{shape}; launches {({k: v for k, v in counts.items() if v})}"
+                f" [{card}]")
+        if cfg.family == "vlm":
+            patches = family_inputs(torch, cfg, 4, dev, 13)["patches"]
+        modes = ("concat", "merge") if arch == "whisper-tiny" else \
+            ("concat",)
+        for mode in modes:
+            add_counts(total, main_path(
+                torch, m.PI, m.ops, params, cfg, mode, "bfloat16", card,
+                profile=mode == "concat", record=r.setdefault(mode, {}),
+                prompt_len=f["prompt"], cache_len=f["cache"], cross=cross,
+                patches=patches, tag=f"12a {arch} "))
+        r["online_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del cross, patches
+        if f["layout"] is None:
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        log(f"  12d {arch}: cross-check, 2 layers full width fp32, CUDA vs "
+            "CPU")
+        r["xcheck"] = family_xcheck(torch, m, params, cfg, card)
+        log(f"  12c {arch}: the serve engine ({cfg.n_layers} layers, concat, "
+            "bf16 cache, text-only sessions): 12 sessions on 8 slots, 3 "
+            "tenants")
+        add_counts(total, serve_phase(
+            torch, m.ops, m.PI, params, cfg, card,
+            label=f"12c {arch} {cfg.n_layers}L", n_sessions=12, n_slots=8,
+            seed=25, record=r.setdefault("serve", {}),
+            paths_witness=f["paths"]))
+        scfg = cfg.replace(n_layers=min(cfg.n_layers, 4))
+        log(f"  12e {arch}: streaming, 4 layers at full width, W 512, "
+            f"{scfg.compute_dtype}")
+        add_counts(total, stream_modes(
+            torch, m.STR, m.ops, first_layers(params, 4), scfg, card,
+            tag=f"12e {arch}"))
+        lay = f["layout"]
+        S = m.segment_layout(*lay).seq_len
+        log(f"  12b {arch}: training ({cfg.train_mode}, {cfg.n_layers} "
+            f"layers, B4 S{S}, {', '.join(f['steps'])})")
+        torch.cuda.reset_peak_memory_stats()
+        extra = family_inputs(torch, cfg, 4, dev, 14)
+        tr_enc = {}
+        with encoder_ccm_launches(m.PT, m.ops, tr_enc):
+            run = train_steps(torch, m.ops, m.clora, m.TR, m.PD, m.PA, m.PP,
+                              m.segment_layout, params, cfg, card,
+                              list(f["steps"]), f"12b {arch}", layout=lay,
+                              extra=extra)
+        add_counts(total, run.counts)
+        if cfg.family == "encdec":
+            # every step runs the encoder's forward, and in full training
+            # its recompute and backward too
+            E, n = cfg.n_enc_layers, len(f["steps"])
+            Ef, Eb = (2 * E, E) if cfg.train_mode == "full" else (E, 0)
+            want = {k: 0 for k in tr_enc}
+            want.update(ccm_attention=Ef * n, ccm_attention_mma=Ef * n,
+                        ccm_attention_backward=Eb * n,
+                        ccm_attention_backward_mma=Eb * n)
+            if tr_enc != want:
+                raise AssertionError(f"12b {arch}: the encoder's CCM "
+                                     f"launches {tr_enc}, want {want}")
+            add_counts(enc, tr_enc)
+            r["encoder_ccm_launches"] = dict(
+                forward=enc["ccm_attention"],
+                backward=enc["ccm_attention_backward"])
+            log(f"  12b {arch}: the encoder's CCM launches in phase 12, read "
+                f"around its launches: {r['encoder_ccm_launches']} (of them "
+                f"encode_cross {3 * E}, training {tr_enc['ccm_attention']} "
+                f"forward, {tr_enc['ccm_attention_backward']} backward)")
+        stats = {}
+        profile_window(torch, lambda: run.fns["concat"](
+            run.tp, run.fp, run.opt, run.batch, None),
+            f"12b {arch} 1 train step", card, warmup=False, stats=stats)
+        r["train"] = dict(run.record, profile=stats)
+        for _, x in m.PP.leaves(run.tp):
+            x.requires_grad_(False)
+        del params, run, extra
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, r in rec.items():
+        for mode in ("concat", "merge"):
+            if mode not in r:
+                continue
+            on, prof = r[mode], r[mode].get("decode_profile", {})
+            log(f"  12 summary {arch} {mode}: host ms per ingest "
+                f"{[round(x, 2) for x in on['ingest_ms']]}, prefill "
+                f"{on['prefill_ms']:.2f}, decode step {on['decode_ms']:.2f}"
+                f"; decode idle {prof.get('idle', float('nan')):.3f}; "
+                f"weights {r['weights_gib']:.2f} GiB, online peak "
+                f"{r['online_peak_gib']:.2f} GiB [{card}]")
+        if "train" in r:
+            sv, tr = r["serve"], r["train"]
+            log(f"  12 summary {arch}: serve ms per query batch "
+                f"{sv['query_ms']:.1f}, row {sv['row_mb']:.1f} MB, worst "
+                f"query {sv['worst_x_bf16_tol']:.3f} x bf16_tol; train ms "
+                f"{[round(x, 1) for x in tr['step_ms']]} (idle "
+                f"{tr['profile'].get('idle', float('nan')):.3f}), peak "
+                f"{tr['peak_gib']:.2f} GiB [{card}]")
+    return total, rec
+
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3451,6 +4104,16 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "wgmma",
                                        "arning", "wall time")):
                 log(f"    {stem}: {line.strip()}")
+
+    if "--phase12" in sys.argv[1:]:
+        archs = [a for a in sys.argv[1:] if a in FAMILIES] or FAMILIES
+        log(f"phase 12 alone (--phase12): {', '.join(archs)}")
+        family_phase(torch, types.SimpleNamespace(
+            get_config=get_config, init_lm=init_lm, PI=PI, STR=STR, ops=ops,
+            clora=clora, TR=TR, PT=PT, PD=PD, PA=PA, PP=PP,
+            segment_layout=segment_layout), card, archs)
+        log(f"  --phase12: done ({time.perf_counter() - t_start:.1f} s)")
+        return 0
 
     log("phase 2: kernels against their plain versions on the card")
     seg = check_segmented(torch, F, dattn, PI.quantize_kv, card)
@@ -3585,31 +4248,46 @@ def main() -> int:
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
         f"GiB; phase 11 took {time.perf_counter() - t11:.1f} s")
 
+    log("phase 12: the encoder-decoder, the VLM and MoE at full width, from "
+        f"the port's registry: {', '.join(FAMILIES)}")
+    t12 = time.perf_counter()
+    fam_counts, fam_rec = family_phase(torch, types.SimpleNamespace(
+        get_config=get_config, init_lm=init_lm, PI=PI, STR=STR, ops=ops,
+        clora=clora, TR=TR, PT=PT, PD=PD, PA=PA, PP=PP,
+        segment_layout=segment_layout), card)
+    enc = fam_rec["whisper-tiny"]["encoder_ccm_launches"]
+    log(f"  phase 12 launches: {({k: v for k, v in fam_counts.items() if v})}"
+        f"; of the CCM kernel's, whisper's encoder {enc}")
+    log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
+
     # the tensor-core routes' launches in each main-path phase (3: online,
     # 5: training, 7: the 32-layer serve engine, 8: streaming, 9: the zoo,
     # 10: the baselines' training and the serve-metrics demo, 11: the
-    # recurrent families)
+    # recurrent families, 12: the encoder-decoder, the VLM and MoE)
     by_phase = {k: {"3": totals[k], "5": train_counts.get(k, 0),
                     "7": serve_counts[k], "8": stream_counts[k],
                     "9": zoo_counts[k], "10": base_counts.get(k, 0),
-                    "11": rec_counts[k]}
+                    "11": rec_counts[k], "12": fam_counts[k]}
                 for k in ("segmented_attention_splitk",
                           "segmented_attention_mma", "cond_lora_wgmma",
                           "ccm_attention_mma", "ccm_attention_backward_mma")}
-    for k, need in (("segmented_attention_splitk", ("3", "8", "9", "11")),
-                    ("segmented_attention_mma", ("3", "7", "8", "9", "11")),
+    for k, need in (("segmented_attention_splitk", ("3", "8", "9", "11",
+                                                    "12")),
+                    ("segmented_attention_mma", ("3", "7", "8", "9", "11",
+                                                 "12")),
                     ("cond_lora_wgmma", ("3", "5", "7", "8", "9", "10",
-                                         "11")),
-                    ("ccm_attention_mma", ("5", "9", "11")),
-                    ("ccm_attention_backward_mma", ("5", "9", "11"))):
+                                         "11", "12")),
+                    ("ccm_attention_mma", ("5", "9", "11", "12")),
+                    ("ccm_attention_backward_mma", ("5", "9", "11", "12"))):
         if any(by_phase[k][ph] <= 0 for ph in need):
             raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
     for k in ("kv_merge_update", "session_gather", "session_scatter"):
-        if stream_counts[k] <= 0 or zoo_counts[k] <= 0 or rec_counts[k] <= 0:
-            raise AssertionError(f"{k}: no launch in phase 8, 9 or 11")
+        if stream_counts[k] <= 0 or zoo_counts[k] <= 0 or rec_counts[k] <= 0 \
+                or fam_counts[k] <= 0:
+            raise AssertionError(f"{k}: no launch in phase 8, 9, 11 or 12")
     for k in ("kv_cummean", "kv_cummean_backward"):
-        if train_counts[k] <= 0 or rec_counts[k] <= 0:
-            raise AssertionError(f"{k}: no launch in phase 5 or 11")
+        if train_counts[k] <= 0 or rec_counts[k] <= 0 or fam_counts[k] <= 0:
+            raise AssertionError(f"{k}: no launch in phase 5, 11 or 12")
     log(f"  tensor-core route launches by phase: {by_phase}")
     rows = [
         dict(name="segmented_attention", route="cuda",
@@ -3639,51 +4317,61 @@ def main() -> int:
              + merge_counts["kv_merge_update"]
              + stream_counts["kv_merge_update"]
              + zoo_counts["kv_merge_update"]
-             + rec_counts["kv_merge_update"],
+             + rec_counts["kv_merge_update"]
+             + fam_counts["kv_merge_update"],
              launches_by_phase={"3": totals["kv_merge_update"],
                                 "7": merge_counts["kv_merge_update"],
                                 "8": stream_counts["kv_merge_update"],
                                 "9": zoo_counts["kv_merge_update"],
-                                "11": rec_counts["kv_merge_update"]},
+                                "11": rec_counts["kv_merge_update"],
+                                "12": fam_counts["kv_merge_update"]},
              **merge),
         dict(name="ccm_attention", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
              replaces="src/repro/kernels/ccm_attention.py:86",
              launches=sum(by_phase["ccm_attention_mma"].values()),
              launches_by_phase=by_phase["ccm_attention_mma"],
+             encoder_launches_phase12=enc["forward"],
              kernel_route="mma.sync, two tile streams (bf16)", **ccm_fwd),
         dict(name="ccm_attention_backward", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
              replaces="src/repro/kernels/ccm_attention.py:86",
              launches=sum(by_phase["ccm_attention_backward_mma"].values()),
              launches_by_phase=by_phase["ccm_attention_backward_mma"],
+             encoder_launches_phase12=enc["backward"],
              kernel_route="mma.sync, two tile streams (bf16)", **ccm_bwd),
         dict(name="kv_cummean", route="cuda",
              source="src/repro_torch/csrc/kv_cummean.cu",
              replaces="src/repro/kernels/kv_merge.py:65",
-             launches=train_counts["kv_cummean"] + rec_counts["kv_cummean"],
+             launches=train_counts["kv_cummean"]
+             + rec_counts["kv_cummean"] + fam_counts["kv_cummean"],
              launches_by_phase={"5": train_counts["kv_cummean"],
-                                "11": rec_counts["kv_cummean"]},
+                                "11": rec_counts["kv_cummean"],
+                                "12": fam_counts["kv_cummean"]},
              **cummean),
         dict(name="kv_cummean_backward", route="cuda",
              source="src/repro_torch/csrc/kv_cummean.cu",
              replaces="src/repro/kernels/kv_merge.py:65",
              launches=train_counts["kv_cummean_backward"]
-             + rec_counts["kv_cummean_backward"],
+             + rec_counts["kv_cummean_backward"]
+             + fam_counts["kv_cummean_backward"],
              launches_by_phase={"5": train_counts["kv_cummean_backward"],
-                                "11": rec_counts["kv_cummean_backward"]},
+                                "11": rec_counts["kv_cummean_backward"],
+                                "12": fam_counts["kv_cummean_backward"]},
              **cummean_bwd),
         dict(name="session_gather", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
              replaces="src/repro/kernels/session_gather.py:30",
              launches=serve_counts["session_gather"]
              + stream_counts["session_gather"] + zoo_counts["session_gather"]
-             + base_counts["session_gather"] + rec_counts["session_gather"],
+             + base_counts["session_gather"] + rec_counts["session_gather"]
+             + fam_counts["session_gather"],
              launches_by_phase={"7": serve_counts["session_gather"],
                                 "8": stream_counts["session_gather"],
                                 "9": zoo_counts["session_gather"],
                                 "10": base_counts["session_gather"],
-                                "11": rec_counts["session_gather"]},
+                                "11": rec_counts["session_gather"],
+                                "12": fam_counts["session_gather"]},
              **gather),
         dict(name="session_scatter", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
@@ -3691,12 +4379,14 @@ def main() -> int:
              launches=serve_counts["session_scatter"]
              + stream_counts["session_scatter"]
              + zoo_counts["session_scatter"] + base_counts["session_scatter"]
-             + rec_counts["session_scatter"],
+             + rec_counts["session_scatter"]
+             + fam_counts["session_scatter"],
              launches_by_phase={"7": serve_counts["session_scatter"],
                                 "8": stream_counts["session_scatter"],
                                 "9": zoo_counts["session_scatter"],
                                 "10": base_counts["session_scatter"],
-                                "11": rec_counts["session_scatter"]},
+                                "11": rec_counts["session_scatter"],
+                                "12": fam_counts["session_scatter"]},
              **scatter),
     ]
     for r in rows:

@@ -1,5 +1,5 @@
 """Online inference: g_comp / g_update / memory-conditioned decoding
-(port of ``repro/core/inference.py``; dense, ssm and hybrid families).
+(port of ``repro/core/inference.py``; every family of the registry).
 
 Contexts c(t) are compressed into memory (never cached raw); inputs I(t)
 are prefilled into a bounded KV cache attending [Mem(t), cache, I(t)];
@@ -31,10 +31,17 @@ shared-attention sites (``mem_layers`` of them).  A recurrent update
 cannot skip pad tokens, so ``valid_len`` raises for both, and a
 non-decode block must be at most ``ssm_chunk`` tokens or a multiple of
 it (the reference's SSD chunking).
+
+The encoder-decoder (Whisper) decodes with ``OnlineState.cross``, the
+per-layer cross K/V of ``encode_cross`` ((L, B, Se, Hkv, hd) each; None
+skips the cross attention, as a state from ``init_online_state`` does
+in the reference), and adds learned positions at every embed.  The VLM
+(Pixtral) takes ``prefill(patches=)``.  MoE layers run the experts
+(``models/moe.py``) where the others run the MLP.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -92,6 +99,7 @@ class OnlineState(NamedTuple):
     cache: Optional[KVCache] = None
     mem: Optional[MemState] = None
     ssm: Optional[SSMState] = None
+    cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # encdec K/V
     pos: Counter = 0       # virtual stream position
 
 
@@ -196,9 +204,10 @@ def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
     """Runs the layer stack (`transformer.layer_plan`) over a block of new
     tokens.
 
-    Attention layers (dense) and shared-attention sites (hybrid; site
-    ``gi`` reads and writes cache and memory layer ``gi``) attend
-    [mem | cache | self]; Mamba2 layers run on ``state.ssm`` (chunked SSD,
+    Attention layers (dense, moe, encdec, vlm) and shared-attention sites
+    (hybrid; site ``gi`` reads and writes cache and memory layer ``gi``)
+    attend [mem | cache | self], then (encdec, with ``state.cross``) the
+    layer's cross K/V; Mamba2 layers run on ``state.ssm`` (chunked SSD,
     or the recurrence when ``decode``) and overwrite its layer IN PLACE.
     Every plan starts with a Mamba2 layer where it has one, so a block
     the SSD chunking refuses raises before any state is written.
@@ -209,7 +218,7 @@ def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
     and the length counter advances by it instead of the padded block
     length.
     """
-    cache, mem, ssm = state.cache, state.mem, state.ssm
+    cache, mem, ssm, cross = state.cache, state.mem, state.ssm, state.cross
     B, S = x.shape[:2]
     dev = x.device
     mem_valid = _lane_len(mem.valid_len(cfg.ccm.comp_len), B, dev) \
@@ -248,8 +257,10 @@ def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
             cache_lane_major=cache is not None and cache.lane_major,
             impl=impl)
         x = x + A.out_project(cfg, lp["attn"], o, comp_gate)
+        if cross is not None:
+            x = T.cross_attend(cfg, lp, x, (cross[0][li], cross[1][li]))
         hn = L.apply_norm(cfg, lp["ln2"], x)
-        x = x + L.apply_mlp(cfg, lp["mlp"], hn)
+        x = x + T.ffn(cfg, lp, hn)
         if write:
             if quant:
                 qk, sk = quantize_kv(k_new)
@@ -284,6 +295,17 @@ def _no_ragged(cfg: ModelConfig, valid_len, what: str) -> None:
 # public online ops
 # ---------------------------------------------------------------------------
 
+def _embed_block(cfg: ModelConfig, params, tokens: torch.Tensor,
+                 positions: torch.Tensor, comp_mask=None,
+                 comp_offset=None) -> torch.Tensor:
+    """Token embeddings, plus the learned positions where the config has
+    them (``positions`` (S,) or (B, S))."""
+    x = T.embed_tokens(cfg, params, tokens, comp_mask, comp_offset)
+    if cfg.pos_embed == "learned":
+        x = T.add_learned_pos(params["pos_embed"], x, positions)
+    return x
+
+
 def _self_info(idx: torch.Tensor, comp: torch.Tensor,
                valid: Optional[torch.Tensor] = None) -> A.KeyInfo:
     return A.KeyInfo(idx=idx, seg=torch.ones_like(idx), comp=comp,
@@ -314,7 +336,8 @@ def ingest_context(params, cfg: ModelConfig, state: OnlineState,
     B, lc = chunk_tokens.shape
     _no_ragged(cfg, valid_len, "ingest")
     if cfg.family == "ssm":
-        x = T.embed_tokens(cfg, params, chunk_tokens)
+        x = _embed_block(cfg, params, chunk_tokens, _positions(
+            state.pos, torch.arange(lc, device=chunk_tokens.device), B))
         _stack_pass(params, cfg, x, None, comp_gate=None, q_info=None,
                     self_info=None, state=state, write_to_cache=False,
                     collect_comp=None)
@@ -336,7 +359,7 @@ def ingest_context(params, cfg: ModelConfig, state: OnlineState,
         k_valid = M.lane_valid(S, valid_len, tail_start=lc, device=dev)
         consumed = valid_len + m
     positions = _positions(state.pos, rel, B)
-    x = T.embed_tokens(cfg, params, tokens, comp_mask, comp_off)
+    x = _embed_block(cfg, params, tokens, positions, comp_mask, comp_off)
     comp_gate = comp_mask.to(cfg.cdtype)[None].expand(B, S)
     info = _self_info(ar.to(torch.int32), comp_mask, k_valid)
     x, _, comp_kv = _stack_pass(
@@ -349,7 +372,8 @@ def ingest_context(params, cfg: ModelConfig, state: OnlineState,
 def prefill(params, cfg: ModelConfig, state: OnlineState,
             tokens: torch.Tensor, impl: Optional[str] = None,
             full_logits: bool = False,
-            valid_len: Optional[Counter] = None):
+            valid_len: Optional[Counter] = None,
+            patches: Optional[torch.Tensor] = None):
     """Process input I(t) attending [Mem(t), cache, self-causal]; its KV
     is cached.  Returns (logits, new_state) — last position only unless
     ``full_logits``.
@@ -357,9 +381,20 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
     ``valid_len`` (ragged lanes): tokens beyond it are bucket padding —
     masked out of attention, frozen out of the KV cache and excluded from
     the counters.  Logits at pad positions are garbage, so a ragged call
-    needs ``full_logits`` and the caller slices by its valid length."""
+    needs ``full_logits`` and the caller slices by its valid length.
+
+    ``patches`` (vlm, (B, P, 1024)): projected patch embeddings replace
+    the first P positions' token embeddings.  The block must hold them
+    (P <= S; the reference's concatenation would change the block's
+    length otherwise): a shorter block raises ValueError before any state
+    is written."""
     B, S = tokens.shape
     _no_ragged(cfg, valid_len, "prefill")
+    if patches is not None and patches.shape[1] > S:
+        raise ValueError(
+            f"prefill of {S} tokens with {patches.shape[1]} patches: the "
+            f"block must hold the patch positions (n_frontend_tokens "
+            f"{cfg.n_frontend_tokens}) and its text")
     if valid_len is not None and not full_logits:
         raise ValueError(
             "ragged prefill (valid_len) requires full_logits=True: the "
@@ -369,7 +404,10 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
     k_valid = None if valid_len is None \
         else M.lane_valid(S, valid_len, device=tokens.device)
     adv = S if valid_len is None else valid_len
-    x = T.embed_tokens(cfg, params, tokens)
+    x = _embed_block(cfg, params, tokens, positions)
+    if patches is not None:
+        pe = T.patch_embed(cfg, params, patches)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     info = _self_info(ar.to(torch.int32),
                       torch.zeros_like(ar, dtype=torch.bool), k_valid)
     x, new_cache, _ = _stack_pass(
@@ -388,7 +426,7 @@ def decode_step(params, cfg: ModelConfig, state: OnlineState,
     B, S = tokens.shape
     ar = torch.arange(S, device=tokens.device)
     positions = _positions(state.pos, ar, B)
-    x = T.embed_tokens(cfg, params, tokens)
+    x = _embed_block(cfg, params, tokens, positions)
     info = _self_info((ar + 2 ** 30).to(torch.int32),
                       torch.zeros_like(ar, dtype=torch.bool))
     x, new_cache, _ = _stack_pass(
@@ -397,6 +435,24 @@ def decode_step(params, cfg: ModelConfig, state: OnlineState,
         decode=True, impl=impl)
     logits = T.lm_logits(params, cfg, x)
     return logits, state._replace(cache=new_cache, pos=state.pos + S)
+
+
+def encode_cross(params, cfg: ModelConfig, frames: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whisper: run the encoder once over ``frames`` (B, Se, d) and
+    project its output by every decoder layer's ``xattn``: the per-layer
+    cross K/V, (L, B, Se, Hkv, hd) each, for ``OnlineState.cross``."""
+    enc = T.encode(params, cfg, frames)
+    ks, vs = [], []
+    for li in range(cfg.n_layers):
+        xa = T.layer_params(params, li)["xattn"]
+        # the weights alone (no biases), as the reference projects here
+        _, k, v = A.qkv_project(cfg, {n: xa[n] for n in ("wq", "wk", "wv",
+                                                         "wo")},
+                                enc, None, None)
+        ks.append(k)
+        vs.append(v)
+    return torch.stack(ks), torch.stack(vs)
 
 
 def generate(params, cfg: ModelConfig, state: OnlineState,

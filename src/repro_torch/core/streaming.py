@@ -9,6 +9,9 @@ the concat memory itself is full, the oldest <COMP> group is dropped
 first (`core.memory.evict_oldest`).
 
 Positions are the monotone virtual-stream ids, as in the reference.
+Every family but the recurrent ones streams; the encoder-decoder's
+stream has no cross attention (the reference's stream state has no
+cross K/V), and its chunks take learned positions through ``prefill``.
 
 As in ``core.inference``, counters (``win_len``, ``pos`` and the memory's)
 are host ints, or int64 numpy arrays (B,) with one value per lane, and
@@ -79,7 +82,9 @@ def compress_from_kv(params, cfg: ModelConfig, mem: MemState,
     blk_k/blk_v: (L, B, cc, Hkv, hd), or (B, L, cc, ...) when ``mem`` is
     lane-major: the KV of the evicted tokens, read in place through its
     strides (a slice of the window needs no copy).  ``pos0``: the <COMP>
-    rows' first stream position, shared or per lane."""
+    rows' first stream position, shared or per lane.  The <COMP> rows
+    take ``comp_embed`` alone (no learned position, no token), and the
+    pass sees no cross K/V, as in the reference."""
     m = cfg.ccm.comp_len
     B = blk_k.shape[0 if mem.lane_major else 1]
     dev = blk_k.device

@@ -17,6 +17,14 @@ trains exactly as with "none", as the reference does with ``dist=None``
 and never reads it).  Not ported:
 ``DistContext`` meshes and ``jit_train_step`` (pjit); ``dist=`` raises.
 The loop runs on the CUDA card unless ``device="cpu"``.
+
+A batch for the encoder-decoder carries ``frames`` (B, Se, d) and one for
+the VLM ``patches`` (B, P, 1024) beside ``tokens`` and ``loss_mask``, as
+the reference's loss reads them.  ``sample_kv_batch`` makes neither,
+in the reference as here, so ``TrainLoop``, which samples its own
+batches, stops with a KeyError on these two families as the
+reference's does; ``make_train_step`` trains them on batches that carry
+the inputs.
 """
 from __future__ import annotations
 
@@ -54,7 +62,12 @@ def _loss_fn(tp, fp, cfg: ModelConfig, layout: M.SegmentLayout,
              batch: Dict[str, torch.Tensor], dist=None) -> torch.Tensor:
     _single_device(dist)
     params = PT.merge(tp, fp)
-    logits = T.train_forward(params, cfg, batch["tokens"], layout)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["frames"] = batch["frames"]
+    if cfg.family == "vlm":
+        kw["patches"] = batch["patches"]
+    logits = T.train_forward(params, cfg, batch["tokens"], layout, **kw)
     tail = batch["tokens"][:, layout.seq_len - layout.tail_len:]
     return next_token_loss(logits, tail, batch["loss_mask"])
 

@@ -162,14 +162,13 @@ class ModelConfig:
         return int(total)
 
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """The port runs the dense, ssm and hybrid families so far: any other
-    family's config is valid, but its model code is not ported yet."""
+    """The port runs every family of the registry; a config of any other
+    family is refused before any model code runs."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}): not ported yet; the port "
-            f"runs {', '.join(map(repr, PORTED_FAMILIES))} (the other "
-            "families are ROADMAP queue 1 item 3)")
+            f"family {cfg.family!r} ({cfg.name}): unknown to the port, "
+            f"which runs {', '.join(map(repr, PORTED_FAMILIES))}")

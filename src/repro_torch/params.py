@@ -3,8 +3,8 @@
 ``params_from_numpy`` takes the reference's tree as numpy arrays (for a
 JAX tree, ``jax.tree.map(np.asarray, params)``) and returns the port's
 tree on ``device``: every leaf in ``cfg.pdtype`` except the LoRA ``a``/``b``
-factors and the Mamba2 ``a_log``/``dt_bias``/``d_skip`` vectors, which stay
-float32 as the reference initialises them.  Key paths
+factors, the Mamba2 ``a_log``/``dt_bias``/``d_skip`` vectors and the MoE
+``router``, which stay float32 as the reference initialises them.  Key paths
 and the stacked leading layer axis are kept as they are.
 ``params_to_numpy`` is the inverse: the port's tree as numpy arrays
 (bf16 leaves as float32, which holds every bf16 value exactly).
@@ -29,8 +29,9 @@ def _leaf(arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 
 # leaves the reference creates in float32 whatever ``param_dtype`` is
-# (``repro/models/ssm.py`` ``init_mamba``)
-_F32_LEAVES = ("a_log", "dt_bias", "d_skip")
+# (``repro/models/ssm.py`` ``init_mamba``; the MoE router,
+# ``repro/models/moe.py`` ``init_moe``)
+_F32_LEAVES = ("a_log", "dt_bias", "d_skip", "router")
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,

@@ -2,8 +2,9 @@
 the two-stream planner (the natural key tiles under D = causal & same
 segment & !comp & valid, the <COMP> keys compacted into tiles of their
 own under C = causal & comp & valid), the plain version of the
-two-stream algorithm, and the shapes the route refuses before any
-launch.  The kernels themselves run only on the card (``chip_smoke.py``
+two-stream algorithm (the training layout, per-lane layouts, padded
+and blind rows, and Whisper's encoder: every key a <COMP> key at index 0
+of segment 0), and the shapes the route refuses before any launch.  The kernels themselves run only on the card (``chip_smoke.py``
 phase 2 holds them against the plain versions).
 
 Tolerances (float32 on the CPU): the two-stream plain version against
@@ -46,6 +47,11 @@ def _case(name):
         valid = np.ones((3, 45), bool)
         valid[1, -4:] = False
         return 3, idx, seg, idx, seg, comp, valid, 8
+    if name == "encoder":                    # Whisper's encoder: S = 100
+        # every key a <COMP> key at index 0 of segment 0 (bidirectional),
+        # at 64-row tiles that 100 does not fill
+        z = np.zeros(100, np.int32)
+        return 2, z, z, z, z, np.ones(100, bool), None, 64
     seg, comp = _layout(3, 11, 3, 8)         # S = 50
     S = seg.size
     idx = np.arange(S, dtype=np.int32)
@@ -65,7 +71,7 @@ def _case(name):
 
 
 CASES = ["training", "per_lane", "no_comp", "all_comp", "padded",
-         "blind_row", "ragged"]
+         "blind_row", "ragged", "encoder"]
 
 
 def _dense(B, q_idx, q_seg, k_idx, k_seg, k_comp, k_valid):
@@ -136,6 +142,23 @@ def test_plan_training_layout_keeps_62_of_361_tiles():
     assert int(pl.q_count.sum()) == 62
 
 
+def test_plan_encoder_regime_is_the_comp_stream_alone():
+    """Whisper's encoder metadata (every key <COMP>, index 0, segment 0)
+    at S = 100: the natural stream shows no key (idx 0 and segment 0 mean
+    nothing of their own there) and owns none; both 64-key <COMP> tiles,
+    the second partly filled, are visited by both q tiles, and each key
+    is owned by its <COMP> slot."""
+    pl = _plan(_case("encoder"))
+    assert (pl.nq, pl.nk, pl.nc) == (2, 2, 2)
+    assert pl.q_tiles[0].tolist() == [[2, 3, -1, -1]] * 2
+    nat = pl.ktab[0, :pl.nk * 64].numpy()
+    assert (nat[:, 1] == pca.KBIG).all() and not (nat[:, 3] & pca.F_OWN).any()
+    comp = pl.ktab[0, pl.nk * 64:].numpy()
+    assert comp[:100, 0].tolist() == list(range(100))
+    assert (comp[:100, 1] == 0).all() and (comp[100:, 0] == -1).all()
+    assert ((comp[:100, 3] & pca.F_OWN) != 0).all()
+
+
 @pytest.mark.parametrize("per_lane", [False, True])
 def test_comp_list_compacts_comp_and_valid_keys_in_order(per_lane):
     rs = np.random.default_rng(3)
@@ -178,7 +201,8 @@ def _oracle(q, k, v, meta, scale):
                                             ("blind_row", 6, 3, 24),
                                             ("no_comp", 2, 1, 16),
                                             ("all_comp", 2, 2, 16),
-                                            ("ragged", 4, 2, 16)])
+                                            ("ragged", 4, 2, 16),
+                                            ("encoder", 6, 6, 16)])
 def test_two_stream_plain_version_matches_oracle_and_pallas(name, Hq, Hkv,
                                                             Dh):
     """The two-stream algorithm (one running softmax over the natural
@@ -217,7 +241,8 @@ def test_two_stream_plain_version_matches_oracle_and_pallas(name, Hq, Hkv,
 
 @pytest.mark.parametrize("name,Hq,Hkv", [("padded", 4, 2),
                                          ("per_lane", 2, 2),
-                                         ("blind_row", 2, 1)])
+                                         ("blind_row", 2, 1),
+                                         ("encoder", 6, 6)])
 def test_two_stream_plain_version_gradients_match_jax_grad(name, Hq, Hkv):
     """Autograd through the two-stream plain version against jax.grad of
     repro's oracle (lane by lane for per-lane metadata)."""

@@ -1,6 +1,7 @@
 """Port parity for the model zoo's configuration data: the registry, every
-config (full and smoke) with its properties, the refusal of the families
-the port does not run yet (and of streaming for the recurrent ones), and
+config (full and smoke) with its properties, every family's model and
+states built on the CPU (and the refusal of streaming for the recurrent
+ones, and of a family unknown to the port), and
 the embedding scale of ``embed_scale``
 configs rounded as the reference rounds it.
 
@@ -64,18 +65,21 @@ def test_config_and_properties_match_reference(arch, smoke):
 
 @pytest.mark.parametrize("arch", UNPORTED)
 def test_unported_family_raises_not_implemented(arch):
-    """The config is valid.  The recurrent families (mamba2-370m, zamba2-1.2b)
-    run the model and the online path, and refuse streaming as the
-    reference has no streaming path for Mamba2 layers; the port has not
-    reached the other families yet."""
+    """Every family of the registry runs now (the name is kept from when
+    the non-dense families were refused).  The recurrent families
+    (mamba2-370m, zamba2-1.2b) run the model and the online path, and
+    refuse streaming as the reference has no streaming path for Mamba2
+    layers; the encoder-decoder, the VLM and the MoE configs build their
+    model, run the decoder stack and start an online and a stream
+    state on the CPU."""
     cfg = PR.get_config(arch, smoke=True, compute_dtype="float32")
+    params = PT.init_lm(cfg, device="cpu")
+    info = PA.plain_causal_info(2)
+    x = PT.forward_hidden(params, cfg, torch.zeros(1, 2, cfg.d_model),
+                          q_info=info, k_info=info)
+    assert tuple(x.shape) == (1, 2, cfg.d_model)
+    st = PI.init_online_state(cfg, 1, 8, device="cpu")
     if cfg.family in ("ssm", "hybrid"):
-        params = PT.init_lm(cfg, device="cpu")
-        info = PA.plain_causal_info(2)
-        x = PT.forward_hidden(params, cfg, torch.zeros(1, 2, cfg.d_model),
-                              q_info=info, k_info=info)
-        assert tuple(x.shape) == (1, 2, cfg.d_model)
-        st = PI.init_online_state(cfg, 1, 8, device="cpu")
         assert tuple(st.ssm.ssm.shape) == (cfg.n_layers, 1, cfg.ssm_heads,
                                            cfg.ssm_head_dim, cfg.ssm_state)
         assert (st.cache is None) == (cfg.family == "ssm")
@@ -83,7 +87,21 @@ def test_unported_family_raises_not_implemented(arch):
                            match="no streaming path in the reference"):
             PS.init_stream_state(cfg, 1, device="cpu")
         return
-    match = f"family {cfg.family!r}.*ROADMAP queue 1 item 3"
+    assert st.ssm is None and st.cross is None
+    assert tuple(st.cache.k.shape) == (cfg.n_layers, 1, 8, cfg.n_kv_heads,
+                                       cfg.hd)
+    ss = PS.init_stream_state(cfg, 1, device="cpu")
+    assert tuple(ss.win_k.shape) == (cfg.n_layers, 1, cfg.ccm.stream_window,
+                                     cfg.n_kv_heads, cfg.hd)
+    want = {"encdec": ("encoder", "pos_embed"), "vlm": ("frontend",),
+            "moe": ()}[cfg.family]
+    assert all(k in params for k in want)
+    assert ("moe" in params["layers"]) == (cfg.family == "moe")
+
+
+def test_unknown_family_still_raises_not_implemented():
+    cfg = PR.get_config("llama-7b", smoke=True).replace(family="rnn")
+    match = "family 'rnn'.*unknown to the port"
     with pytest.raises(NotImplementedError, match=match):
         PT.init_lm(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=match):
