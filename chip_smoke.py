@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase2   # the card, the build and phase 2 only
     python3 chip_smoke.py --phase12  # the card, the build and phase 12 only
     python3 chip_smoke.py --phase12 pixtral-12b   # ... for these archs
+    python3 chip_smoke.py --phase13  # the card, the build and phase 13 only
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the build of the
@@ -123,8 +124,25 @@ Phases (any failure raises, and the script exits non-zero):
      (whisper full, with its frames through the encoder; pixtral LoRA
      with patches, S 1216; phi3.5 LoRA); llama4 runs (a)
      only;
+ 13. (run after phase 7, on the weights it served) multi-device, part 1:
+     (a) phase 7's traffic through a ``ServeEngine`` of 2 session shards
+     (the loop over shards, 4 of the 8 slots each) at full width and
+     depth: placement alternating over the shards, no session moved
+     between them, every answer within ``bf16_tol_paths`` of the 1-shard
+     engine's (phase 7's) beside each engine against the session alone,
+     ms per batch and a profiled drain; (b) 2 float32 layers, 2 shards
+     against 1: bit-equal where the card gives it, else within
+     ``f32_lane_tol`` with a GEMM's rows at the two batch widths checked;
+     (c) the session mesh of the visible cards (``make_session_mesh()``:
+     one shard, its row block on its device) through
+     ``make_sharded_arena_step``, bit-equal to phase 7's answers; (d) the
+     data-parallel step in an NCCL world of one rank at phase 5's cell, 2
+     AdamW steps with ``grad_codec`` none (concat and merge), int8 and
+     top-k, bit-equal to ``dist=None`` and to ``compress_with_ef`` + the
+     update, the error-feedback residual on the card, the codecs' and the
+     all-reduce's times;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
-launches in phases 3, 5, 7, 8, 9, 10, 11 and 12, and the CCM kernel's
+launches in phases 3, 5, 7, 8, 9, 10, 11, 12 and 13, and the CCM kernel's
 phase-12 launches by whisper's encoder, read from the counters around
 each of its launches), then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward on
@@ -2076,7 +2094,8 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
                 n_sessions: int, n_slots: int, seed: int,
                 async_offload: bool = False, recompress: bool = False,
                 stagger: bool = False, detail: bool = False,
-                record: dict = None, paths_witness: bool = False):
+                record: dict = None, paths_witness: bool = False,
+                n_shards: int = 1, mesh=None):
     """Drive ``ServeEngine`` through its entry points: ``n_sessions``
     sessions over 3 tenants, two of them opened with the same
     ``prefix_tokens`` (a prefix-cache hit), 3 ragged contexts of 33-64
@@ -2095,7 +2114,12 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
     with its own routing is measured beside it.  Returns the kernel
     launches of the engine's run; with ``record``, ms per ingest and
     query batch, the arena row's MB and the worst query error (x
-    bf16_tol) are stored there."""
+    bf16_tol) are stored there, with each query's answer and its session
+    alone, the traffic, the shards the sessions were placed on and (with
+    ``detail``) the profiled drain's idle share.  ``n_shards`` / ``mesh``
+    shard the engine (phase 13): sessions then alternate over the shards
+    as they are created (the prefix hit and the fork pin to their source's
+    shard) and no session may move between shards."""
     import numpy as np
     from repro_torch.core.memory import recompress_memory
     from repro_torch.serve import PressurePolicy, ServeEngine
@@ -2116,7 +2140,7 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
     policy = PressurePolicy(capacity_tokens=10 ** 9) if recompress else None
     eng = ServeEngine(params, cfg, n_slots=n_slots, cache_len=256,
                       async_offload=async_offload, pressure_policy=policy,
-                      device=dev)
+                      n_shards=n_shards, mesh=mesh, device=dev)
     mgr = eng._mgr["online"]
     pin = cfg.family == "moe" and cfg.cdtype == torch.bfloat16
     routes, pinning = {}, contextlib.ExitStack()
@@ -2176,8 +2200,9 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
             done[sid] += 1
         if detail and r == len(rounds) - 1:
             n0 = batches()
+            drain_stats = {}
             by_name = profile_window(torch, eng.run, f"{label} ingest drain",
-                                     card, warmup=False)
+                                     card, warmup=False, stats=drain_stats)
             nb = batches() - n0
             if by_name is not None:
                 gms = sum(v for k, v in by_name.items()
@@ -2226,6 +2251,27 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
             or hits < 1 or forks != 1 or cow < 1:
         raise AssertionError(f"{label}: consistency {errs}, moved {moved}, "
                              f"prefix hits {hits}, forks {forks}, COW {cow}")
+    shards = [eng.shard_of(s) for s in sids]
+    if eng.n_shards > 1:
+        want = [i % eng.n_shards for i in range(n_sessions - 1)]
+        cross = int(eng._m_cross_shard.value)
+        if shards[:-1] != want or shards[-1] != shards[-2] or cross \
+                or eng.shard_of("fork") != eng.shard_of(parent):
+            raise AssertionError(f"{label}: placement {shards}, fork on "
+                                 f"{eng.shard_of('fork')}, cross-shard "
+                                 f"moves {cross}")
+        log(f"  {label}: placement {shards} (the prefix hit on its cached "
+            f"row's shard, the fork on its parent's), cross-shard moves 0")
+    if mesh is not None:
+        slabs = mgr.arena.slabs
+        on = [str(b.cache.k.device) for b in slabs.blocks]
+        if on != [str(d) for d in mesh.devices] or not eng._sharded_steps:
+            raise AssertionError(f"{label}: row blocks on {on}, mesh "
+                                 f"{mesh.devices}, sharded steps "
+                                 f"{list(eng._sharded_steps)}")
+        log(f"  {label}: {len(on)} row block(s) of {slabs.stride} rows on "
+            f"{on}; steps through make_sharded_arena_step "
+            f"{sorted(eng._sharded_steps)}")
     # the tensor-core routes take bf16 operands (float32 the CUDA-core ones)
     tc = ("segmented_attention_mma", "cond_lora_wgmma") \
         if cfg.cdtype == torch.bfloat16 else ()
@@ -2351,10 +2397,22 @@ def serve_phase(torch, ops, PI, params, cfg, card, *, label: str,
             f"per query batch {query_ms:.1f} [{card}]")
     if record is not None:
         record.update(ingest_ms=ingest_ms, query_ms=query_ms,
-                      row_mb=gb * 1e3, worst_x_bf16_tol=worst)
+                      row_mb=gb * 1e3, worst_x_bf16_tol=worst,
+                      answers={s: reqs[s].result for s in reqs}, alone=alone,
+                      ctx=ctx, qry=qry, shards=shards,
+                      idle=drain_stats.get("idle") if detail else None,
+                      weights=weights_fingerprint(params))
     del eng
     torch.cuda.empty_cache()
     return counts
+
+
+def weights_fingerprint(params):
+    """Sums of the leaves training moves (LoRA factors, ``comp_embed``):
+    answers recorded on one set of weights are compared on the same."""
+    lora = params.get("shared_attn", params["layers"])["attn"]["lora"]
+    return [float(lora[n][f].float().sum()) for n in sorted(lora)
+            for f in ("a", "b")] + [float(params["comp_embed"].float().sum())]
 
 
 def serve_witness(torch, PI, params, cfg, ctx, qry, ratio, alone, engine, *,
@@ -4056,6 +4114,265 @@ def family_phase(torch, m, card, archs=FAMILIES):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 13: multi-device, part 1: session-sharded serving, the session
+# mesh, and the data-parallel step on torch.distributed
+# ---------------------------------------------------------------------------
+
+def sharded_serve(torch, ops, PI, params, cfg, card, rec7):
+    """13a-c: phase 7's traffic through a sharded engine.  (a) 32 layers
+    bf16 at ``n_shards=2`` over 8 slots (4 a shard), every query held to
+    the 1-shard engine's answer (``rec7``: phase 7's, the same traffic)
+    within ``bf16_tol_paths``, beside the witness of where the gap comes
+    from (each engine against the session alone); (b) 2 float32 layers at
+    full width, ``n_shards=2`` against ``n_shards=1`` on the card:
+    bit-equal where the card gives it, else within ``f32_lane_tol`` with
+    the op that differs named (a GEMM's rows computed at the two batch
+    widths); (c) the session mesh of the visible devices
+    (``make_session_mesh()``: one shard on one card) through
+    ``make_sharded_arena_step`` with local rows, bit-equal to the plain
+    engine (phase 7's answers).  Returns the engines' launches and the
+    records."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_session_mesh
+    counts, out = {}, {}
+    kw = dict(n_sessions=12, n_slots=8, seed=21)
+    if weights_fingerprint(params) != rec7["weights"]:
+        raise AssertionError("phase 13 runs on other weights than the "
+                             "1-shard answers it is held to")
+
+    rec = out["a"] = {}
+    add_counts(counts, serve_phase(
+        torch, ops, PI, params, cfg, card, label="13a 32L 2 shards",
+        detail=True, paths_witness=True, n_shards=2, record=rec, **kw))
+    rows, worst = [], 0.0
+    for sid, e2 in rec["answers"].items():
+        e1, a = torch.from_numpy(rec7["answers"][sid]), rec7["alone"][sid]
+        e2 = torch.from_numpy(e2)
+        r = max_err(e2, e1) / bf16_tol(e1)
+        worst = max(worst, r)
+        rows.append(f"{sid} {r:.2f}/{max_err(e2, a) / bf16_tol(a):.2f}/"
+                    f"{max_err(e1, a) / bf16_tol(a):.2f}")
+    log("  13a witness, per session (x bf16_tol): 2 shards vs 1 shard / "
+        "2 shards vs alone / 1 shard vs alone: " + ", ".join(rows))
+    if worst > 2.0:                  # bf16_tol_paths = 2 x bf16_tol
+        raise AssertionError(f"13a: the 2-shard engine's answers lie "
+                             f"{worst:.2f} x bf16_tol from the 1-shard "
+                             "engine's (bf16_tol_paths: 2)")
+    log(f"  13a: every query within bf16_tol_paths of the 1-shard engine's "
+        f"(worst {worst:.3f} x bf16_tol); ms per ingest batch "
+        f"{[round(x, 1) for x in rec['ingest_ms']]} (1 shard "
+        f"{[round(x, 1) for x in rec7['ingest_ms']]}), per query batch "
+        f"{rec['query_ms']:.1f} (1 shard {rec7['query_ms']:.1f}), profiled "
+        f"ingest drain idle {rec['idle']} (1 shard {rec7['idle']}) [{card}]")
+
+    dev = params["embed"].device
+    p2 = fp32_layers(torch, params, dev)
+    c2 = cfg.replace(n_layers=2, compute_dtype="float32",
+                     param_dtype="float32")
+    one, two = {}, {}
+    serve_phase(torch, ops, PI, p2, c2, card, label="13b 2L fp32 1 shard",
+                record=one, **kw)
+    add_counts(counts, serve_phase(
+        torch, ops, PI, p2, c2, card, label="13b 2L fp32 2 shards",
+        n_shards=2, record=two, **kw))
+    same = [s for s in one["answers"]
+            if np.array_equal(one["answers"][s], two["answers"][s])]
+    ratio = max(max_err(torch.from_numpy(two["answers"][s]),
+                        torch.from_numpy(one["answers"][s]))
+                / f32_lane_tol(torch.from_numpy(one["answers"][s]))
+                for s in one["answers"])
+    out["b"] = dict(bit_equal=len(same), of=len(one["answers"]),
+                    x_f32_lane_tol=ratio)
+    if len(same) == len(one["answers"]):
+        log(f"  13b: all {len(same)} float32 answers bit-equal, 2 shards "
+            f"against 1 [{card}]")
+    else:
+        # the GEMM at the engines' batch widths: 4 lanes a shard against
+        # 8 in one batch, the same rows
+        x = torch.randn(8 * 24, c2.d_model, device=dev,
+                        generator=torch.Generator(dev).manual_seed(3))
+        w = p2["layers"]["mlp"]["wi"][0]
+        gemm = torch.equal((x[:4 * 24] @ w), (x @ w)[:4 * 24])
+        log(f"  13b: {len(same)} of {len(one['answers'])} float32 answers "
+            f"bit-equal, 2 shards against 1; worst {ratio:.4f} x "
+            f"f32_lane_tol (1e-3 x max|logit|); a float32 GEMM's rows at "
+            f"M 96 and M 192 {'agree' if gemm else 'differ'} bit for bit "
+            f"(cuBLAS picks its algorithm by M) [{card}]")
+        out["b"]["gemm_rows_bit_equal"] = gemm
+        if ratio > 1.0:
+            raise AssertionError(f"13b: 2 shards vs 1 at {ratio} x "
+                                 "f32_lane_tol")
+    del p2
+
+    mesh = make_session_mesh()
+    rec = out["c"] = {}
+    add_counts(counts, serve_phase(
+        torch, ops, PI, params, cfg, card, label="13c 32L session mesh",
+        mesh=mesh, paths_witness=True, record=rec, **kw))
+    diff = [s for s in rec7["answers"]
+            if not np.array_equal(rec7["answers"][s], rec["answers"][s])]
+    if diff or len(mesh.devices) != torch.cuda.device_count():
+        raise AssertionError(f"13c: answers of {diff} differ from the plain "
+                             f"engine's; mesh {mesh.devices}")
+    log(f"  13c: the session mesh of {len(mesh.devices)} device(s): all "
+        f"{len(rec['answers'])} answers bit-equal to the plain engine's; "
+        f"ms per query batch {rec['query_ms']:.1f} [{card}]")
+    return counts, out
+
+
+def dp_phase(torch, ops, TR, PD, PA, PP, PG, segment_layout, params, cfg,
+             card):
+    """13d: the data-parallel step in an NCCL world of one rank (this
+    process; the rendezvous on a localhost TCP port) at phase 5's cell
+    (B4, S 1216, LoRA, remat): 2 AdamW steps with ``dist=`` for
+    ``grad_codec`` "none" (concat and merge) against the ``dist=None``
+    step, and "int8" / "topk" (concat) against ``compress_with_ef`` and
+    the update on the card; all bit-equal (a sum over one rank and a
+    division by one are exact).  The error-feedback residual stays on the
+    card.  Times a step, the codec and the all-reduce of a LoRA gradient
+    tree.  Returns the dist steps' launches and the record."""
+    import torch.distributed as tdist
+    from repro_torch.distributed.context import free_port, init_world
+    from repro_torch.launch.mesh import make_debug_mesh, make_dist
+    dev = init_world(0, 1, free_port(), params["embed"].device)   # NCCL
+    try:
+        dist = make_dist(make_debug_mesh(1, 1, device=dev))
+        group = dist.group(dist.batch_axes)
+        layout = segment_layout(*ZOO_LAYOUT)
+        batch = PD.sample_kv_batch(PD.ShardableIndexIterator(0, 4)
+                                   .key_for(0), layout, 4, device=dev)
+        tp0, fp = PP.partition(params, TR.trainable_mask_for(cfg, params))
+        ocfg = PA.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+
+        def clone(t):
+            return PP.tree_map(lambda _, x: None if x is None
+                               else x.detach().clone(), t)
+
+        def run(step, ef):
+            tp = clone(tp0)
+            opt = PA.init_adamw(tp)
+            ms, losses = [], []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tp, opt, m, ef = step(tp, fp, opt, batch, ef)
+                losses.append(m["loss"].item())
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return types.SimpleNamespace(tp=tp, opt=opt, ef=ef, ms=ms,
+                                         losses=losses)
+
+        def codec_step(c, codec):
+            """compress_with_ef and the update, no reduce."""
+            def step(tp, fp, opt, batch, ef):
+                leaves = [x for _, x in PP.leaves(tp)]
+                for x in leaves:
+                    x.requires_grad_(True)
+                with torch.enable_grad():
+                    loss = TR._loss_fn(tp, fp, c, layout, batch)
+                    grads = iter(torch.autograd.grad(loss, leaves))
+                g = PP.tree_map(lambda _, x: None if x is None
+                                else next(grads), tp)
+                g, ef = PG.compress_with_ef(g, ef, codec)
+                tp, opt, m = PA.adamw_update(ocfg, tp, g, opt)
+                m["loss"] = loss.detach()
+                return tp, opt, m, ef
+            return step
+
+        def differ(a, b):
+            a, b = dict(PP.leaves(a)), dict(PP.leaves(b))
+            return ["/".join(k) for k in b if not torch.equal(a[k], b[k])]
+
+        counts, rec = {}, {}
+        merge = cfg.replace(ccm=dataclasses.replace(cfg.ccm, mode="merge",
+                                                    merge_alpha=None))
+        for codec, mode, c in (("none", "concat", cfg),
+                               ("none", "merge", merge),
+                               ("int8", "concat", cfg),
+                               ("topk", "concat", cfg)):
+            torch.cuda.synchronize()
+            c0 = ops.launch_counts()
+            got = run(TR.make_train_step(c, layout, ocfg, dist,
+                                         grad_codec=codec),
+                      None if codec == "none" else PG.init_ef(tp0))
+            c1 = ops.launch_counts()
+            add_counts(counts, {k: c1[k] - c0[k] for k in c1})
+            want = run(TR.make_train_step(c, layout, ocfg) if codec == "none"
+                       else codec_step(c, codec),
+                       None if codec == "none" else PG.init_ef(tp0))
+            diff = differ(got.tp, want.tp) + differ(got.opt.mu, want.opt.mu) \
+                + differ(got.opt.nu, want.opt.nu)
+            if got.ef is not None:
+                diff += differ(got.ef.residual, want.ef.residual)
+                if any(x.device != dev
+                       for _, x in PP.leaves(got.ef.residual)):
+                    raise AssertionError(f"13d {codec}: the residual left "
+                                         "the card")
+            if got.losses != want.losses or diff:
+                raise AssertionError(f"13d {codec} {mode}: losses "
+                                     f"{got.losses} vs {want.losses}, "
+                                     f"differ {diff}")
+            rb = 0 if got.ef is None else sum(
+                x.numel() * x.element_size()
+                for _, x in PP.leaves(got.ef.residual))
+            rec[f"{codec}/{mode}"] = dict(step_ms=got.ms, losses=got.losses,
+                                          residual_bytes=rb)
+            held = "dist=None" if codec == "none" \
+                else "compress_with_ef + the update"
+            res = f", residual {rb / 2 ** 20:.1f} MiB on the card" if rb \
+                else ""
+            log(f"  13d {codec} ({mode}): 2 steps with dist= bit-equal to "
+                f"{held} (losses {[round(x, 4) for x in got.losses]}, "
+                f"leaves, moments{' and residual' if rb else ''}), "
+                f"{got.ms[0]:.1f} / {got.ms[1]:.1f} ms a step (the held "
+                f"path {want.ms[1]:.1f}){res} [{card}]")
+        # the codec and the all-reduce alone, on a LoRA gradient tree
+        gen = torch.Generator(dev).manual_seed(13)
+        g = PP.tree_map(lambda _, x: None if x is None else torch.randn(
+            x.shape, generator=gen, device=dev), tp0)
+        ef = PG.init_ef(tp0)
+        nbytes = sum(x.numel() * 4 for _, x in PP.leaves(g))
+        for codec in ("int8", "topk"):
+            rec[f"{codec}_ms"] = device_ms(
+                torch, lambda i: PG.compress_with_ef(g, ef, codec))
+        # NCCL over one rank in place moves no bytes and may launch no
+        # kernel: the all-reduce is timed per call between CUDA events
+        rec["all_reduce_call_ms"] = time_ms(
+            torch, lambda i: PG.compressed_psum(g, group), iters=20)
+        log(f"  13d: on a LoRA gradient tree of {nbytes / 2 ** 20:.1f} MiB "
+            f"(float32): compress_with_ef int8 {rec['int8_ms']:.4f} ms, topk "
+            f"{rec['topk_ms']:.4f} ms of device time; the NCCL all-reduce "
+            f"of the tree over one rank {rec['all_reduce_call_ms']:.4f} ms "
+            f"per call (CUDA events, host issue included) [{card}]")
+        return counts, rec
+    finally:
+        tdist.destroy_process_group()
+
+
+def phase13(torch, ops, PI, TR, PD, PA, PP, PG, segment_layout, params, cfg,
+            card, rec7=None):
+    """Phase 13 on LLaMA-7B's weights; without ``rec7`` (``--phase13``)
+    phase 7's 1-shard engine runs first, on the same traffic."""
+    if rec7 is None:
+        # untrained LoRA here (phase 7 runs after phase 5's steps): its
+        # answers are held to bf16_tol_paths beside the witness, as 13a's
+        rec7 = {}
+        serve_phase(torch, ops, PI, params, cfg, card,
+                    label="32L concat+bf16, 1 shard", n_sessions=12,
+                    n_slots=8, seed=21, detail=True, paths_witness=True,
+                    record=rec7)
+    t0 = time.perf_counter()
+    counts, rec = sharded_serve(torch, ops, PI, params, cfg, card, rec7)
+    log("  13d: data-parallel training, an NCCL world of 1 (B4, S1216, "
+        "LoRA)")
+    dp_counts, rec["d"] = dp_phase(torch, ops, TR, PD, PA, PP, PG,
+                                   segment_layout, params, cfg, card)
+    add_counts(counts, dp_counts)
+    log(f"  phase 13 launches: {({k: v for k, v in counts.items() if v})}; "
+        f"took {time.perf_counter() - t0:.1f} s")
+    return counts, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4115,6 +4432,16 @@ def main() -> int:
         log(f"  --phase12: done ({time.perf_counter() - t_start:.1f} s)")
         return 0
 
+    if "--phase13" in sys.argv[1:]:
+        log("phase 13 alone (--phase13): LLaMA-7B (32 layers, bf16, seed 0)")
+        cfg = llama_7b_paper.config()
+        params = init_lm(cfg, seed=0)
+        randomize_lora_b(torch, params, seed=100)
+        phase13(torch, ops, PI, TR, PD, PA, PP, PG, segment_layout, params,
+                cfg, card)
+        log(f"  --phase13: done ({time.perf_counter() - t_start:.1f} s)")
+        return 0
+
     log("phase 2: kernels against their plain versions on the card")
     seg = check_segmented(torch, F, dattn, PI.quantize_kv, card)
     lora = check_cond_lora(torch, clora, card)
@@ -4160,9 +4487,10 @@ def main() -> int:
 
     log("phase 7: the multi-tenant serve engine, LLaMA-7B (32 layers, bf16, "
         "concat): 12 sessions on 8 slots, 3 tenants")
+    rec7 = {}
     serve_counts = serve_phase(torch, ops, PI, params, cfg, card,
                                label="32L concat+bf16", n_sessions=12,
-                               n_slots=8, seed=21, detail=True)
+                               n_slots=8, seed=21, detail=True, record=rec7)
     log("  then 4 layers at full width: merge + bf16 (per-lane a_t, async "
         "offload) and concat + int8 cache (pressure recompress)")
     p4 = first_layers(params, 4)
@@ -4174,6 +4502,13 @@ def main() -> int:
                                                 kv_cache_dtype="int8"),
                 card, label="4L concat+int8", n_sessions=6, n_slots=4,
                 seed=23, recompress=True)
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    log("phase 13: multi-device, part 1: session-sharded serving, the "
+        "session mesh and data-parallel training (run after phase 7, on the "
+        "weights phase 7 served)")
+    p13_counts, _ = phase13(torch, ops, PI, TR, PD, PA, PP, PG,
+                            segment_layout, params, cfg, card, rec7)
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     log("phase 8: CCM streaming (sink + sliding window + compressed memory)")
@@ -4222,6 +4557,7 @@ def main() -> int:
     add_counts(base_counts, serve_metrics_check(torch, ops, card))
     log(f"  phase 10 launches: {base_counts}")
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
     del params
     gc.collect()             # phase 3-10 closures may hold LLaMA-7B's state
     torch.cuda.empty_cache()
@@ -4263,28 +4599,35 @@ def main() -> int:
     # the tensor-core routes' launches in each main-path phase (3: online,
     # 5: training, 7: the 32-layer serve engine, 8: streaming, 9: the zoo,
     # 10: the baselines' training and the serve-metrics demo, 11: the
-    # recurrent families, 12: the encoder-decoder, the VLM and MoE)
+    # recurrent families, 12: the encoder-decoder, the VLM and MoE, 13: the
+    # sharded engines and the data-parallel step)
     by_phase = {k: {"3": totals[k], "5": train_counts.get(k, 0),
                     "7": serve_counts[k], "8": stream_counts[k],
                     "9": zoo_counts[k], "10": base_counts.get(k, 0),
-                    "11": rec_counts[k], "12": fam_counts[k]}
+                    "11": rec_counts[k], "12": fam_counts[k],
+                    "13": p13_counts.get(k, 0)}
                 for k in ("segmented_attention_splitk",
                           "segmented_attention_mma", "cond_lora_wgmma",
                           "ccm_attention_mma", "ccm_attention_backward_mma")}
     for k, need in (("segmented_attention_splitk", ("3", "8", "9", "11",
                                                     "12")),
                     ("segmented_attention_mma", ("3", "7", "8", "9", "11",
-                                                 "12")),
+                                                 "12", "13")),
                     ("cond_lora_wgmma", ("3", "5", "7", "8", "9", "10",
-                                         "11", "12")),
-                    ("ccm_attention_mma", ("5", "9", "11", "12")),
-                    ("ccm_attention_backward_mma", ("5", "9", "11", "12"))):
+                                         "11", "12", "13")),
+                    ("ccm_attention_mma", ("5", "9", "11", "12", "13")),
+                    ("ccm_attention_backward_mma", ("5", "9", "11", "12",
+                                                    "13"))):
         if any(by_phase[k][ph] <= 0 for ph in need):
             raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
     for k in ("kv_merge_update", "session_gather", "session_scatter"):
         if stream_counts[k] <= 0 or zoo_counts[k] <= 0 or rec_counts[k] <= 0 \
                 or fam_counts[k] <= 0:
             raise AssertionError(f"{k}: no launch in phase 8, 9, 11 or 12")
+    for k in ("session_gather", "session_scatter", "kv_cummean",
+              "kv_cummean_backward"):
+        if p13_counts.get(k, 0) <= 0:
+            raise AssertionError(f"{k}: no launch in phase 13")
     for k in ("kv_cummean", "kv_cummean_backward"):
         if train_counts[k] <= 0 or rec_counts[k] <= 0 or fam_counts[k] <= 0:
             raise AssertionError(f"{k}: no launch in phase 5, 11 or 12")
@@ -4318,13 +4661,15 @@ def main() -> int:
              + stream_counts["kv_merge_update"]
              + zoo_counts["kv_merge_update"]
              + rec_counts["kv_merge_update"]
-             + fam_counts["kv_merge_update"],
+             + fam_counts["kv_merge_update"]
+             + p13_counts.get("kv_merge_update", 0),
              launches_by_phase={"3": totals["kv_merge_update"],
                                 "7": merge_counts["kv_merge_update"],
                                 "8": stream_counts["kv_merge_update"],
                                 "9": zoo_counts["kv_merge_update"],
                                 "11": rec_counts["kv_merge_update"],
-                                "12": fam_counts["kv_merge_update"]},
+                                "12": fam_counts["kv_merge_update"],
+                                "13": p13_counts.get("kv_merge_update", 0)},
              **merge),
         dict(name="ccm_attention", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
@@ -4344,20 +4689,24 @@ def main() -> int:
              source="src/repro_torch/csrc/kv_cummean.cu",
              replaces="src/repro/kernels/kv_merge.py:65",
              launches=train_counts["kv_cummean"]
-             + rec_counts["kv_cummean"] + fam_counts["kv_cummean"],
+             + rec_counts["kv_cummean"] + fam_counts["kv_cummean"]
+             + p13_counts["kv_cummean"],
              launches_by_phase={"5": train_counts["kv_cummean"],
                                 "11": rec_counts["kv_cummean"],
-                                "12": fam_counts["kv_cummean"]},
+                                "12": fam_counts["kv_cummean"],
+                                "13": p13_counts["kv_cummean"]},
              **cummean),
         dict(name="kv_cummean_backward", route="cuda",
              source="src/repro_torch/csrc/kv_cummean.cu",
              replaces="src/repro/kernels/kv_merge.py:65",
              launches=train_counts["kv_cummean_backward"]
              + rec_counts["kv_cummean_backward"]
-             + fam_counts["kv_cummean_backward"],
+             + fam_counts["kv_cummean_backward"]
+             + p13_counts["kv_cummean_backward"],
              launches_by_phase={"5": train_counts["kv_cummean_backward"],
                                 "11": rec_counts["kv_cummean_backward"],
-                                "12": fam_counts["kv_cummean_backward"]},
+                                "12": fam_counts["kv_cummean_backward"],
+                                "13": p13_counts["kv_cummean_backward"]},
              **cummean_bwd),
         dict(name="session_gather", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
@@ -4365,13 +4714,15 @@ def main() -> int:
              launches=serve_counts["session_gather"]
              + stream_counts["session_gather"] + zoo_counts["session_gather"]
              + base_counts["session_gather"] + rec_counts["session_gather"]
-             + fam_counts["session_gather"],
+             + fam_counts["session_gather"]
+             + p13_counts["session_gather"],
              launches_by_phase={"7": serve_counts["session_gather"],
                                 "8": stream_counts["session_gather"],
                                 "9": zoo_counts["session_gather"],
                                 "10": base_counts["session_gather"],
                                 "11": rec_counts["session_gather"],
-                                "12": fam_counts["session_gather"]},
+                                "12": fam_counts["session_gather"],
+                                "13": p13_counts["session_gather"]},
              **gather),
         dict(name="session_scatter", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
@@ -4380,13 +4731,15 @@ def main() -> int:
              + stream_counts["session_scatter"]
              + zoo_counts["session_scatter"] + base_counts["session_scatter"]
              + rec_counts["session_scatter"]
-             + fam_counts["session_scatter"],
+             + fam_counts["session_scatter"]
+             + p13_counts["session_scatter"],
              launches_by_phase={"7": serve_counts["session_scatter"],
                                 "8": stream_counts["session_scatter"],
                                 "9": zoo_counts["session_scatter"],
                                 "10": base_counts["session_scatter"],
                                 "11": rec_counts["session_scatter"],
-                                "12": fam_counts["session_scatter"]},
+                                "12": fam_counts["session_scatter"],
+                                "13": p13_counts["session_scatter"]},
              **scatter),
     ]
     for r in rows:

@@ -2,9 +2,8 @@
 [hf:meta-llama/Llama-4-*; unverified] 48L d_model=5120 40H (kv=8)
 d_ff=8192 (per expert) vocab=202048. Trains conditional LoRA only (paper
 regime — also the only memory-feasible mode at 400B on 256 v5e chips).
-Port of ``repro/configs/llama4_maverick.py``: configuration data only; the
-port's entry points raise NotImplementedError for this family
-until its model code is ported (ROADMAP queue 1 item 3)."""
+Port of ``repro/configs/llama4_maverick.py`` (configuration data); every path of
+the port runs this family."""
 from repro_torch.models.config import CCMConfig, ModelConfig
 
 

@@ -1,9 +1,8 @@
 """phi3.5-moe-42b-a6.6b [moe] — 16 experts top-2.
 [hf:microsoft/Phi-3.5-MoE-instruct] 32L d_model=4096 32H (kv=8)
 d_ff=6400 (per expert) vocab=32064.
-Port of ``repro/configs/phi35_moe.py``: configuration data only; the
-port's entry points raise NotImplementedError for this family
-until its model code is ported (ROADMAP queue 1 item 3)."""
+Port of ``repro/configs/phi35_moe.py`` (configuration data); every path of
+the port runs this family."""
 from repro_torch.models.config import CCMConfig, ModelConfig
 
 

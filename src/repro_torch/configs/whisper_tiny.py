@@ -2,9 +2,8 @@
 precomputed frame embeddings). [arXiv:2212.04356]
 4L d_model=384 6H (kv=6) d_ff=1536 vocab=51865. LayerNorm/GELU/learned pos.
 CCM applies to decoder self-attention (long transcription history).
-Port of ``repro/configs/whisper_tiny.py``: configuration data only; the
-port's entry points raise NotImplementedError for this family
-until its model code is ported (ROADMAP queue 1 item 3)."""
+Port of ``repro/configs/whisper_tiny.py`` (configuration data); every path of
+the port runs this family."""
 from repro_torch.models.config import CCMConfig, ModelConfig
 
 

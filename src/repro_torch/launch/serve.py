@@ -1,5 +1,6 @@
 """Serving step builders (port of ``repro/launch/serve.py``): the
-single-batch stream step and the single-device multi-tenant arena steps.
+single-batch stream step and the multi-tenant arena steps, on one device
+or one arena shard per device of a session mesh.
 
 The reference vmaps the single-session ops over a batch packed from many
 independent sessions.  The port runs such a batch natively: the packed
@@ -14,14 +15,20 @@ Session ops: ``ingest`` and ``query`` over ``OnlineState`` rows,
 ``stream`` over ``StreamState`` rows (`core.streaming.stream_step_lanes`:
 the eviction runs on the lanes whose window overflows, and on no other).
 
+``make_sharded_arena_step`` runs the arena step per shard of a session
+mesh (`launch.mesh.make_session_mesh`): shard ``s``'s gather -> op ->
+scatter on its own row block, with its own replica of the params, on
+mesh device ``s``; no tensor crosses devices.
+
 Not ported here: the online single-batch builders (``make_prefill_step``,
 ``make_decode_step``, ``make_ingest_step``; the port calls
-``core.inference`` directly), and ``dist=`` / ``make_sharded_arena_step``
-(the multi-device slice).
+``core.inference`` directly), and the ``dist=`` builders, which shard
+one model over devices (slice 14 of the port's multi-device work).
 """
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+from typing import Callable, List, Sequence
 
 import numpy as np
 import torch
@@ -99,8 +106,8 @@ def make_stream_step(cfg: ModelConfig, dist=None) -> Callable:
     ``dist=`` raises."""
     if dist is not None:
         raise NotImplementedError(
-            "a sharded stream step (dist=) comes with the multi-device "
-            "slice of the port")
+            "a sharded stream step (dist=) comes with slice 14 of the "
+            "port's multi-device work")
 
     def fn(params, st, tokens):
         return STR.stream_step(params, cfg, st, tokens)
@@ -162,21 +169,77 @@ def make_arena_step(cfg: ModelConfig, op: str,
 
     The batch's rows are gathered (``session_gather`` kernel), the op
     runs on the packed lanes, and only the leaves the op wrote are
-    scattered back (``session_scatter`` kernel) into the same slabs."""
-    from repro_torch.serve.arena import gather_rows, scatter_rows
+    scattered back (``session_scatter`` kernel) into the same slabs.  On
+    a placed arena (`serve.arena.ShardedSlabs`) the ids must lie in one
+    shard, whose row block the step reads and writes."""
+    from repro_torch.serve.arena import gather_rows, route, scatter_rows
     vf = session_vmap(cfg, op, ragged)
     writes = _WRITES[op]
 
     def fn(params, slabs, ids, tokens, lengths):
-        ids = [int(i) for i in np.asarray(ids).reshape(-1)]
-        state = gather_rows(slabs, ids)
+        rows, ids = route(slabs, np.asarray(ids).reshape(-1))
+        state = gather_rows(rows, ids)
         if op == "ingest":
             out, new = None, vf(params, state, tokens, lengths)
         else:
             out, new = vf(params, state, tokens, lengths)
         for name in writes:
-            scatter_rows(getattr(slabs, name), ids, getattr(new, name))
+            scatter_rows(getattr(rows, name), ids, getattr(new, name))
         return out, slabs
+    return fn
+
+
+def on_device(dev: torch.device):
+    """Make ``dev`` the current CUDA device (the kernels launch on the
+    current device's stream); nothing to do on the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def replicate_params(params, devices: Sequence[torch.device]) -> List:
+    """One copy of ``params`` per device (the same tensors wherever a leaf
+    already lives on that device)."""
+    from repro_torch.optim.partition import tree_map
+    return [tree_map(lambda _, x: x if x is None or x.device == dev
+                     else x.to(dev), params) for dev in devices]
+
+
+def make_sharded_arena_step(cfg: ModelConfig, op: str, mesh,
+                            ragged: bool = False) -> Callable:
+    """`make_arena_step` partitioned over the SESSION axis: one arena
+    shard (contiguous row block, `serve.arena`) per device of the 1-D
+    ``mesh`` (axis ``"shards"``, `launch.mesh.make_session_mesh`).
+
+    Call contract:
+    (params, slabs, ids (S, B), tokens (S, B, 1, l), lengths (S, B)) ->
+    (S per-shard logits (B, 1, l, V), each on its shard's device, or None
+    for ingest; slabs).
+
+    ``slabs`` are the arena's `ShardedSlabs` (shard ``s``'s block on
+    ``mesh.devices[s]``); ``ids`` row ``s`` holds shard ``s``'s LOCAL row
+    indices (``SessionArena.local_row``: every shard's scratch row is
+    ``slots_per_shard``), NOT global slot ids; ``params`` is one replica
+    per mesh device (`replicate_params`).  Each shard runs `make_arena_step`'s gather -> op ->
+    scatter on its own block with its own replica, on its own device, so
+    the step moves no tensor between devices (the serve engine's
+    ``serve_cross_shard_moves_total`` stays 0).  Every shard runs, an
+    empty sub-batch as pad lanes on its scratch row, as the reference's
+    ``shard_map`` program does; on several cards the per-shard launches
+    overlap, since each device's queue runs on its own."""
+    step = make_arena_step(cfg, op, ragged)
+    devices = tuple(mesh.devices)
+
+    def fn(params, slabs, ids, tokens, lengths):
+        if len(slabs.blocks) != len(devices):
+            raise ValueError(f"slabs of {len(slabs.blocks)} row blocks on "
+                             f"a mesh of {len(devices)} devices")
+        outs = []
+        for s, dev in enumerate(devices):
+            with on_device(dev):
+                out, _ = step(params[s], slabs.blocks[s], ids[s],
+                              tokens[s], lengths[s])
+            outs.append(out)
+        return (None if op == "ingest" else outs), slabs
     return fn
 
 

@@ -17,8 +17,8 @@ not a Pallas kernel).  Here they are one ``torch.matmul`` per non-empty
 expert group over the sorted rows: the group sizes are read on the host
 once per layer (one synchronisation), and an empty group launches
 nothing.  The multi-device strategies (``ragged_tp`` across a model axis,
-``ep`` with its all-to-all) come with the multi-device slice: ``dist=``
-raises, whatever ``moe_impl`` says; without ``dist`` both impls run the
+``ep`` with its all-to-all) come with slice 14 of the port's
+multi-device work: ``dist=`` raises, whatever ``moe_impl`` says; without ``dist`` both impls run the
 local path, as in the reference.
 """
 from __future__ import annotations
@@ -42,6 +42,8 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, d: int, f: int,
 
     def ei(a, b):
         out = torch.empty((E, a, b), dtype=cfg.pdtype, device=device)
+        if out.is_meta:                 # shapes only: nothing to draw
+            return out
         for e in range(E):
             out[e] = L.normal(gen, (a, b), 1.0 / math.sqrt(a), cfg.pdtype,
                               device)
@@ -103,7 +105,8 @@ def apply_moe(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     """x (B, S, d) -> (B, S, d) through the experts."""
     if dist is not None:
         raise NotImplementedError(
-            f"sharded MoE (dist=, moe_impl={cfg.moe_impl!r}) comes with the "
-            "multi-device slice of the port (ROADMAP queue 1 item 4)")
+            f"sharded MoE (dist=, moe_impl={cfg.moe_impl!r}) comes with "
+            "slice 14 of the port's multi-device work (ROADMAP queue 1 "
+            "item 4b)")
     B, S, d = x.shape
     return _moe_local(cfg, p, x.reshape(B * S, d)).reshape(B, S, d)

@@ -105,11 +105,15 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
             device: DeviceLike = None) -> Params:
     """Random weights with the reference init's distributions, drawn from
     a ``torch.Generator`` seeded with ``seed`` (the numbers differ from
-    the reference's).  Runs on the card unless ``device="cpu"``."""
+    the reference's).  Runs on the card unless ``device="cpu"``;
+    ``device="meta"`` gives the tree's shapes and dtypes alone (the
+    sharding rules read no more)."""
     require_ported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = None                  # the meta device: shapes only, no draws
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     p: Params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
                                        cfg.pdtype, dev),
                  "final_norm": L.init_norm(cfg, cfg.d_model, dev)}

@@ -9,10 +9,10 @@ Two codecs:
 
 Trees are the port's nested dicts; None leaves (the frozen side of a
 partition) stay None.  The codecs and the error-feedback step run on the
-device of the gradients.  ``compressed_psum`` needs a process group and
-raises until the multi-device slice of the port lands; on one device
-``launch/train.py`` passes the error-feedback state through unchanged,
-as the reference does.
+device of the gradients.  ``compressed_psum`` is the data-parallel
+reduce over a process group (`launch.train` with ``dist=``); on one
+device ``launch/train.py`` passes the error-feedback state through
+unchanged, as the reference does.
 """
 from __future__ import annotations
 
@@ -93,8 +93,28 @@ def compress_with_ef(grads: Any, ef: EFState, codec: str = "int8",
 
 def compressed_psum(grads: Any, axis_name, ef: Optional[EFState] = None,
                     codec: str = "none", topk_frac: float = 0.01):
-    """The reference's psum over the data-parallel axis (with the codec and
-    error feedback) needs a process group."""
-    raise NotImplementedError("compressed_psum (a data-parallel reduce) "
-                              "comes with the multi-device slice of the "
-                              "port")
+    """Sum over the data-parallel axes with optional codec + error
+    feedback; returns (reduced_grads, new_ef).
+
+    ``axis_name``: the process group of the data (and pod) ranks
+    (``DistContext.group(dist.batch_axes)``).  With
+    ``codec="none"`` (or no ``ef``) each gradient is SUM-all-reduced as
+    it is, in place; otherwise `compress_with_ef` runs first on this
+    rank's gradients and residual and the compressed gradients are
+    SUM-all-reduced.  A CUDA tensor goes through NCCL only
+    (`distributed.context.check_backend`)."""
+    import torch.distributed as tdist
+
+    from repro_torch.distributed.context import check_backend
+
+    def reduce(_, g):
+        if g is None:
+            return None
+        check_backend(g, axis_name)
+        tdist.all_reduce(g, op=tdist.ReduceOp.SUM, group=axis_name)
+        return g
+
+    if codec == "none" or ef is None:
+        return tree_map(reduce, grads), ef
+    comp, new_ef = compress_with_ef(grads, ef, codec, topk_frac)
+    return tree_map(reduce, comp), new_ef

@@ -1,5 +1,6 @@
 """Multi-tenant session serving over compressed context memory (port of
-``repro/serve``, single device, online sessions).
+``repro/serve``: online and stream sessions, on one device or sharded
+over the session axis).
 
 The paper's premise — per-user context compressed into a tiny bounded
 memory — is what makes packing thousands of user sessions onto one
@@ -29,8 +30,8 @@ device feasible.  This package is that serving layer:
                  degradation ladder (cheapest lever first)
   engine.py    — the main loop wiring admission -> scheduler ->
                  arena steps, online and stream sessions in arenas of
-                 their own (session sharding raises until its slice is
-                 ported)
+                 their own, sharded over the session axis (a loop over
+                 shards, or one shard per device of a session mesh)
 """
 from repro_torch.serve.admission import (Admitted, AdmissionController,
                                          Queued, Shed, TenantQuota, Verdict)

@@ -25,9 +25,15 @@ violation.
 SHARD GEOMETRY: the rows split into ``n_shards`` equal contiguous blocks,
 each with its own free-list and one reserved *scratch* row at the
 block's end (``pad_slot_of(s)``); ``n_shards=1`` gives ``n_slots + 1``
-rows with the scratch row at ``n_slots``.  The geometry is pure Python;
-placing the blocks on several devices belongs to the multi-device slice
-(the engine refuses ``n_shards > 1`` for now).
+rows with the scratch row at ``n_slots``.  Slot ids stay GLOBAL row
+indices.  Without a ``place`` hook every block lives in one slab per
+leaf on the arena's device.  With one (`distributed.sharding.
+arena_placement` over a session mesh) the slabs are `ShardedSlabs`:
+shard ``s``'s row block (its slots and its scratch row) is a tensor of
+its own on mesh device ``s``, and every row operation below routes its
+global ids to the owning block's local rows.  A batch, a transfer, a
+clone or a recompression touches one shard at a time, so no tensor
+crosses devices.
 
 ``pack`` gathers any set of slot ids into a batch (``(B,) + leaf.shape``
 tensors, ``(B,)`` counters) and ``unpack`` scatters an updated batch back
@@ -98,10 +104,60 @@ def _chunks(ids: List[int]):
         yield i, ids[i:i + MAX_IDS]
 
 
+class ShardedSlabs:
+    """An arena's slabs placed one row block per device: ``blocks[s]`` is
+    shard ``s``'s state tree (tensor leaves ``(stride,) + row`` on
+    ``devices[s]``, counter leaves views of one host array per leaf)."""
+
+    def __init__(self, blocks: List[Any], stride: int,
+                 devices: Sequence[torch.device]):
+        self.blocks = blocks
+        self.stride = stride
+        self.devices = tuple(devices)
+
+    @classmethod
+    def split(cls, slabs, devices: Sequence[torch.device]) -> "ShardedSlabs":
+        """Fresh zero slabs of the ``(n_rows, ...)`` tensor leaves' shapes
+        (the arena hands ``meta`` tensors), split into ``len(devices)``
+        equal row blocks, each allocated on its device; counter leaves
+        become views of their host array."""
+        n = len(devices)
+        stride = tree_leaves(slabs)[0].shape[0] // n
+
+        def block(s, dev):
+            def one(x):
+                if isinstance(x, np.ndarray):
+                    return x[s * stride:(s + 1) * stride]      # a view
+                return torch.zeros((stride,) + tuple(x.shape[1:]),
+                                   dtype=x.dtype, device=dev)
+            return tree_map(one, slabs)
+        return cls([block(s, d) for s, d in enumerate(devices)], stride,
+                   devices)
+
+    def route(self, ids: Sequence[int]):
+        """(block tree, local rows) of global row ``ids``, which must all
+        lie in one shard's block."""
+        ids = [int(i) for i in ids]
+        shards = {i // self.stride for i in ids}
+        if len(shards) != 1:
+            raise ValueError(f"rows {ids} span shards {sorted(shards)}; a "
+                             "placed arena moves one shard's rows at a time")
+        s = shards.pop()
+        return self.blocks[s], [i - s * self.stride for i in ids]
+
+
+def route(slabs, ids: Sequence[int]):
+    """(slabs, row ids) to index: a `ShardedSlabs`' owning block and its
+    local rows, or unplaced slabs and ``ids`` as they are."""
+    if isinstance(slabs, ShardedSlabs):
+        return slabs.route(ids)
+    return slabs, [int(i) for i in ids]
+
+
 def gather_rows(slabs, ids: Sequence[int]):
     """Rows ``ids`` of every slab: tensor leaves through the gather kernel
     op into fresh ``(B,) + row`` tensors, counters as int64 arrays (B,)."""
-    ids = [int(i) for i in ids]
+    slabs, ids = route(slabs, ids)
 
     def one(slab):
         if isinstance(slab, np.ndarray):
@@ -117,7 +173,8 @@ def gather_rows(slabs, ids: Sequence[int]):
 def scatter_rows(slabs, ids: Sequence[int], rows):
     """``slab[ids] = rows`` for every leaf of ``rows`` IN PLACE (tensor
     leaves through the scatter kernel op); returns ``slabs``."""
-    ids = [int(i) for i in ids]
+    out = slabs
+    slabs, ids = route(slabs, ids)
 
     def one(slab, r):
         if isinstance(slab, np.ndarray):
@@ -127,7 +184,7 @@ def scatter_rows(slabs, ids: Sequence[int], rows):
                 ops.session_scatter(slab, part, r[i:i + len(part)])
         return slab
     tree_map(one, slabs, rows)
-    return slabs
+    return out
 
 
 def online_template(cfg: ModelConfig, cache_len: int,
@@ -144,10 +201,17 @@ def stream_template(cfg: ModelConfig):
 
 
 class SessionArena:
-    """Slab allocator + pack/unpack for one state template."""
+    """Slab allocator + pack/unpack for one state template.
+
+    ``place``: optional hook applied to the freshly made slabs (tensor
+    leaves on the ``meta`` device, so a hook that splits them allocates
+    each block where it lives), e.g. `distributed.sharding.
+    arena_placement(mesh)` to put shard ``s``'s row block on mesh device
+    ``s``."""
 
     def __init__(self, template: Any, n_slots: int, n_shards: int = 1,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 place: Optional[Callable] = None):
         if n_slots < 1:
             raise ValueError("arena needs at least one slot")
         if n_shards < 1:
@@ -163,7 +227,10 @@ class SessionArena:
         self.slots_per_shard = n_slots // n_shards
         self._stride = self.slots_per_shard + 1   # rows per shard block
         self.n_rows = n_shards * self._stride
+        self.placed = place is not None
         self.slabs = tree_map(self._slab, template)
+        if place is not None:
+            self.slabs = place(self.slabs)
         self.state_bytes = sum(leaf_bytes(x) for x in tree_leaves(template))
         self._free = [deque(self.shard_slots(s)) for s in range(n_shards)]
         self._live = set()
@@ -174,21 +241,32 @@ class SessionArena:
     def _slab(self, leaf):
         if isinstance(leaf, torch.Tensor):
             return torch.zeros((self.n_rows,) + tuple(leaf.shape),
-                               dtype=leaf.dtype, device=self.device)
+                               dtype=leaf.dtype,
+                               device="meta" if self.placed else self.device)
         return np.zeros(self.n_rows, dtype=np.int64)
+
+    @property
+    def devices(self) -> tuple:
+        """The device of each shard's row block."""
+        if isinstance(self.slabs, ShardedSlabs):
+            return self.slabs.devices
+        return (self.device,) * self.n_shards
+
 
     # -- allocation ----------------------------------------------------
     @classmethod
     def for_online(cls, cfg: ModelConfig, n_slots: int, cache_len: int,
                    mem_slots: Optional[int] = None, n_shards: int = 1,
-                   device: DeviceLike = None) -> "SessionArena":
+                   device: DeviceLike = None,
+                   place: Optional[Callable] = None) -> "SessionArena":
         return cls(online_template(cfg, cache_len, mem_slots), n_slots,
-                   n_shards, device)
+                   n_shards, device, place)
 
     @classmethod
     def for_stream(cls, cfg: ModelConfig, n_slots: int, n_shards: int = 1,
-                   device: DeviceLike = None) -> "SessionArena":
-        return cls(stream_template(cfg), n_slots, n_shards, device)
+                   device: DeviceLike = None,
+                   place: Optional[Callable] = None) -> "SessionArena":
+        return cls(stream_template(cfg), n_slots, n_shards, device, place)
 
     # -- shard geometry ------------------------------------------------
     def shard_slots(self, shard: int) -> range:
@@ -380,15 +458,16 @@ class SessionArena:
         if not stale:
             return
         self._guard_writes(stale)
+        for slot in stale:
+            slabs, (row,) = route(self.slabs, [slot])
 
-        def zero(slab):
-            if isinstance(slab, np.ndarray):
-                slab[stale] = 0
-            else:
-                for s in stale:
-                    slab[s].zero_()
-            return slab
-        tree_map(zero, self.slabs)
+            def zero(slab, row=row):
+                if isinstance(slab, np.ndarray):
+                    slab[row] = 0
+                else:
+                    slab[row].zero_()
+                return slab
+            tree_map(zero, slabs)
         self._dirty.difference_update(stale)
 
     def reset_slot(self, slot: int) -> None:

@@ -1,5 +1,5 @@
 """Multi-tenant serve engine: admission -> scheduler -> arena -> steps
-(port of ``repro/serve/engine.py``, single device).
+(port of ``repro/serve/engine.py``).
 
 Drives the whole subsystem: submits pass ADMISSION CONTROL
 (`serve.admission`: bounded ingress, per-tenant quotas, overflow
@@ -31,8 +31,20 @@ Online sessions (ingest/query over ``OnlineState``) and streaming
 sessions (``stream`` over ``StreamState``) live in separate arenas since
 their state templates differ; ``stream_slots=0`` skips the second arena.
 
-Not in this slice (it raises ``NotImplementedError``): sharded serving
-(``n_shards > 1``, ``mesh=``; the multi-device slice).
+SHARDED SERVING (``n_shards > 1`` / ``mesh=``): the arenas partition
+into shards along the SESSION axis (`serve.arena`) and sessions are
+placed on a shard at creation (least-loaded, deterministic) and pinned
+there for life.  The drain pops one `ShardedBatch` per iteration — a
+same-shape sub-batch per shard — and runs every shard: on a session mesh
+(`launch.mesh.make_session_mesh`) each shard's row block lives on its own
+mesh device and `launch.serve.make_sharded_arena_step` runs each shard
+there with local row ids and its own replica of the params; without a
+mesh, a loop over the shards calls the single-device step with global
+ids and skips empty sub-batches (the same control plane, the mode the
+simulation harness drives).  Offload and restore stage host transfers per
+shard, to and from the shard's device; the ``shard``-labelled gauges
+are filled per shard.  Session state NEVER moves between shards —
+``serve_cross_shard_moves_total`` exists to prove it stays 0.
 """
 from __future__ import annotations
 
@@ -52,10 +64,11 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.obs import Observability
 from repro_torch.serve.admission import (AdmissionController, TenantQuota,
                                          Verdict)
-from repro_torch.serve.arena import SessionArena
+from repro_torch.serve.arena import SessionArena, route
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.pressure import MemoryPressureController, PressurePolicy
-from repro_torch.serve.scheduler import Request, ScheduledBatch, Scheduler
+from repro_torch.serve.scheduler import (Request, ScheduledBatch, Scheduler,
+                                         ShardedBatch)
 from repro_torch.serve.session import (CloseResult, OffloadCostModel,
                                        OffloadResult, SessionManager)
 
@@ -142,14 +155,22 @@ class ServeEngine:
         kind="stream")`` opens one and ``stream(sid, tokens)`` feeds it
         chunks of at most ``cfg.ccm.stream_chunk`` tokens.
 
-        Not in this slice: ``n_shards > 1`` and ``mesh=`` (sharded
-        serving, the multi-device slice) raise ``NotImplementedError``;
-        the arguments stay so that callers keep the reference's
-        signature.
+        Sharding: ``n_shards > 1`` partitions both arenas into that
+        many session shards (``n_slots`` and ``stream_slots`` must
+        divide evenly) and switches the drain to sharded pops; with a
+        ``mesh`` (1-D over axis ``"shards"``,
+        `launch.mesh.make_session_mesh`) the slabs are placed one shard
+        per mesh device and each shard runs on its own device
+        (``n_shards`` defaults to the mesh size; the params are
+        replicated once per mesh device; a mesh of one device runs the
+        sharded pops and step too).  Without a mesh the sharded
+        engine runs each shard's sub-batch through the single-device
+        step — same control plane, same results; that is also the only
+        sharded mode compatible with a custom ``step_factory``.
 
         ``device``: where the arena's slabs live and the steps run; None
         means the CUDA card (raising without one), ``"cpu"`` the plain
-        PyTorch path.
+        PyTorch path.  A mesh's devices must be of the same type.
 
         Deadlines (docs/SERVING.md "Deadlines and SLOs"): every submit
         accepts ``deadline=`` (absolute seconds on the engine clock —
@@ -179,10 +200,6 @@ class ServeEngine:
         ``Observability.tracing()`` for request spans and latency
         histograms, or inject a `ManualClock` for deterministic
         timestamps (the simulation harness does both)."""
-        if n_shards != 1 or mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (n_shards > 1, mesh=) comes with the "
-                "multi-device slice of the port")
         self.params = params
         self.cfg = cfg
         self.cache_len = cache_len
@@ -215,8 +232,33 @@ class ServeEngine:
         self._len_seen = 0             # lengths ever recorded
         self._len_at_refit = 0         # _len_seen at the last refit
         self._step_factory = step_factory or SRV.make_arena_step
-        self.n_shards = 1
-        self.mesh = None
+        place = None
+        self._replicas = None
+        if mesh is not None:
+            if "shards" not in getattr(mesh, "axis_names", ()):
+                raise ValueError(
+                    "serve mesh needs a 'shards' axis "
+                    "(launch.mesh.make_session_mesh)")
+            mesh_n = int(mesh.shape["shards"])
+            if n_shards not in (1, mesh_n):
+                raise ValueError(
+                    f"n_shards ({n_shards}) disagrees with the mesh's "
+                    f"'shards' axis size ({mesh_n})")
+            n_shards = mesh_n
+            if step_factory is not None:
+                raise ValueError(
+                    "mesh execution uses make_sharded_arena_step; a "
+                    "custom step_factory only composes with the "
+                    "loop-over-shards mode (omit mesh)")
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(f"mesh devices {mesh.devices} on an engine "
+                                 f"built for {self.device}")
+            from repro_torch.distributed.sharding import arena_placement
+            place = arena_placement(mesh)
+            if params is not None:
+                self._replicas = SRV.replicate_params(params, mesh.devices)
+        self.n_shards = n_shards
+        self.mesh = mesh
         self.obs = obs if obs is not None else Observability()
         self._build_metrics()
         mgr_kw = dict(batched_offload=batched_offload,
@@ -227,7 +269,8 @@ class ServeEngine:
         self._mgr: Dict[str, SessionManager] = {
             "online": SessionManager(
                 SessionArena.for_online(cfg, n_slots, cache_len, mem_slots,
-                                        device=self.device),
+                                        n_shards=n_shards,
+                                        device=self.device, place=place),
                 max_resident, replay_fn=self._make_replay("online"),
                 **mgr_kw),
         }
@@ -242,7 +285,8 @@ class ServeEngine:
                     f"({c.stream_window})")
             self._mgr["stream"] = SessionManager(
                 SessionArena.for_stream(cfg, stream_slots,
-                                        device=self.device),
+                                        n_shards=n_shards,
+                                        device=self.device, place=place),
                 stream_max_resident, replay_fn=self._make_replay("stream"),
                 **mgr_kw)
         self.prefix_cache: Optional[PrefixCache] = None
@@ -269,6 +313,14 @@ class ServeEngine:
         self._refit_pending = False
         caps = {op: self._mgr[kind].max_resident
                 for op, kind in _OP_STATE.items() if kind in self._mgr}
+        # sharded-pop caps: a pop must fit one activate_batch call —
+        # per shard no more lanes than the shard's slots, and in total
+        # no more than the arena's resident budget
+        self._per_shard_cap = {
+            op: min(self._mgr[kind].max_resident,
+                    self._mgr[kind].arena.slots_per_shard)
+            for op, kind in _OP_STATE.items() if kind in self._mgr}
+        self._max_total = dict(caps)
         # a stream op must never pad past the eviction quantum — one
         # eviction per step keeps the window bounded (stream_step guard)
         self.scheduler = Scheduler(
@@ -301,6 +353,7 @@ class ServeEngine:
             max_backlog=max_backlog, metrics=self.obs.registry,
             pressure=self.pressure)
         self._steps = {}               # (op, masked) -> step fn
+        self._sharded_steps = {}       # (op, masked) -> mesh step fn
         self._seen_shapes = set()      # (kind, lanes, token_len, masked)
         self._kind: Dict[str, str] = {}   # sid -> 'online' | 'stream'
         self._shard: Dict[str, int] = {}  # sid -> owning arena shard
@@ -769,8 +822,9 @@ class ServeEngine:
         if freed <= 0:
             return 0
         arena = mgr.arena
-        arena.slabs = arena.slabs._replace(mem=SRV.recompress_arena_slots(
-            arena.slabs.mem, [sess.slot], cfg=self.cfg, group=group))
+        slabs, rows = route(arena.slabs, [sess.slot])   # updated in place
+        SRV.recompress_arena_slots(slabs.mem, rows, cfg=self.cfg,
+                                   group=group)
         arena.mark_dirty([sess.slot])
         sess.mem_groups = new_groups
         return freed
@@ -896,6 +950,21 @@ class ServeEngine:
             self._steps[key] = self._step_factory(self.cfg, op, masked)
         return self._steps[key]
 
+    def _sharded_step(self, op: str, masked: bool):
+        """The mesh step per (op, masked)
+        (`launch.serve.make_sharded_arena_step`)."""
+        key = (op, masked)
+        if key not in self._sharded_steps:
+            self._sharded_steps[key] = SRV.make_sharded_arena_step(
+                self.cfg, op, self.mesh, ragged=masked)
+        return self._sharded_steps[key]
+
+    def _params_of(self, shard: int):
+        """The params a step on ``shard``'s rows reads: the shard's
+        device's replica under a mesh."""
+        return self.params if self._replicas is None \
+            else self._replicas[shard]
+
     def _note_shape(self, op: str, lanes: int, token_len: int,
                     masked: bool) -> None:
         """Count first-seen step shapes (op, lanes, token_len, masked):
@@ -931,8 +1000,11 @@ class ServeEngine:
                 masked = self.ragged and tl != L
                 step = self._step(op, masked)
                 self._note_shape(op, 1, tl, masked)
-                _, arena.slabs = step(self.params, arena.slabs, ids, buf,
-                                      np.asarray([L], np.int32))
+                shard = arena.shard_of(slot)
+                with SRV.on_device(arena.devices[shard]):
+                    _, arena.slabs = step(self._params_of(shard),
+                                          arena.slabs, ids, buf,
+                                          np.asarray([L], np.int32))
             arena.mark_dirty([slot])
             if state_kind == "online":
                 # a replay rebuilds memory at the BASE ratio: the group
@@ -1022,6 +1094,91 @@ class ServeEngine:
         m["batches"].labels(kind=batch.kind).inc()
         m["dispatch_s"].labels(kind=batch.kind).inc(dt)
 
+    def _run_sharded_batch(self, sb: ShardedBatch) -> None:
+        """Execute one sharded pop: activate every sub-batch's sessions
+        in ONE `activate_batch` call (shard-local slot allocation,
+        per-shard staged offload/restore), then run every shard — each
+        on its own mesh device with local row ids under a mesh, or as a
+        loop of per-shard single-device steps with global ids otherwise
+        (identical control plane; empty sub-batches are skipped on the
+        loop path since their all-pad lanes only write scratch
+        garbage)."""
+        mgr = self._mgr[_OP_STATE[sb.kind]]
+        arena = mgr.arena
+        rec = self.obs.recorder
+        all_reqs = sb.requests                       # shard-major
+        pinned = {r.sid for r in all_reqs}
+        t0 = self.obs.clock.now()
+        slots = mgr.activate_batch([r.sid for r in all_reqs], pinned)
+        slot_of = dict(zip((r.sid for r in all_reqs), slots))
+        S, B, L = self.n_shards, sb.bucket, sb.token_len
+        use_mesh = self.mesh is not None
+        # mesh mode feeds LOCAL row ids (each device indexes its own
+        # block); loop mode feeds global slot ids
+        ids = np.empty((S, B), np.int64)
+        toks = np.zeros((S, B, 1, L), np.int32)
+        lengths = np.full((S, B), L, np.int32)
+        gids: List[int] = []                         # global, for dirty
+        for s, sub in enumerate(sb.shards):
+            pad = arena.pad_slot_of(s)
+            ids[s, :] = arena.local_row(pad) if use_mesh else pad
+            for i, r in enumerate(sub.requests):
+                slot = slot_of[r.sid]
+                ids[s, i] = arena.local_row(slot) if use_mesh else slot
+                toks[s, i, 0, :r.token_len] = r.tokens[0]
+                lengths[s, i] = r.token_len
+                gids.append(slot)
+            gids.extend([pad] * (B - len(sub.requests)))
+        masked = self.ragged and any(r.token_len != L for r in all_reqs)
+        lanes_run = S * B
+        self._note_shape(sb.kind, B, L, masked)
+        if use_mesh:
+            step = self._sharded_step(sb.kind, masked)
+            outs, arena.slabs = step(self._replicas, arena.slabs, ids, toks,
+                                     lengths)
+            outs = outs or [None] * S
+        else:
+            step = self._step(sb.kind, masked)
+            outs = []
+            lanes_run = 0
+            for s, sub in enumerate(sb.shards):
+                if not sub.requests:
+                    outs.append(None)
+                    continue
+                out_s, arena.slabs = step(self.params, arena.slabs, ids[s],
+                                          toks[s], lengths[s])
+                outs.append(out_s)
+                lanes_run += B
+        arena.mark_dirty(gids)
+        dt = self.obs.clock.now() - t0
+        for s, sub in enumerate(sb.shards):
+            if sub.requests:
+                self._undelivered.append((sub.requests, outs[s]))
+        shape = f"{S}x{B}x{L}" + ("/masked" if masked else "")
+        for r in all_reqs:
+            sess = mgr.sessions[r.sid]
+            sess.n_ops += 1
+            if sb.kind == "ingest":
+                sess.mem_groups = min(sess.mem_groups + 1,
+                                      self._max_mem_groups)
+                self._maybe_cache_prefix(r, sess)
+            mgr.record(r.sid, r.kind, r.tokens[0])
+            rec.executed(r, shape)
+        valid = sum(r.token_len for r in all_reqs)
+        rec.note("batch", f"kind={sb.kind} shape={shape} "
+                          f"real={len(all_reqs)} "
+                          f"pad={lanes_run - len(all_reqs)} "
+                          f"dispatch_s={dt:.6f}")
+        m = self._m
+        m["requests"].labels(kind=sb.kind).inc(len(all_reqs))
+        m["tokens"].labels(kind=sb.kind).inc(valid)
+        m["pad_lanes"].labels(kind=sb.kind).inc(lanes_run - len(all_reqs))
+        m["pad_tokens"].labels(kind=sb.kind).inc(
+            len(all_reqs) * L - valid)
+        m["lanes"].labels(kind=sb.kind).inc(lanes_run)
+        m["batches"].labels(kind=sb.kind).inc()
+        m["dispatch_s"].labels(kind=sb.kind).inc(dt)
+
     def run(self, max_batches: Optional[int] = None) -> int:
         """Drain the queue (or up to ``max_batches``); returns batches
         run.  After every popped batch the admission backlog is pumped —
@@ -1044,9 +1201,10 @@ class ServeEngine:
         t0 = self.obs.clock.now()
         while max_batches is None or n < max_batches:
             # pop boundary: the ONLY place a derived-bucket refit may
-            # land.  A pop and its execution run under `_popping`; a
-            # refit requested meanwhile is deferred and applied here,
-            # before the next pop starts
+            # land.  A pop (especially a sharded one, whose per-shard
+            # sub-batches must share one ladder) and its execution run
+            # under `_popping`; a refit requested meanwhile is deferred
+            # and applied here, before the next pop starts
             if (self.bucket_policy == "derived"
                     and self._len_seen - self._len_at_refit
                     >= self._bucket_refit_interval):
@@ -1057,7 +1215,13 @@ class ServeEngine:
                 # introduce tenants that were not queued when the drain
                 # started
                 caps, default_cap = self.admission.lane_caps()
-                batch = self.scheduler.next_batch(caps, default_cap)
+                if self.n_shards == 1 and self.mesh is None:
+                    batch = self.scheduler.next_batch(caps, default_cap)
+                else:
+                    batch = self.scheduler.next_sharded_batches(
+                        self.n_shards, caps, default_cap,
+                        per_shard_cap=self._per_shard_cap,
+                        max_total=self._max_total)
                 if batch is None:
                     pumped = self.admission.pump()
                     if pumped:
@@ -1073,6 +1237,8 @@ class ServeEngine:
                     # program-order point — no device step runs
                     for r in batch.requests:
                         self._exec_fork(r)
+                elif isinstance(batch, ShardedBatch):
+                    self._run_sharded_batch(batch)
                 else:
                     self._run_batch(batch)
                 if self.pressure is not None:
@@ -1119,7 +1285,8 @@ class ServeEngine:
             m.sync()
         if n:
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                for dev in set(self._mgr["online"].arena.devices):
+                    torch.cuda.synchronize(dev)
             self._m["wall_s"].inc(self.obs.clock.now() - t0)
         if self._refit_pending:
             # a refit deferred by the final pop (the loop broke before

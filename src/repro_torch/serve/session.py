@@ -31,8 +31,12 @@ wait on that event.
 On a SHARDED arena the manager stays global: one LRU clock, one session
 table, one ``max_resident`` budget; sessions are pinned to one shard
 for life, slot scarcity is resolved PER SHARD during activation
-planning, and batched offload/restore stage host transfers per shard
-(transfer counters and the bandwidth gauges carry a ``shard`` label).
+planning, and batched offload/restore stage host transfers per shard,
+to and from the shard's own device on a placed arena (transfer counters
+and the bandwidth gauges carry a ``shard`` label).  A row that batch
+sessions leave — a victim's, or a shared row one breaks away from —
+may stay alive on a prefix-cache pin alone; the planner drops such pins
+rather than starve (the reference raises ``ArenaFull``; ROADMAP §3).
 
 Offload -> restore is a pure copy of the state tree, so a restored
 session's next logits are bit-identical to never having been offloaded.
@@ -201,8 +205,8 @@ class SessionManager:
         # victim's row would otherwise stay alive on a cache pin alone —
         # evicting the session then frees nothing and activation starves
         self.cache_unpin: Optional[Callable[[int], bool]] = None
-        self._device = arena.device
-        self._side: Optional[torch.cuda.Stream] = None
+        self._cuda = arena.device.type == "cuda"
+        self._side: Dict[torch.device, torch.cuda.Stream] = {}  # per device
         self._state_bytes = arena.state_bytes
         self.obs = obs if obs is not None else Observability()
         reg = self.obs.registry
@@ -500,7 +504,34 @@ class SessionManager:
                     return True
             return False
 
-        def make_room(shard: int, why: str) -> None:
+        def unpin_broken_row(shard: int, breaking: Optional[Session]) -> bool:
+            # the last resort before ArenaFull: a shared row that batch
+            # sessions break away from may be left to a prefix-cache pin
+            # alone.  Drop that pin and the row's last session keeps it
+            # with no copy, so the slot reserved for its copy-on-write
+            # break stays free — for a session broken away earlier in the
+            # batch, and for ``breaking``, the one now asking for its
+            # reservation.  The reference raises ArenaFull here (a full
+            # shard whose batch holds a cache-pinned row)
+            if self.cache_unpin is None:
+                return False
+            for c in cow:
+                if c.shard == shard and c is not breaking \
+                        and plan_ref.get(c.slot, 0) == 1 \
+                        and self.cache_unpin(c.slot):
+                    plan_ref[c.slot] = 0
+                    avail[shard] += 1
+                    return True
+            if breaking is not None and ref_left(breaking.slot) == 2 \
+                    and self.cache_unpin(breaking.slot):
+                if breaking.slot in plan_ref:
+                    plan_ref[breaking.slot] -= 1
+                avail[shard] += 1
+                return True
+            return False
+
+        def make_room(shard: int, why: str,
+                      breaking: Optional[Session] = None) -> None:
             while avail[shard] == 0:
                 if self.cache_release is not None \
                         and self.cache_release(shard):
@@ -508,8 +539,11 @@ class SessionManager:
                     continue
                 if unpin_victim_row(shard):
                     continue
-                evict_one([s for s in res.values() if s.shard == shard],
-                          why=why)
+                pool = [s for s in res.values() if s.shard == shard]
+                if all(s.sid in untouchable for s in pool) \
+                        and unpin_broken_row(shard, breaking):
+                    continue
+                evict_one(pool, why=why)
 
         need: List[str] = []
         cow: List[Session] = []
@@ -527,7 +561,8 @@ class SessionManager:
                     cow.append(sess)
                     make_room(sess.shard,
                               why=f"shard {sess.shard} has no free slot "
-                                  "for a copy-on-write break")
+                                  "for a copy-on-write break",
+                              breaking=sess)
                     avail[sess.shard] -= 1
                     # once broken away this session no longer holds the
                     # shared row, so a sibling later in the batch may
@@ -682,16 +717,19 @@ class SessionManager:
 
     # -- host transfers ------------------------------------------------
     def _wait_device(self) -> None:
-        if self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+        if self._cuda:
+            for dev in set(self.arena.devices):
+                torch.cuda.synchronize(dev)
 
-    def _to_host(self, packed):
-        """Copy a packed batch (fresh device tensors from ``arena.pack``,
-        host counters) into host memory.  Returns (host tree, event):
-        the event marks the end of an async copy on the side stream
-        (None when the copy is complete on return)."""
-        if self._device.type != "cuda":
+    def _to_host(self, packed, shard: int):
+        """Copy a packed batch of one shard's rows (fresh tensors on the
+        shard's device from ``arena.pack``, host counters) into host
+        memory.  Returns (host tree, event): the event marks the end of
+        an async copy on the device's side stream (None when the copy is
+        complete on return)."""
+        if not self._cuda:
             return packed, None           # the gather made fresh copies
+        dev = self.arena.devices[shard]
 
         def pinned(x):
             return torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -700,21 +738,22 @@ class SessionManager:
             return tree_map(lambda x: pinned(x).copy_(x)
                             if isinstance(x, torch.Tensor) else x,
                             packed), None
-        main = torch.cuda.current_stream(self._device)
-        if self._side is None:
-            self._side = torch.cuda.Stream(self._device)
+        main = torch.cuda.current_stream(dev)
+        side = self._side.get(dev)
+        if side is None:
+            side = self._side[dev] = torch.cuda.Stream(dev)
         # the side stream copies only after the gather kernels that
         # filled the staging batch; the staging tensors stay allocated
         # until the side stream is done with them
-        self._side.wait_stream(main)
-        with torch.cuda.stream(self._side):
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
             host = tree_map(lambda x: pinned(x).copy_(x, non_blocking=True)
                             if isinstance(x, torch.Tensor) else x, packed)
         for x in tree_leaves(packed):
             if isinstance(x, torch.Tensor):
-                x.record_stream(self._side)
+                x.record_stream(side)
         done = torch.cuda.Event()
-        done.record(self._side)
+        done.record(side)
         return host, done
 
     def _wait_inflight(self, sids) -> None:
@@ -735,7 +774,7 @@ class SessionManager:
             return OffloadResult(sid, "recompute")
         packed = self.arena.pack([sess.slot])
         t0 = self.obs.clock.now()
-        host, done = self._to_host(packed)
+        host, done = self._to_host(packed, sess.shard)
         if self.async_offload:
             self._inflight.append([host, 1, sess.shard, {sid}, done])
         self._count_transfer("offload", 1, 1, self.obs.clock.now() - t0,
@@ -786,7 +825,7 @@ class SessionManager:
                     uniq.append(sess.slot)
             packed = self.arena.pack(uniq)
             t0 = self.obs.clock.now()
-            host, done = self._to_host(packed)
+            host, done = self._to_host(packed, shard)
             if self.async_offload:
                 self._inflight.append(
                     [host, len(uniq), shard, {s.sid for s in group}, done])
@@ -829,22 +868,24 @@ class SessionManager:
         for sess in sess_list:
             by_shard.setdefault(sess.shard, []).append(sess)
         self._wait_inflight({s.sid for s in sess_list})
-        cuda = self._device.type == "cuda"
+        cuda = self._cuda
 
-        def stack(*rows):
+        def stack(dev, *rows):
             if not isinstance(rows[0], torch.Tensor):
                 return np.asarray(rows, np.int64)
             out = torch.empty((len(rows),) + tuple(rows[0].shape),
                               dtype=rows[0].dtype, pin_memory=cuda)
             torch.stack(rows, out=out)
-            return out.to(self._device, non_blocking=True) if cuda else out
+            return out.to(dev, non_blocking=True) if cuda else out
 
         for shard in sorted(by_shard):
             group = by_shard[shard]
             slots = [s.slot for s in group]
             t0 = self.obs.clock.now()
-            dev = tree_map(stack, *[s.host_state for s in group])
-            self.arena.unpack(slots, dev)
+            dev = self.arena.devices[shard]     # the rows' own device
+            rows = tree_map(lambda *r, dev=dev: stack(dev, *r),
+                            *[s.host_state for s in group])
+            self.arena.unpack(slots, rows)
             # dispatch time only: blocking here to measure the true copy
             # would serialize restore against the batch that triggered it
             self._count_transfer("restore", len(slots), len(group),

@@ -125,16 +125,20 @@ def test_only_the_obs_clock_reads_a_stdlib_timer(path):
 
 
 _ENGINE_CASES = {
-    # sharded serving comes with the multi-device slice
-    "n_shards": (dict(n_shards=2, device="cpu"), NotImplementedError,
-                 "multi-device"),
-    "mesh": (dict(mesh=object(), device="cpu"), NotImplementedError,
-             "multi-device"),
+    # sharded serving: a 2-shard loop and a 2-device session mesh of CPU
+    # "devices" construct on the CPU
+    "n_shards": (dict(n_shards=2, n_slots=4, cache_len=8, device="cpu"),
+                 None, None),
+    "mesh": (dict(mesh="cpu:2", n_slots=4, cache_len=8, device="cpu"),
+             None, None),
     # no card: the engine raises unless given device="cpu"
     "no-device": (dict(n_slots=2, cache_len=8), RuntimeError,
                   "no CUDA device"),
     "no-device-stream": (dict(n_slots=2, cache_len=8, stream_slots=2),
                          RuntimeError, "no CUDA device"),
+    # no card: a session mesh on the card raises too
+    "no-device-mesh": (dict(mesh="cuda", n_slots=2, cache_len=8),
+                       RuntimeError, "no CUDA device"),
     # stream sessions are ported: a stream arena on the CPU
     "stream-arena": (dict(n_slots=2, cache_len=8, stream_slots=2,
                           device="cpu"), None, None),
@@ -145,18 +149,71 @@ _ENGINE_CASES = {
 def test_serve_engine_needs_a_device_and_refuses_unported_options(
         monkeypatch, case):
     from repro_torch.configs import llama_7b_paper
+    from repro_torch.launch.mesh import make_session_mesh
     from repro_torch.serve import ServeEngine
 
     cfg = llama_7b_paper.smoke(compute_dtype="float32")
     kw, exc, match = _ENGINE_CASES[case]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(kw)
+
+    def build():
+        if "mesh" in kw:            # "type:n": n shards on that device type
+            dev, _, n = kw["mesh"].partition(":")
+            kw["mesh"] = make_session_mesh(int(n or 1), device=dev)
+        return ServeEngine(None, cfg, **kw)
+
     if exc is not None:
         with pytest.raises(exc, match=match):
-            ServeEngine(None, cfg, **kw)
+            build()
         return
-    eng = ServeEngine(None, cfg, **kw)
-    stream = eng._mgr["stream"].arena
-    assert stream.slabs.win_k.device.type == "cpu"
-    assert tuple(stream.slabs.win_k.shape) == (
-        3, cfg.n_layers, 1, cfg.ccm.stream_window, cfg.n_kv_heads, cfg.hd)
-    assert eng._mgr["online"].arena.slabs.cache.k.device.type == "cpu"
+    eng = build()
+    online = eng._mgr["online"].arena
+    if "stream_slots" in kw:
+        stream = eng._mgr["stream"].arena
+        assert stream.slabs.win_k.device.type == "cpu"
+        assert tuple(stream.slabs.win_k.shape) == (
+            3, cfg.n_layers, 1, cfg.ccm.stream_window, cfg.n_kv_heads,
+            cfg.hd)
+        assert online.slabs.cache.k.device.type == "cpu"
+        return
+    assert eng.n_shards == online.n_shards == 2
+    assert [eng.create_session(f"s{i}") for i in range(4)] == [0, 1, 0, 1]
+    if "mesh" in kw:          # one row block (2 slots + scratch) a device
+        blocks = online.slabs.blocks
+        assert [b.cache.k.shape[0] for b in blocks] == [3, 3]
+        assert online.devices == kw["mesh"].devices
+    else:
+        assert online.slabs.cache.k.shape[0] == 6
+
+
+def _unported_cases():
+    """What stays unported raises NotImplementedError naming slice 14."""
+    from repro_torch.configs import phi35_moe
+    from repro_torch.core.masks import segment_layout
+    from repro_torch.distributed.context import DistContext
+    from repro_torch.launch import serve as SRV
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import AdamWConfig
+
+    class Mesh:
+        axis_names = ("data", "model")
+        shape = {"data": 2, "model": 2}
+
+    dist = DistContext(mesh=Mesh())
+    cfg = phi35_moe.smoke(compute_dtype="float32")
+    return {
+        "train-n_model": lambda: make_train_step(
+            cfg, segment_layout(2, 4, 2, 4), AdamWConfig(), dist=dist),
+        "apply_moe-dist": lambda: moe.apply_moe(
+            cfg, {}, torch.zeros(1, 1, cfg.d_model), dist=dist),
+        "stream-step-dist": lambda: SRV.make_stream_step(cfg, dist=dist),
+    }
+
+
+@pytest.mark.parametrize("case", ["train-n_model", "apply_moe-dist",
+                                  "stream-step-dist"])
+def test_unported_multi_device_options_name_slice_14(case):
+    with pytest.raises(NotImplementedError, match="slice 14"):
+        _unported_cases()[case]()

@@ -235,9 +235,32 @@ def test_compress_with_ef_matches_reference(codec):
 
 
 def test_compressed_psum_needs_the_multi_device_slice():
-    g = {"a": torch.ones(3)}
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        PG.compressed_psum(g, "data", PG.init_ef(g), "int8")
+    """The data-parallel reduce needs a process group: without one it
+    raises; in a gloo world of one rank it is `compress_with_ef` followed
+    by a sum over that one rank (codec "none": the gradients as they
+    are).  Worlds of 2 and 4 ranks: tests/test_torch_distributed.py."""
+    import torch.distributed as tdist
+
+    from repro_torch.distributed.context import free_port
+    g = {"a": torch.linspace(-1, 1, 7), "frozen": None}
+    with pytest.raises((RuntimeError, ValueError)):
+        PG.compressed_psum(dict(g), None, PG.init_ef(g), "int8")
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                             f"{free_port()}", world_size=1, rank=0)
+    try:
+        group = tdist.group.WORLD
+        for codec in ("int8", "topk"):
+            want, want_ef = PG.compress_with_ef(g, PG.init_ef(g), codec, 0.3)
+            got, ef = PG.compressed_psum({"a": g["a"].clone(),
+                                          "frozen": None}, group,
+                                         PG.init_ef(g), codec, 0.3)
+            assert got["frozen"] is None
+            assert torch.equal(got["a"], want["a"])
+            assert torch.equal(ef.residual["a"], want_ef.residual["a"])
+        got, ef = PG.compressed_psum({"a": g["a"].clone()}, group)
+        assert ef is None and torch.equal(got["a"], g["a"])
+    finally:
+        tdist.destroy_process_group()
 
 
 def _loop_cfgs():

@@ -431,6 +431,13 @@ _PLANE = {
     "no-edf": (dict(edf=False), dict(rel_deadlines=_DEADLINES)),
     "async-offload": (dict(async_offload=True),
                       dict(rel_deadlines=_DEADLINES)),
+    # session-sharded engines (the loop over shards; the null step).  At
+    # 2 slots a shard seed 3's trace stops the reference with ArenaFull
+    # (its prefix-pin fault, ROADMAP §3, which the port serves:
+    # tests/test_torch_sharded_serve.py::test_prefix_pin_counterexample
+    # _is_served), so the 2-shard engine has 3 slots a shard
+    "shards-2": (dict(n_shards=2, n_slots=6), dict(rel_deadlines=_DEADLINES)),
+    "shards-4": (dict(n_shards=4, n_slots=8), {}),
 }
 
 

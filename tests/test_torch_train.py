@@ -250,10 +250,19 @@ def test_parallel_equals_online_in_port(mode):
 
 
 def test_multi_device_training_raises():
+    """Data-parallel meshes train (tests/test_torch_distributed.py); a
+    mesh with a model axis (tensor parallelism) still raises."""
+    from repro_torch.distributed.context import DistContext
+
+    class Mesh:                   # shape-only: the check reads no more
+        axis_names = ("data", "model")
+        shape = {"data": 1, "model": 2}
+
     _, pcfg = _cfgs("concat")
     _, pl = _layouts()
     with pytest.raises(NotImplementedError, match="multi-device"):
-        PTR.make_train_step(pcfg, pl, PA.AdamWConfig(), dist=object())
+        PTR.make_train_step(pcfg, pl, PA.AdamWConfig(),
+                            dist=DistContext(mesh=Mesh()))
 
 
 def test_params_to_numpy_inverts_params_from_numpy():
