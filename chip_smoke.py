@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase12  # the card, the build and phase 12 only
     python3 chip_smoke.py --phase12 pixtral-12b   # ... for these archs
     python3 chip_smoke.py --phase13  # the card, the build and phase 13 only
+    python3 chip_smoke.py --phase14  # the card, the build and phase 14 only
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the build of the
@@ -141,8 +142,23 @@ Phases (any failure raises, and the script exits non-zero):
      top-k, bit-equal to ``dist=None`` and to ``compress_with_ef`` + the
      update, the error-feedback residual on the card, the codecs' and the
      all-reduce's times;
+ 14. (after 13) tensor parallelism, part 1 (the dense family): (a) an
+     NCCL world of one rank on a (1, 1) mesh through every ``dist=``
+     entry point, each bit-equal to ``dist=None``: ``jit_train_step``'s
+     placed step at phase 5's cell (concat and merge), the three
+     ``dist=`` serve builders and ``generate`` at phase 3's, the sharded
+     stream step at 8b's; (b) one full-width block of LLaMA-7B at n = 2,
+     4, 8 and of Gemma-2B at n = 2 (its "query" regime), the ranks of a
+     ``tensor_parallel.LocalGroup`` in turn on the card (each on its
+     shard, the partial sums added on the card): the training forward
+     and the vocab-parallel loss, an ingest, a prefill and a decode step,
+     concat and merge, against the unsharded block within ``bf16_tol``,
+     with the kernels' launches at the shard shapes and the loop's time;
+     (c) the segmented kernel's log-sum-exp route against its plain
+     version and a 32768-key decode at LLaMA-7B's heads cut in 4 blocks,
+     combined, against the kernel over the whole cache;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
-launches in phases 3, 5, 7, 8, 9, 10, 11, 12 and 13, and the CCM kernel's
+launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13 and 14, and the CCM kernel's
 phase-12 launches by whisper's encoder, read from the counters around
 each of its launches), then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward on
@@ -465,6 +481,15 @@ SEG_ZOO_CASES = [
          D=128),
     dict(label="decode 6/6 hd64 whisper", Sq=1, clen=480, H=6, Hkv=6,
          D=64),
+    # phase 14's shard shapes: a LLaMA-7B rank's heads at n = 2, 4 and 8
+    # (16, 8 and 4 of its 32 x 128), a decode over a 480-token cache and a
+    # 448-token prefill each
+    dict(label="decode 16/16 hd128 TP n=2", Sq=1, clen=480, H=16, Hkv=16),
+    dict(label="decode 8/8 hd128 TP n=4", Sq=1, clen=480, H=8, Hkv=8),
+    dict(label="decode 4/4 hd128 TP n=8", Sq=1, clen=480, H=4, Hkv=4),
+    dict(label="prefill 16/16 hd128 TP n=2", Sq=448, clen=0, H=16, Hkv=16),
+    dict(label="prefill 8/8 hd128 TP n=4", Sq=448, clen=0, H=8, Hkv=8),
+    dict(label="prefill 4/4 hd128 TP n=8", Sq=448, clen=0, H=4, Hkv=4),
 ]
 
 
@@ -674,7 +699,17 @@ def check_cond_lora(torch, clora, card):
                                # at an online ingest (phase 12)
                                (288, 5120, 4096, False),
                                (288, 5120, 1024, False),
-                               (288, 4096, 5120, False)):
+                               (288, 4096, 5120, False),
+                               # phase 14's shard shapes of LLaMA-7B's
+                               # projections: column-parallel q/k/v (N
+                               # 2048, 1024, 512 at n = 2, 4, 8) and the
+                               # row-parallel wo (K 2048, 1024, 512)
+                               (288, 4096, 2048, False),
+                               (288, 4096, 1024, False),
+                               (288, 4096, 512, False),
+                               (288, 2048, 4096, False),
+                               (288, 1024, 4096, False),
+                               (288, 512, 4096, False)):
         ws = [rn(K, N, std=K ** -0.5) for _ in range(4)]  # LLaMA: > L2
         a, b = rn(r, K, std=K ** -0.5), rn(r, N, std=0.05)
         bias = rn(N)
@@ -1051,7 +1086,12 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
                                  (14, 2, 64, ZOO_LAYOUT, ""),
                                  (32, 32, 64, ZAMBA_LAYOUT, " zamba2"),
                                  (6, 6, 64, WHISPER_FRAMES,
-                                  " whisper encoder")):
+                                  " whisper encoder"),
+                                 # phase 14's shard shapes: a LLaMA-7B
+                                 # rank's heads at n = 2, 4, 8
+                                 (16, 16, 128, ZOO_LAYOUT, " TP n=2"),
+                                 (8, 8, 128, ZOO_LAYOUT, " TP n=4"),
+                                 (4, 4, 128, ZOO_LAYOUT, " TP n=8")):
         f, b = timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
                          lay)
         S = lay if isinstance(lay, int) else segment_layout(*lay).seq_len
@@ -4373,6 +4413,461 @@ def phase13(torch, ops, PI, TR, PD, PA, PP, PG, segment_layout, params, cfg,
     return counts, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 14: tensor parallelism, part 1 (the dense family)
+# ---------------------------------------------------------------------------
+
+# 14b's blocks: (arch, model-axis size); LLaMA-7B's 32/32 heads split in
+# the "kv" regime, Gemma-2B's 8/1 in the "query" regime
+TP_BLOCKS = (("llama-7b", 2), ("llama-7b", 4), ("llama-7b", 8),
+             ("gemma-2b", 2))
+# the kernels of the tensor-parallel path (14b's rank loops run forward
+# only; 14a's steps add the backward kernels)
+TP_KERNELS = ("cond_lora", "cond_lora_wgmma", "segmented_attention",
+              "segmented_attention_splitk", "segmented_attention_mma",
+              "ccm_attention", "ccm_attention_mma", "kv_merge_update",
+              "kv_cummean")
+
+
+def counted(ops, total, fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after, added into ``total``; returns ``fn()``'s result."""
+    import torch
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    add_counts(total, ops.launch_counts())
+    return out
+
+
+def same_tree(torch, PP, a, b) -> list:
+    """The leaves of two trees that are not bit-equal."""
+    a, b = dict(PP.leaves(a)), dict(PP.leaves(b))
+    return ["/".join(k) for k in b if not torch.equal(a[k], b[k])]
+
+
+def tp_world_of_one(torch, m, params, cfg, card):
+    """14a: every new entry point with ``dist=`` in an NCCL world of one
+    rank on a (1, 1) mesh, against ``dist=None``, bit-equal (NCCL cannot
+    put two ranks on one card): ``jit_train_step``'s placed step at phase
+    5's cell (B4, S1216, LoRA), one concat and one merge AdamW step; the
+    three ``dist=`` builders (ingest twice, a 448-token prefill, 4 decode
+    steps) and ``generate`` (8 tokens) at phase 3's cell (B4, a
+    512-token cache, concat + bf16), then the split path itself at n = 1
+    (a ``TensorParallel`` over the mesh's NCCL model-axis group: online
+    logits bit-equal, the vocab-parallel loss and the LoRA gradients
+    through NCCL's backward reduce held to ``dist=None``);
+    ``make_stream_step`` at phase 8b's (4 layers, W 512, 10 chunks of 64:
+    two evictions).  Returns the dist runs' launches (the dist=None runs
+    are not counted)."""
+    import torch.distributed as tdist
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.distributed.context import free_port, init_world
+    from repro_torch.launch import serve as SRV
+    from repro_torch.launch.mesh import make_debug_mesh, make_dist
+    PI, STR, TR, PD, PA, PP, ops = m.PI, m.STR, m.TR, m.PD, m.PA, m.PP, m.ops
+    dev = init_world(0, 1, free_port(), params["embed"].device)   # NCCL
+    counts = {}
+    try:
+        dist = make_dist(make_debug_mesh(1, 1, device=dev))
+        layout = m.segment_layout(*ZOO_LAYOUT)
+        batch = PD.sample_kv_batch(PD.ShardableIndexIterator(0, 4)
+                                   .key_for(0), layout, 4, device=dev)
+        tp0, fp0 = PP.partition(params, TR.trainable_mask_for(cfg, params))
+        ocfg = PA.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+        merge = cfg.replace(ccm=dataclasses.replace(cfg.ccm, mode="merge",
+                                                    merge_alpha=None))
+
+        def clone(t):
+            return PP.tree_map(lambda _, x: None if x is None
+                               else x.detach().clone(), t)
+        for mode, c in (("concat", cfg), ("merge", merge)):
+            tp, opt = clone(tp0), PA.init_adamw(tp0)
+            step = TR.jit_train_step(
+                TR.make_train_step(c, layout, ocfg, dist), c, dist, None,
+                None, batch, None)
+            tp, fp, opt = step.place(tp, fp0, opt)
+            tp, opt, mt, _ = counted(ops, counts, lambda: step(
+                tp, fp, opt, batch))
+            tq, oq = clone(tp0), PA.init_adamw(tp0)
+            tq, oq, mq, _ = TR.make_train_step(c, layout, ocfg)(
+                tq, fp0, oq, batch)
+            diff = same_tree(torch, PP, tp, tq) \
+                + same_tree(torch, PP, opt.mu, oq.mu) \
+                + same_tree(torch, PP, opt.nu, oq.nu)
+            if mt["loss"].item() != mq["loss"].item() or diff:
+                raise AssertionError(f"14a train {mode}: loss "
+                                     f"{mt['loss'].item()} vs "
+                                     f"{mq['loss'].item()}, differ {diff}")
+            log(f"  14a jit_train_step(dist=) {mode}: one AdamW step "
+                f"bit-equal to dist=None (loss {mt['loss'].item():.4f}, "
+                "leaves, moments)")
+        del tp, tq, opt, oq
+
+        B, CACHE = 4, 512
+        gen = torch.Generator(device=dev).manual_seed(140)
+        ctx = [torch.randint(0, cfg.vocab_size, (B, 64), generator=gen,
+                             device=dev) for _ in range(2)]
+        prompt = torch.randint(0, cfg.vocab_size, (B, 448), generator=gen,
+                               device=dev)
+        ing, pre = SRV.make_ingest_step(cfg, dist), \
+            SRV.make_prefill_step(cfg, dist)
+        dec = SRV.make_decode_step(cfg, dist)
+
+        def online(st, tp_dist):
+            for c in ctx:
+                st = ing(params, st, c) if tp_dist else \
+                    PI.ingest_context(params, cfg, st, c)
+            lg, st = pre(params, st, prompt) if tp_dist else \
+                PI.prefill(params, cfg, st, prompt)
+            lgs = [lg]
+            for _ in range(4):
+                tok = lgs[-1][:, -1].argmax(-1)[:, None]
+                lg, st = dec(params, st, tok) if tp_dist else \
+                    PI.decode_step(params, cfg, st, tok)
+                lgs.append(lg)
+            g = PI.generate(params, cfg, clone_state(torch, st), prompt[:, :64],
+                            8, dist=dist if tp_dist else None)
+            return lgs, st, g
+        st0 = PI.init_online_state(cfg, B, CACHE, device=dev)
+        _, st_d = ing.place(params, clone_state(torch, st0))
+        got = counted(ops, counts, lambda: online(st_d, True))
+        want = online(clone_state(torch, st0), False)
+        bad = [i for i, (a, b) in enumerate(zip(got[0], want[0]))
+               if not torch.equal(a, b)]
+        for name in ("k", "v"):
+            if not torch.equal(getattr(got[1].cache, name),
+                               getattr(want[1].cache, name)) or not \
+                    torch.equal(getattr(got[1].mem, name),
+                                getattr(want[1].mem, name)):
+                bad.append(f"state {name}")
+        if bad or not torch.equal(got[2], want[2]):
+            raise AssertionError(f"14a builders: differ at {bad} or in "
+                                 "generate's tokens")
+        log(f"  14a make_ingest_step / make_prefill_step / make_decode_step"
+            "(dist=) and generate(dist=): logits of 2 ingests, a 448-token "
+            "prefill and 4 decode steps, the cache and memory, 8 generated "
+            f"tokens, bit-equal to dist=None (B4, {cfg.n_layers} layers)")
+        del got, want, st_d
+
+        # the split path itself at n = 1: a TensorParallel view over the
+        # mesh's NCCL model-axis group, so that the tensor-parallel code's
+        # every reduce, max and gather (forward and backward) runs
+        # through NCCL on the card
+        tp1 = TPX.TensorParallel(cfg, 1, 0, TPX.collectives(dist))
+
+        def split_online(tp):
+            st = clone_state(torch, st0)
+            for c in ctx:
+                st = PI.ingest_context(params, cfg, st, c, dist=tp)
+            lp, st = PI.prefill(params, cfg, st, prompt, dist=tp)
+            tok = PI.greedy(lp[:, -1], cfg, tp)[:, None]
+            ld, st = PI.decode_step(params, cfg, st, tok, dist=tp)
+            return PI.gather_vocab(lp, cfg, tp), ld, tok
+        got = counted(ops, counts, lambda: split_online(tp1))
+        want = split_online(None)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("14a: the split path at n = 1 differs from "
+                                 "dist=None online")
+        tq = clone(tp0)
+
+        def split_grads(tp):
+            leaves = [x for _, x in PP.leaves(tq)]
+            for x in leaves:
+                x.requires_grad_(True)
+            with torch.enable_grad():
+                loss = TR._loss_fn(tq, fp0, cfg, layout, batch, dist=tp)
+                return loss.detach(), torch.autograd.grad(loss, leaves)
+        (la, ga), (lb, gb) = counted(ops, counts,
+                                     lambda: split_grads(tp1)), \
+            split_grads(None)
+        check("14a split path at n = 1 over NCCL: the vocab-parallel loss "
+              "vs logsumexp (float32)", abs(la.item() - lb.item()),
+              1e-5 * abs(lb.item()))
+        worst = max(max_err(a, b) / max(b.float().abs().max().item(), 1e-30)
+                    for a, b in zip(ga, gb))
+        check("14a split path at n = 1: every LoRA gradient, relative to its "
+              "largest (the losses' float32 gradients round to bf16 for the "
+              "backward)", worst, 2.0 ** -5)
+        log("  14a the split path at n = 1 (copy / reduce / max / gather "
+            "through the NCCL model-axis group): prefill and decode logits "
+            "and the greedy pick bit-equal to dist=None")
+        del got, want, st0, tq, ga, gb
+
+        p4 = first_layers(params, 4)
+        c4 = cfg.replace(n_layers=4, ccm=dataclasses.replace(
+            cfg.ccm, stream_window=512, stream_chunk=64, stream_mem_slots=4))
+        toks = torch.randint(0, cfg.vocab_size, (2, 640), generator=gen,
+                             device=dev)
+        sstep = SRV.make_stream_step(c4, dist)
+
+        def stream(st, tp_dist):
+            out = []
+            for i in range(10):
+                t = toks[:, i * 64:(i + 1) * 64]
+                lg, st = sstep(p4, st, t) if tp_dist else \
+                    STR.stream_step(p4, c4, st, t)
+                out.append(lg)
+            return out, st
+        s0 = STR.init_stream_state(c4, 2, device=dev)
+        _, s_d = sstep.place(p4, clone_state(torch, s0))
+        got = counted(ops, counts, lambda: stream(s_d, True))
+        want = stream(clone_state(torch, s0), False)
+        if not all(torch.equal(a, b) for a, b in zip(got[0], want[0])) or \
+                not torch.equal(got[1].win_k, want[1].win_k) or \
+                not torch.equal(got[1].mem.k, want[1].mem.k) or \
+                got[1].mem.slots != want[1].mem.slots:
+            raise AssertionError("14a make_stream_step(dist=) differs")
+        log(f"  14a make_stream_step(dist=): 10 chunks of 64 (2 "
+            f"evictions, {got[1].mem.slots} memory groups) bit-equal to "
+            "dist=None (4 layers, W 512)")
+        return counts
+    finally:
+        tdist.destroy_process_group()
+
+
+def rank_state(torch, st, tp):
+    """A rank's copy of an online state: the KV heads of its block where
+    the "kv" regime splits them (dim 3 of every cache, scale and memory
+    leaf), else the whole state (the ranks write in place: one copy each)."""
+    from repro_torch.distributed import tensor_parallel as TPX
+
+    def cut(x, _):
+        if tp.attn != "kv":
+            return x.clone()
+        h = x.shape[3] // tp.n
+        return x.narrow(3, tp.rank * h, h).contiguous()
+    return TPX.map_by_spec(cut, st, None)
+
+
+def tp_rank_loop(torch, m, card):
+    """14b: one block at full width (``n_layers=1``) of LLaMA-7B at n = 2,
+    4 and 8 and of Gemma-2B at n = 2, random weights (seed 14, LoRA b
+    drawn), bf16.  The n ranks of a ``LocalGroup`` run on the card in
+    turn (``tensor_parallel.shard_params`` gives each its shard; the
+    block's partial sums go through the group's reduce, added on the
+    card), forward only: the CCM training forward (B2, S1216) and its
+    vocab-parallel loss in concat and merge mode, then the online path
+    (B4: an ingest of 64 tokens, a 64-token prefill, a decode step;
+    concat, then merge), each held against the unsharded block on the
+    card within bf16_tol (logits gathered over the vocabulary blocks).
+    The kernels' launches and the rank loop's time beside the unsharded
+    block's.  Returns the rank loops' launches and the record."""
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.optim.losses import next_token_loss
+    PI, PT, PD, ops = m.PI, m.PT, m.PD, m.ops
+    counts, rec = {}, {}
+    layout = m.segment_layout(*ZOO_LAYOUT)
+    for arch, n in TP_BLOCKS:
+        base = m.get_config(arch).replace(n_layers=1)
+        params = m.init_lm(base, seed=14)
+        randomize_lora_b(torch, params, seed=114)
+        dev = params["embed"].device
+        batch = PD.sample_kv_batch(PD.ShardableIndexIterator(0, 2)
+                                   .key_for(0), layout, 2, device=dev)
+        tail = batch["tokens"][:, layout.seq_len - layout.tail_len:]
+        gen = torch.Generator(device=dev).manual_seed(141)
+        ctx = torch.randint(0, base.vocab_size, (4, 64), generator=gen,
+                            device=dev)
+        prompt = torch.randint(0, base.vocab_size, (4, 64), generator=gen,
+                               device=dev)
+        here, r = {}, {}
+        for mode in ("concat", "merge"):
+            cfg = base.replace(ccm=dataclasses.replace(base.ccm, mode=mode))
+            shards = [TPX.shard_params(params, cfg,
+                                       TPX.TensorParallel(cfg, n, r, None))
+                      for r in range(n)]
+
+            def train(p, tp):
+                lg = PT.train_forward(p, cfg, batch["tokens"], layout,
+                                      dist=tp)
+                loss = next_token_loss(lg, tail, batch["loss_mask"], tp=tp)
+                return PI.gather_vocab(lg, cfg, tp), loss
+
+            def online(p, st, tp):
+                st = PI.ingest_context(p, cfg, st, ctx, dist=tp)
+                lp, st = PI.prefill(p, cfg, st, prompt, dist=tp)
+                ld, st = PI.decode_step(p, cfg, st, prompt[:, :1], dist=tp)
+                return (PI.gather_vocab(lp, cfg, tp),
+                        PI.gather_vocab(ld, cfg, tp))
+            st0 = PI.init_online_state(cfg, 4, 256, device=dev)
+
+            def whole():
+                return train(params, None), online(
+                    params, clone_state(torch, st0), None)
+
+            def loop():
+                grp = TPX.LocalGroup(n)
+                ranks = TPX.local_ranks(cfg, grp)
+                sts = [rank_state(torch, st0, tp) for tp in ranks]
+                return grp.run(lambda i: (train(shards[i], ranks[i]),
+                                          online(shards[i], sts[i],
+                                                 ranks[i])))
+            with torch.no_grad():
+                want = whole()
+                outs = counted(ops, here, loop)
+                t_whole = time_ms(torch, lambda i: whole(), iters=3,
+                                  warmup=1)
+                t_loop = time_ms(torch, lambda i: loop(), iters=3, warmup=1)
+            for rk, ((lg, loss), (lp, ld)) in enumerate(outs):
+                for name, a, b in (("train logits", lg, want[0][0]),
+                                   ("loss", loss, want[0][1]),
+                                   ("prefill logits", lp, want[1][0]),
+                                   ("decode logits", ld, want[1][1])):
+                    err = max_err(a, b)
+                    if rk == 0:
+                        check(f"14b {arch} n={n} {mode} {name} (rank loop "
+                              "vs unsharded)", err, bf16_tol(b))
+                    elif not err <= bf16_tol(b):
+                        raise AssertionError(f"14b {arch} n={n} rank {rk} "
+                                             f"{name}: {err}")
+            r[mode] = dict(whole_ms=t_whole, loop_ms=t_loop,
+                           per_rank_ms=t_loop / n)
+            log(f"  14b {arch} n={n} {mode}: the {n} ranks in turn "
+                f"{t_loop:.2f} ms ({t_loop / n:.2f} ms a rank), the "
+                f"unsharded block {t_whole:.2f} ms (training forward + "
+                f"loss, ingest, prefill, decode; CUDA events) [{card}]")
+        missing = [k for k in TP_KERNELS if here.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"14b {arch} n={n}: no launch of {missing}"
+                                 f" ({here})")
+        lc = TPX.local_config(base, TPX.TensorParallel(base, n, 0, None))
+        log(f"  14b {arch} n={n}: launches "
+            f"{({k: v for k, v in here.items() if v})} (a rank's shard: "
+            f"{lc.n_heads}/{lc.n_kv_heads} heads, d_ff {lc.d_ff}, vocab "
+            f"{lc.vocab_size})")
+        add_counts(counts, here)
+        rec[f"{arch} n={n}"] = dict(r, launches=here)
+        del params, shards
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, rec
+
+
+def seq_sharded_check(torch, dattn, card):
+    """14c: the segmented kernel's log-sum-exp against its plain version
+    (the float32 route at hd 128 and 256; the split-K route with one
+    split and with several; a lane that sees no key gives -inf), then the
+    sequence-sharded decode's combine at LLaMA-7B's heads (32 x 128, bf16, B1) over
+    a 32768-key cache cut in 4 blocks: each block's kernel with its lse,
+    combined (``models.attention.combine_blocks`` over a LocalGroup of 4)
+    against the kernel over the whole cache, within bf16_tol.  Times the
+    whole-cache kernel, the 4 block kernels and the combine."""
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.models.attention import combine_blocks
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(142)
+
+    def rn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    rec = {}
+    for label, dt, B, H, Hkv, D, S, lens in (
+            ("float32 route", torch.float32, 3, 8, 2, 128, 300, [300, 17, 0]),
+            ("float32 route, hd 256", torch.float32, 3, 8, 1, 256, 200,
+             [200, 9, 0]),
+            ("split-K, one split", torch.bfloat16, 3, 8, 2, 128, 100,
+             [100, 40, 0]),
+            ("split-K, several splits", torch.bfloat16, 3, 32, 32, 128, 4096,
+             [4096, 2000, 0])):
+        q = rn(B, 1, H, D, dtype=dt)
+        k, v = rn(B, S, Hkv, D, dtype=dt), rn(B, S, Hkv, D, dtype=dt)
+        qi = torch.full((1,), 2 ** 30, device=dev, dtype=torch.int32)
+        one = torch.ones(1, device=dev, dtype=torch.int32)
+        segs = [seg_dict(k, v, length=torch.tensor(lens, device=dev,
+                                                   dtype=torch.int32))]
+        out, lse = dattn.segmented_flash_attention(q, segs, qi, one,
+                                                   D ** -0.5, lse=True)
+        wo, wl = dattn.plain(q, segs, qi, one, D ** -0.5, lse=True)
+        torch.cuda.synchronize()
+        if not bool(torch.isneginf(lse[2]).all()) or not \
+                torch.equal(out, dattn.segmented_flash_attention(
+                    q, segs, qi, one, D ** -0.5)):
+            raise AssertionError(f"14c lse {label}: an empty lane's lse is "
+                                 "not -inf, or lse changed the output")
+        live = torch.isfinite(wl)
+        err = (lse[live] - wl[live]).abs().max().item()
+        check(f"14c lse {label} B{B} {H}/{Hkv} hd{D} S{S} (kernel vs plain)",
+              err, 1e-5 * wl[live].abs().max().item())
+        rec[label] = err
+    # the sequence-sharded decode's combine at full width
+    B, H, D, S, n = 1, 32, 128, 32768, 4
+    q = rn(B, 1, H, D)
+    k, v = rn(B, S, H, D), rn(B, S, H, D)
+    mk, mv = rn(B, 128, H, D), rn(B, 128, H, D)
+    sk, sv = rn(B, 1, H, D), rn(B, 1, H, D)
+    qi = torch.full((1,), 2 ** 30, device=dev, dtype=torch.int32)
+    one = torch.ones(1, device=dev, dtype=torch.int32)
+    self_seg = seg_dict(sk, sv, idx=qi, seg=one,
+                        comp=torch.zeros(1, device=dev, dtype=torch.bool))
+    blk = S // n
+    whole = [seg_dict(mk, mv), seg_dict(k, v), self_seg]
+    blocks = [([seg_dict(mk, mv)] if i == 0 else [])
+              + [seg_dict(k[:, i * blk:(i + 1) * blk],
+                          v[:, i * blk:(i + 1) * blk])]
+              + ([self_seg] if i == 0 else []) for i in range(n)]
+    scale = D ** -0.5
+    want = dattn.segmented_flash_attention(q, whole, qi, one, scale)
+
+    def sharded():
+        grp = TPX.LocalGroup(n)
+
+        def rank(i):
+            o, l = dattn.segmented_flash_attention(q, blocks[i], qi, one,
+                                                   scale, lse=True)
+            return combine_blocks(o, l, grp.member(i))
+        return grp.run(rank)
+    outs = sharded()
+    plain = dattn.plain(q, whole, qi, one, scale)
+    torch.cuda.synchronize()
+    for i, o in enumerate(outs):
+        if i == 0:
+            check(f"14c sequence-sharded decode, {n} blocks of {blk} keys, "
+                  f"{H}x{D} bf16 (combined vs the whole-cache kernel)",
+                  max_err(o, want), bf16_tol(want))
+            check("14c sequence-sharded decode (combined vs plain)",
+                  max_err(o, plain), bf16_tol(plain))
+        elif not torch.equal(o, outs[0]):
+            raise AssertionError("14c: the ranks' combined outputs differ")
+    t_whole = device_ms(torch, lambda i: dattn.segmented_flash_attention(
+        q, whole, qi, one, scale), only="segmented_attention")
+    t_blocks = device_ms(torch, lambda i: [dattn.segmented_flash_attention(
+        q, b, qi, one, scale, lse=True) for b in blocks],
+        only="segmented_attention")
+    t_all = time_ms(torch, lambda i: sharded(), iters=5, warmup=1)
+    nbytes = 2 * (S + 129) * H * D * 2
+    bms, by = bound(nbytes, 4.0 * H * D * (S + 129), PEAK_BF16)
+    log(f"  14c: the whole-cache kernel {t_whole:.4f} ms, the 4 block "
+        f"kernels with lse {t_blocks:.4f} ms of device time together, "
+        f"bound {bms:.4f} ms ({by}); the 4 ranks in turn with the combine "
+        f"{t_all:.3f} ms (CUDA events, host included) [{card}]")
+    rec.update(whole_ms=t_whole, blocks_ms=t_blocks, loop_ms=t_all,
+               bound_ms=bms)
+    return rec
+
+
+def phase14(torch, m, params, cfg, card):
+    """Phase 14 on LLaMA-7B's weights (14a) and its own blocks (14b)."""
+    t0 = time.perf_counter()
+    log("  14a: every dist= entry point in an NCCL world of one rank, "
+        "(1, 1) mesh")
+    counts = tp_world_of_one(torch, m, params, cfg, card)
+    need = ("cond_lora_wgmma", "segmented_attention_splitk",
+            "segmented_attention_mma", "ccm_attention_mma",
+            "ccm_attention_backward_mma", "kv_cummean", "kv_cummean_backward")
+    if any(counts.get(k, 0) <= 0 for k in need):
+        raise AssertionError(f"14a launches {counts}")
+    log("  14b: the rank loop at full width (LocalGroup, ranks in turn on "
+        "the card)")
+    loop_counts, rec = tp_rank_loop(torch, m, card)
+    add_counts(counts, loop_counts)
+    log("  14c: the log-sum-exp route and the sequence-sharded decode")
+    rec["14c"] = seq_sharded_check(torch, m.dattn, card)
+    log(f"  phase 14 launches: {({k: v for k, v in counts.items() if v})}; "
+        f"took {time.perf_counter() - t0:.1f} s")
+    return counts, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4442,6 +4937,19 @@ def main() -> int:
         log(f"  --phase13: done ({time.perf_counter() - t_start:.1f} s)")
         return 0
 
+    m14 = types.SimpleNamespace(
+        get_config=get_config, init_lm=init_lm, PI=PI, STR=STR, ops=ops,
+        TR=TR, PT=PT, PD=PD, PA=PA, PP=PP, dattn=dattn,
+        segment_layout=segment_layout)
+    if "--phase14" in sys.argv[1:]:
+        log("phase 14 alone (--phase14): LLaMA-7B (32 layers, bf16, seed 0)")
+        cfg = llama_7b_paper.config()
+        params = init_lm(cfg, seed=0)
+        randomize_lora_b(torch, params, seed=100)
+        phase14(torch, m14, params, cfg, card)
+        log(f"  --phase14: done ({time.perf_counter() - t_start:.1f} s)")
+        return 0
+
     log("phase 2: kernels against their plain versions on the card")
     seg = check_segmented(torch, F, dattn, PI.quantize_kv, card)
     lora = check_cond_lora(torch, clora, card)
@@ -4509,6 +5017,12 @@ def main() -> int:
         "weights phase 7 served)")
     p13_counts, _ = phase13(torch, ops, PI, TR, PD, PA, PP, PG,
                             segment_layout, params, cfg, card, rec7)
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    log("phase 14: tensor parallelism, part 1 (the dense family): the "
+        "dist= entry points, the rank loop at full width, the sequence-"
+        "sharded decode")
+    p14_counts, rec14 = phase14(torch, m14, params, cfg, card)
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     log("phase 8: CCM streaming (sink + sliding window + compressed memory)")
@@ -4600,24 +5114,27 @@ def main() -> int:
     # 5: training, 7: the 32-layer serve engine, 8: streaming, 9: the zoo,
     # 10: the baselines' training and the serve-metrics demo, 11: the
     # recurrent families, 12: the encoder-decoder, the VLM and MoE, 13: the
-    # sharded engines and the data-parallel step)
+    # sharded engines and the data-parallel step, 14: the dist= entry
+    # points and the tensor-parallel rank loops)
     by_phase = {k: {"3": totals[k], "5": train_counts.get(k, 0),
                     "7": serve_counts[k], "8": stream_counts[k],
                     "9": zoo_counts[k], "10": base_counts.get(k, 0),
                     "11": rec_counts[k], "12": fam_counts[k],
-                    "13": p13_counts.get(k, 0)}
+                    "13": p13_counts.get(k, 0),
+                    "14": p14_counts.get(k, 0)}
                 for k in ("segmented_attention_splitk",
                           "segmented_attention_mma", "cond_lora_wgmma",
                           "ccm_attention_mma", "ccm_attention_backward_mma")}
     for k, need in (("segmented_attention_splitk", ("3", "8", "9", "11",
-                                                    "12")),
+                                                    "12", "14")),
                     ("segmented_attention_mma", ("3", "7", "8", "9", "11",
-                                                 "12", "13")),
+                                                 "12", "13", "14")),
                     ("cond_lora_wgmma", ("3", "5", "7", "8", "9", "10",
-                                         "11", "12", "13")),
-                    ("ccm_attention_mma", ("5", "9", "11", "12", "13")),
+                                         "11", "12", "13", "14")),
+                    ("ccm_attention_mma", ("5", "9", "11", "12", "13",
+                                           "14")),
                     ("ccm_attention_backward_mma", ("5", "9", "11", "12",
-                                                    "13"))):
+                                                    "13", "14"))):
         if any(by_phase[k][ph] <= 0 for ph in need):
             raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
     for k in ("kv_merge_update", "session_gather", "session_scatter"):
@@ -4631,6 +5148,9 @@ def main() -> int:
     for k in ("kv_cummean", "kv_cummean_backward"):
         if train_counts[k] <= 0 or rec_counts[k] <= 0 or fam_counts[k] <= 0:
             raise AssertionError(f"{k}: no launch in phase 5, 11 or 12")
+    for k in ("kv_merge_update", "kv_cummean", "kv_cummean_backward"):
+        if p14_counts.get(k, 0) <= 0:
+            raise AssertionError(f"{k}: no launch in phase 14")
     log(f"  tensor-core route launches by phase: {by_phase}")
     rows = [
         dict(name="segmented_attention", route="cuda",
@@ -4639,7 +5159,7 @@ def main() -> int:
              launches=sum(by_phase["segmented_attention_splitk"].values()),
              launches_by_phase=by_phase["segmented_attention_splitk"],
              kernel_route="split-K decode (bf16, Sq <= 2)", **seg["decode"],
-             shapes=shape_rows(seg)),
+             shapes=shape_rows(seg), lse=rec14["14c"]),
         dict(name="segmented_attention_mma", route="cuda",
              source="src/repro_torch/csrc/segmented_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:160",
@@ -4662,14 +5182,16 @@ def main() -> int:
              + zoo_counts["kv_merge_update"]
              + rec_counts["kv_merge_update"]
              + fam_counts["kv_merge_update"]
-             + p13_counts.get("kv_merge_update", 0),
+             + p13_counts.get("kv_merge_update", 0)
+             + p14_counts["kv_merge_update"],
              launches_by_phase={"3": totals["kv_merge_update"],
                                 "7": merge_counts["kv_merge_update"],
                                 "8": stream_counts["kv_merge_update"],
                                 "9": zoo_counts["kv_merge_update"],
                                 "11": rec_counts["kv_merge_update"],
                                 "12": fam_counts["kv_merge_update"],
-                                "13": p13_counts.get("kv_merge_update", 0)},
+                                "13": p13_counts.get("kv_merge_update", 0),
+                                "14": p14_counts["kv_merge_update"]},
              **merge),
         dict(name="ccm_attention", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
@@ -4690,11 +5212,12 @@ def main() -> int:
              replaces="src/repro/kernels/kv_merge.py:65",
              launches=train_counts["kv_cummean"]
              + rec_counts["kv_cummean"] + fam_counts["kv_cummean"]
-             + p13_counts["kv_cummean"],
+             + p13_counts["kv_cummean"] + p14_counts["kv_cummean"],
              launches_by_phase={"5": train_counts["kv_cummean"],
                                 "11": rec_counts["kv_cummean"],
                                 "12": fam_counts["kv_cummean"],
-                                "13": p13_counts["kv_cummean"]},
+                                "13": p13_counts["kv_cummean"],
+                                "14": p14_counts["kv_cummean"]},
              **cummean),
         dict(name="kv_cummean_backward", route="cuda",
              source="src/repro_torch/csrc/kv_cummean.cu",
@@ -4702,11 +5225,12 @@ def main() -> int:
              launches=train_counts["kv_cummean_backward"]
              + rec_counts["kv_cummean_backward"]
              + fam_counts["kv_cummean_backward"]
-             + p13_counts["kv_cummean_backward"],
+             + p13_counts["kv_cummean_backward"] + p14_counts["kv_cummean_backward"],
              launches_by_phase={"5": train_counts["kv_cummean_backward"],
                                 "11": rec_counts["kv_cummean_backward"],
                                 "12": fam_counts["kv_cummean_backward"],
-                                "13": p13_counts["kv_cummean_backward"]},
+                                "13": p13_counts["kv_cummean_backward"],
+                                "14": p14_counts["kv_cummean_backward"]},
              **cummean_bwd),
         dict(name="session_gather", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",

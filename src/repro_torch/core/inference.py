@@ -41,7 +41,7 @@ in the reference), and adds learned positions at every embed.  The VLM
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -50,6 +50,7 @@ from repro_torch.core.memory import (Counter, MemState, init_memory,
                                      mem_layers, per_lane, uniform,
                                      update_memory)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import tensor_parallel as TPX
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -154,24 +155,77 @@ def init_online_state(cfg: ModelConfig, batch: int, max_cache_len: int,
 # attention over [mem | cache | self] for a block of new tokens
 # ---------------------------------------------------------------------------
 
+class SeqShard(NamedTuple):
+    """The sequence-sharded decode's view of the KV cache: this data
+    rank's block ``rank`` of ``n`` contiguous blocks of the cache's
+    sequence axis, and the collectives over the data axes that combine
+    the blocks' attention (`models.attention.combine_blocks`)."""
+    coll: Any
+    rank: int
+    n: int
+
+    @classmethod
+    def of(cls, dist, seq_shard) -> Optional["SeqShard"]:
+        if seq_shard is None or seq_shard is False:
+            return None
+        if isinstance(seq_shard, SeqShard):
+            return seq_shard
+        if dist is None or isinstance(dist, TPX.TensorParallel):
+            raise ValueError("seq_shard=True needs the mesh's DistContext "
+                             "(its data axes hold the cache's blocks)")
+        axes = dist.batch_axes
+        return cls(TPX.GroupCollectives(dist.group(axes), dist.n_data),
+                   dist.rank_in(axes), dist.n_data)
+
+    def cache_plan(self, cache: KVCache, S: int):
+        """(this block's valid length, the new token's write plan here or
+        None).  The write lands where the unsharded cache's would, the
+        reference's clamp at the buffer's end included."""
+        length = uniform(cache.length)
+        if S != 1 or cache.lane_major or length is None:
+            raise ValueError("the sequence-sharded cache takes one-token "
+                             "decode steps of a shared length")
+        blk = cache.k.shape[2]
+        lo = self.rank * blk
+        at = min(max(int(length), 0), blk * self.n - S)
+        plan = M.plan_block_write(at - lo, S, blk) \
+            if lo <= at < lo + blk else None
+        return min(max(int(length) - lo, 0), blk), plan
+
+    def attend(self, cfg: ModelConfig, q, segs, q_info):
+        out, lse = A.attend_segments(cfg, q, segs, q_info, lse=True)
+        return A.combine_blocks(out, lse, self.coll)
+
+
 def _attend_online(cfg, q, k_new, v_new, self_info: A.KeyInfo,
                    q_info: A.KeyInfo, mem_kv=None, mem_valid=None,
                    cache_kv=None, cache_len=None, cache_scales=None,
-                   cache_layer=None, cache_lane_major=False, impl=None):
+                   cache_layer=None, cache_lane_major=False, impl=None,
+                   tp=None, seq: Optional["SeqShard"] = None):
     """q over [mem?, cache(:length)?, self] KV segments read IN PLACE;
     with ``cache_layer`` the stacked cache is read at that layer.  Lengths
-    are host ints or per-lane (B,) int32 tensors."""
+    are host ints or per-lane (B,) int32 tensors.  ``tp``: the segments
+    are narrowed to the KV heads this rank's query heads read
+    (``TensorParallel.kv_view``, a view).  ``seq``: the cache is this
+    data rank's block of the sequence (`SeqShard`)."""
+    def kv(x, dim=-2):
+        return x if tp is None or x is None else tp.kv_view(x, dim)
     segs = []
-    if mem_kv is not None:
-        segs.append(A.KVSegment(k=mem_kv[0], v=mem_kv[1], length=mem_valid))
+    own = seq is None or seq.rank == 0     # mem and self: one data rank
+    if mem_kv is not None and own:
+        segs.append(A.KVSegment(k=kv(mem_kv[0]), v=kv(mem_kv[1]),
+                                length=mem_valid))
     if cache_kv is not None:
         ks, vs = cache_scales if cache_scales is not None else (None, None)
-        segs.append(A.KVSegment(k=cache_kv[0], v=cache_kv[1],
-                                length=cache_len, k_scale=ks, v_scale=vs,
-                                layer=cache_layer,
+        segs.append(A.KVSegment(k=kv(cache_kv[0]), v=kv(cache_kv[1]),
+                                length=cache_len, k_scale=kv(ks, -1),
+                                v_scale=kv(vs, -1), layer=cache_layer,
                                 lane_major=cache_lane_major))
-    segs.append(A.KVSegment(k=k_new, v=v_new, info=self_info))
-    return A.attend_segments(cfg, q, segs, q_info, impl=impl)
+    if own:
+        segs.append(A.KVSegment(k=kv(k_new), v=kv(v_new), info=self_info))
+    if seq is None:
+        return A.attend_segments(cfg, q, segs, q_info, impl=impl)
+    return seq.attend(cfg, q, segs, q_info)
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +254,8 @@ def _positions(pos: Counter, rel: torch.Tensor, B: int) -> torch.Tensor:
 def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
                 q_info, self_info, state: OnlineState, write_to_cache: bool,
                 collect_comp: Optional[int], decode: bool = False,
-                impl=None, valid_len=None):
+                impl=None, valid_len=None, tp=None,
+                seq: Optional["SeqShard"] = None):
     """Runs the layer stack (`transformer.layer_plan`) over a block of new
     tokens.
 
@@ -216,7 +271,11 @@ def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
     (the first <COMP> row of the block; the group is its last m rows) is
     given.  ``valid_len`` (ragged lanes): cache writes past it are frozen
     and the length counter advances by it instead of the padded block
-    length.
+    length.  ``tp`` (a `distributed.tensor_parallel.TensorParallel`
+    rank): ``params`` is its shard and the state holds its KV heads.
+    ``seq`` (`SeqShard`, decode only): the cache holds this data rank's
+    block of the sequence; the block write goes to the rank that owns
+    the position.
     """
     cache, mem, ssm, cross = state.cache, state.mem, state.ssm, state.cross
     B, S = x.shape[:2]
@@ -227,8 +286,12 @@ def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
     cache_len = _lane_len(cache.length, B, dev) if cache is not None \
         else None
     write = write_to_cache and cache is not None
-    plan = M.plan_block_write(cache.length, S, cache.k.shape[2], valid_len,
-                              device=dev) if write else None
+    if seq is not None:
+        cache_len, plan = seq.cache_plan(cache, S)
+        write = write and plan is not None
+    else:
+        plan = M.plan_block_write(cache.length, S, cache.k.shape[2],
+                                  valid_len, device=dev) if write else None
     comp_k, comp_v = [], []
     for kind, li in T.layer_plan(cfg):
         if kind == "mamba":
@@ -244,7 +307,7 @@ def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
         hn = L.apply_norm(cfg, lp["ln1"], x)
         q, k_new, v_new = A.qkv_project(
             cfg, lp["attn"], hn, comp_gate,
-            positions if cfg.pos_embed == "rope" else None)
+            positions if cfg.pos_embed == "rope" else None, tp=tp)
         o = _attend_online(
             cfg, q, k_new, v_new, self_info, q_info,
             mem_kv=(mem.layer(mem.k, li), mem.layer(mem.v, li))
@@ -255,12 +318,12 @@ def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
             cache_scales=(cache.k_scale, cache.v_scale) if quant else None,
             cache_layer=li if cache is not None else None,
             cache_lane_major=cache is not None and cache.lane_major,
-            impl=impl)
-        x = x + A.out_project(cfg, lp["attn"], o, comp_gate)
+            impl=impl, tp=tp, seq=seq)
+        x = x + A.out_project(cfg, lp["attn"], o, comp_gate, tp=tp)
         if cross is not None:
             x = T.cross_attend(cfg, lp, x, (cross[0][li], cross[1][li]))
         hn = L.apply_norm(cfg, lp["ln2"], x)
-        x = x + T.ffn(cfg, lp, hn)
+        x = x + T.ffn(cfg, lp, hn, tp)
         if write:
             if quant:
                 qk, sk = quantize_kv(k_new)
@@ -276,7 +339,7 @@ def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
             comp_v.append(v_new[:, collect_comp:])
 
     new_cache = cache
-    if write:
+    if write_to_cache and cache is not None:
         adv = S if valid_len is None else valid_len
         new_cache = cache._replace(length=cache.length + adv)
     comp_kv = (torch.stack(comp_k), torch.stack(comp_v)) \
@@ -297,10 +360,10 @@ def _no_ragged(cfg: ModelConfig, valid_len, what: str) -> None:
 
 def _embed_block(cfg: ModelConfig, params, tokens: torch.Tensor,
                  positions: torch.Tensor, comp_mask=None,
-                 comp_offset=None) -> torch.Tensor:
+                 comp_offset=None, tp=None) -> torch.Tensor:
     """Token embeddings, plus the learned positions where the config has
     them (``positions`` (S,) or (B, S))."""
-    x = T.embed_tokens(cfg, params, tokens, comp_mask, comp_offset)
+    x = T.embed_tokens(cfg, params, tokens, comp_mask, comp_offset, tp=tp)
     if cfg.pos_embed == "learned":
         x = T.add_learned_pos(params["pos_embed"], x, positions)
     return x
@@ -319,7 +382,8 @@ def _valid_lanes(valid_len, B: int, dev) -> torch.Tensor:
 
 def ingest_context(params, cfg: ModelConfig, state: OnlineState,
                    chunk_tokens: torch.Tensor,
-                   valid_len: Optional[Counter] = None) -> OnlineState:
+                   valid_len: Optional[Counter] = None,
+                   dist=None) -> OnlineState:
     """Online step for a new context c(t): compress it (g_comp: the model
     runs over [c(t) | <COMP>^m] with the conditional LoRA firing at the
     <COMP> rows) and fold the <COMP> KV into memory (g_update).  The raw
@@ -332,9 +396,15 @@ def ingest_context(params, cfg: ModelConfig, state: OnlineState,
     ``valid_len + m``: the state equals ingesting the unpadded chunk.
 
     The ssm family has no attention to compress: the context only runs
-    through the Mamba2 layers and advances their state."""
+    through the Mamba2 layers and advances their state.
+
+    ``dist`` (a mesh splitting the model, or a `TensorParallel` rank):
+    ``params`` is this rank's shard and the state holds its KV heads
+    (``online_state_pspecs``); the merge g_update and the int8 scales act
+    on them."""
     B, lc = chunk_tokens.shape
     _no_ragged(cfg, valid_len, "ingest")
+    tp = TPX.tp_of(cfg, dist)
     if cfg.family == "ssm":
         x = _embed_block(cfg, params, chunk_tokens, _positions(
             state.pos, torch.arange(lc, device=chunk_tokens.device), B))
@@ -359,12 +429,14 @@ def ingest_context(params, cfg: ModelConfig, state: OnlineState,
         k_valid = M.lane_valid(S, valid_len, tail_start=lc, device=dev)
         consumed = valid_len + m
     positions = _positions(state.pos, rel, B)
-    x = _embed_block(cfg, params, tokens, positions, comp_mask, comp_off)
+    x = _embed_block(cfg, params, tokens, positions, comp_mask, comp_off,
+                     tp=tp)
     comp_gate = comp_mask.to(cfg.cdtype)[None].expand(B, S)
     info = _self_info(ar.to(torch.int32), comp_mask, k_valid)
     x, _, comp_kv = _stack_pass(
         params, cfg, x, positions, comp_gate=comp_gate, q_info=info,
-        self_info=info, state=state, write_to_cache=False, collect_comp=lc)
+        self_info=info, state=state, write_to_cache=False, collect_comp=lc,
+        tp=tp)
     new_mem = update_memory(cfg, state.mem, comp_kv[0], comp_kv[1], consumed)
     return state._replace(mem=new_mem, pos=state.pos + consumed)
 
@@ -373,10 +445,12 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
             tokens: torch.Tensor, impl: Optional[str] = None,
             full_logits: bool = False,
             valid_len: Optional[Counter] = None,
-            patches: Optional[torch.Tensor] = None):
+            patches: Optional[torch.Tensor] = None, dist=None):
     """Process input I(t) attending [Mem(t), cache, self-causal]; its KV
     is cached.  Returns (logits, new_state) — last position only unless
-    ``full_logits``.
+    ``full_logits``.  ``dist`` as in `ingest_context`; the logits are then
+    this rank's vocabulary block when the vocabulary splits
+    (`gather_vocab` gives the whole).
 
     ``valid_len`` (ragged lanes): tokens beyond it are bucket padding —
     masked out of attention, frozen out of the KV cache and excluded from
@@ -390,6 +464,7 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
     is written."""
     B, S = tokens.shape
     _no_ragged(cfg, valid_len, "prefill")
+    tp = TPX.tp_of(cfg, dist)
     if patches is not None and patches.shape[1] > S:
         raise ValueError(
             f"prefill of {S} tokens with {patches.shape[1]} patches: the "
@@ -404,7 +479,7 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
     k_valid = None if valid_len is None \
         else M.lane_valid(S, valid_len, device=tokens.device)
     adv = S if valid_len is None else valid_len
-    x = _embed_block(cfg, params, tokens, positions)
+    x = _embed_block(cfg, params, tokens, positions, tp=tp)
     if patches is not None:
         pe = T.patch_embed(cfg, params, patches)
         x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
@@ -413,27 +488,38 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
     x, new_cache, _ = _stack_pass(
         params, cfg, x, positions, comp_gate=None, q_info=info,
         self_info=info, state=state, write_to_cache=True, collect_comp=None,
-        impl=impl, valid_len=valid_len)
-    logits = T.lm_logits(params, cfg, x if full_logits else x[:, -1:])
+        impl=impl, valid_len=valid_len, tp=tp)
+    logits = T.lm_logits(params, cfg, x if full_logits else x[:, -1:], tp=tp)
     return logits, state._replace(cache=new_cache, pos=state.pos + adv)
 
 
 def decode_step(params, cfg: ModelConfig, state: OnlineState,
-                tokens: torch.Tensor, impl: Optional[str] = None):
+                tokens: torch.Tensor, impl: Optional[str] = None,
+                dist=None, seq_shard=None):
     """One-token decode attending [Mem, cache, self]. tokens (B, 1).  The
     self keys carry index 2**30 + i, past every cached index.  Mamba2
-    layers take the per-token recurrence."""
+    layers take the per-token recurrence.  ``dist`` as in `prefill`.
+
+    ``seq_shard`` (the sequence-sharded decode,
+    ``online_state_pspecs(shard_cache_seq=True, batch_sharded=False)``):
+    True with a ``DistContext``, or a `SeqShard`.  The cache is this data
+    rank's block of the sequence; each data rank attends its block (the
+    memory and the self key on data rank 0 alone) with the kernel's
+    log-sum-exp, and the blocks combine over the data axes.  The new
+    token's KV goes to the rank that owns its position."""
     B, S = tokens.shape
+    tp = TPX.tp_of(cfg, dist)
+    seq = SeqShard.of(dist, seq_shard)
     ar = torch.arange(S, device=tokens.device)
     positions = _positions(state.pos, ar, B)
-    x = _embed_block(cfg, params, tokens, positions)
+    x = _embed_block(cfg, params, tokens, positions, tp=tp)
     info = _self_info((ar + 2 ** 30).to(torch.int32),
                       torch.zeros_like(ar, dtype=torch.bool))
     x, new_cache, _ = _stack_pass(
         params, cfg, x, positions, comp_gate=None, q_info=info,
         self_info=info, state=state, write_to_cache=True, collect_comp=None,
-        decode=True, impl=impl)
-    logits = T.lm_logits(params, cfg, x)
+        decode=True, impl=impl, tp=tp, seq=seq)
+    logits = T.lm_logits(params, cfg, x, tp=tp)
     return logits, state._replace(cache=new_cache, pos=state.pos + S)
 
 
@@ -455,28 +541,58 @@ def encode_cross(params, cfg: ModelConfig, frames: torch.Tensor
     return torch.stack(ks), torch.stack(vs)
 
 
+def gather_vocab(logits: torch.Tensor, cfg: ModelConfig,
+                 dist) -> torch.Tensor:
+    """The whole vocabulary of logits that are a rank's block (a
+    collective over the model axis; ``logits`` as it is without one)."""
+    tp = TPX.tp_of(cfg, dist)
+    if tp is None or not tp.vocab_split:
+        return logits
+    return TPX.gather_from_tp(logits, tp, -1)
+
+
+def greedy(logits: torch.Tensor, cfg: ModelConfig, dist=None) -> torch.Tensor:
+    """argmax over the last dim of (..., V) logits, or of a rank's
+    vocabulary block: each rank's best (value, global id) is gathered
+    and the largest value wins, ties to the lower id, as ``jnp.argmax``
+    breaks them."""
+    tp = TPX.tp_of(cfg, dist)
+    i = torch.argmax(logits, dim=-1)
+    if tp is None or not tp.vocab_split:
+        return i
+    v = torch.gather(logits, -1, i[..., None]).float()
+    vs = tp.coll.gather(v, -1)                         # (..., n), rank order
+    ids = tp.coll.gather(i[..., None] + tp.vocab_lo, -1)
+    return torch.gather(ids, -1, torch.argmax(vs, dim=-1)[..., None])[..., 0]
+
+
 def generate(params, cfg: ModelConfig, state: OnlineState,
              prompt: torch.Tensor, max_new: int, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             impl: Optional[str] = None) -> torch.Tensor:
+             impl: Optional[str] = None, dist=None) -> torch.Tensor:
     """Greedy / temperature sampling: prefill ``prompt`` then decode.
     Returns (B, max_new) int32 tokens.  Temperature sampling draws from
     ``generator`` (a fresh one seeded with 0 on the logits' device when
-    None)."""
-    logits, state = prefill(params, cfg, state, prompt, impl=impl)
-    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    None).  ``dist`` as in `prefill`: the pick spans the ranks'
+    vocabulary blocks (`greedy`; sampling draws from the gathered
+    logits, the same draw on every rank)."""
+    logits, state = prefill(params, cfg, state, prompt, impl=impl,
+                            dist=dist)
+    tok = greedy(logits[:, -1], cfg, dist).to(torch.int32)
     toks = [tok]
     if temperature > 0 and generator is None:
         generator = torch.Generator(device=logits.device)
         generator.manual_seed(0)
     for _ in range(max_new - 1):
-        lg, state = decode_step(params, cfg, state, tok[:, None], impl=impl)
+        lg, state = decode_step(params, cfg, state, tok[:, None], impl=impl,
+                                dist=dist)
         lg = lg[:, -1]
         if temperature > 0:
+            lg = gather_vocab(lg, cfg, dist)
             probs = torch.softmax(lg.float() / temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
         else:
-            nxt = torch.argmax(lg, dim=-1)
+            nxt = greedy(lg, cfg, dist)
         tok = nxt.to(torch.int32)
         toks.append(tok)
     return torch.stack(toks, dim=1)

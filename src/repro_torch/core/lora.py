@@ -7,7 +7,7 @@ LoRA or gate the projection is a plain ``x @ w``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -35,12 +35,23 @@ def cond_linear(x: torch.Tensor, w: torch.Tensor,
                 lora: Optional[Dict[str, torch.Tensor]],
                 gate: Optional[torch.Tensor],
                 scale: float = 2.0,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                reduce: Optional[Callable] = None) -> torch.Tensor:
     """y = x @ W (+bias) + gate * ((x @ A^T) @ B) * scale.
 
     x (..., d_in); w (d_in, d_out); gate (...,) in {0., 1.}, or None for
     unconditional LoRA (the paper's "default LoRA" ablation).
+
+    Tensor parallelism: a column-parallel shard is this call on the
+    rank's columns of ``w`` and ``b`` (``a`` whole).  A row-parallel shard
+    (``reduce`` given) takes the rank's rows of ``w`` and columns of
+    ``a`` with ``b`` whole: ``x_s @ W_s + gate (x_s a_s^T) b`` is the
+    rank's term of a sum, since ``(sum_s x_s a_s^T) b = sum_s (x_s
+    a_s^T) b``; ``reduce`` completes it and the bias is added once, after.
     """
+    if reduce is not None:
+        y = reduce(cond_linear(x, w, lora, gate, scale))
+        return y if bias is None else y + bias.to(x.dtype)
     w = w.to(x.dtype)
     b = None if bias is None else bias.to(x.dtype)
     if lora is not None and gate is not None:

@@ -9,6 +9,10 @@ the concat memory itself is full, the oldest <COMP> group is dropped
 first (`core.memory.evict_oldest`).
 
 Positions are the monotone virtual-stream ids, as in the reference.
+With ``dist=`` (a mesh that splits the model, or a
+`distributed.tensor_parallel.TensorParallel` rank) the params are the
+rank's shard and the window and memory hold its KV heads
+(``stream_state_pspecs``).
 Every family but the recurrent ones streams; the encoder-decoder's
 stream has no cross attention (the reference's stream state has no
 cross K/V), and its chunks take learned positions through ``prefill``.
@@ -32,6 +36,7 @@ from repro_torch.core.memory import (Counter, MemState, evict_oldest,
                                      init_memory, mem_layers, per_lane,
                                      recompress_memory, update_memory)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import tensor_parallel as TPX
 from repro_torch.models.config import ModelConfig, require_ported
 
 
@@ -74,7 +79,8 @@ def init_stream_state(cfg: ModelConfig, batch: int,
 
 def compress_from_kv(params, cfg: ModelConfig, mem: MemState,
                      blk_k: torch.Tensor, blk_v: torch.Tensor,
-                     pos0: Counter, impl: Optional[str] = None) -> MemState:
+                     pos0: Counter, impl: Optional[str] = None,
+                     dist=None) -> MemState:
     """Run the m <COMP> tokens through the stack (the conditional LoRA on
     every row) attending [mem | block | self], then fold their KV into the
     memory (dropping the oldest group first on lanes whose memory is full).
@@ -98,7 +104,8 @@ def compress_from_kv(params, cfg: ModelConfig, mem: MemState,
         params, cfg, x.contiguous(), I._positions(pos0, off, B),
         comp_gate=torch.ones((B, m), dtype=cfg.cdtype, device=dev),
         q_info=info, self_info=info, state=I.OnlineState(cache=block, mem=mem),
-        write_to_cache=False, collect_comp=0, impl=impl)
+        write_to_cache=False, collect_comp=0, impl=impl,
+        tp=TPX.tp_of(cfg, dist))
     full = np.asarray(mem.slots) >= mem.max_slots(m)
     if full.any():
         mem = evict_oldest(mem, m, None if full.all() else full)
@@ -106,7 +113,8 @@ def compress_from_kv(params, cfg: ModelConfig, mem: MemState,
 
 
 def _compress_lanes(params, cfg: ModelConfig, mem: MemState, blk_k, blk_v,
-                    pos0: Counter, ids: np.ndarray, impl) -> MemState:
+                    pos0: Counter, ids: np.ndarray, impl,
+                    dist=None) -> MemState:
     """`compress_from_kv` on the lanes ``ids`` only: their memory and
     block rows are packed, compressed and written back in place."""
     B = blk_k.shape[0 if mem.lane_major else 1]
@@ -118,7 +126,7 @@ def _compress_lanes(params, cfg: ModelConfig, mem: MemState, blk_k, blk_v,
                        **{n: per_lane(getattr(mem, n), B)[ids] for n in names})
     sub = compress_from_kv(params, cfg, sub, blk_k.index_select(ax, t),
                            blk_v.index_select(ax, t), per_lane(pos0, B)[ids],
-                           impl)
+                           impl, dist)
     mem.k.index_copy_(ax, t, sub.k)
     mem.v.index_copy_(ax, t, sub.v)
     counters = {}
@@ -151,7 +159,7 @@ def _shift_window(x: torch.Tensor, sink: int, cc: int, lane_major: bool,
 
 
 def _evict_once(params, cfg: ModelConfig, s: StreamState, ccm_on: bool,
-                impl: Optional[str], lanes=None) -> StreamState:
+                impl: Optional[str], lanes=None, dist=None) -> StreamState:
     """One eviction on every lane, or on the (B,) bool ``lanes``: compress
     the block behind the sink into memory (ccm_on) or drop it (the
     StreamingLLM baseline), shift the window left by ``stream_chunk`` and
@@ -165,9 +173,10 @@ def _evict_once(params, cfg: ModelConfig, s: StreamState, ccm_on: bool,
     if ccm_on:
         blk_k = s.win_k[:, :, sink:sink + cc]
         blk_v = s.win_v[:, :, sink:sink + cc]
-        mem = compress_from_kv(params, cfg, mem, blk_k, blk_v, s.pos, impl) \
-            if ids is None else \
-            _compress_lanes(params, cfg, mem, blk_k, blk_v, s.pos, ids, impl)
+        mem = compress_from_kv(params, cfg, mem, blk_k, blk_v, s.pos, impl,
+                               dist) if ids is None else \
+            _compress_lanes(params, cfg, mem, blk_k, blk_v, s.pos, ids, impl,
+                            dist)
     for x in (s.win_k, s.win_v):
         _shift_window(x, sink, cc, s.lane_major, ids)
     if lanes is None:
@@ -193,7 +202,7 @@ def eviction_pending(cfg: ModelConfig, st: StreamState,
 def stream_step(params, cfg: ModelConfig, st: StreamState,
                 chunk_tokens: torch.Tensor, ccm_on: bool = True,
                 valid_len: Optional[Counter] = None,
-                impl: Optional[str] = None
+                impl: Optional[str] = None, dist=None
                 ) -> Tuple[torch.Tensor, StreamState]:
     """Process ``c`` new tokens (B, c): evict on the lanes whose window
     would overflow, then prefill the chunk into the window attending
@@ -209,7 +218,8 @@ def stream_step(params, cfg: ModelConfig, st: StreamState,
     write, and excluded from the counters and the eviction trigger.
 
     The layer loop is ``core.inference.prefill``'s, with the window as its
-    KV cache."""
+    KV cache.  ``dist``: as in ``core.inference.prefill`` (the logits are
+    then the rank's vocabulary block)."""
     B, c = chunk_tokens.shape
     cc = cfg.ccm.stream_chunk
     sink = cfg.ccm.stream_sink
@@ -229,12 +239,13 @@ def stream_step(params, cfg: ModelConfig, st: StreamState,
                                else valid_len)
     if pending.any():
         st = _evict_once(params, cfg, st, ccm_on, impl,
-                         None if pending.all() else pending)
+                         None if pending.all() else pending, dist)
     window = I.KVCache(k=st.win_k, v=st.win_v, length=st.win_len,
                        lane_major=st.lane_major)
     logits, out = I.prefill(
         params, cfg, I.OnlineState(cache=window, mem=st.mem, pos=st.pos),
-        chunk_tokens, impl=impl, full_logits=True, valid_len=valid_len)
+        chunk_tokens, impl=impl, full_logits=True, valid_len=valid_len,
+        dist=dist)
     return logits, st._replace(win_len=out.cache.length, pos=out.pos)
 
 

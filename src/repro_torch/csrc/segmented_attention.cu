@@ -37,6 +37,12 @@
 //      memory and the online softmax in registers.
 // A bf16 call with float32 K/V is refused (cudaErrorInvalidValue; the
 // wrapper raises before the launch).
+//
+// Optional output (routes 0 and 1): each q row's log-sum-exp of its
+// visible scaled logits, m + log l of the running softmax (-inf for a row
+// that sees no key), to `lse` (B, Hq, Sq) float32; a null `lse` writes
+// nothing.  Attention over keys split across ranks combines by it (the
+// sequence-sharded decode).  Route 2 refuses it.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <limits.h>
@@ -50,6 +56,7 @@
 #define NWARPS 4
 #define NTHREADS (NWARPS * 32)
 #define NEG_INF_F (-1e30f)
+#define LN2_F 0.69314718055994531f
 
 enum KvType { KV_F32 = 0, KV_BF16 = 1, KV_INT8 = 2 };
 
@@ -81,6 +88,7 @@ struct AttnParams {
   void* o;
   const int* q_idx;
   const int* q_seg;
+  float* lse;               // (B, Hq, Sq) float32 log-sum-exp, or null
   long long q_lane, q_tok, q_head;
   long long o_lane, o_tok, o_head;
   long long qm_lane;        // lane stride of q_idx/q_seg (0 = shared)
@@ -313,6 +321,7 @@ segmented_attention_kernel(const __grid_constant__ AttnParams p) {
         ll += e[1] * expf(e[0] - mm);
       }
       l[i] = ll;
+      m[i] = mm;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         int d = lane + 32 * c;
@@ -333,6 +342,9 @@ segmented_attention_kernel(const __grid_constant__ AttnParams p) {
     if (row >= p.Sq) continue;
     // a fully masked row has l == 0 and acc == 0: it gives exactly 0
     float inv = 1.f / fmaxf(l[i], 1e-37f);
+    if (p.lse && lane == 0)
+      p.lse[((long long)b * p.Hq + h) * p.Sq + row] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       int d = lane + 32 * c;
@@ -769,6 +781,12 @@ segmented_attention_splitk_kernel(const __grid_constant__ AttnParams p,
   __syncthreads();
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o);
   if (n_split == 1) {
+    if (p.lse && tid < R) {   // m is in base 2: lse = m ln 2 + log l
+      const int g = tid / Sq, tok = tid - g * Sq;
+      const float l = ml[2 * tid + 1];
+      p.lse[((long long)b * p.Hq + h0 + g) * Sq + tok] =
+          l > 0.f ? ml[2 * tid] * LN2_F + logf(l) : -INFINITY;
+    }
     for (int e = tid; e < R * D; e += 128) {
       const int r = e / D, d = e - r * D, g = r / Sq, tok = r - g * Sq;
       float a = 0.f;
@@ -820,6 +838,11 @@ segmented_attention_splitk_kernel(const __grid_constant__ AttnParams p,
       lt += w * l;
     }
     tot[tid] = lt;
+    if (p.lse) {
+      const int g = tid / Sq, tok = tid - g * Sq;
+      p.lse[((long long)b * p.Hq + h0 + g) * Sq + tok] =
+          lt > 0.f ? mx * LN2_F + logf(lt) : -INFINITY;
+    }
   }
   __syncthreads();
   for (int e = tid; e < R * D; e += 128) {
@@ -1177,7 +1200,7 @@ extern "C" int segmented_attention_launch(const AttnParams* params, int route,
   const AttnParams& p = *params;
   if (p.D <= 0 || p.D > MAX_D || (p.D & 7) || p.nseg < 1 ||
       p.nseg > MAX_SEGS || p.Hkv <= 0 || p.Hq % p.Hkv || route < 0 ||
-      route > 2)
+      route > 2 || (route == 2 && p.lse))
     return (int)cudaErrorInvalidValue;
   if (route > 0)
     for (int si = 0; si < p.nseg; ++si)

@@ -40,17 +40,41 @@ from repro_torch.models.config import ModelConfig
 def remesh_restore(ckpt: CheckpointManager, step: int, cfg: ModelConfig,
                    new_mesh, state_template: Any,
                    trainable: Any) -> Tuple[Any, dict, DistContext]:
-    """Restore a checkpoint onto a (possibly different) mesh.  Every rank
-    of a data-parallel mesh holds the whole state, so the restore reads
-    the checkpoint onto the template's device; a mesh with a model axis
-    (tensor parallelism) raises."""
-    del cfg, trainable
+    """Restore a checkpoint onto a (possibly different) mesh.  A
+    checkpoint holds whole leaves (`launch.train.TrainLoop` gathers them
+    over the model axis), read onto the template's dtypes and device
+    (its structure alone: its leaves may be whole or this rank's shards).
+    Every rank of a data-parallel mesh keeps them whole; on a mesh that
+    splits the model (``n_model > 1``, the dense family) each rank keeps
+    its shard of every tree in the state that has the params' key paths
+    (``tensor_parallel.shard_params``: leaves the rules do not split stay
+    whole), so a checkpoint written at one ``n_model`` restores at
+    another."""
+    del trainable
     from repro_torch.launch.mesh import make_dist
-    from repro_torch.launch.train import _data_parallel_only
+    from repro_torch.launch.train import check_mesh
     dist = make_dist(new_mesh)
-    _data_parallel_only(dist)
+    check_mesh(cfg, dist)
     state, extra = ckpt.restore(step, state_template)
+    if dist.n_model > 1:
+        state = _shard_state(state, cfg, dist)
     return state, extra, dist
+
+
+def _shard_state(state, cfg: ModelConfig, dist: DistContext):
+    """This rank's shard of a checkpointed state: its params-shaped trees
+    (at any depth) and the moments of an ``AdamWState``."""
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.optim.adamw import AdamWState
+
+    def walk(x):
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, AdamWState):
+            return x._replace(mu=TPX.shard_params(x.mu, cfg, dist),
+                              nu=TPX.shard_params(x.nu, cfg, dist))
+        return x
+    return walk(TPX.shard_params(state, cfg, dist))
 
 
 def _rank_main(rank: int, world: int, port: int, device, fn, args, out):

@@ -12,9 +12,14 @@ tree (``init_lm(cfg, device="meta")``), so a 400B tree is never
 materialised to derive its specs.
 
 The port applies the data-axis specs (``batch_spec``: each rank trains
-on its block of batch rows, `launch.train`) and the arena's
+on its block of batch rows, `launch.train`), the arena's
 (``arena_pspecs``: one row block per session-mesh device,
-`serve.arena`); the model-axis specs wait for tensor parallelism.
+`serve.arena`) and the online and stream state specs (the ``dist=``
+serve builders of `launch.serve` place states by them).  The params
+specs are the reference's, GSPMD's layout; the port's tensor
+parallelism (`distributed.tensor_parallel`) splits whole heads, and its
+docstring lists the leaves where its local layout departs from
+``param_pspecs``.
 """
 from __future__ import annotations
 

@@ -62,7 +62,7 @@ class _SegDesc(ctypes.Structure):
 
 class _AttnParams(ctypes.Structure):
     _fields_ = ([("seg", _SegDesc * MAX_SEGS)]
-                + [(n, _P) for n in ("q", "o", "q_idx", "q_seg")]
+                + [(n, _P) for n in ("q", "o", "q_idx", "q_seg", "lse")]
                 + [(n, _L) for n in ("q_lane", "q_tok", "q_head", "o_lane",
                                      "o_tok", "o_head", "qm_lane")]
                 + [(n, _I) for n in ("nseg", "B", "Sq", "Hq", "Hkv", "D")]
@@ -171,11 +171,14 @@ def _check_vec(t: torch.Tensor, name: str):
 
 
 def segmented_flash_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
-                              q_idx, q_seg, scale: float) -> torch.Tensor:
+                              q_idx, q_seg, scale: float, lse: bool = False):
     """Launch the CUDA kernel: q (B, Sq, Hq, D) float32/bf16 on a CUDA
     device over ``segs``; returns (B, Sq, Hq, D) in q.dtype.  float32 q
     takes the CUDA-core route; bf16 q (with bf16 or int8 K/V) the split-K
-    decode route when Sq <= 2, else the mma.sync route."""
+    decode route when Sq <= 2, else the mma.sync route.  ``lse``: also
+    returns the rows' log-sum-exp (B, Hq, Sq) float32 (-inf where a row
+    sees no key), written by the same launch; the mma.sync route does not
+    take it (``ValueError``)."""
     global launches, splitk_launches, mma_launches
     if q.dtype not in (torch.float32, torch.bfloat16) or q.ndim != 4:
         raise ValueError(f"q must be (B, Sq, Hq, D) float32/bf16, got "
@@ -187,6 +190,9 @@ def segmented_flash_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
         raise ValueError("q: last dim must be contiguous")
     if q.dtype == torch.bfloat16 and Sq > 2:
         _check_vec(q, "q")           # the mma.sync route copies 16-byte rows
+        if lse:
+            raise ValueError("lse: the mma.sync route (bf16 q, Sq > 2) does "
+                             "not write the log-sum-exp")
     segs = [s for s in segs
             if s["k"].shape[2 if s.get("layer") is not None else 1]]
     if not 1 <= len(segs) <= MAX_SEGS:
@@ -268,6 +274,10 @@ def segmented_flash_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
         raise ValueError("segmented_flash_attention needs CUDA tensors")
     out = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=dev)
     p.q, p.o = q.data_ptr(), out.data_ptr()
+    rows = None
+    if lse:
+        rows = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+        p.lse = rows.data_ptr()
     p.q_lane, p.q_tok, p.q_head = q.stride()[:3]
     p.o_lane, p.o_tok, p.o_head = out.stride()[:3]
     route = 0 if q.dtype == torch.float32 else (1 if Sq <= 2 else 2)
@@ -293,4 +303,4 @@ def segmented_flash_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
     launches += 1
     splitk_launches += route == 1
     mma_launches += route == 2
-    return out
+    return (out, rows) if lse else out

@@ -49,12 +49,16 @@ def reset_launch_counts() -> None:
 
 
 def segmented_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
-                        q_idx, q_seg, scale: float) -> torch.Tensor:
+                        q_idx, q_seg, scale: float, lse: bool = False):
     """q (B, Sq, Hq, D) over in-place KV segments — see
-    ``decode_attention`` for the segment-dict schema."""
+    ``decode_attention`` for the segment-dict schema.  With ``lse``,
+    returns (out, lse (B, Hq, Sq) float32): the rows' log-sum-exp of the
+    scaled visible logits, -inf where a row sees no key."""
     if q.is_cuda:
-        return _dattn.segmented_flash_attention(q, segs, q_idx, q_seg, scale)
-    return _ref.segmented_attention_ref(q, segs, q_idx, q_seg, scale)
+        return _dattn.segmented_flash_attention(q, segs, q_idx, q_seg, scale,
+                                                lse=lse)
+    return _ref.segmented_attention_ref(q, segs, q_idx, q_seg, scale,
+                                        lse=lse)
 
 
 def cond_lora(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,

@@ -29,13 +29,14 @@ def _lanes(x, B: int, dtype, device) -> torch.Tensor:
 
 
 def ccm_attention_ref(q, k, v, q_idx, q_seg, k_idx, k_seg, k_comp, k_valid,
-                      scale: float) -> torch.Tensor:
+                      scale: float, lse: bool = False):
     """Dense-mask attention oracle.
 
     q (B, Hq, Sq, D); k/v (B, Hkv, Sk, D); metadata (S,) shared or (B, S)
     per lane (``k_valid`` None: every key valid).  Mask: (k_idx <= q_idx)
     & ((k_seg == q_seg) | k_comp) & k_valid.  Fully masked rows give
-    exactly 0.  Computed in float32.
+    exactly 0.  Computed in float32.  ``lse``: also the rows' log-sum-exp
+    of the visible scaled logits (B, Hq, Sq), -inf where none is visible.
     """
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -57,9 +58,14 @@ def ccm_attention_ref(q, k, v, q_idx, q_seg, k_idx, k_seg, k_comp, k_valid,
     logits = torch.where(m, logits, torch.full_like(logits, NEG_INF))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(qg.dtype))
-    out = torch.where(mask.any(-1)[:, None, None, :, None], out,
-                      torch.zeros_like(out))
-    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+    seen = mask.any(-1)[:, None, None, :]
+    out = torch.where(seen[..., None], out, torch.zeros_like(out))
+    out = out.reshape(B, Hq, Sq, D).to(q.dtype)
+    if not lse:
+        return out
+    rows = torch.where(seen, torch.logsumexp(logits, dim=-1),
+                       torch.full_like(logits[..., 0], -torch.inf))
+    return out, rows.reshape(B, Hq, Sq).float()
 
 
 def ccm_attention_streams_ref(q, k, v, q_idx, q_seg, plan,
@@ -131,7 +137,7 @@ def _seg_layer_view(s: Dict[str, Any], key: str, B: int) -> Optional[torch.Tenso
 
 
 def segmented_attention_ref(q, segs: Sequence[Dict[str, Any]], q_idx, q_seg,
-                            scale: float) -> torch.Tensor:
+                            scale: float, lse: bool = False):
     """Oracle for the segmented kernel: dense attend over the EXPLICIT
     concatenation of the segments (what the kernel never materializes).
 
@@ -141,7 +147,8 @@ def segmented_attention_ref(q, segs: Sequence[Dict[str, Any]], q_idx, q_seg,
     k_scale/v_scale of the same layout minus D; ``length`` an int, a (B,)
     tensor or None (fully valid); ``layer`` an int, a (B,) tensor or None;
     idx/seg/comp/valid (S,) or (B, S) metadata, or idx None for a
-    memory-like segment (idx=-1, seg=0, comp=True).
+    memory-like segment (idx=-1, seg=0, comp=True).  ``lse``: returns
+    (out, the rows' log-sum-exp (B, Hq, Sq) float32), as the kernel does.
     """
     B = q.shape[0]
     dev = q.device
@@ -178,7 +185,9 @@ def segmented_attention_ref(q, segs: Sequence[Dict[str, Any]], q_idx, q_seg,
     out = ccm_attention_ref(
         q.transpose(1, 2), k, v, q_idx, q_seg,
         torch.cat(idxs, 1), torch.cat(sgs, 1), torch.cat(cps, 1),
-        torch.cat(vls, 1), scale)
+        torch.cat(vls, 1), scale, lse=lse)
+    if lse:
+        return out[0].transpose(1, 2), out[1]
     return out.transpose(1, 2)
 
 

@@ -1,6 +1,8 @@
 """Serving step builders (port of ``repro/launch/serve.py``): the
-single-batch stream step and the multi-tenant arena steps, on one device
-or one arena shard per device of a session mesh.
+single-batch online steps (prefill, decode, ingest, stream), on one
+device or with ``dist=`` over a ``(data, model)`` mesh, and the
+multi-tenant arena steps, on one device or one arena shard per device of
+a session mesh.
 
 The reference vmaps the single-session ops over a batch packed from many
 independent sessions.  The port runs such a batch natively: the packed
@@ -20,21 +22,29 @@ mesh (`launch.mesh.make_session_mesh`): shard ``s``'s gather -> op ->
 scatter on its own row block, with its own replica of the params, on
 mesh device ``s``; no tensor crosses devices.
 
-Not ported here: the online single-batch builders (``make_prefill_step``,
-``make_decode_step``, ``make_ingest_step``; the port calls
-``core.inference`` directly), and the ``dist=`` builders, which shard
-one model over devices (slice 14 of the port's multi-device work).
+``dist=`` builders (``make_prefill_step``, ``make_decode_step``,
+``make_ingest_step``, ``make_stream_step``): the reference jits the op
+with in/out shardings from ``serve_specs`` and GSPMD splits the model.
+Here each rank runs the op on its shards (`ShardedStep`), with the model
+split over the ``model`` axis by `distributed.tensor_parallel` (the
+dense family) and the batch over the data axes; logits come back as the
+rank's rows and vocabulary block, as the reference's ``logit_spec`` lays
+them out (``ShardedStep.gather_logits`` gives the whole).  Without
+``dist`` a builder returns the op itself (no jit).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import inference as I
 from repro_torch.core import streaming as STR
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tensor_parallel as TPX
+from repro_torch.distributed.context import DistContext, divisible
 from repro_torch.models.config import ModelConfig
 
 # the state leaves each op writes; the arena step scatters only these
@@ -100,18 +110,132 @@ def from_lanes(state):
     return state._replace(cache=cache, mem=mem, ssm=ssm)
 
 
-def make_stream_step(cfg: ModelConfig, dist=None) -> Callable:
+def serve_specs(cfg: ModelConfig, dist: DistContext, *,
+                batch_sharded: bool = True, shard_cache_seq: bool = False):
+    """(the online state's spec tree, the tokens' spec), as the
+    reference's."""
+    state_specs = SH.online_state_pspecs(
+        cfg, dist, batch_sharded=batch_sharded,
+        shard_cache_seq=shard_cache_seq)
+    tok_spec = SH.P(dist.batch_axes if batch_sharded else None, None)
+    return state_specs, tok_spec
+
+
+class ShardedStep:
+    """The port's counterpart of the reference's ``_jit_with_specs``: an
+    online op run by every rank on its shards, with ``dist``.
+
+    ``place(params, state)`` cuts the whole params (``tensor_parallel.
+    shard_params``) and the whole state (by the state specs:
+    ``online_state_pspecs`` / ``stream_state_pspecs``) into this rank's
+    shards; the call takes them, the GLOBAL tokens (cut to the rank's
+    rows by the tokens' spec) and returns the rank's logits (its rows,
+    its vocabulary block) and state.  The reference's jit re-places its
+    arguments at every call; the port's ops write the state in place, so
+    it is placed once and passed back as it comes out.
+    ``gather_state`` / ``gather_logits`` give the whole (collectives:
+    every rank calls them)."""
+
+    def __init__(self, fn: Callable, cfg: ModelConfig, dist: DistContext,
+                 state_specs, tok_spec):
+        self.fn, self.cfg, self.dist = fn, cfg, dist
+        self.state_specs, self.tok_spec = state_specs, tok_spec
+        vocab = dist.model_axis \
+            if divisible(cfg.vocab_size, dist.n_model) else None
+        self.logit_spec = SH.P(tok_spec[0], None, vocab)
+
+    def __call__(self, params, state, tokens, *args, **kw):
+        tokens = TPX.shard_by_spec(tokens, self.tok_spec, self.dist)
+        return self.fn(params, state, tokens, *args, **kw)
+
+    def place(self, params, state):
+        return (TPX.shard_params(params, self.cfg, self.dist),
+                TPX.map_by_spec(lambda x, sp: TPX.shard_by_spec(
+                    x, sp, self.dist), state, self.state_specs))
+
+    def gather_state(self, state):
+        return TPX.map_by_spec(lambda x, sp: TPX.gather_by_spec(
+            x, sp, self.dist), state, self.state_specs)
+
+    def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        return TPX.gather_by_spec(logits, self.logit_spec, self.dist)
+
+
+def _with_specs(fn: Callable, cfg: ModelConfig, dist: DistContext,
+                batch_sharded: bool = True, shard_cache_seq: bool = False,
+                params_shapes=None) -> ShardedStep:
+    del params_shapes        # the local layout is a function of (cfg, mesh)
+    state_specs, tok_spec = serve_specs(cfg, dist,
+                                        batch_sharded=batch_sharded,
+                                        shard_cache_seq=shard_cache_seq)
+    return ShardedStep(fn, cfg, dist, state_specs, tok_spec)
+
+
+def _decode_only(spec_kw, what: str) -> None:
+    if spec_kw.get("shard_cache_seq"):
+        raise NotImplementedError(
+            f"{what} over a sequence-sharded cache: only decode steps read "
+            "one (ROADMAP queue 1 item 4b-iii)")
+
+
+def make_prefill_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
+                      impl: Optional[str] = None, **spec_kw) -> Callable:
+    """(params, state, tokens, patches=None) -> (logits, state):
+    ``core.inference.prefill`` (last-position logits)."""
+    def fn(params, state, tokens, patches=None):
+        return I.prefill(params, cfg, state, tokens, impl=impl,
+                         patches=patches, dist=dist)
+
+    if dist is None:
+        return fn
+    _decode_only(spec_kw, "a prefill")
+    return _with_specs(fn, cfg, dist, **spec_kw)
+
+
+def make_decode_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
+                     **spec_kw) -> Callable:
+    """(params, state, tokens (B, 1)) -> (logits, state).  With
+    ``shard_cache_seq=True`` (and ``batch_sharded=False``, as the
+    reference's long-context cell) the sequence-sharded decode
+    (``core.inference.decode_step(seq_shard=)``)."""
+    seq = bool(spec_kw.get("shard_cache_seq"))
+
+    def fn(params, state, tokens):
+        return I.decode_step(params, cfg, state, tokens, dist=dist,
+                             seq_shard=seq or None)
+
+    if dist is None:
+        return fn
+    return _with_specs(fn, cfg, dist, **spec_kw)
+
+
+def make_ingest_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
+                     **spec_kw) -> Callable:
+    """(params, state, tokens) -> state: ``core.inference.ingest_context``."""
+    def fn(params, state, tokens):
+        return I.ingest_context(params, cfg, state, tokens, dist=dist)
+
+    if dist is None:
+        return fn
+    _decode_only(spec_kw, "an ingest")
+    return _with_specs(fn, cfg, dist, **spec_kw)
+
+
+def make_stream_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
+                     batch_sharded: bool = True) -> Callable:
     """Single-batch streaming step: (params, st, tokens (B, c)) ->
     (logits (B, c, V), st), one user stream per batch (shared counters).
-    ``dist=`` raises."""
-    if dist is not None:
-        raise NotImplementedError(
-            "a sharded stream step (dist=) comes with slice 14 of the "
-            "port's multi-device work")
-
+    With ``dist``: a `ShardedStep` over ``stream_state_pspecs`` (the
+    window's and the memory's KV heads on the model axis)."""
     def fn(params, st, tokens):
-        return STR.stream_step(params, cfg, st, tokens)
-    return fn
+        return STR.stream_step(params, cfg, st, tokens, dist=dist)
+
+    if dist is None:
+        return fn
+    TPX.tp_of(cfg, dist)                # a family TP does not split raises
+    tok = SH.P(dist.batch_axes if batch_sharded else None, None)
+    return ShardedStep(fn, cfg, dist,
+                       SH.stream_state_pspecs(cfg, dist, batch_sharded), tok)
 
 
 def session_vmap(cfg: ModelConfig, op: str, ragged: bool = False) -> Callable:

@@ -2,8 +2,8 @@
 engine's batch and token buckets only, copied: pure Python).
 
 The reference module's dry-run cell builders (shape specs and sharded
-step programs per architecture) come with slice 14 of the port's
-multi-device work (ROADMAP queue 1 item 4b) and are not ported.
+step programs per architecture) are ROADMAP queue 1 item 4b-ii (part 2
+of tensor parallelism) and are not ported yet.
 """
 from __future__ import annotations
 

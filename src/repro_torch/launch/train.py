@@ -24,7 +24,21 @@ what the reference's ``shard_map`` does: per-rank means,
 ``compressed_psum`` (codec + error feedback, then a SUM all-reduce),
 ``/ n_data`` and the mean of the ranks' losses; rank r's error-feedback
 residual is row r of the reference's ``(n_data,) + shape`` one.
-Tensor parallelism (``n_model > 1``) raises ``NotImplementedError``.
+
+TENSOR PARALLEL (``n_model > 1``, the dense family; any other family
+raises ``NotImplementedError``): the rows split over the batch axes as
+above, and the model over the ``model`` axis
+(`distributed.tensor_parallel`): each rank holds its shard of the
+trainable and frozen trees and of the moments (``tensor_parallel.
+shard_params``; `jit_train_step`'s ``place``), runs its share of every
+block and the vocab-parallel loss, and the gradients of its local leaves
+are whole for its shard.  The data-axis reduce and its codec act on the
+local leaves (an error-feedback residual covers them); a leaf split
+over the model axis takes its int8 scale and its top-k threshold over
+the whole leaf, as the reference's automatic model axis does, and the
+clipping norm sums the split leaves over the model axis.  ``TrainLoop``
+writes whole leaves (``tensor_parallel.gather_params``), so a
+checkpoint does not depend on the mesh.
 On one device ``grad_codec`` is accepted and the step trains exactly as
 with "none", as the reference does with ``dist=None`` (no residual is
 allocated; the reference allocates one and never reads it).  The loop
@@ -50,6 +64,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import masks as M
 from repro_torch.data.synthetic import ShardableIndexIterator, sample_kv_batch
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import tensor_parallel as TPX
 from repro_torch.distributed.context import DistContext, divisible
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -62,12 +77,12 @@ from repro_torch.optim.grad_compress import (EFState, compressed_psum,
 from repro_torch.optim.losses import next_token_loss
 
 
-def _data_parallel_only(dist: Optional[DistContext]) -> None:
+def check_mesh(cfg: ModelConfig, dist: Optional[DistContext]) -> None:
+    """A mesh that splits the model (``n_model > 1``) needs the dense
+    family (`tensor_parallel.require_tp_family`); data-parallel meshes
+    train every family."""
     if dist is not None and dist.n_model > 1:
-        raise NotImplementedError(
-            "tensor parallelism (a mesh with n_model > 1) comes with slice "
-            "14 of the port's multi-device work; data-parallel meshes "
-            "(n_model == 1) train")
+        TPX.require_tp_family(cfg)
 
 
 def trainable_mask_for(cfg: ModelConfig, params) -> Any:
@@ -80,18 +95,20 @@ def _loss_fn(tp, fp, cfg: ModelConfig, layout: M.SegmentLayout,
              batch: Dict[str, torch.Tensor], dist=None,
              count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The masked tail loss; ``count`` is the divisor's mask count (see
-    `next_token_loss`).  The forward runs on this rank's rows alone, so
-    ``dist`` only has to be data-parallel."""
-    _data_parallel_only(dist)
+    `next_token_loss`).  The forward runs on this rank's rows alone; with
+    a mesh that splits the model (or a `TensorParallel` rank), on this
+    rank's shard of it."""
+    tpx = TPX.tp_of(cfg, dist)
     params = PT.merge(tp, fp)
     kw = {}
     if cfg.family == "encdec":
         kw["frames"] = batch["frames"]
     if cfg.family == "vlm":
         kw["patches"] = batch["patches"]
-    logits = T.train_forward(params, cfg, batch["tokens"], layout, **kw)
+    logits = T.train_forward(params, cfg, batch["tokens"], layout, dist=tpx,
+                             **kw)
     tail = batch["tokens"][:, layout.seq_len - layout.tail_len:]
-    return next_token_loss(logits, tail, batch["loss_mask"], count)
+    return next_token_loss(logits, tail, batch["loss_mask"], count, tp=tpx)
 
 
 def local_rows(batch: Dict[str, torch.Tensor],
@@ -119,8 +136,10 @@ def make_train_step(cfg: ModelConfig, layout: M.SegmentLayout,
     are updated in place.  ``grad_codec`` acts on the data-parallel
     reduce only, so on one device ``ef`` (the error-feedback state) is
     passed through unchanged; with ``dist=`` it is this rank's
-    residual, returned updated."""
-    _data_parallel_only(dist)
+    residual, returned updated.  With a mesh that splits the model, the
+    trees are this rank's shards (`jit_train_step`'s ``place``)."""
+    check_mesh(cfg, dist)
+    tpx = TPX.tp_of(cfg, dist)
 
     def step(tp, fp, opt: AdamWState, batch, ef: Optional[EFState] = None):
         leaves = [x for _, x in PT.leaves(tp)]
@@ -135,14 +154,19 @@ def make_train_step(cfg: ModelConfig, layout: M.SegmentLayout,
                 count = dist.all_reduce(batch["loss_mask"].float().sum(),
                                         dist.batch_axes)
         with torch.enable_grad():
-            loss = _loss_fn(tp, fp, cfg, layout, batch, count=count)
+            loss = _loss_fn(tp, fp, cfg, layout, batch, dist=tpx,
+                            count=count)
             grads = torch.autograd.grad(loss, leaves)
         loss = loss.detach()
         it = iter(grads)
         gtree = PT.tree_map(lambda _, x: None if x is None else next(it), tp)
+        # the model-axis collectives at each leaf split over that axis
+        split = None if tpx is None else PT.tree_map(
+            lambda path, g: tpx.coll if g is not None and TPX.split_dim(
+                path, cfg, tpx.n) is not None else None, gtree)
         if dist is not None:
             gtree, ef = compressed_psum(gtree, group, ef, grad_codec,
-                                        topk_frac)
+                                        topk_frac, split)
             loss = dist.all_reduce(loss.clone(), dist.batch_axes)
             if grad_codec != "none":
                 # the reference's `/ nb` of the psum, and its pmean
@@ -150,29 +174,75 @@ def make_train_step(cfg: ModelConfig, layout: M.SegmentLayout,
                     lambda _, g: None if g is None else g / dist.n_data,
                     gtree)
                 loss = loss / dist.n_data
-        tp, opt, metrics = adamw_update(opt_cfg, tp, gtree, opt)
+        gnorm = None if tpx is None else _tp_global_norm(gtree, split, tpx)
+        tp, opt, metrics = adamw_update(opt_cfg, tp, gtree, opt, gnorm=gnorm)
         metrics["loss"] = loss
         return tp, opt, metrics, ef
 
     return step
 
 
+def _tp_global_norm(grads, split, tpx) -> torch.Tensor:
+    """The whole model's gradient norm from a rank's local leaves: the
+    squares of the leaves split over the model axis summed over it, the
+    whole leaves' counted once."""
+    parts = {True: [], False: []}
+    PT.tree_map(lambda _, g, c: None if g is None else
+                parts[c is not None].append(torch.sum(g.float() ** 2)),
+                grads, split)
+    dev = next(g for _, g in PT.leaves(grads)).device
+    total = torch.zeros((), device=dev)
+    if parts[True]:
+        total = tpx.coll.sum(torch.stack(parts[True]).sum())
+    if parts[False]:
+        total = total + torch.stack(parts[False]).sum()
+    return torch.sqrt(total)
+
+
+class PlacedStep:
+    """`jit_train_step`'s step: ``step_fn`` on this rank's shards, and
+    ``place(tp, fp, opt)``, which cuts the whole trees (and moments) into
+    this rank's shards by the local layout (`tensor_parallel`), the
+    counterpart of the reference's in/out shardings.  The reference's jit
+    re-places its arguments at every call; the port's step updates its
+    shards in place, so they are placed once and passed back as they
+    come out.  ``gather(tree)`` gives the whole leaves back (every rank
+    calls it: it is a collective over the model axis)."""
+
+    def __init__(self, step_fn, cfg: ModelConfig, dist: DistContext):
+        self.step_fn, self.cfg, self.dist = step_fn, cfg, dist
+
+    def __call__(self, tp, fp, opt, batch, ef=None):
+        return self.step_fn(tp, fp, opt, batch, ef)
+
+    def place(self, tp, fp, opt: Optional[AdamWState] = None):
+        def cut(t):
+            return TPX.shard_params(t, self.cfg, self.dist)
+        placed = (cut(tp), cut(fp))
+        if opt is None:
+            return placed
+        return placed + (opt._replace(mu=cut(opt.mu), nu=cut(opt.nu)),)
+
+    def gather(self, tree):
+        return TPX.gather_params(tree, self.cfg, self.dist)
+
+
 def jit_train_step(step_fn, cfg: ModelConfig, dist: DistContext,
                    params_shapes, opt_shapes, batch_shapes,
-                   trainable) -> Callable:
+                   trainable) -> PlacedStep:
     """The reference pjits the step with in/out shardings from the rules.
     The port compiles nothing: every rank runs ``step_fn`` eagerly on its
-    block of the batch (`local_rows`), parameters and moments replicated.
-    That is the rules' layout when ``n_model == 1`` — every model-axis
-    spec is then one block — so this checks the mesh and the batch's
-    split and returns ``step_fn``."""
+    block of the batch (`local_rows`) and on its shard of the model
+    (``PlacedStep.place``: whole leaves on a data-parallel mesh, where
+    every model-axis spec is one block).  This checks the mesh and the
+    batch's split."""
     del params_shapes, opt_shapes, trainable
-    _data_parallel_only(dist)
+    check_mesh(cfg, dist)
     for k, v in batch_shapes.items():
         if not divisible(v.shape[0], dist.n_data):
             raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
                              f"split over {dist.n_data} data ranks")
-    return step_fn
+    return PlacedStep(step_fn, cfg, dist)
 
 
 # ===========================================================================
@@ -197,7 +267,11 @@ class TrainLoop:
     """Checkpointed, restartable training loop.  With ``dist=`` every rank
     runs one loop over the same data order and checkpoint layout: rank 0
     writes the checkpoints, every rank reads them (`maybe_restore`), and
-    ``run`` returns on every rank once the last one is on disk."""
+    ``run`` returns on every rank once the last one is on disk.  On a
+    mesh that splits the model every rank initialises the whole model
+    from ``seed`` and keeps its shard; a checkpoint holds the whole
+    leaves (gathered over the model axis), so it restores onto any
+    mesh."""
 
     def __init__(self, cfg: ModelConfig, layout: M.SegmentLayout,
                  opt_cfg: AdamWConfig, batch_size: int,
@@ -205,13 +279,16 @@ class TrainLoop:
                  dist: Optional[DistContext] = None, ckpt_every: int = 50,
                  grad_codec: str = "none", device: DeviceLike = None,
                  clock: Optional[Callable[[], float]] = None):
-        _data_parallel_only(dist)
+        check_mesh(cfg, dist)
         self.device = resolve_device(device)
         self.cfg, self.layout, self.opt_cfg = cfg, layout, opt_cfg
         self.batch_size = batch_size
         self.dist = dist
         params = T.init_lm(cfg, seed, device=self.device)
         self.trainable = trainable_mask_for(cfg, params)
+        self.tpx = TPX.tp_of(cfg, dist)
+        if self.tpx is not None:
+            params = TPX.shard_params(params, cfg, self.tpx)
         self.tp, self.fp = PT.partition(params, self.trainable)
         self.opt = init_adamw(self.tp)
         # this rank's error-feedback residual (one device: no reduce, so
@@ -238,6 +315,9 @@ class TrainLoop:
         restored, extra = self.ckpt.restore(latest, {"tp": self.tp,
                                                      "opt": self.opt})
         self.tp, self.opt = restored["tp"], restored["opt"]
+        if self.tpx is not None:            # whole leaves -> this shard
+            self.tp, self.opt = self._each(self.tp, self.opt,
+                                           TPX.shard_params)
         self.it.load_state_dict(extra["iterator"])
         return int(extra["step"])
 
@@ -258,15 +338,26 @@ class TrainLoop:
                 ms = "" if dt is None else f" dt {dt * 1e3:7.1f}ms"
                 print(f"step {s:5d} loss {loss:.4f}{ms}"
                       f"{'  STRAGGLER' if straggle else ''}")
-            if self.ckpt and self._writes \
-                    and (s + 1) % self.ckpt_every == 0:
-                self.ckpt.save(s + 1, {"tp": self.tp, "opt": self.opt},
-                               extra={"step": s + 1,
-                                      "iterator": self.it.state_dict()})
+            if self.ckpt and (s + 1) % self.ckpt_every == 0:
+                self._save(s + 1)
         if self.ckpt:
             self.ckpt.wait()
         if self.dist is not None:
             # every rank returns once rank 0's checkpoints are on disk
-            tdist.barrier(
-                group=self.dist.group(self.dist.batch_axes))
+            tdist.barrier()
         return self.history
+
+    def _each(self, tp, opt, fn):
+        """``fn(tree, cfg, tpx)`` on the trainable tree and the moments."""
+        return fn(tp, self.cfg, self.tpx), opt._replace(
+            mu=fn(opt.mu, self.cfg, self.tpx),
+            nu=fn(opt.nu, self.cfg, self.tpx))
+
+    def _save(self, step: int) -> None:
+        tp, opt = self.tp, self.opt
+        if self.tpx is not None:            # every rank gathers
+            tp, opt = self._each(tp, opt, TPX.gather_params)
+        if self._writes:
+            self.ckpt.save(step, {"tp": tp, "opt": opt},
+                           extra={"step": step,
+                                  "iterator": self.it.state_dict()})

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.core import lora as lora_lib
 from repro_torch.core.masks import NEG_INF
+from repro_torch.distributed import tensor_parallel as TPX
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import widen
 from repro_torch.models import layers as L
@@ -274,23 +275,25 @@ def _raw_segment(seg: KVSegment) -> Dict:
 
 
 def attend_segments(cfg: ModelConfig, q: torch.Tensor, segments,
-                    q_info: KeyInfo, impl: Optional[str] = None
-                    ) -> torch.Tensor:
+                    q_info: KeyInfo, impl: Optional[str] = None,
+                    lse: bool = False):
     """q (B, Sq, Hq, D) over ordered KV ``segments`` read in place.
 
     impl: None -> ``cfg.attn_impl``.  'concat' -> materialize the
     [seg|...|seg] concatenation and run the dense masked attend (the
     oracle); anything else -> the segmented kernel op, which runs the
     CUDA kernel for CUDA tensors and its plain version for CPU tensors.
-    Returns (B, Sq, Hq, D) in ``q.dtype``.
+    Returns (B, Sq, Hq, D) in ``q.dtype``; with ``lse``, also the rows'
+    log-sum-exp (B, Hq, Sq) float32 (-inf where no key is visible), from
+    the kernel op whatever ``impl`` says.
     """
     scale = 1.0 / (cfg.hd ** 0.5)
     segments = [s for s in segments if s.n_tokens]
     impl = impl or cfg.attn_impl
-    if impl != "concat":
+    if impl != "concat" or lse:
         return kops.segmented_attention(
             q, [_raw_segment(s) for s in segments], q_info.idx, q_info.seg,
-            scale)
+            scale, lse=lse)
     ks, vs, infos = [], [], []
     for s in segments:
         k, v, ksc, vsc = _seg_layer_kv(s)
@@ -303,6 +306,24 @@ def attend_segments(cfg: ModelConfig, q: torch.Tensor, segments,
     info = functools.reduce(concat_info, infos)
     return attend_dense(q, torch.cat(ks, dim=1), torch.cat(vs, dim=1),
                         mask_from_info(q_info, info), scale)
+
+
+def combine_blocks(out: torch.Tensor, lse: torch.Tensor,
+                   coll) -> torch.Tensor:
+    """Attention over keys split in blocks, one block per rank of
+    ``coll``: each rank's ``out`` (B, Sq, H, D) over its block, with its
+    log-sum-exp ``lse`` (B, H, Sq) (-inf for a block with no visible
+    key), combine into the attention over every block: weights exp(lse -
+    max lse) through a max and two sums over the ranks.  A row that no
+    block sees gives 0."""
+    m = coll.max(lse)
+    live = torch.isfinite(lse)
+    w = torch.where(live, torch.exp(lse - torch.where(live, m, 0.0)),
+                    torch.zeros_like(lse)).transpose(1, 2)[..., None]
+    num = coll.sum(out.float() * w)
+    den = coll.sum(w)
+    return torch.where(den > 0, num / torch.clamp(den, min=1e-37),
+                       torch.zeros_like(num)).to(out.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -332,24 +353,43 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device,
 
 def qkv_project(cfg: ModelConfig, p: Dict, x: torch.Tensor,
                 comp_gate: Optional[torch.Tensor],
-                positions: Optional[torch.Tensor]
+                positions: Optional[torch.Tensor], tp=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B,S,d) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd) with RoPE at
     ``positions``.  comp_gate (B,S) {0,1} gates the conditional LoRA;
-    None disables the delta entirely."""
+    None disables the delta entirely.
+
+    ``tp`` (`distributed.tensor_parallel.TensorParallel`): ``p`` is this
+    rank's shard and the head counts are the rank's
+    (``tensor_parallel.local_config``).  When the attention is split, x
+    enters through ``copy_to_tp`` (its gradient is partial on each rank),
+    and so do the replicated leaves used in the split: the LoRA ``a``s,
+    and in the "query" regime the whole KV projection.  Query head h of
+    rank r is global head ``r Hq/n + h``; its KV head is the reference's
+    ``h // G`` of that global head: the rank's own KV block ("kv"), or
+    the one ``tp.kv_view`` picks ("query")."""
     B, S, _ = x.shape
+    lc = cfg if tp is None else tp.local
+    split = tp is not None and tp.attn_split
+    if split:
+        x = TPX.copy_to_tp(x, tp)
     lora = p.get("lora")
     sc = lora_lib.lora_scale(cfg.ccm.lora_rank, cfg.ccm.lora_alpha)
 
     def proj(name, bias_name):
         lw = lora.get(name) if (lora is not None and comp_gate is not None) \
             else None
-        return lora_lib.cond_linear(x, p["w" + name], lw, comp_gate, sc,
-                                    bias=p.get(bias_name))
+        w, b = p["w" + name], p.get(bias_name)
+        if split:
+            whole = name != "q" and tp.attn == "query"
+            lw = TPX.copy_leaves(lw, tp, ("a", "b") if whole else ("a",))
+            if whole:
+                w, b = TPX.copy_to_tp(w, tp), TPX.copy_to_tp(b, tp)
+        return lora_lib.cond_linear(x, w, lw, comp_gate, sc, bias=b)
 
-    q = proj("q", "bq").reshape(B, S, cfg.n_heads, cfg.hd)
-    k = proj("k", "bk").reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = proj("v", "bv").reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    q = proj("q", "bq").reshape(B, S, lc.n_heads, cfg.hd)
+    k = proj("k", "bk").reshape(B, S, lc.n_kv_heads, cfg.hd)
+    v = proj("v", "bv").reshape(B, S, lc.n_kv_heads, cfg.hd)
     if positions is not None:
         cos, sin = L.rope_cos_sin(positions, cfg.hd, cfg.rope_theta)
         q = L.apply_rope(q, cos, sin)
@@ -358,10 +398,18 @@ def qkv_project(cfg: ModelConfig, p: Dict, x: torch.Tensor,
 
 
 def out_project(cfg: ModelConfig, p: Dict, o: torch.Tensor,
-                comp_gate: Optional[torch.Tensor]) -> torch.Tensor:
+                comp_gate: Optional[torch.Tensor], tp=None) -> torch.Tensor:
+    """o (B, S, Hq, hd) -> (B, S, d).  With ``tp`` splitting the
+    attention, ``wo`` is row-parallel: this rank's rows, the matching
+    columns of the LoRA ``a`` and ``b`` whole (through ``copy_to_tp``),
+    completed by the model-axis reduce."""
     B, S = o.shape[:2]
-    o = o.reshape(B, S, cfg.n_heads * cfg.hd)
+    o = o.reshape(B, S, -1)
     lora = p.get("lora")
     lw = lora.get("o") if (lora is not None and comp_gate is not None) else None
     sc = lora_lib.lora_scale(cfg.ccm.lora_rank, cfg.ccm.lora_alpha)
+    if tp is not None and tp.attn_split:
+        return lora_lib.cond_linear(
+            o, p["wo"], TPX.copy_leaves(lw, tp, ("b",)), comp_gate, sc,
+            reduce=lambda y: TPX.reduce_from_tp(y, tp))
     return lora_lib.cond_linear(o, p["wo"], lw, comp_gate, sc)

@@ -11,6 +11,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tensor_parallel as TPX
 from repro_torch.kernels.ref import widen
 from repro_torch.models.config import ModelConfig
 
@@ -110,7 +111,14 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def apply_mlp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-              x: torch.Tensor) -> torch.Tensor:
+              x: torch.Tensor, tp=None) -> torch.Tensor:
+    """With ``tp`` (`distributed.tensor_parallel.TensorParallel`) splitting
+    ``d_ff``, ``wi``/``wg`` are this rank's columns and ``wo`` its rows:
+    the partial sum goes through the model-axis reduce."""
+    split = tp is not None and tp.ff_split
+    if split:
+        x = TPX.copy_to_tp(x, tp)
+
     def mm(w):
         return x @ p[w].to(x.dtype)
     if cfg.activation == "swiglu":
@@ -119,4 +127,5 @@ def apply_mlp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         h = F.gelu(mm("wg"), approximate="tanh") * mm("wi")
     else:
         h = F.gelu(mm("wi"), approximate="tanh")
-    return h @ p["wo"].to(x.dtype)
+    y = h @ p["wo"].to(x.dtype)
+    return TPX.reduce_from_tp(y, tp) if split else y

@@ -17,8 +17,8 @@ not a Pallas kernel).  Here they are one ``torch.matmul`` per non-empty
 expert group over the sorted rows: the group sizes are read on the host
 once per layer (one synchronisation), and an empty group launches
 nothing.  The multi-device strategies (``ragged_tp`` across a model axis,
-``ep`` with its all-to-all) come with slice 14 of the port's
-multi-device work: ``dist=`` raises, whatever ``moe_impl`` says; without ``dist`` both impls run the
+``ep`` with its all-to-all) are ROADMAP queue 1 item 4b-ii: ``dist=``
+raises, whatever ``moe_impl`` says; without ``dist`` both impls run the
 local path, as in the reference.
 """
 from __future__ import annotations
@@ -105,8 +105,7 @@ def apply_moe(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     """x (B, S, d) -> (B, S, d) through the experts."""
     if dist is not None:
         raise NotImplementedError(
-            f"sharded MoE (dist=, moe_impl={cfg.moe_impl!r}) comes with "
-            "slice 14 of the port's multi-device work (ROADMAP queue 1 "
-            "item 4b)")
+            f"sharded MoE (dist=, moe_impl={cfg.moe_impl!r}) is ROADMAP "
+            "queue 1 item 4b-ii (part 2 of tensor parallelism)")
     B, S, d = x.shape
     return _moe_local(cfg, p, x.reshape(B * S, d)).reshape(B, S, d)

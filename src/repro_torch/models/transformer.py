@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import baselines as BL
 from repro_torch.core import masks as M
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import tensor_parallel as TPX
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -173,8 +174,22 @@ def patch_embed(cfg: ModelConfig, params: Params,
 
 def embed_tokens(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
                  comp_mask: Optional[torch.Tensor] = None,
-                 comp_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
-    x = p["embed"][tokens.long()].to(cfg.cdtype)
+                 comp_offset: Optional[torch.Tensor] = None,
+                 tp=None) -> torch.Tensor:
+    """Token embeddings in the compute dtype, <COMP> rows replaced by
+    ``comp_embed``, then ``embed_scale``.  With ``tp`` splitting the
+    vocabulary, ``p["embed"]`` is this rank's block of rows: ids outside
+    it look up zeros and the model-axis reduce sums the one nonzero row
+    per token (exact).  ``comp_embed`` and the scale come after the
+    reduce, so the bf16 rounding is the reference's."""
+    if tp is not None and tp.vocab_split:
+        t = tokens.long() - tp.vocab_lo
+        inside = (t >= 0) & (t < p["embed"].shape[0])
+        rows = p["embed"][t.clamp(0, p["embed"].shape[0] - 1)]
+        rows = rows * inside[..., None].to(rows.dtype)
+        x = TPX.reduce_from_tp(rows.to(cfg.cdtype), tp)
+    else:
+        x = p["embed"][tokens.long()].to(cfg.cdtype)
     if comp_mask is not None and "comp_embed" in p:
         ce = p["comp_embed"].to(cfg.cdtype)
         off = comp_offset if comp_offset is not None else \
@@ -191,9 +206,14 @@ def embed_tokens(cfg: ModelConfig, p: Params, tokens: torch.Tensor,
     return x
 
 
-def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
+              tp=None) -> torch.Tensor:
+    """Logits (..., V); with ``tp`` splitting the vocabulary, this rank's
+    block (..., V/n) of ids [``tp.vocab_lo``, + V/n)."""
     x = L.apply_norm(cfg, params["final_norm"], x)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if tp is not None and tp.vocab_split:
+        x = TPX.copy_to_tp(x, tp)
     return x @ head.to(x.dtype)
 
 
@@ -216,19 +236,26 @@ def cross_attend(cfg: ModelConfig, lp: Params, x: torch.Tensor,
     return x + A.out_project(cfg, lp["xattn"], ox, None)
 
 
-def ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor) -> torch.Tensor:
+def ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor,
+        tp=None) -> torch.Tensor:
     """The block's feed-forward: the experts where the layer has them."""
     if "moe" in lp:
         return MOE.apply_moe(cfg, lp["moe"], h)
-    return L.apply_mlp(cfg, lp["mlp"], h)
+    return L.apply_mlp(cfg, lp["mlp"], h, tp)
 
 
 def _attn_mlp_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
                     q_info, k_info, comp_gate, positions,
-                    merge_ctx, cross=None) -> torch.Tensor:
+                    merge_ctx, cross=None, tp=None) -> torch.Tensor:
+    """One block; with ``tp`` (a rank of `distributed.tensor_parallel`)
+    its two partial sums, after the attention's ``wo`` and after the
+    MLP's, go through ``tp``'s model-axis reduce."""
     h = L.apply_norm(cfg, lp["ln1"], x)
     q, k, v = A.qkv_project(cfg, lp["attn"], h, comp_gate,
-                            positions if cfg.pos_embed == "rope" else None)
+                            positions if cfg.pos_embed == "rope" else None,
+                            tp=tp)
+    if tp is not None:
+        k, v = tp.kv_view(k), tp.kv_view(v)
     if merge_ctx is not None:
         # merge mode and the baselines: dense attend over [virtual slots |
         # raw keys], as the reference does (no kernel computes it there
@@ -241,11 +268,11 @@ def _attn_mlp_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
         o = A.attend_dense(q, k, v, merge_ctx["mask"], 1.0 / cfg.hd ** 0.5)
     else:
         o = A.attend(cfg, q, k, v, q_info, k_info)
-    x = x + A.out_project(cfg, lp["attn"], o, comp_gate)
+    x = x + A.out_project(cfg, lp["attn"], o, comp_gate, tp=tp)
     if cross is not None:
         x = cross_attend(cfg, lp, x, cross)
     h = L.apply_norm(cfg, lp["ln2"], x)
-    return x + ffn(cfg, lp, h)
+    return x + ffn(cfg, lp, h, tp)
 
 
 def _mamba_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
@@ -276,15 +303,19 @@ def layer_plan(cfg: ModelConfig):
 
 def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                    q_info=None, k_info=None, comp_gate=None, positions=None,
-                   merge_ctx=None, cross=None) -> torch.Tensor:
+                   merge_ctx=None, cross=None, dist=None) -> torch.Tensor:
     """Run the decoder stack on embedded inputs x (B, S, d); ``cross``
-    (the encoder output) feeds the cross attention of ``encdec``."""
+    (the encoder output) feeds the cross attention of ``encdec``.
+    ``dist``: a mesh's ``DistContext`` or a `TensorParallel` rank;
+    ``params`` is then this rank's shard (`tensor_parallel.shard_params`)
+    when the mesh splits the model."""
     require_ported(cfg)
+    tp = TPX.tp_of(cfg, dist)
     remat = cfg.remat and torch.is_grad_enabled()
     attn = functools.partial(_attn_mlp_block, cfg, q_info=q_info,
                              k_info=k_info, comp_gate=comp_gate,
                              positions=positions, merge_ctx=merge_ctx,
-                             cross=cross)
+                             cross=cross, tp=tp)
     for kind, i in layer_plan(cfg):
         if kind == "mamba":
             lp = layer_params(params, i)
@@ -343,7 +374,8 @@ def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   frames: Optional[torch.Tensor] = None,
                   patches: Optional[torch.Tensor] = None,
                   logits_slice: Optional[Tuple[int, int]] = None,
-                  unconditional_lora: bool = False) -> torch.Tensor:
+                  unconditional_lora: bool = False,
+                  dist=None) -> torch.Tensor:
     """One parallelized CCM forward; tokens (B, S) follow ``layout``.
 
     Returns logits over ``logits_slice`` (start, length), by default the
@@ -360,7 +392,13 @@ def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     (vlm: (B, P, 1024) patch embeddings, projected into the first P
     positions; <COMP> positions there keep their comp embedding when CCM
     is on), as the reference takes them.
+
+    ``dist`` (a ``DistContext`` whose mesh splits the model, or a
+    `TensorParallel` rank): ``params`` is this rank's shard and the
+    logits are its vocabulary block when the vocabulary splits
+    (`optim.losses.next_token_loss` takes them with the same ``dist``).
     """
+    tp = TPX.tp_of(cfg, dist)
     dev = tokens.device
     S = layout.seq_len
     seg = layout.seg_ids.to(dev)
@@ -370,7 +408,7 @@ def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     use_ccm = cfg.ccm.enabled and not cfg.is_attention_free
 
     x = embed_tokens(cfg, params, tokens, comp if use_ccm else None,
-                     comp_off)
+                     comp_off, tp=tp)
     if cfg.pos_embed == "learned":
         x = add_learned_pos(params["pos_embed"], x, pos)
     if patches is not None:
@@ -420,8 +458,8 @@ def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cross = encode(params, cfg, frames) if cfg.family == "encdec" else None
     x = forward_hidden(params, cfg, x, q_info=q_info, k_info=k_info,
                        comp_gate=comp_gate, positions=pos,
-                       merge_ctx=merge_ctx, cross=cross)
+                       merge_ctx=merge_ctx, cross=cross, dist=tp)
     if logits_slice is None:
         logits_slice = (S - layout.tail_len, layout.tail_len)
     start, length = logits_slice
-    return lm_logits(params, cfg, x[:, start:start + length])
+    return lm_logits(params, cfg, x[:, start:start + length], tp=tp)

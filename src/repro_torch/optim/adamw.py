@@ -73,13 +73,16 @@ def global_norm(grads: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
-                 state: AdamWState, trainable: Optional[Any] = None):
+                 state: AdamWState, trainable: Optional[Any] = None,
+                 gnorm: Optional[torch.Tensor] = None):
     """Returns (params, new_state, metrics), updating params and moments
     in place.  Leaves that are None, untrainable or without moments are
-    left as they are."""
+    left as they are.  ``gnorm`` replaces the gradients' global norm (a
+    tensor-parallel rank passes the whole model's)."""
     if trainable is not None:
         grads = tree_map(lambda _, g, m: g if m else None, grads, trainable)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.clip_norm > 0 else None
     step = state.step + 1

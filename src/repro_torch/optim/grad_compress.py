@@ -36,11 +36,17 @@ def init_ef(grads_like: Any) -> EFState:
 
 # --- int8 codec ------------------------------------------------------------
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor,
+                  coll=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(q int8, scale 0-d): q = clip(round(x / scale), -127, 127) with
     scale = (max|x| + 1e-12) / 127, rounding half to even as
-    ``jnp.round`` does."""
-    amax = x.abs().max() + 1e-12
+    ``jnp.round`` does.  ``coll`` (the model-axis collectives of a leaf
+    split over it): the max is the whole leaf's, as the reference's is
+    (its model axis stays automatic inside the data-axis reduce)."""
+    amax = x.abs().max()
+    if coll is not None:
+        amax = coll.max(amax)
+    amax = amax + 1e-12
     # a tensor divisor: CUDA divides by a host scalar as a multiply by its
     # reciprocal, one ulp away from the reference's true division
     scale = amax / torch.full_like(amax, 127.0)
@@ -54,45 +60,55 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 # --- top-k codec -----------------------------------------------------------
 
-def topk_sparsify(x: torch.Tensor, frac: float) -> torch.Tensor:
+def topk_sparsify(x: torch.Tensor, frac: float, coll=None) -> torch.Tensor:
     """Keep the top ``frac`` fraction of entries by magnitude (a dense
     mask: the wire format would transmit (indices, values); this models
     the value selection and the error it leaves behind).  Every entry at
     or above the k-th magnitude is kept, ties included, so more than k
-    may survive."""
+    may survive.  ``coll`` (a leaf split over the model axis): k and the
+    threshold are the whole leaf's, from every rank's top k."""
     flat = x.reshape(-1)
-    k = max(int(flat.shape[0] * frac), 1)
-    thresh = torch.topk(flat.abs(), k).values[-1]
+    n = flat.shape[0] * (coll.n if coll is not None else 1)
+    k = max(int(n * frac), 1)
+    top = torch.topk(flat.abs(), min(k, flat.shape[0])).values
+    if coll is not None:
+        top = torch.topk(coll.gather(top, 0), k).values
+    thresh = top[-1]
     return x * (x.abs() >= thresh)
 
 
 # --- error-feedback compress step -------------------------------------------
 
 def compress_with_ef(grads: Any, ef: EFState, codec: str = "int8",
-                     topk_frac: float = 0.01):
+                     topk_frac: float = 0.01, split: Any = None):
     """Returns (compressed_grads, new_ef); compressed + new residual ==
     grads + old residual.  The residual is float32 whatever the
-    gradient's dtype."""
+    gradient's dtype.  ``split`` (tensor parallelism): a tree with the
+    model-axis collectives at each leaf split over that axis (None
+    elsewhere), whose codec statistics then span the ranks."""
 
-    def one(g, r):
+    def one(g, r, coll):
         gf = g.to(torch.float32) + r
         if codec == "int8":
-            out = dequantize_int8(*quantize_int8(gf))
+            out = dequantize_int8(*quantize_int8(gf, coll))
         elif codec == "topk":
-            out = topk_sparsify(gf, topk_frac)
+            out = topk_sparsify(gf, topk_frac, coll)
         else:
             out = gf
         return out, gf - out
 
-    pairs = tree_map(lambda _, g, r: None if g is None else one(g, r),
-                     grads, ef.residual)
+    if split is None:
+        split = tree_map(lambda _, g: None, grads)
+    pairs = tree_map(lambda _, g, r, c: None if g is None else one(g, r, c),
+                     grads, ef.residual, split)
     comp = tree_map(lambda _, p: None if p is None else p[0], pairs)
     resid = tree_map(lambda _, p: None if p is None else p[1], pairs)
     return comp, EFState(residual=resid)
 
 
 def compressed_psum(grads: Any, axis_name, ef: Optional[EFState] = None,
-                    codec: str = "none", topk_frac: float = 0.01):
+                    codec: str = "none", topk_frac: float = 0.01,
+                    split: Any = None):
     """Sum over the data-parallel axes with optional codec + error
     feedback; returns (reduced_grads, new_ef).
 
@@ -102,7 +118,8 @@ def compressed_psum(grads: Any, axis_name, ef: Optional[EFState] = None,
     it is, in place; otherwise `compress_with_ef` runs first on this
     rank's gradients and residual and the compressed gradients are
     SUM-all-reduced.  A CUDA tensor goes through NCCL only
-    (`distributed.context.check_backend`)."""
+    (`distributed.context.check_backend`).  ``split``: as in
+    `compress_with_ef`."""
     import torch.distributed as tdist
 
     from repro_torch.distributed.context import check_backend
@@ -116,5 +133,5 @@ def compressed_psum(grads: Any, axis_name, ef: Optional[EFState] = None,
 
     if codec == "none" or ef is None:
         return tree_map(reduce, grads), ef
-    comp, new_ef = compress_with_ef(grads, ef, codec, topk_frac)
+    comp, new_ef = compress_with_ef(grads, ef, codec, topk_frac, split)
     return tree_map(reduce, comp), new_ef

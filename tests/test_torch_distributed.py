@@ -6,8 +6,9 @@ reference's ``make_debug_mesh(n, 1)`` step (a subprocess with 4 forced
 host devices) on the same weights and batch: the loss, every updated
 trainable leaf and the AdamW moments, and each rank's error-feedback
 residual against the reference's ``residual[r]``.  Also the refusals:
-tensor parallelism (``n_model > 1``) and a CUDA tensor on a ``gloo``
-group.  ``TrainLoop(dist=)`` and the elastic resume are in
+a family tensor parallelism does not split yet (``n_model > 1`` outside
+the dense family, ROADMAP item 4b-iii) and a CUDA tensor on a ``gloo``
+group.  Tensor parallelism itself is ``tests/test_torch_tensor_parallel.py``.  ``TrainLoop(dist=)`` and the elastic resume are in
 ``tests/test_torch_distributed_loop.py``.
 
 The ranks are spawned processes that import this module, so the
@@ -238,12 +239,15 @@ def test_data_parallel_step_matches_reference(tmp_path):
 
 
 def test_tensor_parallel_mesh_raises_and_cuda_needs_nccl():
-    """A mesh with a model axis is slice 14's; a CUDA tensor never goes
-    through a gloo group (no hidden copy to the host)."""
+    """A mesh with a model axis refuses a family tensor parallelism does
+    not split yet (item 4b-iii; the dense family trains on it); a CUDA
+    tensor never goes through a gloo group (no hidden copy to the
+    host)."""
     import types
 
     import torch.distributed as tdist
 
+    from repro_torch.configs import mamba2_370m
     from repro_torch.distributed.context import (DistContext, check_backend,
                                                  free_port)
     from repro_torch.launch import train as TR
@@ -253,11 +257,11 @@ def test_tensor_parallel_mesh_raises_and_cuda_needs_nccl():
         axis_names = ("data", "model")
         shape = {"data": 2, "model": 2}
 
-    cfg = PCfg(**MODEL, ccm=PCCM(**CCM))
-    with pytest.raises(NotImplementedError, match="slice 14"):
+    cfg = mamba2_370m.smoke(compute_dtype="float32")
+    with pytest.raises(NotImplementedError, match="4b-iii"):
         TR.make_train_step(cfg, PM.segment_layout(*LAYOUT),
                            PA.AdamWConfig(), dist=DistContext(mesh=Mesh()))
-    with pytest.raises(NotImplementedError, match="slice 14"):
+    with pytest.raises(NotImplementedError, match="4b-iii"):
         TR.jit_train_step(None, cfg, DistContext(mesh=Mesh()), None, None,
                           {}, None)
     tdist.init_process_group("gloo", init_method=f"tcp://localhost:"
@@ -273,8 +277,10 @@ def test_tensor_parallel_mesh_raises_and_cuda_needs_nccl():
 
 def test_meshes_need_their_world_and_remesh_restore(tmp_path):
     """A (data, model) mesh needs a process group of exactly its ranks;
-    ``remesh_restore`` reads a checkpoint onto a data-parallel mesh and
-    refuses one with a model axis."""
+    ``remesh_restore`` reads a checkpoint onto a data-parallel mesh, and
+    refuses a mesh with a model axis for a family tensor parallelism
+    does not split yet (item 4b-iii; the dense family's restore onto such
+    a mesh is ``tests/test_torch_tensor_parallel.py``)."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.distributed.elastic import remesh_restore
     from repro_torch.launch import mesh as LM
@@ -301,5 +307,6 @@ def test_meshes_need_their_world_and_remesh_restore(tmp_path):
     assert extra["step"] == 8 and dist.n_data == 2 and dist.n_model == 1
     assert torch.equal(got["tp"]["w"], state["tp"]["w"])
     assert torch.equal(got["opt"]["mu"], state["opt"]["mu"])
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        remesh_restore(ckpt, 8, cfg, Mesh(2), template, None)
+    from repro_torch.configs import zamba2_12b
+    with pytest.raises(NotImplementedError, match="4b-iii"):
+        remesh_restore(ckpt, 8, zamba2_12b.smoke(), Mesh(2), template, None)

@@ -215,18 +215,29 @@ def test_stream_step_guards(stream, width):
 
 def test_make_stream_step_matches_stream_step():
     """The single-batch builder runs `stream_step`; a sharded build
-    (``dist=``) belongs to the multi-device slice."""
+    (``dist=``) on a mesh of one rank places the whole state and runs the
+    same step, bit for bit (meshes that split the model are
+    ``tests/test_torch_tp_online.py``)."""
+    from repro_torch.distributed.context import DistContext
     from repro_torch.launch import serve as PSRV
     _, pc = _cfgs()
     _, pp = _params(pc)
     toks = torch.from_numpy(_toks(5, (2, 8)))
-    a, b = (PS.init_stream_state(pc, 2, device="cpu") for _ in range(2))
+    a, b, c = (PS.init_stream_state(pc, 2, device="cpu") for _ in range(3))
     want, a = PS.stream_step(pp, pc, a, toks)
     got, b = PSRV.make_stream_step(pc)(pp, b, toks)
     assert torch.equal(got, want) and torch.equal(b.win_k, a.win_k)
     assert (b.win_len, b.pos) == (8, 8)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        PSRV.make_stream_step(pc, dist=object())
+
+    class Mesh:
+        axis_names = ("data", "model")
+        shape = {"data": 1, "model": 1}
+
+    step = PSRV.make_stream_step(pc, dist=DistContext(mesh=Mesh()))
+    pl, c = step.place(pp, c)
+    got, c = step(pl, c, toks)
+    assert torch.equal(got, want) and torch.equal(c.win_k, a.win_k)
+    assert (c.win_len, c.pos) == (8, 8)
 
 
 def test_init_stream_state_needs_a_device(monkeypatch):

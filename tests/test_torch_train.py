@@ -250,19 +250,21 @@ def test_parallel_equals_online_in_port(mode):
 
 
 def test_multi_device_training_raises():
-    """Data-parallel meshes train (tests/test_torch_distributed.py); a
-    mesh with a model axis (tensor parallelism) still raises."""
+    """Data-parallel meshes train (tests/test_torch_distributed.py), and
+    a mesh with a model axis trains the dense family
+    (tests/test_torch_tensor_parallel.py); on such a mesh the other
+    families still raise (ROADMAP item 4b-iii)."""
+    from repro_torch.configs import zamba2_12b
     from repro_torch.distributed.context import DistContext
 
     class Mesh:                   # shape-only: the check reads no more
         axis_names = ("data", "model")
         shape = {"data": 1, "model": 2}
 
-    _, pcfg = _cfgs("concat")
     _, pl = _layouts()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        PTR.make_train_step(pcfg, pl, PA.AdamWConfig(),
-                            dist=DistContext(mesh=Mesh()))
+    with pytest.raises(NotImplementedError, match="4b-iii"):
+        PTR.make_train_step(zamba2_12b.smoke(compute_dtype="float32"), pl,
+                            PA.AdamWConfig(), dist=DistContext(mesh=Mesh()))
 
 
 def test_params_to_numpy_inverts_params_from_numpy():
