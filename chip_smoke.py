@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase12 pixtral-12b   # ... for these archs
     python3 chip_smoke.py --phase13  # the card, the build and phase 13 only
     python3 chip_smoke.py --phase14  # the card, the build and phase 14 only
+    python3 chip_smoke.py --phase15  # the card, the build and phase 15 only
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the build of the
@@ -156,9 +157,21 @@ Phases (any failure raises, and the script exits non-zero):
      with the kernels' launches at the shard shapes and the loop's time;
      (c) the segmented kernel's log-sum-exp route against its plain
      version and a 32768-key decode at LLaMA-7B's heads cut in 4 blocks,
-     combined, against the kernel over the whole cache;
+     combined, against the kernel over the whole cache, and its plain
+     version's and the library's flash attention's times with the lse;
+ 15. (after 12) tensor parallelism, part 2 (the MoE family): (a)
+     phi3.5-moe's first 2 layers at full width under each ``moe_impl`` in
+     an NCCL world of one rank through every ``dist=`` entry point, each
+     bit-equal to ``dist=None``, then the split path itself at n = 1
+     over the NCCL model-axis group (ragged_tp's reduce, ep's
+     all-to-alls) and the sequence-sharded decode; (b) one full-width
+     block of phi3.5-moe at n = 2 and 4 under each impl and of
+     llama4-maverick under ep at n = 8, the ranks of a ``LocalGroup`` in
+     turn, against the unsharded block within ``bf16_tol`` with the
+     expert ids pinned (and ep's drops computed there), with the
+     dropped assignments, the times and the peak memory;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
-launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13 and 14, and the CCM kernel's
+launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14 and 15, and the CCM kernel's
 phase-12 launches by whisper's encoder, read from the counters around
 each of its launches), then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward on
@@ -181,7 +194,9 @@ forward and backward in whisper's encoder regime (B4, 6/6 hd 64, 1500
 frames, every key <COMP> at index 0; library: SDPA with no mask),
 cond_lora at pixtral's q, k/v and o projections (M 288), segmented
 attention decode and prefill at 32/8 and 40/8 hd 128, decode at 6/6 hd
-64.
+64; and tensor parallelism's shard shapes: a LLaMA-7B rank's at n = 2,
+4, 8 (phase 14), phi3.5-moe's 8/2 heads at n = 4 and llama4-maverick's
+5/1 at n = 8, its column q K 5120 N 640 (phase 15).
 Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
@@ -490,6 +505,12 @@ SEG_ZOO_CASES = [
     dict(label="prefill 16/16 hd128 TP n=2", Sq=448, clen=0, H=16, Hkv=16),
     dict(label="prefill 8/8 hd128 TP n=4", Sq=448, clen=0, H=8, Hkv=8),
     dict(label="prefill 4/4 hd128 TP n=8", Sq=448, clen=0, H=4, Hkv=4),
+    # phase 15's shard shapes: phi3.5-moe's 32/8 heads at n = 4 (8/2) and
+    # llama4-maverick's 40/8 at n = 8 (5/1), hd 128
+    dict(label="decode 8/2 hd128 MoE TP n=4", Sq=1, clen=480, H=8, Hkv=2),
+    dict(label="decode 5/1 hd128 MoE TP n=8", Sq=1, clen=480, H=5, Hkv=1),
+    dict(label="prefill 8/2 hd128 MoE TP n=4", Sq=448, clen=0, H=8, Hkv=2),
+    dict(label="prefill 5/1 hd128 MoE TP n=8", Sq=448, clen=0, H=5, Hkv=1),
 ]
 
 
@@ -709,7 +730,10 @@ def check_cond_lora(torch, clora, card):
                                (288, 4096, 512, False),
                                (288, 2048, 4096, False),
                                (288, 1024, 4096, False),
-                               (288, 512, 4096, False)):
+                               (288, 512, 4096, False),
+                               # phase 15's: llama4-maverick's column-
+                               # parallel q at n = 8 (40 x 128 / 8)
+                               (288, 5120, 640, False)):
         ws = [rn(K, N, std=K ** -0.5) for _ in range(4)]  # LLaMA: > L2
         a, b = rn(r, K, std=K ** -0.5), rn(r, N, std=0.05)
         bias = rn(N)
@@ -1091,7 +1115,10 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
                                  # rank's heads at n = 2, 4, 8
                                  (16, 16, 128, ZOO_LAYOUT, " TP n=2"),
                                  (8, 8, 128, ZOO_LAYOUT, " TP n=4"),
-                                 (4, 4, 128, ZOO_LAYOUT, " TP n=8")):
+                                 (4, 4, 128, ZOO_LAYOUT, " TP n=8"),
+                                 # phase 15's: phi3.5-moe's 32/8 heads at
+                                 # n = 4
+                                 (8, 2, 128, ZOO_LAYOUT, " MoE TP n=4")):
         f, b = timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
                          lay)
         S = lay if isinstance(lay, int) else segment_layout(*lay).seq_len
@@ -4835,13 +4862,34 @@ def seq_sharded_check(torch, dattn, card):
         q, b, qi, one, scale, lse=True) for b in blocks],
         only="segmented_attention")
     t_all = time_ms(torch, lambda i: sharded(), iters=5, warmup=1)
+    # the whole cache with the lse: the kernel, its plain version, and the
+    # library's flash attention, whose second output is the log-sum-exp
+    # (every key is visible at decode: no mask)
+    t_lse = device_ms(torch, lambda i: dattn.segmented_flash_attention(
+        q, whole, qi, one, scale, lse=True), only="segmented_attention")
+    t_plain = device_ms(torch, lambda i: dattn.plain(q, whole, qi, one,
+                                                     scale, lse=True), iters=5)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (torch.cat(x, 1).transpose(1, 2).contiguous()
+              for x in ((mk, k, sk), (mv, v, sv)))
+
+    def library(i):
+        return torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, scale=scale)
+    lib_out, lib_lse = library(0)[:2]
+    check("14c the library's flash attention over the whole cache (vs the "
+          "kernel)", max_err(lib_out.transpose(1, 2), want), bf16_tol(want))
+    t_lib = device_ms(torch, library)
     nbytes = 2 * (S + 129) * H * D * 2
     bms, by = bound(nbytes, 4.0 * H * D * (S + 129), PEAK_BF16)
-    log(f"  14c: the whole-cache kernel {t_whole:.4f} ms, the 4 block "
+    log(f"  14c: the whole-cache kernel {t_whole:.4f} ms ({t_lse:.4f} ms "
+        f"with its lse), its plain version with lse {t_plain:.4f} ms, the "
+        f"library's flash attention with lse {t_lib:.4f} ms; the 4 block "
         f"kernels with lse {t_blocks:.4f} ms of device time together, "
         f"bound {bms:.4f} ms ({by}); the 4 ranks in turn with the combine "
         f"{t_all:.3f} ms (CUDA events, host included) [{card}]")
-    rec.update(whole_ms=t_whole, blocks_ms=t_blocks, loop_ms=t_all,
+    rec.update(whole_ms=t_whole, whole_lse_ms=t_lse, plain_ms=t_plain,
+               library_ms=t_lib, blocks_ms=t_blocks, loop_ms=t_all,
                bound_ms=bms)
     return rec
 
@@ -4865,6 +4913,429 @@ def phase14(torch, m, params, cfg, card):
     rec["14c"] = seq_sharded_check(torch, m.dattn, card)
     log(f"  phase 14 launches: {({k: v for k, v in counts.items() if v})}; "
         f"took {time.perf_counter() - t0:.1f} s")
+    return counts, rec
+
+
+# ---------------------------------------------------------------------------
+# phase 15: tensor parallelism, part 2 (the MoE family)
+# ---------------------------------------------------------------------------
+
+MOE_TP_ARCH = "phi3.5-moe-42b-a6.6b"
+# 15b's blocks: (arch, moe_impl, model-axis size).  llama4-maverick's block
+# holds 32.2 GB of experts: its ep shards are views along E, ragged_tp's
+# would be a second copy, so it runs ep alone
+MOE_TP_BLOCKS = ((MOE_TP_ARCH, "ragged_tp", 2), (MOE_TP_ARCH, "ep", 2),
+                 (MOE_TP_ARCH, "ragged_tp", 4), (MOE_TP_ARCH, "ep", 4),
+                 ("llama4-maverick-400b-a17b", "ep", 8))
+MOE_TP_KERNELS = ("cond_lora", "cond_lora_wgmma", "segmented_attention",
+                  "segmented_attention_splitk", "segmented_attention_mma",
+                  "ccm_attention", "ccm_attention_mma")
+
+
+@contextlib.contextmanager
+def ep_unsharded(n: int):
+    """Within: the one-device MoE (``dist`` None) computes what ``ep`` at
+    ``n`` computes (``models.moe.moe_ep_unsharded``: the dropless path
+    under ep's keep mask), the unsharded counterpart of an ep rank loop."""
+    from repro_torch.models import moe as MOE
+    apply = MOE.apply_moe
+
+    def swapped(cfg, p, x, dist=None):
+        if dist is None:
+            return MOE.moe_ep_unsharded(cfg, p, x, n)
+        return apply(cfg, p, x, dist)
+    MOE.apply_moe = swapped
+    try:
+        yield
+    finally:
+        MOE.apply_moe = apply
+
+
+def rank_routes(torch, calls, flips):
+    """A ``moe_routes`` pick for a ``LocalGroup`` rank loop: each rank (a
+    thread of its own) takes the expert ids of ``calls`` in order from
+    the first (every rank routes every row, as the unsharded block did),
+    as ``pinned_routes`` gives them."""
+    import threading
+    picks = {}
+
+    def pick(cfg, w, xf, route):
+        me = threading.get_ident()
+        if me not in picks:
+            picks[me] = pinned_routes(torch, list(calls), flips)
+        return picks[me](cfg, w, xf, route)
+    return pick
+
+
+def moe_world_of_one(torch, m, card):
+    """15a: phi3.5-moe at full width, 2 of its 32 layers, bf16 (seed 15,
+    LoRA b drawn), under each ``moe_impl``, in an NCCL world of one rank
+    on a (1, 1) mesh: ``jit_train_step``'s placed step at phase 5's cell
+    (B4, S1216, LoRA; concat and merge), the three ``dist=`` builders (2
+    ingests of 64 tokens, a 448-token prefill, 4 decode steps; B4, a
+    512-token cache) and ``generate`` (8 tokens), ``make_stream_step`` (10
+    chunks of 64, W 512: 2 evictions), each bit-equal to ``dist=None``;
+    then the split path itself at n = 1 (a ``TensorParallel`` over the
+    NCCL model-axis group: ragged_tp's reduce, ep's two all-to-alls and
+    its gather): online logits bit-equal to ``dist=None``, the
+    vocab-parallel loss and the LoRA gradients held to it; and the
+    sequence-sharded decode (``shard_cache_seq=True``, the split-K
+    route's log-sum-exp) within bf16_tol of ``dist=None``.  Returns (the
+    dist runs' launches, the sequence-sharded decode's split-K
+    launches)."""
+    import torch.distributed as tdist
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.distributed.context import free_port, init_world
+    from repro_torch.launch import serve as SRV
+    from repro_torch.launch.mesh import make_debug_mesh, make_dist
+    PI, STR, TR, PD, PA, PP, ops = m.PI, m.STR, m.TR, m.PD, m.PA, m.PP, m.ops
+    dev = init_world(0, 1, free_port(), "cuda")                 # NCCL
+    counts, lse_launches = {}, 0
+    try:
+        dist = make_dist(make_debug_mesh(1, 1, device=dev))
+        base = m.get_config(MOE_TP_ARCH).replace(n_layers=2)
+        params = m.init_lm(base, seed=15)
+        randomize_lora_b(torch, params, seed=115)
+        layout = m.segment_layout(*ZOO_LAYOUT)
+        batch = PD.sample_kv_batch(PD.ShardableIndexIterator(0, 4)
+                                   .key_for(0), layout, 4, device=dev)
+        tp0, fp0 = PP.partition(params, TR.trainable_mask_for(base, params))
+        ocfg = PA.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+        B, CACHE = 4, 512
+        gen = torch.Generator(device=dev).manual_seed(150)
+        ctx = [torch.randint(0, base.vocab_size, (B, 64), generator=gen,
+                             device=dev) for _ in range(2)]
+        prompt = torch.randint(0, base.vocab_size, (B, 448), generator=gen,
+                               device=dev)
+        toks = torch.randint(0, base.vocab_size, (2, 640), generator=gen,
+                             device=dev)
+
+        def clone(t):
+            return PP.tree_map(lambda _, x: None if x is None
+                               else x.detach().clone(), t)
+        for impl in ("ragged_tp", "ep"):
+            cfg = base.replace(moe_impl=impl)
+            merge = cfg.replace(ccm=dataclasses.replace(
+                cfg.ccm, mode="merge", merge_alpha=None))
+            for mode, c in (("concat", cfg), ("merge", merge)):
+                tp, opt = clone(tp0), PA.init_adamw(tp0)
+                step = TR.jit_train_step(
+                    TR.make_train_step(c, layout, ocfg, dist), c, dist, None,
+                    None, batch, None)
+                tp, fp, opt = step.place(tp, fp0, opt)
+                tp, opt, mt, _ = counted(ops, counts, lambda: step(
+                    tp, fp, opt, batch))
+                tq, oq = clone(tp0), PA.init_adamw(tp0)
+                tq, oq, mq, _ = TR.make_train_step(c, layout, ocfg)(
+                    tq, fp0, oq, batch)
+                diff = same_tree(torch, PP, tp, tq) \
+                    + same_tree(torch, PP, opt.mu, oq.mu) \
+                    + same_tree(torch, PP, opt.nu, oq.nu)
+                if mt["loss"].item() != mq["loss"].item() or diff:
+                    raise AssertionError(f"15a {impl} train {mode}: loss "
+                                         f"{mt['loss'].item()} vs "
+                                         f"{mq['loss'].item()}, differ {diff}")
+                log(f"  15a {impl} jit_train_step(dist=) {mode}: one AdamW "
+                    f"step bit-equal to dist=None (loss "
+                    f"{mt['loss'].item():.4f}, leaves, moments)")
+            del tp, tq, opt, oq
+
+            ing, pre = SRV.make_ingest_step(cfg, dist), \
+                SRV.make_prefill_step(cfg, dist)
+            dec = SRV.make_decode_step(cfg, dist)
+
+            def online(st, tp_dist):
+                for x in ctx:
+                    st = ing(params, st, x) if tp_dist else \
+                        PI.ingest_context(params, cfg, st, x)
+                lg, st = pre(params, st, prompt) if tp_dist else \
+                    PI.prefill(params, cfg, st, prompt)
+                lgs = [lg]
+                for _ in range(4):
+                    tok = lgs[-1][:, -1].argmax(-1)[:, None]
+                    lg, st = dec(params, st, tok) if tp_dist else \
+                        PI.decode_step(params, cfg, st, tok)
+                    lgs.append(lg)
+                g = PI.generate(params, cfg, clone_state(torch, st),
+                                prompt[:, :64], 8,
+                                dist=dist if tp_dist else None)
+                return lgs, st, g
+            st0 = PI.init_online_state(cfg, B, CACHE, device=dev)
+            _, st_d = ing.place(params, clone_state(torch, st0))
+            got = counted(ops, counts, lambda: online(st_d, True))
+            want = online(clone_state(torch, st0), False)
+            bad = [i for i, (a, b) in enumerate(zip(got[0], want[0]))
+                   if not torch.equal(a, b)]
+            for name in ("k", "v"):
+                if not torch.equal(getattr(got[1].cache, name),
+                                   getattr(want[1].cache, name)) or not \
+                        torch.equal(getattr(got[1].mem, name),
+                                    getattr(want[1].mem, name)):
+                    bad.append(f"state {name}")
+            if bad or not torch.equal(got[2], want[2]):
+                raise AssertionError(f"15a {impl} builders: differ at {bad} "
+                                     "or in generate's tokens")
+            log(f"  15a {impl} make_ingest_step / make_prefill_step / "
+                "make_decode_step(dist=) and generate(dist=): 2 ingests, a "
+                "448-token prefill, 4 decode steps, the cache and memory, 8 "
+                "generated tokens, bit-equal to dist=None")
+            del got, want, st_d
+
+            scfg = cfg.replace(ccm=dataclasses.replace(
+                cfg.ccm, stream_window=512, stream_chunk=64,
+                stream_mem_slots=4))
+            sstep = SRV.make_stream_step(scfg, dist)
+
+            def stream(st, tp_dist):
+                out = []
+                for i in range(10):
+                    t = toks[:, i * 64:(i + 1) * 64]
+                    lg, st = sstep(params, st, t) if tp_dist else \
+                        STR.stream_step(params, scfg, st, t)
+                    out.append(lg)
+                return out, st
+            s0 = STR.init_stream_state(scfg, 2, device=dev)
+            _, s_d = sstep.place(params, clone_state(torch, s0))
+            got = counted(ops, counts, lambda: stream(s_d, True))
+            want = stream(clone_state(torch, s0), False)
+            if not all(torch.equal(a, b) for a, b in zip(got[0], want[0])) \
+                    or not torch.equal(got[1].win_k, want[1].win_k) \
+                    or not torch.equal(got[1].mem.k, want[1].mem.k) \
+                    or got[1].mem.slots != want[1].mem.slots:
+                raise AssertionError(f"15a {impl} make_stream_step(dist=) "
+                                     "differs")
+            log(f"  15a {impl} make_stream_step(dist=): 10 chunks of 64 (2 "
+                f"evictions, {got[1].mem.slots} memory groups) bit-equal to "
+                "dist=None (W 512)")
+            del got, want, s_d
+
+            # the split path itself at n = 1, over the NCCL model-axis group
+            tp1 = TPX.TensorParallel(cfg, 1, 0, TPX.collectives(dist))
+
+            def split_online(tp):
+                st = clone_state(torch, st0)
+                for x in ctx:
+                    st = PI.ingest_context(params, cfg, st, x, dist=tp)
+                lp, st = PI.prefill(params, cfg, st, prompt, dist=tp)
+                tok = PI.greedy(lp[:, -1], cfg, tp)[:, None]
+                ld, st = PI.decode_step(params, cfg, st, tok, dist=tp)
+                return PI.gather_vocab(lp, cfg, tp), ld, tok
+            got = counted(ops, counts, lambda: split_online(tp1))
+            want = split_online(None)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"15a {impl}: the split path at n = 1 "
+                                     "differs from dist=None online")
+            tq = clone(tp0)
+
+            def split_grads(tp):
+                leaves = [x for _, x in PP.leaves(tq)]
+                for x in leaves:
+                    x.requires_grad_(True)
+                with torch.enable_grad():
+                    loss = TR._loss_fn(tq, fp0, cfg, layout, batch, dist=tp)
+                    return loss.detach(), torch.autograd.grad(loss, leaves)
+            (la, ga), (lb, gb) = counted(ops, counts,
+                                         lambda: split_grads(tp1)), \
+                split_grads(None)
+            check(f"15a {impl} split path at n = 1 over NCCL: the "
+                  "vocab-parallel loss vs logsumexp (float32)",
+                  abs(la.item() - lb.item()), 1e-5 * abs(lb.item()))
+            worst = max(max_err(a, b) / max(b.float().abs().max().item(),
+                                            1e-30) for a, b in zip(ga, gb))
+            check(f"15a {impl} split path at n = 1: every LoRA gradient, "
+                  "relative to its largest", worst, 2.0 ** -5)
+            log(f"  15a {impl} the split path at n = 1 (the experts through "
+                + ("one NCCL all-reduce" if impl == "ragged_tp" else
+                   "NCCL's all-to-all there and back and a gather")
+                + "): prefill and decode logits and the greedy pick "
+                "bit-equal to dist=None")
+            del got, want, tq, ga, gb
+
+        # the sequence-sharded decode: the split-K route with its lse
+        sdec = SRV.make_decode_step(base, dist, shard_cache_seq=True,
+                                    batch_sharded=False)
+        st0 = PI.init_online_state(base, B, CACHE, device=dev)
+        st0 = PI.prefill(params, base, st0, prompt)[1]
+        _, st_s = sdec.place(params, clone_state(torch, st0))
+        here = {}
+        ls, _ = counted(ops, here, lambda: sdec(params, st_s,
+                                                prompt[:, :1]))
+        lw, _ = PI.decode_step(params, base, clone_state(torch, st0),
+                               prompt[:, :1])
+        check("15a sequence-sharded decode (one data rank, the split-K "
+              "route's log-sum-exp) vs dist=None", max_err(ls, lw),
+              bf16_tol(lw))
+        lse_launches = here.get("segmented_attention_splitk", 0)
+        if lse_launches <= 0:
+            raise AssertionError(f"15a sequence-sharded decode: {here}")
+        add_counts(counts, here)
+        return counts, lse_launches
+    finally:
+        tdist.destroy_process_group()
+
+
+def moe_rank_loop(torch, m, card):
+    """15b: one block at full width (``n_layers=1``) of phi3.5-moe at n =
+    2 and 4 under each ``moe_impl`` and of llama4-maverick under ``ep``
+    at n = 8, random weights (seed 15, LoRA b drawn), bf16.  The n ranks
+    of a ``LocalGroup`` run on the card in turn, forward only: the CCM
+    training forward (B2, S1216) and its vocab-parallel loss, then an
+    ingest of 64 tokens, a 64-token prefill and a decode step (B4); concat,
+    and merge for phi3.5.  Each is held within bf16_tol of the unsharded
+    block on the card (logits gathered over the vocabulary blocks), with
+    the rank loop's expert ids pinned to the unsharded block's
+    (``rank_routes``) and, under ``ep``, the unsharded block computing
+    ep's drops (``ep_unsharded``: the same ids, so the same drop mask).
+    Prints the assignments ep dropped, a rank's share in ms beside the
+    unsharded block's (the port's own routes), the launches and
+    ``max_memory_allocated``.  Returns the rank loops' launches and the
+    record."""
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim.losses import next_token_loss
+    PI, PT, PD, ops = m.PI, m.PT, m.PD, m.ops
+    counts, rec = {}, {}
+    layout = m.segment_layout(*ZOO_LAYOUT)
+    params = None
+    for arch, impl, n in MOE_TP_BLOCKS:
+        base = m.get_config(arch).replace(n_layers=1, moe_impl=impl)
+        if params is None or params_arch != arch:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params = m.init_lm(base, seed=15)
+            randomize_lora_b(torch, params, seed=115)
+            params_arch = arch
+        dev = params["embed"].device
+        batch = PD.sample_kv_batch(PD.ShardableIndexIterator(0, 2)
+                                   .key_for(0), layout, 2, device=dev)
+        tail = batch["tokens"][:, layout.seq_len - layout.tail_len:]
+        gen = torch.Generator(device=dev).manual_seed(151)
+        ctx = torch.randint(0, base.vocab_size, (4, 64), generator=gen,
+                            device=dev)
+        prompt = torch.randint(0, base.vocab_size, (4, 64), generator=gen,
+                               device=dev)
+        here, r = {}, {}
+        modes = ("concat", "merge") if arch == MOE_TP_ARCH else ("concat",)
+        for mode in modes:
+            cfg = base.replace(ccm=dataclasses.replace(base.ccm, mode=mode))
+            shards = [TPX.shard_params(params, cfg,
+                                       TPX.TensorParallel(cfg, n, i, None))
+                      for i in range(n)]
+
+            def train(p, tp):
+                lg = PT.train_forward(p, cfg, batch["tokens"], layout,
+                                      dist=tp)
+                loss = next_token_loss(lg, tail, batch["loss_mask"], tp=tp)
+                return PI.gather_vocab(lg, cfg, tp), loss
+
+            def online(p, st, tp):
+                st = PI.ingest_context(p, cfg, st, ctx, dist=tp)
+                lp, st = PI.prefill(p, cfg, st, prompt, dist=tp)
+                ld, st = PI.decode_step(p, cfg, st, prompt[:, :1], dist=tp)
+                return (PI.gather_vocab(lp, cfg, tp),
+                        PI.gather_vocab(ld, cfg, tp))
+            st0 = PI.init_online_state(cfg, 4, 256, device=dev)
+
+            def whole():
+                with ep_unsharded(n) if impl == "ep" else \
+                        contextlib.nullcontext():
+                    return train(params, None), online(
+                        params, clone_state(torch, st0), None)
+
+            def loop():
+                grp = TPX.LocalGroup(n)
+                ranks = TPX.local_ranks(cfg, grp)
+                sts = [rank_state(torch, st0, tp) for tp in ranks]
+                return grp.run(lambda i: (train(shards[i], ranks[i]),
+                                          online(shards[i], sts[i],
+                                                 ranks[i])))
+            calls, flips = [], []
+            with torch.no_grad():
+                with moe_routes(recorded_routes(calls)):
+                    want = whole()
+                MOE.EP_DROPS.update(assignments=0, dropped=0)
+                with moe_routes(rank_routes(torch, calls, flips)):
+                    outs = counted(ops, here, loop)
+                drops = dict(MOE.EP_DROPS)
+                t_whole = time_ms(torch, lambda i: whole(), iters=3,
+                                  warmup=1)
+                t_loop = time_ms(torch, lambda i: loop(), iters=3, warmup=1)
+            for rk, ((lg, loss), (lp, ld)) in enumerate(outs):
+                for name, a, b in (("train logits", lg, want[0][0]),
+                                   ("loss", loss, want[0][1]),
+                                   ("prefill logits", lp, want[1][0]),
+                                   ("decode logits", ld, want[1][1])):
+                    err = max_err(a, b)
+                    if rk == 0:
+                        check(f"15b {arch} {impl} n={n} {mode} {name} "
+                              "(rank loop vs unsharded, ids pinned)", err,
+                              bf16_tol(b))
+                    elif not err <= bf16_tol(b):
+                        raise AssertionError(f"15b {arch} {impl} n={n} "
+                                             f"rank {rk} {name}: {err}")
+            r[mode] = dict(whole_ms=t_whole, loop_ms=t_loop,
+                           per_rank_ms=t_loop / n, dropped=drops["dropped"],
+                           assignments=drops["assignments"],
+                           route_flips=sum(flips))
+            log(f"  15b {arch} {impl} n={n} {mode}: the {n} ranks in turn "
+                f"{t_loop:.2f} ms ({t_loop / n:.2f} ms a rank), the "
+                f"unsharded block {t_whole:.2f} ms (training forward + loss, "
+                f"ingest, prefill, decode; CUDA events); ep dropped "
+                f"{drops['dropped']} of {drops['assignments']} assignments; "
+                f"{sum(flips)} rows whose own top-k differs from the pinned "
+                f"[{card}]")
+            del shards, outs, want
+        missing = [k for k in MOE_TP_KERNELS if here.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"15b {arch} {impl} n={n}: no launch of "
+                                 f"{missing} ({here})")
+        lc = TPX.local_config(base, TPX.TensorParallel(base, n, 0, None))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  15b {arch} {impl} n={n}: launches "
+            f"{({k: v for k, v in here.items() if v})} (a rank's shard: "
+            f"{lc.n_heads}/{lc.n_kv_heads} heads, "
+            + (f"{base.n_experts // n} of {base.n_experts} experts"
+               if impl == "ep" else f"d_ff {lc.d_ff} of every expert")
+            + f", vocab {lc.vocab_size}); max_memory_allocated {peak:.2f} "
+            "GiB")
+        add_counts(counts, here)
+        rec[f"{arch} {impl} n={n}"] = dict(r, launches=here, peak_gib=peak)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def phase15(torch, m, card):
+    """Phase 15: 15a on phi3.5-moe's first 2 layers, 15b its blocks and
+    llama4-maverick's."""
+    t0 = time.perf_counter()
+    log("  15a: every dist= entry point with the MoE family in an NCCL "
+        "world of one rank, (1, 1) mesh")
+    counts, lse_launches = moe_world_of_one(torch, m, card)
+    need = ("cond_lora_wgmma", "segmented_attention_splitk",
+            "segmented_attention_mma", "ccm_attention_mma",
+            "ccm_attention_backward_mma", "kv_cummean", "kv_cummean_backward")
+    if any(counts.get(k, 0) <= 0 for k in need):
+        raise AssertionError(f"15a launches {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  15b: the MoE rank loop at full width (LocalGroup, ranks in turn "
+        "on the card)")
+    loop_counts, rec = moe_rank_loop(torch, m, card)
+    add_counts(counts, loop_counts)
+    for k in ("kv_merge_update", "kv_cummean"):
+        if loop_counts.get(k, 0) <= 0:
+            raise AssertionError(f"15b: no launch of {k}")
+    rec["lse_launches"] = lse_launches
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"  phase 15 launches: {({k: v for k, v in counts.items() if v})} "
+        f"(the sequence-sharded decode's split-K launches with lse: "
+        f"{lse_launches}); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; took "
+        f"{rec['seconds']:.1f} s")
     return counts, rec
 
 
@@ -4948,6 +5419,11 @@ def main() -> int:
         randomize_lora_b(torch, params, seed=100)
         phase14(torch, m14, params, cfg, card)
         log(f"  --phase14: done ({time.perf_counter() - t_start:.1f} s)")
+        return 0
+    if "--phase15" in sys.argv[1:]:
+        log("phase 15 alone (--phase15): phi3.5-moe and llama4-maverick")
+        phase15(torch, m14, card)
+        log(f"  --phase15: done ({time.perf_counter() - t_start:.1f} s)")
         return 0
 
     log("phase 2: kernels against their plain versions on the card")
@@ -5110,31 +5586,39 @@ def main() -> int:
         f"; of the CCM kernel's, whisper's encoder {enc}")
     log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
 
+    log("phase 15: tensor parallelism, part 2 (the MoE family): the dist= "
+        "entry points under each moe_impl, the MoE rank loop at full width")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p15_counts, rec15 = phase15(torch, m14, card)
+
     # the tensor-core routes' launches in each main-path phase (3: online,
     # 5: training, 7: the 32-layer serve engine, 8: streaming, 9: the zoo,
     # 10: the baselines' training and the serve-metrics demo, 11: the
     # recurrent families, 12: the encoder-decoder, the VLM and MoE, 13: the
-    # sharded engines and the data-parallel step, 14: the dist= entry
-    # points and the tensor-parallel rank loops)
+    # sharded engines and the data-parallel step, 14 and 15: the dist=
+    # entry points and the tensor-parallel rank loops, dense and MoE)
     by_phase = {k: {"3": totals[k], "5": train_counts.get(k, 0),
                     "7": serve_counts[k], "8": stream_counts[k],
                     "9": zoo_counts[k], "10": base_counts.get(k, 0),
                     "11": rec_counts[k], "12": fam_counts[k],
                     "13": p13_counts.get(k, 0),
-                    "14": p14_counts.get(k, 0)}
+                    "14": p14_counts.get(k, 0),
+                    "15": p15_counts.get(k, 0)}
                 for k in ("segmented_attention_splitk",
                           "segmented_attention_mma", "cond_lora_wgmma",
                           "ccm_attention_mma", "ccm_attention_backward_mma")}
     for k, need in (("segmented_attention_splitk", ("3", "8", "9", "11",
-                                                    "12", "14")),
+                                                    "12", "14", "15")),
                     ("segmented_attention_mma", ("3", "7", "8", "9", "11",
-                                                 "12", "13", "14")),
+                                                 "12", "13", "14", "15")),
                     ("cond_lora_wgmma", ("3", "5", "7", "8", "9", "10",
-                                         "11", "12", "13", "14")),
+                                         "11", "12", "13", "14", "15")),
                     ("ccm_attention_mma", ("5", "9", "11", "12", "13",
-                                           "14")),
+                                           "14", "15")),
                     ("ccm_attention_backward_mma", ("5", "9", "11", "12",
-                                                    "13", "14"))):
+                                                    "13", "14", "15"))):
         if any(by_phase[k][ph] <= 0 for ph in need):
             raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
     for k in ("kv_merge_update", "session_gather", "session_scatter"):
@@ -5149,8 +5633,8 @@ def main() -> int:
         if train_counts[k] <= 0 or rec_counts[k] <= 0 or fam_counts[k] <= 0:
             raise AssertionError(f"{k}: no launch in phase 5, 11 or 12")
     for k in ("kv_merge_update", "kv_cummean", "kv_cummean_backward"):
-        if p14_counts.get(k, 0) <= 0:
-            raise AssertionError(f"{k}: no launch in phase 14")
+        if p14_counts.get(k, 0) <= 0 or p15_counts.get(k, 0) <= 0:
+            raise AssertionError(f"{k}: no launch in phase 14 or 15")
     log(f"  tensor-core route launches by phase: {by_phase}")
     rows = [
         dict(name="segmented_attention", route="cuda",
@@ -5159,7 +5643,8 @@ def main() -> int:
              launches=sum(by_phase["segmented_attention_splitk"].values()),
              launches_by_phase=by_phase["segmented_attention_splitk"],
              kernel_route="split-K decode (bf16, Sq <= 2)", **seg["decode"],
-             shapes=shape_rows(seg), lse=rec14["14c"]),
+             shapes=shape_rows(seg),
+             lse=dict(rec14["14c"], launches_phase15=rec15["lse_launches"])),
         dict(name="segmented_attention_mma", route="cuda",
              source="src/repro_torch/csrc/segmented_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:160",
@@ -5183,7 +5668,8 @@ def main() -> int:
              + rec_counts["kv_merge_update"]
              + fam_counts["kv_merge_update"]
              + p13_counts.get("kv_merge_update", 0)
-             + p14_counts["kv_merge_update"],
+             + p14_counts["kv_merge_update"]
+             + p15_counts["kv_merge_update"],
              launches_by_phase={"3": totals["kv_merge_update"],
                                 "7": merge_counts["kv_merge_update"],
                                 "8": stream_counts["kv_merge_update"],
@@ -5191,7 +5677,8 @@ def main() -> int:
                                 "11": rec_counts["kv_merge_update"],
                                 "12": fam_counts["kv_merge_update"],
                                 "13": p13_counts.get("kv_merge_update", 0),
-                                "14": p14_counts["kv_merge_update"]},
+                                "14": p14_counts["kv_merge_update"],
+                                "15": p15_counts["kv_merge_update"]},
              **merge),
         dict(name="ccm_attention", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
@@ -5212,12 +5699,14 @@ def main() -> int:
              replaces="src/repro/kernels/kv_merge.py:65",
              launches=train_counts["kv_cummean"]
              + rec_counts["kv_cummean"] + fam_counts["kv_cummean"]
-             + p13_counts["kv_cummean"] + p14_counts["kv_cummean"],
+             + p13_counts["kv_cummean"] + p14_counts["kv_cummean"]
+             + p15_counts["kv_cummean"],
              launches_by_phase={"5": train_counts["kv_cummean"],
                                 "11": rec_counts["kv_cummean"],
                                 "12": fam_counts["kv_cummean"],
                                 "13": p13_counts["kv_cummean"],
-                                "14": p14_counts["kv_cummean"]},
+                                "14": p14_counts["kv_cummean"],
+                                "15": p15_counts["kv_cummean"]},
              **cummean),
         dict(name="kv_cummean_backward", route="cuda",
              source="src/repro_torch/csrc/kv_cummean.cu",
@@ -5225,12 +5714,15 @@ def main() -> int:
              launches=train_counts["kv_cummean_backward"]
              + rec_counts["kv_cummean_backward"]
              + fam_counts["kv_cummean_backward"]
-             + p13_counts["kv_cummean_backward"] + p14_counts["kv_cummean_backward"],
+             + p13_counts["kv_cummean_backward"]
+             + p14_counts["kv_cummean_backward"]
+             + p15_counts["kv_cummean_backward"],
              launches_by_phase={"5": train_counts["kv_cummean_backward"],
                                 "11": rec_counts["kv_cummean_backward"],
                                 "12": fam_counts["kv_cummean_backward"],
                                 "13": p13_counts["kv_cummean_backward"],
-                                "14": p14_counts["kv_cummean_backward"]},
+                                "14": p14_counts["kv_cummean_backward"],
+                                "15": p15_counts["kv_cummean_backward"]},
              **cummean_bwd),
         dict(name="session_gather", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",

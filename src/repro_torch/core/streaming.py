@@ -219,7 +219,9 @@ def stream_step(params, cfg: ModelConfig, st: StreamState,
 
     The layer loop is ``core.inference.prefill``'s, with the window as its
     KV cache.  ``dist``: as in ``core.inference.prefill`` (the logits are
-    then the rank's vocabulary block)."""
+    then the rank's vocabulary block); an ``ep`` MoE split keeps every
+    assignment here (`tensor_parallel.dropless`), as the reference's
+    stream step, whose MoE takes no ``dist``."""
     B, c = chunk_tokens.shape
     cc = cfg.ccm.stream_chunk
     sink = cfg.ccm.stream_sink
@@ -235,6 +237,7 @@ def stream_step(params, cfg: ModelConfig, st: StreamState,
         raise ValueError(
             f"stream_sink ({sink}) + stream_chunk ({cc}) exceeds "
             f"stream_window ({W}): the eviction block does not fit")
+    dist = TPX.dropless(TPX.tp_of(cfg, dist))
     pending = eviction_pending(cfg, st, c if valid_len is None
                                else valid_len)
     if pending.any():

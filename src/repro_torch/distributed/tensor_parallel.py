@@ -1,5 +1,5 @@
-"""Tensor parallelism for the dense family: one model split over the
-``model`` axis of a ``(data, model)`` mesh, Megatron style.
+"""Tensor parallelism for the dense and MoE families: one model split
+over the ``model`` axis of a ``(data, model)`` mesh, Megatron style.
 
 The reference gets tensor parallelism from GSPMD: ``param_pspecs`` lays
 out the weights and XLA inserts the collectives, so its math is the
@@ -7,7 +7,12 @@ unsharded model's.  The port is one process per rank, so the split is
 explicit: each rank holds its shard of the weights (`shard_params`), runs
 its share of every block, and completes the block's two partial sums
 (after the attention's ``wo``, after the MLP's ``wo``) with a reduce over
-the model axis.
+the model axis.  An MoE block's attention half splits as the dense
+block's; its experts split by ``cfg.moe_impl`` (`models.moe`): under
+``ragged_tp`` ``wi``/``wg`` by columns and ``wo`` by rows of every
+expert (``d_ff`` must divide), under ``ep`` along the expert dim (``E``
+must divide; a rank's ``E / n`` experts keep their whole ``d_ff``).  The
+router is whole on every rank.
 
 THE LOCAL LAYOUT.  Shards are whole heads.  Three attention regimes, by
 the model-axis size ``n``:
@@ -50,6 +55,8 @@ on a dim an explicit split cannot use:
   ``b`` is whole, so that ``(sum_s x_s a_s^T) b`` completes in the same
   reduce as ``wo``.
 
+The experts add none: ``split_dim`` splits them as the spec does.
+
 ``tests/test_torch_tensor_parallel.py`` checks that these are the only
 departures.
 
@@ -59,15 +66,17 @@ of a replicated leaf used inside it (a column-parallel LoRA ``a``, the
 row-parallel LoRA ``b``, the "query" regime's KV projection), is partial
 on each rank.  ``reduce_from_tp`` (sum forward, identity backward)
 completes a partial sum.  ``gather_from_tp`` concatenates the ranks'
-blocks (the vocabulary).  A leaf used on replicated activations (norm
-scales, ``comp_embed``) gets its whole gradient on every rank and is
-never summed.  The collectives are an object the caller supplies
-(`TensorParallel.coll`): `GroupCollectives` over the mesh's model-axis
-process group (NCCL for CUDA tensors, gloo for the CPU; a CUDA tensor on
-a gloo group raises, `context.check_backend`), or `LocalGroup`, which
-runs n ranks as turns of one process on one device (the rank loop of
-``chip_smoke.py`` phase 14b; forward only on the card, where autograd's
-device thread cannot take turns).
+blocks (the vocabulary, ``ep``'s results); ``all_to_all`` hands row j of
+a (n, ...) tensor to rank j (``ep``'s exchange).  A leaf used on
+replicated activations (norm scales, ``comp_embed``, the MoE router)
+gets its whole gradient on every rank and is never summed.  The
+collectives are an object the caller supplies (`TensorParallel.coll`):
+`GroupCollectives` over the mesh's model-axis process group (NCCL for
+CUDA tensors, gloo for the CPU; a CUDA tensor on a gloo group raises,
+`context.check_backend`), or `LocalGroup`, which runs n ranks as turns
+of one process on one device (the rank loops of ``chip_smoke.py``
+phases 14b and 15b; forward only on the card, where autograd's device
+thread cannot take turns).
 """
 from __future__ import annotations
 
@@ -84,19 +93,31 @@ from repro_torch.distributed.context import (DistContext, axis_size,
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.partition import tree_map
 
-TP_FAMILIES = ("dense",)
+TP_FAMILIES = ("dense", "moe")
 LOCAL_TIMEOUT = 600.0       # s a LocalGroup rank waits for its turn
 
 
-def require_tp_family(cfg: ModelConfig) -> None:
-    """Tensor parallelism runs the dense family; the others raise."""
+def require_tp_family(cfg: ModelConfig, n: int = 1) -> None:
+    """Tensor parallelism runs the dense and MoE families; the others
+    raise.  An MoE split over ``n`` ranks needs ``d_ff % n == 0``
+    (``ragged_tp``) or ``n_experts % n == 0`` (``ep``), as the
+    reference's ``shard_map`` does."""
     if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
             f"tensor parallelism (n_model > 1) for family {cfg.family!r} "
             f"({cfg.name}) is ROADMAP queue 1 item 4b-iii (the recurrent, "
-            "encoder-decoder, VLM and MoE families under TP); the dense "
-            "family is split, and data-parallel meshes (n_model == 1) run "
-            "every family")
+            "encoder-decoder and VLM families under TP); the dense and MoE "
+            "families are split, and data-parallel meshes (n_model == 1) "
+            "run every family")
+    if cfg.family != "moe" or n == 1:
+        return
+    if cfg.moe_impl == "ep":
+        if cfg.n_experts % n:
+            raise ValueError(f"ep splits the experts over the model axis: "
+                             f"{cfg.n_experts} experts over {n} ranks")
+    elif cfg.d_ff % n:
+        raise ValueError(f"ragged_tp splits each expert's d_ff over the "
+                         f"model axis: d_ff {cfg.d_ff} over {n} ranks")
 
 
 # ---------------------------------------------------------------------------
@@ -113,17 +134,26 @@ def attn_regime(cfg: ModelConfig, n: int) -> str:
     return "replicated"
 
 
+def _ff_split(cfg: ModelConfig, n: int) -> bool:
+    """Whether ``d_ff`` splits: whenever it divides, but for ``ep``'s
+    experts, which split along E and keep their whole ``d_ff``."""
+    return cfg.d_ff % n == 0 and not (cfg.family == "moe"
+                                      and cfg.moe_impl == "ep")
+
+
 def local_config(cfg: ModelConfig, dist) -> ModelConfig:
     """The config of one rank's shard: its query and KV head counts (the
     KV heads it holds: all of them unless the "kv" regime splits them),
-    ``d_ff`` and vocabulary; ``head_dim`` pinned to the model's."""
+    ``d_ff`` and vocabulary; ``head_dim`` pinned to the model's.
+    ``n_experts`` stays E (the router spans them all); an ``ep`` rank's
+    own experts are its weights' leading dim."""
     n = _n_rank(dist)[0]
     reg = attn_regime(cfg, n)
     return cfg.replace(
         n_heads=cfg.n_heads // n if reg != "replicated" else cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads // n if reg == "kv" else cfg.n_kv_heads,
         head_dim=cfg.hd,
-        d_ff=cfg.d_ff // n if cfg.d_ff % n == 0 else cfg.d_ff,
+        d_ff=cfg.d_ff // n if _ff_split(cfg, n) else cfg.d_ff,
         vocab_size=cfg.vocab_size // n if cfg.vocab_size % n == 0
         else cfg.vocab_size)
 
@@ -157,6 +187,12 @@ def split_dim(path: Tuple[str, ...], cfg: ModelConfig,
         if leaf == "wo":
             return -2 if q_split else None
         return None
+    if "moe" in path:
+        if leaf == "router":
+            return None
+        if cfg.moe_impl == "ep":
+            return -3                   # E of (..., E, d, f)
+        return -1 if leaf in ("wi", "wg") else -2
     if "mlp" in path and cfg.d_ff % n == 0:
         if leaf in ("wi", "wg"):
             return -1
@@ -187,7 +223,7 @@ def shard_params(tree: Any, cfg: ModelConfig, dist) -> Any:
     None."""
     n, r = _n_rank(dist)
     if n > 1:
-        require_tp_family(cfg)
+        require_tp_family(cfg, n)
 
     def one(path, x):
         d = None if x is None else split_dim(path, cfg, n)
@@ -213,8 +249,9 @@ def gather_params(tree: Any, cfg: ModelConfig, dist) -> Any:
 # ---------------------------------------------------------------------------
 
 class GroupCollectives:
-    """Sum, max and gather over a ``torch.distributed`` process group (the
-    mesh's model axis).  NCCL for CUDA tensors, gloo for the CPU."""
+    """Sum, max, gather and all-to-all over a ``torch.distributed``
+    process group (the mesh's model axis).  NCCL for CUDA tensors, gloo
+    for the CPU."""
 
     def __init__(self, group, n: int):
         self.group, self.n = group, n
@@ -237,6 +274,15 @@ class GroupCollectives:
         parts = [torch.empty_like(x) for _ in range(self.n)]
         tdist.all_gather(parts, x, group=self.group)
         return torch.cat(parts, dim=dim)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """x (n, ...): row j goes to rank j; row j of the result came
+        from rank j."""
+        x = x.contiguous()
+        check_backend(x, self.group)
+        out = torch.empty_like(x)
+        tdist.all_to_all_single(out, x, group=self.group)
+        return out
 
 
 class LocalGroup:
@@ -332,6 +378,10 @@ class _LocalMember:
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return torch.cat(self.group._exchange(self.rank, x), dim=dim)
 
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.stack([y[self.rank] for y in
+                            self.group._exchange(self.rank, x)])
+
 
 def collectives(dist):
     """The model-axis collectives of a ``DistContext`` (its process
@@ -350,11 +400,19 @@ class TensorParallel:
     """One rank of the model axis: the global ``cfg``, the axis size
     ``n``, this rank's index and the collectives its partial sums go
     through.  The forward functions take one as ``dist=`` (or build one
-    from a ``DistContext``, `tp_of`)."""
+    from a ``DistContext``, `tp_of`).
+
+    Two settings of ``ep`` (`models.moe`): ``row_blocks``, the blocks
+    its capacity is reckoned over (1 where the rows are this data rank's
+    block of the batch; ``n_data`` where every data rank holds the whole
+    batch, `replicated_rows`); ``ep_capacity=False`` keeps every
+    assignment (`dropless`)."""
     cfg: ModelConfig
     n: int
     rank: int
     coll: Any
+    row_blocks: int = 1
+    ep_capacity: bool = True
 
     @functools.cached_property
     def local(self) -> ModelConfig:
@@ -378,7 +436,7 @@ class TensorParallel:
 
     @property
     def ff_split(self) -> bool:
-        return self.cfg.d_ff % self.n == 0
+        return _ff_split(self.cfg, self.n)
 
     @property
     def vocab_split(self) -> bool:
@@ -402,22 +460,42 @@ def tp_of(cfg: ModelConfig, dist) -> Optional[TensorParallel]:
     (``dist`` None, or a mesh with ``n_model == 1``: then every path runs
     as on one device), ``dist`` itself when it is one, else this rank's
     view over the mesh's model-axis group.  A family other than dense
-    raises."""
+    and MoE raises (`require_tp_family`)."""
     if dist is None:
         return None
     if isinstance(dist, TensorParallel):
-        require_tp_family(cfg)
+        require_tp_family(cfg, dist.n)
         return dist
     if dist.n_model == 1:
         return None
-    require_tp_family(cfg)
+    require_tp_family(cfg, dist.n_model)
     n, r = _n_rank(dist)
     return TensorParallel(cfg, n, r, collectives(dist))
+
+
+def replicated_rows(cfg: ModelConfig, dist):
+    """``dist`` for an op whose batch every data rank holds whole (a serve
+    builder's ``batch_sharded=False``): the reference's MoE ``shard_map``
+    still splits the rows over the data axes, so ``ep`` reckons its
+    capacity per block of ``B S / n_data`` rows.  ``dist`` itself where
+    the model is not split."""
+    tp = tp_of(cfg, dist)
+    if tp is None or isinstance(dist, TensorParallel):
+        return dist
+    return dataclasses.replace(tp, row_blocks=dist.n_data)
+
+
+def dropless(tp: Optional[TensorParallel]) -> Optional[TensorParallel]:
+    """``tp`` with ``ep`` keeping every assignment: the reference's stream
+    step runs its MoE without ``dist`` (GSPMD splits the experts, the
+    math stays dropless)."""
+    return tp if tp is None else dataclasses.replace(tp, ep_capacity=False)
 
 
 def local_ranks(cfg: ModelConfig, group: LocalGroup) -> List[TensorParallel]:
     """The ranks of a `LocalGroup`, in rank order (``group.run`` runs
     them)."""
+    require_tp_family(cfg, group.n)
     return [TensorParallel(cfg, group.n, r, group.member(r))
             for r in range(group.n)]
 

@@ -27,10 +27,14 @@ mesh device ``s``; no tensor crosses devices.
 with in/out shardings from ``serve_specs`` and GSPMD splits the model.
 Here each rank runs the op on its shards (`ShardedStep`), with the model
 split over the ``model`` axis by `distributed.tensor_parallel` (the
-dense family) and the batch over the data axes; logits come back as the
-rank's rows and vocabulary block, as the reference's ``logit_spec`` lays
-them out (``ShardedStep.gather_logits`` gives the whole).  Without
-``dist`` a builder returns the op itself (no jit).
+dense and MoE families) and the batch over the data axes; logits come
+back as the rank's rows and vocabulary block, as the reference's
+``logit_spec`` lays them out (``ShardedStep.gather_logits`` gives the
+whole).  With ``batch_sharded=False`` every data rank holds the whole
+batch, and an ``ep`` MoE reckons its capacity per block of ``B S /
+n_data`` rows, as the reference's ``shard_map`` splits them
+(`tensor_parallel.replicated_rows`).  Without ``dist`` a builder returns
+the op itself (no jit).
 """
 from __future__ import annotations
 
@@ -171,6 +175,14 @@ def _with_specs(fn: Callable, cfg: ModelConfig, dist: DistContext,
     return ShardedStep(fn, cfg, dist, state_specs, tok_spec)
 
 
+def _op_dist(cfg: ModelConfig, dist: Optional[DistContext], spec_kw):
+    """The ``dist`` an op runs with (`tensor_parallel.replicated_rows`
+    where the batch is not sharded)."""
+    if dist is None or spec_kw.get("batch_sharded", True):
+        return dist
+    return TPX.replicated_rows(cfg, dist)
+
+
 def _decode_only(spec_kw, what: str) -> None:
     if spec_kw.get("shard_cache_seq"):
         raise NotImplementedError(
@@ -182,13 +194,16 @@ def make_prefill_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
                       impl: Optional[str] = None, **spec_kw) -> Callable:
     """(params, state, tokens, patches=None) -> (logits, state):
     ``core.inference.prefill`` (last-position logits)."""
+    if dist is not None:
+        _decode_only(spec_kw, "a prefill")
+    op = _op_dist(cfg, dist, spec_kw)
+
     def fn(params, state, tokens, patches=None):
         return I.prefill(params, cfg, state, tokens, impl=impl,
-                         patches=patches, dist=dist)
+                         patches=patches, dist=op)
 
     if dist is None:
         return fn
-    _decode_only(spec_kw, "a prefill")
     return _with_specs(fn, cfg, dist, **spec_kw)
 
 
@@ -198,11 +213,12 @@ def make_decode_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
     ``shard_cache_seq=True`` (and ``batch_sharded=False``, as the
     reference's long-context cell) the sequence-sharded decode
     (``core.inference.decode_step(seq_shard=)``)."""
-    seq = bool(spec_kw.get("shard_cache_seq"))
+    op = _op_dist(cfg, dist, spec_kw)
+    seq = I.SeqShard.of(dist, spec_kw.get("shard_cache_seq"))
 
     def fn(params, state, tokens):
-        return I.decode_step(params, cfg, state, tokens, dist=dist,
-                             seq_shard=seq or None)
+        return I.decode_step(params, cfg, state, tokens, dist=op,
+                             seq_shard=seq)
 
     if dist is None:
         return fn
@@ -212,12 +228,15 @@ def make_decode_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
 def make_ingest_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
                      **spec_kw) -> Callable:
     """(params, state, tokens) -> state: ``core.inference.ingest_context``."""
+    if dist is not None:
+        _decode_only(spec_kw, "an ingest")
+    op = _op_dist(cfg, dist, spec_kw)
+
     def fn(params, state, tokens):
-        return I.ingest_context(params, cfg, state, tokens, dist=dist)
+        return I.ingest_context(params, cfg, state, tokens, dist=op)
 
     if dist is None:
         return fn
-    _decode_only(spec_kw, "an ingest")
     return _with_specs(fn, cfg, dist, **spec_kw)
 
 

@@ -25,8 +25,9 @@ what the reference's ``shard_map`` does: per-rank means,
 ``/ n_data`` and the mean of the ranks' losses; rank r's error-feedback
 residual is row r of the reference's ``(n_data,) + shape`` one.
 
-TENSOR PARALLEL (``n_model > 1``, the dense family; any other family
-raises ``NotImplementedError``): the rows split over the batch axes as
+TENSOR PARALLEL (``n_model > 1``, the dense and MoE families, the
+latter under either ``moe_impl``; any other family raises
+``NotImplementedError``): the rows split over the batch axes as
 above, and the model over the ``model`` axis
 (`distributed.tensor_parallel`): each rank holds its shard of the
 trainable and frozen trees and of the moments (``tensor_parallel.
@@ -78,11 +79,11 @@ from repro_torch.optim.losses import next_token_loss
 
 
 def check_mesh(cfg: ModelConfig, dist: Optional[DistContext]) -> None:
-    """A mesh that splits the model (``n_model > 1``) needs the dense
-    family (`tensor_parallel.require_tp_family`); data-parallel meshes
-    train every family."""
+    """A mesh that splits the model (``n_model > 1``) needs the dense or
+    MoE family (`tensor_parallel.require_tp_family`); data-parallel
+    meshes train every family."""
     if dist is not None and dist.n_model > 1:
-        TPX.require_tp_family(cfg)
+        TPX.require_tp_family(cfg, dist.n_model)
 
 
 def trainable_mask_for(cfg: ModelConfig, params) -> Any:

@@ -238,9 +238,10 @@ def cross_attend(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 
 def ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor,
         tp=None) -> torch.Tensor:
-    """The block's feed-forward: the experts where the layer has them."""
+    """The block's feed-forward: the experts where the layer has them
+    (with ``tp``, split by ``cfg.moe_impl``)."""
     if "moe" in lp:
-        return MOE.apply_moe(cfg, lp["moe"], h)
+        return MOE.apply_moe(cfg, lp["moe"], h, tp)
     return L.apply_mlp(cfg, lp["mlp"], h, tp)
 
 

@@ -189,14 +189,15 @@ def test_serve_engine_needs_a_device_and_refuses_unported_options(
 
 def _unported_cases():
     """What stays unported raises NotImplementedError naming its ROADMAP
-    item: sharded MoE (4b-ii), and a family other than dense on a mesh
-    that splits the model (4b-iii)."""
-    from repro_torch.configs import phi35_moe
+    item: a family other than dense and MoE on a mesh that splits the
+    model, and a sequence-sharded prefill (4b-iii).  (Sharded MoE, item
+    4b-ii, is ported: ``tests/test_torch_moe_tp.py``.)"""
+    from repro_torch.configs import whisper_tiny
     from repro_torch.core.masks import segment_layout
     from repro_torch.distributed.context import DistContext
     from repro_torch.launch import serve as SRV
     from repro_torch.launch.train import make_train_step
-    from repro_torch.models import moe
+    from repro_torch.models.config import ModelConfig
     from repro_torch.optim.adamw import AdamWConfig
 
     class Mesh:
@@ -204,21 +205,23 @@ def _unported_cases():
         shape = {"data": 2, "model": 2}
 
     dist = DistContext(mesh=Mesh())
-    cfg = phi35_moe.smoke(compute_dtype="float32")
+    cfg = whisper_tiny.smoke(compute_dtype="float32")
+    dense = ModelConfig(name="d", family="dense", n_layers=1, d_model=64,
+                        n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=128)
     return {
         "train-n_model": lambda: make_train_step(
             cfg, segment_layout(2, 4, 2, 4), AdamWConfig(), dist=dist),
-        "apply_moe-dist": lambda: moe.apply_moe(
-            cfg, {}, torch.zeros(1, 1, cfg.d_model), dist=dist),
+        "prefill-seq-shard": lambda: SRV.make_prefill_step(
+            dense, dist, shard_cache_seq=True, batch_sharded=False),
         "stream-step-dist": lambda: SRV.make_stream_step(cfg, dist=dist),
     }
 
 
-_UNPORTED_ITEM = {"train-n_model": "4b-iii", "apply_moe-dist": "4b-ii",
+_UNPORTED_ITEM = {"train-n_model": "4b-iii", "prefill-seq-shard": "4b-iii",
                   "stream-step-dist": "4b-iii"}
 
 
-@pytest.mark.parametrize("case", ["train-n_model", "apply_moe-dist",
+@pytest.mark.parametrize("case", ["train-n_model", "prefill-seq-shard",
                                   "stream-step-dist"])
 def test_unported_multi_device_options_name_slice_14(case):
     with pytest.raises(NotImplementedError,

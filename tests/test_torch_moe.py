@@ -93,11 +93,19 @@ def test_routing_ties_go_to_the_lower_expert_as_in_the_reference(arch):
 
 
 def test_sharded_moe_raises_for_either_impl():
+    """``apply_moe(dist=)`` splits the model (``tests/test_torch_moe_tp.py``
+    holds it); under either impl a split the reference's ``shard_map``
+    cannot make raises, naming both numbers: ragged_tp over a model axis
+    that does not divide ``d_ff``, ep over one that does not divide E."""
+    from repro_torch.distributed import tensor_parallel as TPX
     _, _, pc, pm = _layer0(ARCHS[0])
     x = torch.zeros(1, 2, pc.d_model)
-    for impl in ("ragged_tp", "ep"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            PMOE.apply_moe(pc.replace(moe_impl=impl), pm, x, dist=object())
+    for impl, n, match in (("ragged_tp", 5, f"d_ff {pc.d_ff} over 5"),
+                           ("ep", 3, f"{pc.n_experts} experts over 3")):
+        cfg = pc.replace(moe_impl=impl)
+        with pytest.raises(ValueError, match=match):
+            PMOE.apply_moe(cfg, pm, x, dist=TPX.TensorParallel(cfg, n, 0,
+                                                               None))
 
 
 def test_router_is_float32_under_bf16_params():

@@ -379,6 +379,15 @@ _DEPARTURES = {
     ("qwen2_05b", 4): {"attn/wq", "attn/bq", "attn/wk", "attn/bk",
                        "attn/wv", "attn/bv", "attn/wo", "lora/q/b",
                        "lora/k/b", "lora/v/b", "lora/o/b"},
+    # the MoE family (smoke: 8/2 heads): the attention's departures alone,
+    # the experts split as the spec splits them (":ep" for moe_impl="ep")
+    ("phi35_moe", 2): {"lora/o/a", "lora/o/b"},
+    ("phi35_moe", 4): {"lora/o/a", "lora/o/b", "attn/wk", "attn/wv",
+                       "lora/k/b", "lora/v/b"},
+    ("phi35_moe:ep", 4): {"lora/o/a", "lora/o/b", "attn/wk", "attn/wv",
+                          "lora/k/b", "lora/v/b"},
+    ("llama4_maverick:ep", 8): {"lora/o/a", "lora/o/b", "attn/wk",
+                                "attn/wv", "lora/k/b", "lora/v/b"},
 }
 
 
@@ -387,7 +396,8 @@ def test_local_layout_departs_from_pspecs_where_documented(model, n):
     """The local layout (``split_dim``) against ``param_pspecs``: the
     same split everywhere but at the leaves the module documents.  The
     Qwen2 cases take its published widths (14/2 heads, 896 wide), on the
-    meta device."""
+    meta device; the MoE cases' experts (every leaf under ``moe``) split
+    as the spec splits them."""
     import importlib
 
     from repro_torch.distributed import sharding as SH
@@ -406,7 +416,10 @@ def test_local_layout_departs_from_pspecs_where_documented(model, n):
         cfg = importlib.import_module(
             "repro_torch.configs.qwen2_05b").config().replace(n_layers=2)
     else:
-        cfg = _port_cfg(model, "concat")
+        name, _, impl = model.partition(":")
+        cfg = _port_cfg(name, "concat")
+        if impl:
+            cfg = cfg.replace(moe_impl=impl)
     params = T.init_lm(cfg, device="meta")
     specs = SH.param_pspecs(cfg, params, DistContext(mesh=Mesh()))
     departs = set()
