@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase13  # the card, the build and phase 13 only
     python3 chip_smoke.py --phase14  # the card, the build and phase 14 only
     python3 chip_smoke.py --phase15  # the card, the build and phase 15 only
+    python3 chip_smoke.py --phase16  # the card, the build and phase 16 only
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the build of the
@@ -170,10 +171,25 @@ Phases (any failure raises, and the script exits non-zero):
      turn, against the unsharded block within ``bf16_tol`` with the
      expert ids pinned (and ep's drops computed there), with the
      dropped assignments, the times and the peak memory;
+ 16. (after 15) tensor parallelism, part 3 (the recurrent,
+     encoder-decoder and VLM families): (a) mamba2-370m (2 layers),
+     zamba2-1.2b (one group of 6 Mamba2 layers and its shared site),
+     whisper-tiny (4 + 4 layers) and pixtral-12b (2 layers) at full
+     width in an NCCL world of one rank through every ``dist=`` entry
+     point (the placed train step, ``encode_cross``, the builders with
+     pixtral's patches, ``generate``, the stream step), each bit-equal
+     to ``dist=None``, then the split path itself at n = 1 over the NCCL
+     model-axis group and zamba2's sequence-sharded decode; (b) the
+     ranks of a ``LocalGroup`` in turn at full width: one zamba2 site
+     after one Mamba2 layer and one mamba2 layer with the split head at
+     n = 2, 4, 8, whisper-tiny whole at n = 2 and 4, one pixtral-12b
+     block with its patches at n = 2, 4, 8, against the unsharded run
+     (float32 configs within ``f32_lane_tol``, pixtral within
+     ``bf16_tol``), with a rank's share of the time and the peak memory;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
-launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14 and 15, and the CCM kernel's
-phase-12 launches by whisper's encoder, read from the counters around
-each of its launches), then the result line.  Phase 2 also
+launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16, and
+the CCM kernel's phase-12 launches by whisper's encoder, read from the
+counters around each of its launches), then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward on
 its float32 and bf16 routes, the bf16 cases with per-lane (B, S)
 metadata, a layout with no <COMP> key and hd 72, the backward run twice
@@ -196,7 +212,10 @@ cond_lora at pixtral's q, k/v and o projections (M 288), segmented
 attention decode and prefill at 32/8 and 40/8 hd 128, decode at 6/6 hd
 64; and tensor parallelism's shard shapes: a LLaMA-7B rank's at n = 2,
 4, 8 (phase 14), phi3.5-moe's 8/2 heads at n = 4 and llama4-maverick's
-5/1 at n = 8, its column q K 5120 N 640 (phase 15).
+5/1 at n = 8, its column q K 5120 N 640 (phase 15), and phase 16's:
+segmented attention at zamba2-1.2b's 16/16 and 8/8 hd 64, pixtral-12b's
+4/1 hd 128 and whisper-tiny's 3/3 hd 64, CCM attention in whisper's
+encoder regime at 3/3, at zamba2's 16/16 and 8/8 and pixtral's 4/1.
 Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
@@ -248,19 +267,29 @@ def time_ms(torch, fn, iters: int = 40, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int = 20, only: str = None) -> float:
+EVENT_TIMED = []     # the device_ms calls that fell back to CUDA events
+
+
+def device_ms(torch, fn, iters: int = 20, only: str = None,
+              windows: int = 6) -> float:
     """Mean DEVICE time per call of ``fn``: the summed durations of the
     device events that ``torch.profiler`` records over ``iters`` calls
     after a warm-up (with ``only``, just the kernels whose name contains
     it).  Host launch overhead is excluded.  A window in which the
-    profiler delivered no device event at all is measured again (up to
-    three windows); it never stands in for a time."""
+    profiler delivered no device event at all is measured again after a
+    pause (up to ``windows`` windows); it never stands in for a time.
+    Where every window came back empty, the time is that of ``iters``
+    back-to-back calls between two CUDA events (``time_ms``: every kernel
+    of ``fn``, and the host's issue time where that is longer), an upper
+    bound of the device time; the log line and ``EVENT_TIMED`` say so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
-    for _ in range(3):
+    for w in range(windows):
+        if w:
+            time.sleep(0.1 * w)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fn(i)
@@ -269,12 +298,14 @@ def device_ms(torch, fn, iters: int = 20, only: str = None) -> float:
                if e.device_type() == DeviceType.CUDA
                and (only is None or only in e.name())]
         if evs:
-            break
+            return sum(e.duration_ns() for e in evs) / 1e6 / iters
         log("  (the profiler delivered no device events; measuring again)")
-    if not evs:
-        raise RuntimeError(f"the profiler recorded no device events"
-                           f"{'' if only is None else ' named ' + only}")
-    return sum(e.duration_ns() for e in evs) / 1e6 / iters
+    ms = time_ms(torch, fn, iters)
+    EVENT_TIMED.append(only or "a whole call")
+    log(f"  (the profiler delivered no device events in {windows} windows: "
+        f"{ms:.4f} ms per call of {only or 'a whole call'} timed with CUDA "
+        f"events instead, host issue included)")
+    return ms
 
 
 def timings(torch, kernel, kernel_name: str, plain, library, iters: int = 20):
@@ -511,6 +542,24 @@ SEG_ZOO_CASES = [
     dict(label="decode 5/1 hd128 MoE TP n=8", Sq=1, clen=480, H=5, Hkv=1),
     dict(label="prefill 8/2 hd128 MoE TP n=4", Sq=448, clen=0, H=8, Hkv=2),
     dict(label="prefill 5/1 hd128 MoE TP n=8", Sq=448, clen=0, H=5, Hkv=1),
+    # phase 16's shard shapes: zamba2-1.2b's shared site (32/32 hd 64) at
+    # n = 2 and 4, pixtral-12b's 32/8 at n = 8 (its 8/2 at n = 4 is
+    # phi3.5-moe's row above), and whisper-tiny's decoder (6/6 hd 64) at
+    # n = 2
+    dict(label="decode 16/16 hd64 zamba2 TP n=2", Sq=1, clen=480, H=16,
+         Hkv=16, D=64),
+    dict(label="decode 8/8 hd64 zamba2 TP n=4", Sq=1, clen=480, H=8, Hkv=8,
+         D=64),
+    dict(label="prefill 16/16 hd64 zamba2 TP n=2", Sq=256, clen=0, H=16,
+         Hkv=16, D=64),
+    dict(label="prefill 8/8 hd64 zamba2 TP n=4", Sq=256, clen=0, H=8, Hkv=8,
+         D=64),
+    dict(label="decode 4/1 hd128 pixtral TP n=8", Sq=1, clen=480, H=4,
+         Hkv=1),
+    dict(label="prefill 4/1 hd128 pixtral TP n=8", Sq=448, clen=0, H=4,
+         Hkv=1),
+    dict(label="decode 3/3 hd64 whisper TP n=2", Sq=1, clen=480, H=3, Hkv=3,
+         D=64),
 ]
 
 
@@ -1118,7 +1167,16 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
                                  (4, 4, 128, ZOO_LAYOUT, " TP n=8"),
                                  # phase 15's: phi3.5-moe's 32/8 heads at
                                  # n = 4
-                                 (8, 2, 128, ZOO_LAYOUT, " MoE TP n=4")):
+                                 (8, 2, 128, ZOO_LAYOUT, " MoE TP n=4"),
+                                 # phase 16's: whisper-tiny's encoder at n
+                                 # = 2, zamba2-1.2b's site at n = 2 and 4,
+                                 # pixtral-12b's 32/8 at n = 8
+                                 (3, 3, 64, WHISPER_FRAMES,
+                                  " whisper encoder TP n=2"),
+                                 (16, 16, 64, ZAMBA_LAYOUT, " zamba2 TP n=2"),
+                                 (8, 8, 64, ZAMBA_LAYOUT, " zamba2 TP n=4"),
+                                 (4, 1, 128, ZOO_LAYOUT,
+                                  " pixtral TP n=8")):
         f, b = timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
                          lay)
         S = lay if isinstance(lay, int) else segment_layout(*lay).seq_len
@@ -3273,9 +3331,11 @@ RECURRENT = ("mamba2-370m", "zamba2-1.2b")
 # training layout (S 1280 = 5 SSD chunks of 256; S 1152 = 9 of 128: a
 # block must be at most ssm_chunk tokens or a multiple of it)
 REC = {"mamba2-370m": dict(lc=64, xcut=dict(n_layers=2), xlc=62,
+                           ecut=dict(n_layers=12),
                            layout=(16, 62, 2, 256), modes=("concat",) * 2),
        "zamba2-1.2b": dict(lc=56, xcut=dict(n_layers=9, attn_every=4),
-                           xlc=56, layout=ZAMBA_LAYOUT,
+                           xlc=56, ecut=dict(n_layers=13),
+                           layout=ZAMBA_LAYOUT,
                            modes=("concat", "concat", "merge"))}
 
 
@@ -3508,13 +3568,16 @@ def recurrent_serve(torch, m, params, cfg, card, record):
     offload and restore), 3 contexts of ``REC[...]["lc"]`` tokens each
     and one 32-token query (exact lengths: a recurrent state cannot skip
     pad tokens), one fork of a resident session.  Run twice on the same
-    traffic at full depth.  (1) float32 compute: every answer (B32) held
-    within 1e-3 x max|logit| of its session run alone in float64 on the
-    CPU (F64), the lane check at every published layer (a lane leak puts
-    another session's logits there, ~1000 x the limit); the session
-    alone in float32 on the card (A32) is printed beside.  (2) the
-    config's bf16: each answer (B) and the session alone in bf16 (A)
-    against A32 (F), in units of bf16_tol(F) (held: d(B, F) within 2x of
+    traffic.  (1) float32 compute at the depth ``REC[...]["ecut"]`` (the
+    published layer pattern, its first 12 or 13 layers: the float64
+    sessions on the CPU cost ~4 s a layer at full depth): every answer
+    (B32) held within 1e-3 x max|logit| of its session run alone in
+    float64 on the CPU (F64), the lane check at every layer of the cut
+    (a lane leak puts another session's logits there, ~1000 x the
+    limit); the session alone in float32 on the card (A32) is printed
+    beside.  (2) the config's bf16 at full depth: each answer (B) and
+    the session alone in bf16 (A) against the session alone in float32
+    at full depth (F), in units of bf16_tol(F) (held: d(B, F) within 2x of
     d(A, F), largest and median), and d(B, A) against the spread of
     batching alone, d(A8, A), with A8 the session as lane 0 of an 8-lane
     online batch of its own copies (held: d(B, A) within 2x of d(A8, A),
@@ -3616,25 +3679,27 @@ def recurrent_serve(torch, m, params, cfg, card, record):
                                  row_mb=row_mb, batches=nb, parent=parent)
 
     parent = None
-    c32 = cfg.replace(compute_dtype="float32")
-    e32, _, rec32 = serve(c32, params, f"float32 {cfg.n_layers} layers")
-    c64 = cfg.replace(compute_dtype="float64", param_dtype="float64")
+    c32 = cfg.replace(compute_dtype="float32", **REC[cfg.name]["ecut"])
+    p32 = fp32_layers(torch, params, dev, c32.n_layers)
+    e32, _, rec32 = serve(c32, p32, f"float32 {c32.n_layers} layers")
+    c64 = c32.replace(compute_dtype="float64", param_dtype="float64")
     p64 = m.PP.tree_map(lambda _, x: x.double(), fp32_layers(
-        torch, params, "cpu", cfg.n_layers))
-    a32, dB32, dA32 = {}, {}, {}
+        torch, params, "cpu", c32.n_layers))
+    dB32, dA32 = {}, {}
     t0 = time.perf_counter()
     for sid, got in e32.items():
         f64 = alone(c64, p64, sid)
-        a32[sid] = alone(c32, params, sid)
         lim = 1e-3 * f64.abs().max().item()
         dB32[sid] = max_err(got, f64) / lim
-        dA32[sid] = max_err(a32[sid], f64) / lim
-    del p64
+        dA32[sid] = max_err(alone(c32, p32, sid), f64) / lim
+    del p64, p32
     f64_s = time.perf_counter() - t0
+    c32 = cfg.replace(compute_dtype="float32")
+    a32 = {sid: alone(c32, params, sid) for sid in e32}
     d32 = (("B32", dB32), ("A32", dA32))
     med32 = {k: float(np.median(list(d.values()))) for k, d in d32}
     top32 = {k: max(d.values()) for k, d in d32}
-    log(f"  11d {cfg.name} float32 at {cfg.n_layers} layers against the "
+    log(f"  11d {cfg.name} float32 at {c64.n_layers} layers against the "
         "float64 sessions alone (x 1e-3 max|logit|): served B32 median "
         f"{med32['B32']:.4f} max {top32['B32']:.4f}, alone A32 median "
         f"{med32['A32']:.4f} max {top32['A32']:.4f}; {len(e32)} float64 "
@@ -4656,8 +4721,9 @@ def tp_world_of_one(torch, m, params, cfg, card):
 
 def rank_state(torch, st, tp):
     """A rank's copy of an online state: the KV heads of its block where
-    the "kv" regime splits them (dim 3 of every cache, scale and memory
-    leaf), else the whole state (the ranks write in place: one copy each)."""
+    the "kv" regime splits them (dim 3 of every cache, scale, memory and
+    cross K/V leaf), else the whole state; the Mamba2 states whole (the
+    ranks write in place: one copy each)."""
     from repro_torch.distributed import tensor_parallel as TPX
 
     def cut(x, _):
@@ -4665,7 +4731,10 @@ def rank_state(torch, st, tp):
             return x.clone()
         h = x.shape[3] // tp.n
         return x.narrow(3, tp.rank * h, h).contiguous()
-    return TPX.map_by_spec(cut, st, None)
+    ssm = st.ssm
+    return TPX.map_by_spec(cut, st._replace(ssm=None), None)._replace(
+        ssm=None if ssm is None else ssm._replace(ssm=ssm.ssm.clone(),
+                                                  conv=ssm.conv.clone()))
 
 
 def tp_rank_loop(torch, m, card):
@@ -5339,6 +5408,474 @@ def phase15(torch, m, card):
     return counts, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 16: tensor parallelism, part 3 (the recurrent, encoder-decoder and
+# VLM families)
+# ---------------------------------------------------------------------------
+
+TP_FAMILY_ARCHS = ("mamba2-370m", "zamba2-1.2b", "whisper-tiny",
+                   "pixtral-12b")
+# 16a's depth cuts (never width): mamba2 2 of its 48 layers, zamba2 one
+# group of 6 Mamba2 layers and the shared site after it, pixtral 2 of its
+# 40; whisper-tiny whole (4 + 4 layers).  Per config: the context tokens
+# of an ingest (with the <COMP> group within one SSD chunk), the prompt
+# (pixtral: 1024 patch positions + 64 text tokens), the cache, and the
+# training layout (phases 11c and 12b's)
+TP16 = {"mamba2-370m": dict(cut=dict(n_layers=2), lc=64, prompt=128,
+                            cache=256, layout=REC["mamba2-370m"]["layout"]),
+        "zamba2-1.2b": dict(cut=dict(n_layers=6), lc=56, prompt=128,
+                            cache=256, layout=ZAMBA_LAYOUT),
+        "whisper-tiny": dict(cut={}, lc=64, prompt=64, cache=256,
+                             layout=FAM["whisper-tiny"]["layout"]),
+        "pixtral-12b": dict(cut=dict(n_layers=2), lc=64, prompt=1024 + 64,
+                            cache=1280, layout=FAM["pixtral-12b"]["layout"])}
+# 16b's blocks: (arch, model-axis sizes); the float32 configs run float32
+# compute, pixtral bf16
+TP16_BLOCKS = (("zamba2-1.2b", (2, 4, 8)), ("whisper-tiny", (2, 4)),
+               ("pixtral-12b", (2, 4, 8)), ("mamba2-370m", (2, 4, 8)))
+
+
+def tp16_config(m, arch, block: bool):
+    """16a's config (the depth cut of ``TP16``), or 16b's block: zamba2's
+    one Mamba2 layer and the shared site after it, one layer of mamba2 and
+    pixtral, whisper-tiny whole; the float32 configs in float32 compute."""
+    cfg = m.get_config(arch)
+    if not block:
+        return cfg.replace(**TP16[arch]["cut"])
+    if arch == "zamba2-1.2b":
+        cfg = cfg.replace(n_layers=1, attn_every=1)
+    elif arch != "whisper-tiny":
+        cfg = cfg.replace(n_layers=1)
+    if cfg.param_dtype == "float32":
+        cfg = cfg.replace(compute_dtype="float32")
+    return cfg
+
+
+def tp16_inputs(torch, m, cfg, B, dev, seed):
+    """A training batch at the family's layout (with frames or patches)
+    and the online tokens: 2 contexts, a prompt, and the family's input."""
+    t = TP16[cfg.name]
+    layout = m.segment_layout(*t["layout"])
+    batch = m.PD.sample_kv_batch(m.PD.ShardableIndexIterator(seed, B)
+                                 .key_for(0), layout, B, device=dev)
+    extra = family_inputs(torch, cfg, B, dev, seed)
+    batch.update(extra)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ctx = [torch.randint(0, cfg.vocab_size, (B, t["lc"]), generator=gen,
+                         device=dev) for _ in range(2)]
+    prompt = torch.randint(0, cfg.vocab_size, (B, t["prompt"]),
+                           generator=gen, device=dev)
+    return layout, batch, ctx, prompt, extra
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Within: PyTorch's deterministic algorithms (warnings only where an
+    op has none).  A full-training step's embedding gradient comes from
+    the backward of a row gather (an accumulating index_put_), whose
+    sums otherwise land in an order that differs from run to run; the
+    two runs held bit-equal take it in the same order."""
+    import warnings
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def same_state(torch, a, b) -> list:
+    """The tensor leaves of two online states that are not bit-equal."""
+    out = []
+    for name in ("cache", "mem", "ssm"):
+        x, y = getattr(a, name), getattr(b, name)
+        if x is None:
+            continue
+        for f in x._fields:
+            u, w = getattr(x, f), getattr(y, f)
+            if isinstance(u, torch.Tensor) and not torch.equal(u, w):
+                out.append(f"{name}.{f}")
+    if a.cross is not None:
+        out += [f"cross[{i}]" for i in (0, 1)
+                if not torch.equal(a.cross[i], b.cross[i])]
+    return out
+
+
+def tp_family_world(torch, m, card):
+    """16a: each family of ``TP_FAMILY_ARCHS`` at full width (depth cut by
+    ``TP16``; random weights, seed 16, LoRA b drawn; the configs' own
+    dtypes) in an NCCL world of one rank on a (1, 1) mesh, against
+    ``dist=None``, bit-equal: ``jit_train_step``'s placed step (B2, one
+    AdamW step; zamba2 concat and merge; both under `deterministic`),
+    ``encode_cross(dist=)``
+    (whisper, over 1500 frames), the three ``dist=`` builders (2 ingests,
+    a prefill: pixtral's with its 1024 patches through the builder, 4
+    decode steps) and ``generate`` (8 tokens), ``make_stream_step``
+    (whisper and pixtral: W 512, 10 chunks of 64, 2 evictions); then the
+    split path itself at n = 1 (a ``TensorParallel`` over the NCCL
+    model-axis group: the vocab-parallel embed, head and learned
+    positions, the split blocks' reduces): online logits bit-equal, the
+    loss and the gradients held to ``dist=None``; and zamba2's
+    sequence-sharded decode within bf16_tol.  Returns the dist runs'
+    launches."""
+    import torch.distributed as tdist
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.distributed.context import free_port, init_world
+    from repro_torch.launch import serve as SRV
+    from repro_torch.launch.mesh import make_debug_mesh, make_dist
+    PI, STR, TR, PA, PP, ops = m.PI, m.STR, m.TR, m.PA, m.PP, m.ops
+    dev = init_world(0, 1, free_port(), "cuda")                 # NCCL
+    counts = {}
+
+    def clone(t):
+        return PP.tree_map(lambda _, x: None if x is None
+                           else x.detach().clone(), t)
+    try:
+        dist = make_dist(make_debug_mesh(1, 1, device=dev))
+        for arch in TP_FAMILY_ARCHS:
+            t_arch = time.perf_counter()
+            cfg = tp16_config(m, arch, block=False)
+            params = m.init_lm(cfg, seed=16)
+            if cfg.ccm.enabled:
+                randomize_lora_b(torch, params, seed=116)
+            B, CACHE = 2, TP16[arch]["cache"]
+            layout, batch, ctx, prompt, extra = tp16_inputs(
+                torch, m, cfg, B, dev, 160)
+            tp0, fp0 = PP.partition(params, TR.trainable_mask_for(cfg,
+                                                                  params))
+            ocfg = PA.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+            modes = [("concat", cfg)]
+            if arch == "zamba2-1.2b":
+                modes.append(("merge", cfg.replace(ccm=dataclasses.replace(
+                    cfg.ccm, mode="merge", merge_alpha=None))))
+            for mode, c in modes:
+                tp, opt = clone(tp0), PA.init_adamw(tp0)
+                step = TR.jit_train_step(
+                    TR.make_train_step(c, layout, ocfg, dist), c, dist, None,
+                    None, batch, None)
+                tp, fp, opt = step.place(tp, fp0, opt)
+                tq, oq = clone(tp0), PA.init_adamw(tp0)
+                with deterministic(torch):
+                    tp, opt, mt, _ = counted(ops, counts, lambda: step(
+                        tp, fp, opt, batch))
+                    tq, oq, mq, _ = TR.make_train_step(c, layout, ocfg)(
+                        tq, fp0, oq, batch)
+                diff = same_tree(torch, PP, tp, tq) \
+                    + same_tree(torch, PP, opt.mu, oq.mu) \
+                    + same_tree(torch, PP, opt.nu, oq.nu)
+                if mt["loss"].item() != mq["loss"].item() or diff:
+                    raise AssertionError(
+                        f"16a {arch} train {mode}: loss {mt['loss'].item()} "
+                        f"vs {mq['loss'].item()}, differ {diff}")
+                del tp, tq, opt, oq
+            log(f"  16a {arch} jit_train_step(dist=) "
+                f"{'/'.join(k for k, _ in modes)}: one AdamW step "
+                f"bit-equal to dist=None (loss {mt['loss'].item():.4f}, "
+                "leaves, moments; B2, layout "
+                f"{TP16[arch]['layout']})")
+
+            st0 = PI.init_online_state(cfg, B, CACHE, device=dev)
+            if cfg.family == "encdec":
+                xd = counted(ops, counts, lambda: PI.encode_cross(
+                    params, cfg, extra["frames"], dist=dist))
+                xn = PI.encode_cross(params, cfg, extra["frames"])
+                if not all(torch.equal(a, b) for a, b in zip(xd, xn)):
+                    raise AssertionError("16a encode_cross(dist=) differs")
+                st0 = st0._replace(cross=xn)
+                log(f"  16a {arch} encode_cross(dist=): B2 x "
+                    f"{WHISPER_FRAMES} frames, the cross K/V of "
+                    f"{cfg.n_layers} layers bit-equal to dist=None")
+            ing, pre = SRV.make_ingest_step(cfg, dist), \
+                SRV.make_prefill_step(cfg, dist)
+            dec = SRV.make_decode_step(cfg, dist)
+            patches = extra.get("patches")
+
+            def online(st, tp_dist):
+                for x in ctx:
+                    st = ing(params, st, x) if tp_dist else \
+                        PI.ingest_context(params, cfg, st, x)
+                lg, st = pre(params, st, prompt, patches) if tp_dist else \
+                    PI.prefill(params, cfg, st, prompt, patches=patches)
+                lgs = [lg]
+                for _ in range(4):
+                    tok = lgs[-1][:, -1].argmax(-1)[:, None]
+                    lg, st = dec(params, st, tok) if tp_dist else \
+                        PI.decode_step(params, cfg, st, tok)
+                    lgs.append(lg)
+                g = PI.generate(params, cfg, clone_state(torch, st),
+                                prompt[:, :64], 8,
+                                dist=dist if tp_dist else None)
+                return lgs, st, g
+            _, st_d = ing.place(params, clone_state(torch, st0))
+            got = counted(ops, counts, lambda: online(st_d, True))
+            want = online(clone_state(torch, st0), False)
+            bad = [i for i, (a, b) in enumerate(zip(got[0], want[0]))
+                   if not torch.equal(a, b)]
+            bad += same_state(torch, got[1], want[1])
+            if bad or not torch.equal(got[2], want[2]):
+                raise AssertionError(f"16a {arch} builders: differ at {bad} "
+                                     "or in generate's tokens")
+            log(f"  16a {arch} make_ingest_step / make_prefill_step / "
+                "make_decode_step(dist=) and generate(dist=): 2 ingests of "
+                f"{TP16[arch]['lc']}, a {prompt.shape[1]}-token prefill"
+                + (" with 1024 patches" if patches is not None else "")
+                + ", 4 decode steps, every state leaf, 8 generated tokens, "
+                "bit-equal to dist=None")
+            del got, want, st_d
+
+            if cfg.family in ("encdec", "vlm"):
+                scfg = cfg.replace(ccm=dataclasses.replace(
+                    cfg.ccm, stream_window=512, stream_chunk=64,
+                    stream_mem_slots=4))
+                sstep = SRV.make_stream_step(scfg, dist)
+                gen = torch.Generator(device=dev).manual_seed(161)
+                toks = torch.randint(0, cfg.vocab_size, (2, 640),
+                                     generator=gen, device=dev)
+
+                def stream(st, tp_dist):
+                    out = []
+                    for i in range(10):
+                        t = toks[:, i * 64:(i + 1) * 64]
+                        lg, st = sstep(params, st, t) if tp_dist else \
+                            STR.stream_step(params, scfg, st, t)
+                        out.append(lg)
+                    return out, st
+                s0 = STR.init_stream_state(scfg, 2, device=dev)
+                _, s_d = sstep.place(params, clone_state(torch, s0))
+                got = counted(ops, counts, lambda: stream(s_d, True))
+                want = stream(clone_state(torch, s0), False)
+                if not all(torch.equal(a, b) for a, b in zip(got[0],
+                                                             want[0])) \
+                        or not torch.equal(got[1].win_k, want[1].win_k) \
+                        or not torch.equal(got[1].mem.k, want[1].mem.k) \
+                        or got[1].mem.slots != want[1].mem.slots:
+                    raise AssertionError(f"16a {arch} make_stream_step("
+                                         "dist=) differs")
+                log(f"  16a {arch} make_stream_step(dist=): 10 chunks of 64 "
+                    f"(2 evictions, {got[1].mem.slots} memory groups) "
+                    "bit-equal to dist=None (W 512)")
+                del got, want, s_d
+
+            # the split path itself at n = 1, over the NCCL model-axis group
+            tp1 = TPX.TensorParallel(cfg, 1, 0, TPX.collectives(dist))
+
+            def split_online(tp):
+                st = clone_state(torch, st0)
+                if cfg.family == "encdec":
+                    st = st._replace(cross=PI.encode_cross(
+                        params, cfg, extra["frames"], dist=tp))
+                for x in ctx:
+                    st = PI.ingest_context(params, cfg, st, x, dist=tp)
+                lp, st = PI.prefill(params, cfg, st, prompt, patches=patches,
+                                    dist=tp)
+                tok = PI.greedy(lp[:, -1], cfg, tp)[:, None]
+                ld, st = PI.decode_step(params, cfg, st, tok, dist=tp)
+                return PI.gather_vocab(lp, cfg, tp), ld, tok
+            got = counted(ops, counts, lambda: split_online(tp1))
+            want = split_online(None)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"16a {arch}: the split path at n = 1 "
+                                     "differs from dist=None online")
+            tq = clone(tp0)
+
+            def split_grads(tp):
+                leaves = [x for _, x in PP.leaves(tq)]
+                for x in leaves:
+                    x.requires_grad_(True)
+                with torch.enable_grad():
+                    loss = TR._loss_fn(tq, fp0, cfg, layout, batch, dist=tp)
+                    return loss.detach(), torch.autograd.grad(loss, leaves)
+            with deterministic(torch):
+                (la, ga), (lb, gb) = counted(ops, counts,
+                                             lambda: split_grads(tp1)), \
+                    split_grads(None)
+            check(f"16a {arch} split path at n = 1 over NCCL: the "
+                  "vocab-parallel loss vs logsumexp (float32)",
+                  abs(la.item() - lb.item()), 1e-5 * abs(lb.item()))
+            worst = max(max_err(a, b) / max(b.float().abs().max().item(),
+                                            1e-30) for a, b in zip(ga, gb))
+            check(f"16a {arch} split path at n = 1: every trainable "
+                  "gradient, relative to its largest", worst, 2.0 ** -5)
+            del tq, ga, gb
+
+            if arch == "zamba2-1.2b":
+                sdec = SRV.make_decode_step(cfg, dist, shard_cache_seq=True,
+                                            batch_sharded=False)
+                st1 = PI.prefill(params, cfg, clone_state(torch, st0),
+                                 prompt)[1]
+                _, st_s = sdec.place(params, clone_state(torch, st1))
+                ls, _ = counted(ops, counts, lambda: sdec(params, st_s,
+                                                          prompt[:, :1]))
+                lw, _ = PI.decode_step(params, cfg, clone_state(torch, st1),
+                                       prompt[:, :1])
+                check("16a zamba2-1.2b sequence-sharded decode (one data "
+                      "rank: the site's cache by the split-K route's "
+                      "log-sum-exp, the Mamba2 state whole) vs dist=None",
+                      max_err(ls, lw), bf16_tol(lw))
+            log(f"  16a {arch}: the split path at n = 1 bit-equal online; "
+                f"{cfg.n_layers} layers at d {cfg.d_model} took "
+                f"{time.perf_counter() - t_arch:.1f} s")
+            del params, tp0, fp0, batch, st0
+            gc.collect()
+            torch.cuda.empty_cache()
+        return counts
+    finally:
+        tdist.destroy_process_group()
+
+
+def tp_family_rank_loop(torch, m, card):
+    """16b: the ``LocalGroup`` rank loop at full width (``TP16_BLOCKS``:
+    one zamba2 site after one Mamba2 layer, whisper-tiny whole, one
+    pixtral-12b block, one mamba2 layer and the split head), random
+    weights (seed 16, LoRA b drawn), ranks in turn on the card, forward
+    only: the CCM training forward (B2, the family's layout, with frames
+    or patches) and its vocab-parallel loss, then ``encode_cross``
+    (whisper), an ingest, a prefill (pixtral's with its 1024 patches) and
+    a decode step; zamba2 in concat and merge.  Held against the
+    unsharded run on the card: within bf16_tol for pixtral (bf16),
+    within f32_lane_tol for the float32 configs.  A rank's share of the
+    loop's ms beside the unsharded run's, the launches and
+    ``max_memory_allocated``.  Returns the rank loops' launches and the
+    record."""
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.optim.losses import next_token_loss
+    PI, PT, ops = m.PI, m.PT, m.ops
+    counts, rec = {}, {}
+    for arch, sizes in TP16_BLOCKS:
+        base = tp16_config(m, arch, block=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = m.init_lm(base, seed=16)
+        if base.ccm.enabled:
+            randomize_lora_b(torch, params, seed=116)
+        dev = params["embed"].device
+        layout, batch, ctx, prompt, extra = tp16_inputs(torch, m, base, 2,
+                                                        dev, 162)
+        tail = batch["tokens"][:, layout.seq_len - layout.tail_len:]
+        patches = extra.get("patches")
+        tol = bf16_tol if base.compute_dtype == "bfloat16" else f32_lane_tol
+        modes = ("concat", "merge") if arch == "zamba2-1.2b" else ("concat",)
+        for n in sizes:
+            here, r = {}, {}
+            for mode in modes:
+                cfg = base.replace(ccm=dataclasses.replace(base.ccm,
+                                                           mode=mode))
+                shards = [TPX.shard_params(params, cfg,
+                                           TPX.TensorParallel(cfg, n, i,
+                                                              None))
+                          for i in range(n)]
+
+                def train(p, tp):
+                    lg = PT.train_forward(p, cfg, batch["tokens"], layout,
+                                          dist=tp, **extra)
+                    loss = next_token_loss(lg, tail, batch["loss_mask"],
+                                           tp=tp)
+                    return PI.gather_vocab(lg, cfg, tp), loss
+
+                def online(p, st, tp):
+                    if cfg.family == "encdec":
+                        st = st._replace(cross=PI.encode_cross(
+                            p, cfg, extra["frames"], dist=tp))
+                    st = PI.ingest_context(p, cfg, st, ctx[0], dist=tp)
+                    lp, st = PI.prefill(p, cfg, st, prompt, patches=patches,
+                                        dist=tp)
+                    ld, st = PI.decode_step(p, cfg, st, prompt[:, :1],
+                                            dist=tp)
+                    return (PI.gather_vocab(lp, cfg, tp),
+                            PI.gather_vocab(ld, cfg, tp))
+                st0 = PI.init_online_state(cfg, 2, TP16[arch]["cache"],
+                                           device=dev)
+
+                def whole():
+                    return train(params, None), online(
+                        params, clone_state(torch, st0), None)
+
+                def loop():
+                    grp = TPX.LocalGroup(n)
+                    ranks = TPX.local_ranks(cfg, grp)
+                    sts = [rank_state(torch, st0, tp) for tp in ranks]
+                    return grp.run(lambda i: (train(shards[i], ranks[i]),
+                                              online(shards[i], sts[i],
+                                                     ranks[i])))
+                with torch.no_grad():
+                    want = whole()
+                    outs = counted(ops, here, loop)
+                    t_whole = time_ms(torch, lambda i: whole(), iters=3,
+                                      warmup=1)
+                    t_loop = time_ms(torch, lambda i: loop(), iters=3,
+                                     warmup=1)
+                for rk, ((lg, loss), (lp, ld)) in enumerate(outs):
+                    for name, a, b in (("train logits", lg, want[0][0]),
+                                       ("loss", loss, want[0][1]),
+                                       ("prefill logits", lp, want[1][0]),
+                                       ("decode logits", ld, want[1][1])):
+                        err = max_err(a, b)
+                        if rk == 0:
+                            check(f"16b {arch} n={n} {mode} {name} (rank "
+                                  f"loop vs unsharded, "
+                                  f"{base.compute_dtype})", err, tol(b))
+                        elif not err <= tol(b):
+                            raise AssertionError(f"16b {arch} n={n} rank "
+                                                 f"{rk} {name}: {err}")
+                r[mode] = dict(whole_ms=t_whole, loop_ms=t_loop,
+                               per_rank_ms=t_loop / n)
+                log(f"  16b {arch} n={n} {mode}: the {n} ranks in turn "
+                    f"{t_loop:.2f} ms ({t_loop / n:.2f} ms a rank), the "
+                    f"unsharded run {t_whole:.2f} ms (training forward + "
+                    "loss, "
+                    + ("encode_cross, " if base.family == "encdec" else "")
+                    + f"ingest, prefill, decode; CUDA events) [{card}]")
+                del shards, outs, want
+            lc = TPX.local_config(base, TPX.TensorParallel(base, n, 0, None))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"  16b {arch} n={n} ({TPX.attn_regime(base, n)}): launches "
+                f"{({k: v for k, v in here.items() if v}) or 'none'} (a "
+                f"rank's shard: "
+                + (f"{lc.n_heads}/{lc.n_kv_heads} heads, "
+                   if not base.is_attention_free else "Mamba2 whole, ")
+                + f"d_ff {lc.d_ff}, vocab {lc.vocab_size}); "
+                f"max_memory_allocated {peak:.2f} GiB")
+            add_counts(counts, here)
+            rec[f"{arch} n={n}"] = dict(r, launches=here, peak_gib=peak)
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
+def phase16(torch, m, card):
+    """Phase 16: 16a the four families through every dist= entry point,
+    16b their rank loops."""
+    t0 = time.perf_counter()
+    log("  16a: every dist= entry point with the recurrent, encoder-decoder "
+        "and VLM families in an NCCL world of one rank, (1, 1) mesh")
+    counts = tp_family_world(torch, m, card)
+    need = ("cond_lora_wgmma", "segmented_attention_splitk",
+            "segmented_attention_mma", "ccm_attention_mma",
+            "ccm_attention_backward_mma", "kv_cummean", "kv_cummean_backward")
+    if any(counts.get(k, 0) <= 0 for k in need):
+        raise AssertionError(f"16a launches {counts}")
+    t_a = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  16b: the rank loop at full width (LocalGroup, ranks in turn on "
+        "the card)")
+    loop_counts, rec = tp_family_rank_loop(torch, m, card)
+    for k in ("cond_lora", "cond_lora_wgmma", "segmented_attention",
+              "segmented_attention_mma", "segmented_attention_splitk",
+              "ccm_attention", "ccm_attention_mma", "kv_merge_update",
+              "kv_cummean"):
+        if loop_counts.get(k, 0) <= 0:
+            raise AssertionError(f"16b: no launch of {k} ({loop_counts})")
+    add_counts(counts, loop_counts)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"  phase 16 launches: {({k: v for k, v in counts.items() if v})}; "
+        f"16a took {t_a:.1f} s, phase 16 {rec['seconds']:.1f} s [{card}]")
+    return counts, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5424,6 +5961,12 @@ def main() -> int:
         log("phase 15 alone (--phase15): phi3.5-moe and llama4-maverick")
         phase15(torch, m14, card)
         log(f"  --phase15: done ({time.perf_counter() - t_start:.1f} s)")
+        return 0
+    if "--phase16" in sys.argv[1:]:
+        log("phase 16 alone (--phase16): mamba2-370m, zamba2-1.2b, "
+            "whisper-tiny and pixtral-12b")
+        phase16(torch, m14, card)
+        log(f"  --phase16: done ({time.perf_counter() - t_start:.1f} s)")
         return 0
 
     log("phase 2: kernels against their plain versions on the card")
@@ -5593,32 +6136,45 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     p15_counts, rec15 = phase15(torch, m14, card)
 
+    log("phase 16: tensor parallelism, part 3 (the recurrent, encoder-"
+        "decoder and VLM families): the dist= entry points, the rank loops "
+        "at full width")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p16_counts, _ = phase16(torch, m14, card)
+
     # the tensor-core routes' launches in each main-path phase (3: online,
     # 5: training, 7: the 32-layer serve engine, 8: streaming, 9: the zoo,
     # 10: the baselines' training and the serve-metrics demo, 11: the
     # recurrent families, 12: the encoder-decoder, the VLM and MoE, 13: the
-    # sharded engines and the data-parallel step, 14 and 15: the dist=
-    # entry points and the tensor-parallel rank loops, dense and MoE)
+    # sharded engines and the data-parallel step, 14, 15 and 16: the dist=
+    # entry points and the tensor-parallel rank loops: dense, MoE, and the
+    # recurrent, encoder-decoder and VLM families)
     by_phase = {k: {"3": totals[k], "5": train_counts.get(k, 0),
                     "7": serve_counts[k], "8": stream_counts[k],
                     "9": zoo_counts[k], "10": base_counts.get(k, 0),
                     "11": rec_counts[k], "12": fam_counts[k],
                     "13": p13_counts.get(k, 0),
                     "14": p14_counts.get(k, 0),
-                    "15": p15_counts.get(k, 0)}
+                    "15": p15_counts.get(k, 0),
+                    "16": p16_counts.get(k, 0)}
                 for k in ("segmented_attention_splitk",
                           "segmented_attention_mma", "cond_lora_wgmma",
                           "ccm_attention_mma", "ccm_attention_backward_mma")}
     for k, need in (("segmented_attention_splitk", ("3", "8", "9", "11",
-                                                    "12", "14", "15")),
+                                                    "12", "14", "15", "16")),
                     ("segmented_attention_mma", ("3", "7", "8", "9", "11",
-                                                 "12", "13", "14", "15")),
+                                                 "12", "13", "14", "15",
+                                                 "16")),
                     ("cond_lora_wgmma", ("3", "5", "7", "8", "9", "10",
-                                         "11", "12", "13", "14", "15")),
+                                         "11", "12", "13", "14", "15",
+                                         "16")),
                     ("ccm_attention_mma", ("5", "9", "11", "12", "13",
-                                           "14", "15")),
+                                           "14", "15", "16")),
                     ("ccm_attention_backward_mma", ("5", "9", "11", "12",
-                                                    "13", "14", "15"))):
+                                                    "13", "14", "15",
+                                                    "16"))):
         if any(by_phase[k][ph] <= 0 for ph in need):
             raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
     for k in ("kv_merge_update", "session_gather", "session_scatter"):
@@ -5633,8 +6189,9 @@ def main() -> int:
         if train_counts[k] <= 0 or rec_counts[k] <= 0 or fam_counts[k] <= 0:
             raise AssertionError(f"{k}: no launch in phase 5, 11 or 12")
     for k in ("kv_merge_update", "kv_cummean", "kv_cummean_backward"):
-        if p14_counts.get(k, 0) <= 0 or p15_counts.get(k, 0) <= 0:
-            raise AssertionError(f"{k}: no launch in phase 14 or 15")
+        if p14_counts.get(k, 0) <= 0 or p15_counts.get(k, 0) <= 0 \
+                or p16_counts.get(k, 0) <= 0:
+            raise AssertionError(f"{k}: no launch in phase 14, 15 or 16")
     log(f"  tensor-core route launches by phase: {by_phase}")
     rows = [
         dict(name="segmented_attention", route="cuda",
@@ -5669,7 +6226,8 @@ def main() -> int:
              + fam_counts["kv_merge_update"]
              + p13_counts.get("kv_merge_update", 0)
              + p14_counts["kv_merge_update"]
-             + p15_counts["kv_merge_update"],
+             + p15_counts["kv_merge_update"]
+             + p16_counts["kv_merge_update"],
              launches_by_phase={"3": totals["kv_merge_update"],
                                 "7": merge_counts["kv_merge_update"],
                                 "8": stream_counts["kv_merge_update"],
@@ -5678,7 +6236,8 @@ def main() -> int:
                                 "12": fam_counts["kv_merge_update"],
                                 "13": p13_counts.get("kv_merge_update", 0),
                                 "14": p14_counts["kv_merge_update"],
-                                "15": p15_counts["kv_merge_update"]},
+                                "15": p15_counts["kv_merge_update"],
+                                "16": p16_counts["kv_merge_update"]},
              **merge),
         dict(name="ccm_attention", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
@@ -5700,13 +6259,14 @@ def main() -> int:
              launches=train_counts["kv_cummean"]
              + rec_counts["kv_cummean"] + fam_counts["kv_cummean"]
              + p13_counts["kv_cummean"] + p14_counts["kv_cummean"]
-             + p15_counts["kv_cummean"],
+             + p15_counts["kv_cummean"] + p16_counts["kv_cummean"],
              launches_by_phase={"5": train_counts["kv_cummean"],
                                 "11": rec_counts["kv_cummean"],
                                 "12": fam_counts["kv_cummean"],
                                 "13": p13_counts["kv_cummean"],
                                 "14": p14_counts["kv_cummean"],
-                                "15": p15_counts["kv_cummean"]},
+                                "15": p15_counts["kv_cummean"],
+                                "16": p16_counts["kv_cummean"]},
              **cummean),
         dict(name="kv_cummean_backward", route="cuda",
              source="src/repro_torch/csrc/kv_cummean.cu",
@@ -5716,13 +6276,15 @@ def main() -> int:
              + fam_counts["kv_cummean_backward"]
              + p13_counts["kv_cummean_backward"]
              + p14_counts["kv_cummean_backward"]
-             + p15_counts["kv_cummean_backward"],
+             + p15_counts["kv_cummean_backward"]
+             + p16_counts["kv_cummean_backward"],
              launches_by_phase={"5": train_counts["kv_cummean_backward"],
                                 "11": rec_counts["kv_cummean_backward"],
                                 "12": fam_counts["kv_cummean_backward"],
                                 "13": p13_counts["kv_cummean_backward"],
                                 "14": p14_counts["kv_cummean_backward"],
-                                "15": p15_counts["kv_cummean_backward"]},
+                                "15": p15_counts["kv_cummean_backward"],
+                                "16": p16_counts["kv_cummean_backward"]},
              **cummean_bwd),
         dict(name="session_gather", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
@@ -5762,6 +6324,8 @@ def main() -> int:
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} never launched on the main path")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
+    log(f"  device times taken with CUDA events for want of profiler "
+        f"events: {len(EVENT_TIMED)} ({', '.join(EVENT_TIMED) or 'none'})")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -272,7 +272,9 @@ def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
     given.  ``valid_len`` (ragged lanes): cache writes past it are frozen
     and the length counter advances by it instead of the padded block
     length.  ``tp`` (a `distributed.tensor_parallel.TensorParallel`
-    rank): ``params`` is its shard and the state holds its KV heads.
+    rank): ``params`` is its shard and the state holds its KV heads (the
+    cache, the memory and the cross K/V; ``online_state_pspecs``), while
+    Mamba2 layers run whole and read and write ``state.ssm`` whole.
     ``seq`` (`SeqShard`, decode only): the cache holds this data rank's
     block of the sequence; the block write goes to the rank that owns
     the position.
@@ -321,7 +323,7 @@ def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
             impl=impl, tp=tp, seq=seq)
         x = x + A.out_project(cfg, lp["attn"], o, comp_gate, tp=tp)
         if cross is not None:
-            x = T.cross_attend(cfg, lp, x, (cross[0][li], cross[1][li]))
+            x = T.cross_attend(cfg, lp, x, (cross[0][li], cross[1][li]), tp)
         hn = L.apply_norm(cfg, lp["ln2"], x)
         x = x + T.ffn(cfg, lp, hn, tp)
         if write:
@@ -362,10 +364,10 @@ def _embed_block(cfg: ModelConfig, params, tokens: torch.Tensor,
                  positions: torch.Tensor, comp_mask=None,
                  comp_offset=None, tp=None) -> torch.Tensor:
     """Token embeddings, plus the learned positions where the config has
-    them (``positions`` (S,) or (B, S))."""
+    them (``positions`` (S,) or (B, S)); ``tp`` as in `_stack_pass`."""
     x = T.embed_tokens(cfg, params, tokens, comp_mask, comp_offset, tp=tp)
     if cfg.pos_embed == "learned":
-        x = T.add_learned_pos(params["pos_embed"], x, positions)
+        x = T.add_learned_pos(params["pos_embed"], x, positions, tp)
     return x
 
 
@@ -407,7 +409,8 @@ def ingest_context(params, cfg: ModelConfig, state: OnlineState,
     tp = TPX.tp_of(cfg, dist)
     if cfg.family == "ssm":
         x = _embed_block(cfg, params, chunk_tokens, _positions(
-            state.pos, torch.arange(lc, device=chunk_tokens.device), B))
+            state.pos, torch.arange(lc, device=chunk_tokens.device), B),
+            tp=tp)
         _stack_pass(params, cfg, x, None, comp_gate=None, q_info=None,
                     self_info=None, state=state, write_to_cache=False,
                     collect_comp=None)
@@ -457,8 +460,9 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
     the counters.  Logits at pad positions are garbage, so a ragged call
     needs ``full_logits`` and the caller slices by its valid length.
 
-    ``patches`` (vlm, (B, P, 1024)): projected patch embeddings replace
-    the first P positions' token embeddings.  The block must hold them
+    ``patches`` (vlm, (B, P, 1024), the rows of this rank's batch):
+    projected patch embeddings (``frontend/proj``, whole on every rank)
+    replace the first P positions' token embeddings.  The block must hold them
     (P <= S; the reference's concatenation would change the block's
     length otherwise): a shorter block raises ValueError before any state
     is written."""
@@ -506,10 +510,12 @@ def decode_step(params, cfg: ModelConfig, state: OnlineState,
     rank's block of the sequence; each data rank attends its block (the
     memory and the self key on data rank 0 alone) with the kernel's
     log-sum-exp, and the blocks combine over the data axes.  The new
-    token's KV goes to the rank that owns its position."""
+    token's KV goes to the rank that owns its position.  A state with no
+    cache (the ssm family) has nothing to shard (the reference's spec
+    shards no dim of it), and every data rank runs it whole."""
     B, S = tokens.shape
     tp = TPX.tp_of(cfg, dist)
-    seq = SeqShard.of(dist, seq_shard)
+    seq = SeqShard.of(dist, seq_shard) if state.cache is not None else None
     ar = torch.arange(S, device=tokens.device)
     positions = _positions(state.pos, ar, B)
     x = _embed_block(cfg, params, tokens, positions, tp=tp)
@@ -523,19 +529,23 @@ def decode_step(params, cfg: ModelConfig, state: OnlineState,
     return logits, state._replace(cache=new_cache, pos=state.pos + S)
 
 
-def encode_cross(params, cfg: ModelConfig, frames: torch.Tensor
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+def encode_cross(params, cfg: ModelConfig, frames: torch.Tensor,
+                 dist=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Whisper: run the encoder once over ``frames`` (B, Se, d) and
     project its output by every decoder layer's ``xattn``: the per-layer
-    cross K/V, (L, B, Se, Hkv, hd) each, for ``OnlineState.cross``."""
-    enc = T.encode(params, cfg, frames)
+    cross K/V, (L, B, Se, Hkv, hd) each, for ``OnlineState.cross``.
+    ``dist`` as in `prefill`: the encoder runs split, and the K/V are this
+    rank's KV heads (all of them unless the "kv" regime splits them), as
+    ``online_state_pspecs`` places ``cross``."""
+    tp = TPX.tp_of(cfg, dist)
+    enc = T.encode(params, cfg, frames, dist=tp)
     ks, vs = [], []
     for li in range(cfg.n_layers):
         xa = T.layer_params(params, li)["xattn"]
         # the weights alone (no biases), as the reference projects here
         _, k, v = A.qkv_project(cfg, {n: xa[n] for n in ("wq", "wk", "wv",
                                                          "wo")},
-                                enc, None, None)
+                                enc, None, None, tp=tp)
         ks.append(k)
         vs.append(v)
     return torch.stack(ks), torch.stack(vs)

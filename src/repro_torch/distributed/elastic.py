@@ -45,8 +45,8 @@ def remesh_restore(ckpt: CheckpointManager, step: int, cfg: ModelConfig,
     over the model axis), read onto the template's dtypes and device
     (its structure alone: its leaves may be whole or this rank's shards).
     Every rank of a data-parallel mesh keeps them whole; on a mesh that
-    splits the model (``n_model > 1``, the dense and MoE families) each rank keeps
-    its shard of every tree in the state that has the params' key paths
+    splits the model (``n_model > 1``, every family) each rank keeps its
+    shard of every tree in the state that has the params' key paths
     (``tensor_parallel.shard_params``: leaves the rules do not split stay
     whole), so a checkpoint written at one ``n_model`` restores at
     another."""

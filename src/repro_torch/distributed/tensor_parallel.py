@@ -1,4 +1,4 @@
-"""Tensor parallelism for the dense and MoE families: one model split
+"""Tensor parallelism for every family of the registry: one model split
 over the ``model`` axis of a ``(data, model)`` mesh, Megatron style.
 
 The reference gets tensor parallelism from GSPMD: ``param_pspecs`` lays
@@ -13,6 +13,18 @@ block's; its experts split by ``cfg.moe_impl`` (`models.moe`): under
 expert (``d_ff`` must divide), under ``ep`` along the expert dim (``E``
 must divide; a rank's ``E / n`` experts keep their whole ``d_ff``).  The
 router is whole on every rank.
+
+The other families split the blocks they share with the dense one and
+keep the rest whole, as ``param_pspecs`` does: Mamba2 layers (``ssm``,
+and the hybrid's backbone; ``mamba/*``) run whole on replicated
+activations, and the hybrid's ``shared_attn`` site splits as a dense
+block.  The encoder-decoder splits its encoder's blocks as the
+decoder's, and every decoder block's cross attention (``xattn``) in the
+self attention's regime, its K/V (``OnlineState.cross``) by KV heads.
+The VLM's patch projection (``frontend/proj``) is whole.  A learned
+position table (``pos_embed``, ``encoder/pos_embed``) splits by rows
+when they divide, and its lookup is the vocab-parallel one (masked rows,
+one reduce).
 
 THE LOCAL LAYOUT.  Shards are whole heads.  Three attention regimes, by
 the model-axis size ``n``:
@@ -55,9 +67,14 @@ on a dim an explicit split cannot use:
   ``b`` is whole, so that ``(sum_s x_s a_s^T) b`` completes in the same
   reduce as ``wo``.
 
-The experts add none: ``split_dim`` splits them as the spec does.
+These hold for every attention the model has: the encoder's, the
+hybrid's ``shared_attn`` and the cross attention ``xattn`` (Whisper-tiny
+6/6 at n = 4 and 8 replicates the three; the spec splits their 384
+columns).  The experts, the Mamba2 layers, ``frontend/proj`` and the
+position tables add none: ``split_dim`` splits them as the spec does.
 
-``tests/test_torch_tensor_parallel.py`` checks that these are the only
+``tests/test_torch_tensor_parallel.py`` and
+``tests/test_torch_tp_families.py`` check that these are the only
 departures.
 
 COLLECTIVES.  ``copy_to_tp`` (identity forward, sum backward) marks the
@@ -75,7 +92,7 @@ collectives are an object the caller supplies (`TensorParallel.coll`):
 CUDA tensors, gloo for the CPU; a CUDA tensor on a gloo group raises,
 `context.check_backend`), or `LocalGroup`, which runs n ranks as turns
 of one process on one device (the rank loops of ``chip_smoke.py``
-phases 14b and 15b; forward only on the card, where autograd's device
+phases 14b, 15b and 16b; forward only on the card, where autograd's device
 thread cannot take turns).
 """
 from __future__ import annotations
@@ -90,25 +107,19 @@ import torch.distributed as tdist
 
 from repro_torch.distributed.context import (DistContext, axis_size,
                                              check_backend)
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import (ModelConfig, pos_table_rows,
+                                       require_ported)
 from repro_torch.optim.partition import tree_map
 
-TP_FAMILIES = ("dense", "moe")
 LOCAL_TIMEOUT = 600.0       # s a LocalGroup rank waits for its turn
 
 
 def require_tp_family(cfg: ModelConfig, n: int = 1) -> None:
-    """Tensor parallelism runs the dense and MoE families; the others
-    raise.  An MoE split over ``n`` ranks needs ``d_ff % n == 0``
-    (``ragged_tp``) or ``n_experts % n == 0`` (``ep``), as the
-    reference's ``shard_map`` does."""
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"tensor parallelism (n_model > 1) for family {cfg.family!r} "
-            f"({cfg.name}) is ROADMAP queue 1 item 4b-iii (the recurrent, "
-            "encoder-decoder and VLM families under TP); the dense and MoE "
-            "families are split, and data-parallel meshes (n_model == 1) "
-            "run every family")
+    """Tensor parallelism runs every family of the registry (an unknown
+    one raises, `require_ported`).  An MoE split over ``n`` ranks needs
+    ``d_ff % n == 0`` (``ragged_tp``) or ``n_experts % n == 0``
+    (``ep``), as the reference's ``shard_map`` does."""
+    require_ported(cfg)
     if cfg.family != "moe" or n == 1:
         return
     if cfg.moe_impl == "ep":
@@ -141,10 +152,16 @@ def _ff_split(cfg: ModelConfig, n: int) -> bool:
                                       and cfg.moe_impl == "ep")
 
 
+def _pos_split(cfg: ModelConfig, n: int) -> bool:
+    """Whether the learned position tables split by rows."""
+    return cfg.pos_embed == "learned" and pos_table_rows(cfg) % n == 0
+
+
 def local_config(cfg: ModelConfig, dist) -> ModelConfig:
     """The config of one rank's shard: its query and KV head counts (the
     KV heads it holds: all of them unless the "kv" regime splits them),
-    ``d_ff`` and vocabulary; ``head_dim`` pinned to the model's.
+    ``d_ff`` (0 stays 0: mamba2 has no MLP) and vocabulary; ``head_dim``
+    pinned to the model's.
     ``n_experts`` stays E (the router spans them all); an ``ep`` rank's
     own experts are its weights' leading dim."""
     n = _n_rank(dist)[0]
@@ -179,7 +196,9 @@ def split_dim(path: Tuple[str, ...], cfg: ModelConfig,
         return -2 if cfg.vocab_size % n == 0 else None
     if leaf == "lm_head":
         return -1 if cfg.vocab_size % n == 0 else None
-    if "attn" in path:
+    if leaf == "pos_embed":
+        return -2 if _pos_split(cfg, n) else None
+    if "attn" in path or "xattn" in path:
         if leaf in ("wq", "bq"):
             return -1 if q_split else None
         if leaf in ("wk", "wv", "bk", "bv"):
@@ -443,6 +462,11 @@ class TensorParallel:
         return self.cfg.vocab_size % self.n == 0
 
     @property
+    def pos_split(self) -> bool:
+        """Whether the learned position tables are this rank's rows."""
+        return _pos_split(self.cfg, self.n)
+
+    @property
     def vocab_lo(self) -> int:
         """The first vocabulary id of this rank's block."""
         return self.rank * self.local.vocab_size if self.vocab_split else 0
@@ -459,8 +483,8 @@ def tp_of(cfg: ModelConfig, dist) -> Optional[TensorParallel]:
     """The tensor-parallel view of ``dist``: None without a model split
     (``dist`` None, or a mesh with ``n_model == 1``: then every path runs
     as on one device), ``dist`` itself when it is one, else this rank's
-    view over the mesh's model-axis group.  A family other than dense
-    and MoE raises (`require_tp_family`)."""
+    view over the mesh's model-axis group.  A split the family cannot
+    take raises (`require_tp_family`)."""
     if dist is None:
         return None
     if isinstance(dist, TensorParallel):

@@ -26,8 +26,8 @@ mesh device ``s``; no tensor crosses devices.
 ``make_ingest_step``, ``make_stream_step``): the reference jits the op
 with in/out shardings from ``serve_specs`` and GSPMD splits the model.
 Here each rank runs the op on its shards (`ShardedStep`), with the model
-split over the ``model`` axis by `distributed.tensor_parallel` (the
-dense and MoE families) and the batch over the data axes; logits come
+split over the ``model`` axis by `distributed.tensor_parallel` (every
+family) and the batch over the data axes; logits come
 back as the rank's rows and vocabulary block, as the reference's
 ``logit_spec`` lays them out (``ShardedStep.gather_logits`` gives the
 whole).  With ``batch_sharded=False`` every data rank holds the whole
@@ -134,9 +134,12 @@ class ShardedStep:
     ``online_state_pspecs`` / ``stream_state_pspecs``) into this rank's
     shards; the call takes them, the GLOBAL tokens (cut to the rank's
     rows by the tokens' spec) and returns the rank's logits (its rows,
-    its vocabulary block) and state.  The reference's jit re-places its
-    arguments at every call; the port's ops write the state in place, so
-    it is placed once and passed back as it comes out.
+    its vocabulary block) and state.  A tensor argument after the tokens
+    (a prefill's ``patches``) is cut to the rank's rows as the tokens
+    are.  The reference's jit re-places its arguments at every call; the
+    port's ops write the state in place, so it is placed once and passed
+    back as it comes out.  The ``ssm`` state is cut by the batch alone,
+    ``cross`` by the batch and the KV heads (``online_state_pspecs``).
     ``gather_state`` / ``gather_logits`` give the whole (collectives:
     every rank calls them)."""
 
@@ -150,7 +153,14 @@ class ShardedStep:
 
     def __call__(self, params, state, tokens, *args, **kw):
         tokens = TPX.shard_by_spec(tokens, self.tok_spec, self.dist)
+        args = [self._rows(a) for a in args]
+        kw = {k: self._rows(v) for k, v in kw.items()}
         return self.fn(params, state, tokens, *args, **kw)
+
+    def _rows(self, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return TPX.shard_by_spec(x, SH.P(self.tok_spec[0]), self.dist)
 
     def place(self, params, state):
         return (TPX.shard_params(params, self.cfg, self.dist),
@@ -187,7 +197,8 @@ def _decode_only(spec_kw, what: str) -> None:
     if spec_kw.get("shard_cache_seq"):
         raise NotImplementedError(
             f"{what} over a sequence-sharded cache: only decode steps read "
-            "one (ROADMAP queue 1 item 4b-iii)")
+            "one (ROADMAP queue 1 item 4b-sp, the sequence-sharded prefill "
+            "and ingest)")
 
 
 def make_prefill_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
@@ -245,13 +256,15 @@ def make_stream_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
     """Single-batch streaming step: (params, st, tokens (B, c)) ->
     (logits (B, c, V), st), one user stream per batch (shared counters).
     With ``dist``: a `ShardedStep` over ``stream_state_pspecs`` (the
-    window's and the memory's KV heads on the model axis)."""
+    window's and the memory's KV heads on the model axis); the
+    encoder-decoder and the VLM stream as text-only decoders, as on one
+    device."""
     def fn(params, st, tokens):
         return STR.stream_step(params, cfg, st, tokens, dist=dist)
 
     if dist is None:
         return fn
-    TPX.tp_of(cfg, dist)                # a family TP does not split raises
+    TPX.require_tp_family(cfg, dist.n_model)
     tok = SH.P(dist.batch_axes if batch_sharded else None, None)
     return ShardedStep(fn, cfg, dist,
                        SH.stream_state_pspecs(cfg, dist, batch_sharded), tok)

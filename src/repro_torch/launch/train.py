@@ -25,10 +25,9 @@ what the reference's ``shard_map`` does: per-rank means,
 ``/ n_data`` and the mean of the ranks' losses; rank r's error-feedback
 residual is row r of the reference's ``(n_data,) + shape`` one.
 
-TENSOR PARALLEL (``n_model > 1``, the dense and MoE families, the
-latter under either ``moe_impl``; any other family raises
-``NotImplementedError``): the rows split over the batch axes as
-above, and the model over the ``model`` axis
+TENSOR PARALLEL (``n_model > 1``, every family; MoE under either
+``moe_impl``): the rows split over the batch axes as above (``frames``
+and ``patches`` with them), and the model over the ``model`` axis
 (`distributed.tensor_parallel`): each rank holds its shard of the
 trainable and frozen trees and of the moments (``tensor_parallel.
 shard_params``; `jit_train_step`'s ``place``), runs its share of every
@@ -79,9 +78,9 @@ from repro_torch.optim.losses import next_token_loss
 
 
 def check_mesh(cfg: ModelConfig, dist: Optional[DistContext]) -> None:
-    """A mesh that splits the model (``n_model > 1``) needs the dense or
-    MoE family (`tensor_parallel.require_tp_family`); data-parallel
-    meshes train every family."""
+    """A mesh that splits the model (``n_model > 1``) takes every family,
+    an MoE one where its experts split over it
+    (`tensor_parallel.require_tp_family`)."""
     if dist is not None and dist.n_model > 1:
         TPX.require_tp_family(cfg, dist.n_model)
 
@@ -138,11 +137,13 @@ def make_train_step(cfg: ModelConfig, layout: M.SegmentLayout,
     reduce only, so on one device ``ef`` (the error-feedback state) is
     passed through unchanged; with ``dist=`` it is this rank's
     residual, returned updated.  With a mesh that splits the model, the
-    trees are this rank's shards (`jit_train_step`'s ``place``)."""
+    trees are this rank's shards (`jit_train_step`'s ``place``).  The
+    model axis's process group is taken at the first step, so building
+    a step needs none."""
     check_mesh(cfg, dist)
-    tpx = TPX.tp_of(cfg, dist)
 
     def step(tp, fp, opt: AdamWState, batch, ef: Optional[EFState] = None):
+        tpx = TPX.tp_of(cfg, dist)
         leaves = [x for _, x in PT.leaves(tp)]
         for x in leaves:
             x.requires_grad_(True)

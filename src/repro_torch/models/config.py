@@ -165,6 +165,12 @@ class ModelConfig:
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
+def pos_table_rows(cfg: ModelConfig) -> int:
+    """Rows of a learned position table (``pos_embed``, and the encoder's),
+    as the reference's ``init_lm`` sizes them."""
+    return max(cfg.max_pos, 2048)
+
+
 def require_ported(cfg: ModelConfig) -> None:
     """The port runs every family of the registry; a config of any other
     family is refused before any model code runs."""

@@ -35,7 +35,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.config import ModelConfig, require_ported
+from repro_torch.models.config import (ModelConfig, pos_table_rows,
+                                       require_ported)
 
 Params = Dict[str, Any]
 
@@ -124,7 +125,7 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_size,
                                     cfg.pdtype, dev)
-    n_pos = max(cfg.max_pos, 2048)
+    n_pos = pos_table_rows(cfg)
     if cfg.pos_embed == "learned":
         p["pos_embed"] = L.embed_init(gen, n_pos, cfg.d_model, cfg.pdtype,
                                       dev)
@@ -158,17 +159,28 @@ def layer_params(params: Params, li: int) -> Params:
 
 
 def add_learned_pos(table: torch.Tensor, x: torch.Tensor,
-                    positions: torch.Tensor) -> torch.Tensor:
+                    positions: torch.Tensor, tp=None) -> torch.Tensor:
     """x + table[positions], positions ((S,) or (B, S)) clipped to the
-    table, as the reference's ``_add_learned_pos``."""
-    pe = table[positions.clamp(0, table.shape[0] - 1).long()]
-    return x + pe.to(x.dtype)
+    table, as the reference's ``_add_learned_pos``.  With ``tp`` splitting
+    the table by rows (``tp.pos_split``), ``table`` is this rank's block:
+    a position outside it looks up zeros and the model-axis reduce sums
+    the one nonzero row (exact), as `embed_tokens` does."""
+    if tp is None or not tp.pos_split:
+        pe = table[positions.clamp(0, table.shape[0] - 1).long()]
+        return x + pe.to(x.dtype)
+    rows = table.shape[0]
+    p = positions.clamp(0, rows * tp.n - 1).long() - tp.rank * rows
+    inside = ((p >= 0) & (p < rows))[..., None]
+    pe = torch.where(inside, table[p.clamp(0, rows - 1)].to(x.dtype), 0)
+    return x + TPX.reduce_from_tp(pe, tp)
 
 
 def patch_embed(cfg: ModelConfig, params: Params,
                 patches: torch.Tensor) -> torch.Tensor:
     """Precomputed patch embeddings (B, P, 1024) -> (B, P, d) through
-    ``frontend/proj`` in the compute dtype."""
+    ``frontend/proj`` in the compute dtype.  ``frontend/proj`` is whole on
+    every rank of a model split, on replicated patches, so its gradient
+    is whole there and never summed."""
     return patches.to(cfg.cdtype) @ params["frontend"]["proj"].to(cfg.cdtype)
 
 
@@ -222,18 +234,24 @@ def lm_logits(params: Params, cfg: ModelConfig, x: torch.Tensor,
 # ===========================================================================
 
 def cross_attend(cfg: ModelConfig, lp: Params, x: torch.Tensor,
-                 cross) -> torch.Tensor:
+                 cross, tp=None) -> torch.Tensor:
     """The decoder block's cross-attention residual (no mask, no LoRA, no
     RoPE).  ``cross``: the encoder output (B, Se, d), projected here by
-    this layer's ``xattn``, or its precomputed (xk, xv) pair."""
+    this layer's ``xattn``, or its precomputed (xk, xv) pair.  With
+    ``tp``, ``xattn`` splits as the self attention does: q/k/v
+    column-parallel, ``wo`` row-parallel with the model-axis reduce, and
+    the cross K/V (the rank's KV heads, or whole in the "query" regime)
+    read through ``tp.kv_view``; the "replicated" regime runs it whole."""
     h = L.apply_norm(cfg, lp["ln_x"], x)
-    qx, _, _ = A.qkv_project(cfg, lp["xattn"], h, None, None)
+    qx, _, _ = A.qkv_project(cfg, lp["xattn"], h, None, None, tp=tp)
     if isinstance(cross, tuple):
         xk, xv = cross
     else:
-        _, xk, xv = A.qkv_project(cfg, lp["xattn"], cross, None, None)
+        _, xk, xv = A.qkv_project(cfg, lp["xattn"], cross, None, None, tp=tp)
+    if tp is not None:
+        xk, xv = tp.kv_view(xk), tp.kv_view(xv)
     ox = A.attend_dense(qx, xk, xv, None, 1.0 / cfg.hd ** 0.5)
-    return x + A.out_project(cfg, lp["xattn"], ox, None)
+    return x + A.out_project(cfg, lp["xattn"], ox, None, tp=tp)
 
 
 def ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor,
@@ -271,7 +289,7 @@ def _attn_mlp_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
         o = A.attend(cfg, q, k, v, q_info, k_info)
     x = x + A.out_project(cfg, lp["attn"], o, comp_gate, tp=tp)
     if cross is not None:
-        x = cross_attend(cfg, lp, x, cross)
+        x = cross_attend(cfg, lp, x, cross, tp)
     h = L.apply_norm(cfg, lp["ln2"], x)
     return x + ffn(cfg, lp, h, tp)
 
@@ -309,7 +327,10 @@ def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     (the encoder output) feeds the cross attention of ``encdec``.
     ``dist``: a mesh's ``DistContext`` or a `TensorParallel` rank;
     ``params`` is then this rank's shard (`tensor_parallel.shard_params`)
-    when the mesh splits the model."""
+    when the mesh splits the model.  Attention blocks (the hybrid's
+    ``shared_attn`` sites too) split; Mamba2 layers run whole on the
+    replicated activations, so their gradients are whole on every rank
+    and never summed."""
     require_ported(cfg)
     tp = TPX.tp_of(cfg, dist)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -331,18 +352,23 @@ def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     return x
 
 
-def encode(params: Params, cfg: ModelConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+           dist=None) -> torch.Tensor:
     """Whisper's encoder over precomputed frame embeddings (B, Se, d) (the
     conv frontend runs upstream, as in the reference): learned positions,
     then bidirectional layers (every key a <COMP> key at index 0 of
     segment 0, which the CCM mask lets every query see), then the final
-    norm."""
+    norm.  ``dist`` as in `forward_hidden`: the blocks split as the
+    decoder's and the position lookup is the split one; the output is
+    whole on every rank.  (The reference's ``encode`` takes no ``dist``;
+    GSPMD lays its weights out by the same spec, and the math is the
+    unsharded model's either way.)"""
+    tp = TPX.tp_of(cfg, dist)
     enc = params["encoder"]
     S = frames.shape[1]
     dev = frames.device
     pos = torch.arange(S, dtype=torch.int32, device=dev)
-    x = add_learned_pos(enc["pos_embed"], frames.to(cfg.cdtype), pos)
+    x = add_learned_pos(enc["pos_embed"], frames.to(cfg.cdtype), pos, tp)
     zero = torch.zeros(S, dtype=torch.int32, device=dev)
     info = A.KeyInfo(idx=zero, seg=zero,
                      comp=torch.ones(S, dtype=torch.bool, device=dev))
@@ -350,7 +376,8 @@ def encode(params: Params, cfg: ModelConfig,
     for li in range(cfg.n_enc_layers):
         body = functools.partial(
             _attn_mlp_block, cfg, layer_params(enc, li), q_info=info,
-            k_info=info, comp_gate=None, positions=None, merge_ctx=None)
+            k_info=info, comp_gate=None, positions=None, merge_ctx=None,
+            tp=tp)
         x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
     return L.apply_norm(cfg, enc["final_norm"], x)
 
@@ -392,7 +419,8 @@ def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``frames`` (encdec: the encoder's input, (B, Se, d)) and ``patches``
     (vlm: (B, P, 1024) patch embeddings, projected into the first P
     positions; <COMP> positions there keep their comp embedding when CCM
-    is on), as the reference takes them.
+    is on), as the reference takes them: the rows of this rank's batch
+    (the encoder runs split with ``dist``, the patch projection whole).
 
     ``dist`` (a ``DistContext`` whose mesh splits the model, or a
     `TensorParallel` rank): ``params`` is this rank's shard and the
@@ -411,7 +439,7 @@ def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = embed_tokens(cfg, params, tokens, comp if use_ccm else None,
                      comp_off, tp=tp)
     if cfg.pos_embed == "learned":
-        x = add_learned_pos(params["pos_embed"], x, pos)
+        x = add_learned_pos(params["pos_embed"], x, pos, tp)
     if patches is not None:
         pe = patch_embed(cfg, params, patches)
         xp = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
@@ -456,7 +484,8 @@ def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     else:
         q_info = k_info = A.plain_causal_info(S, device=dev)
 
-    cross = encode(params, cfg, frames) if cfg.family == "encdec" else None
+    cross = encode(params, cfg, frames, dist=tp) \
+        if cfg.family == "encdec" else None
     x = forward_hidden(params, cfg, x, q_info=q_info, k_info=k_info,
                        comp_gate=comp_gate, positions=pos,
                        merge_ctx=merge_ctx, cross=cross, dist=tp)

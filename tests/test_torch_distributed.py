@@ -5,11 +5,13 @@ on the CPU), each rank on its block of the batch, against the
 reference's ``make_debug_mesh(n, 1)`` step (a subprocess with 4 forced
 host devices) on the same weights and batch: the loss, every updated
 trainable leaf and the AdamW moments, and each rank's error-feedback
-residual against the reference's ``residual[r]``.  Also the refusals:
-a family tensor parallelism does not split yet (``n_model > 1`` outside
-the dense family, ROADMAP item 4b-iii) and a CUDA tensor on a ``gloo``
-group.  Tensor parallelism itself is ``tests/test_torch_tensor_parallel.py``.  ``TrainLoop(dist=)`` and the elastic resume are in
-``tests/test_torch_distributed_loop.py``.
+residual against the reference's ``residual[r]``.  Also: a recurrent
+family on a mesh that splits the model (in a world of 4 on (2, 2):
+mamba2-370m trains a step, zamba2-1.2b restores a checkpoint), and the
+refusal of a CUDA tensor on a ``gloo`` group.  Tensor parallelism
+itself is ``tests/test_torch_tensor_parallel.py`` and
+``tests/test_torch_tp_families.py``.  ``TrainLoop(dist=)`` and the
+elastic resume are in ``tests/test_torch_distributed_loop.py``.
 
 The ranks are spawned processes that import this module, so the
 reference's imports sit in the functions only the test process runs.
@@ -238,11 +240,90 @@ def test_data_parallel_step_matches_reference(tmp_path):
                            scale=float(np.abs(local[n][r][k]).max()))
 
 
-def test_tensor_parallel_mesh_raises_and_cuda_needs_nccl():
-    """A mesh with a model axis refuses a family tensor parallelism does
-    not split yet (item 4b-iii; the dense family trains on it); a CUDA
-    tensor never goes through a gloo group (no hidden copy to the
-    host)."""
+def _model_axis_world(dev, ckpt_dir):
+    """On every rank of a world of 4, mesh (2, 2): one AdamW step of
+    mamba2-370m's smoke config through ``make_train_step`` /
+    ``jit_train_step(dist=)`` (its vocabulary split over the model axis,
+    its Mamba2 layers whole), the loss and the whole leaves; then
+    zamba2-1.2b's checkpoint in ``ckpt_dir`` restored by
+    ``remesh_restore`` onto the mesh, and whether every rank holds its
+    shard of the checkpoint's leaves (its shared site split, its Mamba2
+    layers whole)."""
+    import torch.distributed as tdist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import mamba2_370m, zamba2_12b
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.distributed.elastic import remesh_restore
+    from repro_torch.launch import train as TR
+    from repro_torch.launch.mesh import make_debug_mesh, make_dist
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as PA
+    from repro_torch.optim import partition as PP
+
+    mesh = make_debug_mesh(2, 2, device=dev)
+    dist = make_dist(mesh)
+    cfg = mamba2_370m.smoke(compute_dtype="float32")
+    params = T.init_lm(cfg, 0, device=dev)
+    tp, fp = PP.partition(params, TR.trainable_mask_for(cfg, params))
+    batch = _mamba_batch(cfg)
+    step = TR.jit_train_step(
+        TR.make_train_step(cfg, PM.segment_layout(*LAYOUT),
+                           PA.AdamWConfig(**OPT), dist),
+        cfg, dist, None, None, batch, None)
+    tp, fp, opt = step.place(tp, fp, PA.init_adamw(tp))
+    assert tp["embed"].shape[0] == cfg.vocab_size // 2       # split
+    tp, opt, m, _ = step(tp, fp, opt, batch)
+    whole = {"/".join(p): x.detach().numpy().copy()
+             for p, x in PP.leaves(step.gather(tp))}
+
+    zcfg = zamba2_12b.smoke(compute_dtype="float32")
+    template = {"tp": T.init_lm(zcfg, 1, device=dev)}
+    ckpt = CheckpointManager(ckpt_dir, async_save=False)
+    state, extra, dist2 = remesh_restore(ckpt, 3, zcfg, mesh, template, None)
+    on_disk, _ = ckpt.restore(3, template)
+    mine = TPX.shard_params(on_disk["tp"], zcfg, dist2)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(PP.leaves(state["tp"]), PP.leaves(mine)))
+    split = {"/".join(p) for p, _ in PP.leaves(state["tp"])
+             if TPX.split_dim(p, zcfg, 2) is not None}
+    every = [None] * tdist.get_world_size()
+    tdist.all_gather_object(every, same)
+    return float(m["loss"]), whole, all(every), extra["step"], split
+
+
+def _mamba_batch(cfg):
+    from repro_torch.data.synthetic import ShardableIndexIterator, \
+        sample_kv_batch
+    b = sample_kv_batch(ShardableIndexIterator(0, B).key_for(0),
+                        PM.segment_layout(*LAYOUT), B, device="cpu")
+    b["tokens"] = b["tokens"] % cfg.vocab_size
+    b["loss_mask"][0, :3] = 0
+    return b
+
+
+@pytest.fixture(scope="module")
+def model_axis_world(tmp_path_factory):
+    """`_model_axis_world`'s results, with zamba2-1.2b's whole smoke
+    params checkpointed at step 3 before the world starts."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import zamba2_12b
+    from repro_torch.models import transformer as T
+    tmp = tmp_path_factory.mktemp("model_axis")
+    zcfg = zamba2_12b.smoke(compute_dtype="float32")
+    ckpt = CheckpointManager(str(tmp / "ckpt"), async_save=False)
+    ckpt.save(3, {"tp": T.init_lm(zcfg, 1, device="cpu")},
+              extra={"step": 3})
+    return launch_world(4, _model_axis_world, str(tmp / "ckpt"),
+                        device="cpu", timeout=600)
+
+
+def test_tensor_parallel_mesh_raises_and_cuda_needs_nccl(model_axis_world):
+    """A mesh with a model axis takes a recurrent family: the steps build
+    on a shape-only (2, 2) mesh (the model axis's process group is taken
+    at the first step), and mamba2-370m's step on (2, 2) in a world of 4
+    gives the one-device step's loss and leaves; a CUDA tensor never goes
+    through a gloo group (no hidden copy to the host)."""
     import types
 
     import torch.distributed as tdist
@@ -251,19 +332,31 @@ def test_tensor_parallel_mesh_raises_and_cuda_needs_nccl():
     from repro_torch.distributed.context import (DistContext, check_backend,
                                                  free_port)
     from repro_torch.launch import train as TR
+    from repro_torch.models import transformer as T
     from repro_torch.optim import adamw as PA
+    from repro_torch.optim import partition as PP
 
     class Mesh:
         axis_names = ("data", "model")
         shape = {"data": 2, "model": 2}
 
     cfg = mamba2_370m.smoke(compute_dtype="float32")
-    with pytest.raises(NotImplementedError, match="4b-iii"):
-        TR.make_train_step(cfg, PM.segment_layout(*LAYOUT),
-                           PA.AdamWConfig(), dist=DistContext(mesh=Mesh()))
-    with pytest.raises(NotImplementedError, match="4b-iii"):
-        TR.jit_train_step(None, cfg, DistContext(mesh=Mesh()), None, None,
-                          {}, None)
+    step = TR.make_train_step(cfg, PM.segment_layout(*LAYOUT),
+                              PA.AdamWConfig(**OPT),
+                              dist=DistContext(mesh=Mesh()))
+    placed = TR.jit_train_step(step, cfg, DistContext(mesh=Mesh()), None,
+                               None, {}, None)
+    assert callable(step) and placed.step_fn is step
+    loss, whole, _, _, _ = model_axis_world
+    params = T.init_lm(cfg, 0, device="cpu")
+    tp, fp = PP.partition(params, TR.trainable_mask_for(cfg, params))
+    tp, _, m, _ = TR.make_train_step(cfg, PM.segment_layout(*LAYOUT),
+                                     PA.AdamWConfig(**OPT))(
+        tp, fp, PA.init_adamw(tp), _mamba_batch(cfg))
+    _close(loss, m["loss"].item(), "mamba2 (2, 2) loss")
+    for p, x in PP.leaves(tp):
+        _close(whole["/".join(p)], x.detach().numpy(),
+               f"mamba2 (2, 2) {'/'.join(p)}")
     tdist.init_process_group("gloo", init_method=f"tcp://localhost:"
                              f"{free_port()}", world_size=1, rank=0)
     try:
@@ -275,12 +368,13 @@ def test_tensor_parallel_mesh_raises_and_cuda_needs_nccl():
         tdist.destroy_process_group()
 
 
-def test_meshes_need_their_world_and_remesh_restore(tmp_path):
+def test_meshes_need_their_world_and_remesh_restore(tmp_path,
+                                                    model_axis_world):
     """A (data, model) mesh needs a process group of exactly its ranks;
     ``remesh_restore`` reads a checkpoint onto a data-parallel mesh, and
-    refuses a mesh with a model axis for a family tensor parallelism
-    does not split yet (item 4b-iii; the dense family's restore onto such
-    a mesh is ``tests/test_torch_tensor_parallel.py``)."""
+    onto a mesh with a model axis for a recurrent family: zamba2-1.2b's
+    checkpoint on (2, 2) in a world of 4, every rank on its shard (the
+    dense family's restore is ``tests/test_torch_tensor_parallel.py``)."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.distributed.elastic import remesh_restore
     from repro_torch.launch import mesh as LM
@@ -307,6 +401,7 @@ def test_meshes_need_their_world_and_remesh_restore(tmp_path):
     assert extra["step"] == 8 and dist.n_data == 2 and dist.n_model == 1
     assert torch.equal(got["tp"]["w"], state["tp"]["w"])
     assert torch.equal(got["opt"]["mu"], state["opt"]["mu"])
-    from repro_torch.configs import zamba2_12b
-    with pytest.raises(NotImplementedError, match="4b-iii"):
-        remesh_restore(ckpt, 8, zamba2_12b.smoke(), Mesh(2), template, None)
+    _, _, same, step, split = model_axis_world
+    assert same and step == 3
+    assert "shared_attn/attn/wq" in split and "embed" in split
+    assert not any("mamba" in p for p in split)

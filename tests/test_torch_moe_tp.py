@@ -663,8 +663,8 @@ def test_moe_shards_gather_to_whole_leaves(impl):
 
 def test_moe_split_refusals():
     """What the reference's shard_map cannot split raises: ``ragged_tp``
-    with ``d_ff % n``, ``ep`` with ``E % n``; the families tensor
-    parallelism does not split yet name 4b-iii."""
+    with ``d_ff % n``, ``ep`` with ``E % n``; every other family of the
+    registry takes the split (``tests/test_torch_tp_families.py``)."""
     import importlib
 
     from repro_torch.distributed import tensor_parallel as TPX
@@ -681,5 +681,5 @@ def test_moe_split_refusals():
         mod = importlib.import_module(f"repro_torch.configs.{name}")
         c = mod.smoke()
         assert isinstance(c, ModelConfig)
-        with pytest.raises(NotImplementedError, match="4b-iii"):
-            TPX.tp_of(c, TPX.TensorParallel(c, 2, 0, None))
+        tp = TPX.tp_of(c, TPX.TensorParallel(c, 2, 0, None))
+        assert tp.n == 2 and tp.local.vocab_size == c.vocab_size // 2

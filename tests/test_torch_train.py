@@ -251,20 +251,54 @@ def test_parallel_equals_online_in_port(mode):
 
 def test_multi_device_training_raises():
     """Data-parallel meshes train (tests/test_torch_distributed.py), and
-    a mesh with a model axis trains the dense family
-    (tests/test_torch_tensor_parallel.py); on such a mesh the other
-    families still raise (ROADMAP item 4b-iii)."""
-    from repro_torch.configs import zamba2_12b
+    a mesh with a model axis trains every family
+    (tests/test_torch_tensor_parallel.py, tests/test_torch_tp_families.py):
+    zamba2's step builds on such a mesh (shape-only: the check reads no
+    more), and the 2 ranks of a ``LocalGroup`` give the unsharded loss
+    and gradients.  What still raises is a split the reference cannot
+    make: an MoE ``ragged_tp`` whose d_ff does not divide."""
+    from repro_torch.configs import phi35_moe, zamba2_12b
+    from repro_torch.distributed import tensor_parallel as TPX
     from repro_torch.distributed.context import DistContext
+    from repro_torch.models import transformer as PT_
+    from repro_torch.optim.losses import next_token_loss
 
     class Mesh:                   # shape-only: the check reads no more
         axis_names = ("data", "model")
         shape = {"data": 1, "model": 2}
 
     _, pl = _layouts()
-    with pytest.raises(NotImplementedError, match="4b-iii"):
-        PTR.make_train_step(zamba2_12b.smoke(compute_dtype="float32"), pl,
-                            PA.AdamWConfig(), dist=DistContext(mesh=Mesh()))
+    cfg = zamba2_12b.smoke(compute_dtype="float32")
+    assert callable(PTR.make_train_step(cfg, pl, PA.AdamWConfig(),
+                                        dist=DistContext(mesh=Mesh())))
+    params = PT_.init_lm(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    tok = torch.randint(0, cfg.vocab_size, (2, pl.seq_len), generator=gen)
+    mask = torch.ones(2, pl.tail_len - 1)
+
+    def loss_grads(p, tp):
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for _, x in PP.leaves(p)]
+        it = iter(leaves)
+        p = PP.tree_map(lambda _, x: next(it), p)
+        lg = PT_.train_forward(p, cfg, tok, pl, dist=tp)
+        loss = next_token_loss(lg, tok[:, -pl.tail_len:], mask, tp=tp)
+        it = iter(torch.autograd.grad(loss, leaves))
+        return loss.detach(), PP.tree_map(lambda _, x: next(it), p)
+
+    want, wgrads = loss_grads(params, None)
+    group = TPX.LocalGroup(2)
+    ranks = TPX.local_ranks(cfg, group)
+    for loss, grads in group.run(lambda r: (lambda lg: (
+            lg[0], TPX.gather_params(lg[1], cfg, ranks[r])))(
+            loss_grads(TPX.shard_params(params, cfg, ranks[r]), ranks[r]))):
+        assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+        for (path, a), (_, b) in zip(PP.leaves(grads), PP.leaves(wgrads)):
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max(), path
+    Mesh.shape = {"data": 1, "model": 5}
+    with pytest.raises(ValueError, match="d_ff 96 over 5"):
+        PTR.make_train_step(phi35_moe.smoke(), pl, PA.AdamWConfig(),
+                            dist=DistContext(mesh=Mesh()))
 
 
 def test_params_to_numpy_inverts_params_from_numpy():
