@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phase14  # the card, the build and phase 14 only
     python3 chip_smoke.py --phase15  # the card, the build and phase 15 only
     python3 chip_smoke.py --phase16  # the card, the build and phase 16 only
+    python3 chip_smoke.py --phase17  # the card, the build and phase 17 only
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the build of the
@@ -111,8 +112,8 @@ Phases (any failure raises, and the script exits non-zero):
      registry at their published widths, random weights from seed 0 in
      each config's ``param_dtype``, one model at a time: whisper-tiny (4
      + 4 layers, 1500 random frames, 448-token prefills), pixtral-12b
-     (40 layers, bf16, 1024 random patch rows of width 1024),
-     phi3.5-moe (16 of its 32 layers, bf16) and llama4-maverick (1 of 48
+     (20 of its 40 layers, bf16, 1024 random patch rows of width 1024),
+     phi3.5-moe (8 of its 32 layers, bf16) and llama4-maverick (1 of 48
      layers, 128 experts top-1): (a) the online path (B4, 4 ingests of
      64, 32 greedy tokens; whisper's ``encode_cross`` at B4 through the
      CCM kernel with every key <COMP>, then concat and merge; pixtral's
@@ -186,8 +187,24 @@ Phases (any failure raises, and the script exits non-zero):
      block with its patches at n = 2, 4, 8, against the unsharded run
      (float32 configs within ``f32_lane_tol``, pixtral within
      ``bf16_tol``), with a rank's share of the time and the peak memory;
+ 17. (after 14) the sequence-sharded prefill and ingest: (a) the
+     mma.sync route's log-sum-exp against the plain version (LLaMA-7B's
+     448-row prefill block, hd 64 and 256, an int8 cache under an ingest
+     block, a lane that sees no key), the output bit-equal with and
+     without it, its cost, and the library's flash attention with lse;
+     (b) a 448-row prefill block and a 64 + 8-row ingest block over a
+     32768-key cache cut in 4 blocks, each block's kernel with its lse
+     combined over a ``LocalGroup`` of 4, against the whole-cache kernel;
+     (c) the ``shard_cache_seq=True`` builders and ``generate(seq_shard=
+     True)`` in an NCCL world of one rank, bit-equal to ``dist=None`` on
+     LLaMA-7B's 32 layers, concat and merge; (d) 4 data ranks in turn
+     over a 32768-token cache at full width (an ingest, a prefill whose
+     block crosses a rank edge, one that clamps at the buffer's end, 8
+     greedy tokens) against the whole cache within ``bf16_tol_paths``
+     beside a witness, every unwritten cache row bit-equal;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
-launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16, and
+launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17,
+the mma.sync route's launches with the lse in phase 17, and
 the CCM kernel's phase-12 launches by whisper's encoder, read from the
 counters around each of its launches), then the result line.  Phase 2 also
 holds the training kernels (CCM flash attention forward and backward on
@@ -3889,14 +3906,18 @@ def recurrent_phase(torch, m, card):
 FAMILIES = ("whisper-tiny", "pixtral-12b", "phi3.5-moe-42b-a6.6b",
             "llama4-maverick-400b-a17b")
 # depth cuts (never width): phi3.5-moe's 32 layers hold 84 GB of experts
-# in bf16, llama4-maverick's 128 experts 32 GB a layer
-FAM_DEPTH = {"phi3.5-moe-42b-a6.6b": 16, "llama4-maverick-400b-a17b": 1}
+# in bf16, llama4-maverick's 128 experts 32 GB a layer; phi3.5-moe and
+# pixtral-12b are cut to keep the script within its time limit (at 16
+# and 40 layers they were phase 12's two longest paths, 96.1 and 67.3 s
+# on an NVIDIA H100 80GB HBM3 at 700 W), every check and launch kept
+FAM_DEPTH = {"pixtral-12b": 20, "phi3.5-moe-42b-a6.6b": 8,
+             "llama4-maverick-400b-a17b": 1}
 # whisper's published n_text_ctx (Radford et al. 2022): 448-token prefills
 WHISPER_TEXT = 448
 # per config: the online prefill (vlm: 1024 patch positions + 64 text
 # tokens) and its cache, the training layout and steps (None: online
 # only), and whether the engine's answers are held to bf16_tol_paths
-# beside serve_witness (pixtral's 40 bf16 layers; MoE's bf16 engine is
+# beside serve_witness (pixtral's 20 bf16 layers; MoE's bf16 engine is
 # held to bf16_tol_paths with its expert ids pinned, see serve_phase)
 FAM = {"whisper-tiny": dict(prompt=WHISPER_TEXT, cache=512,
                             layout=(16, 64, 4, 64),
@@ -4074,10 +4095,11 @@ def encoder_ccm_launches(PT, ops, tally):
 
 
 def family_phase(torch, m, card, archs=FAMILIES):
-    """Phase 12: whisper-tiny, pixtral-12b, phi3.5-moe (16 of 32 layers)
-    and llama4-maverick (1 of 48 layers) at their published widths,
-    random weights from seed 0 in each config's ``param_dtype`` (LoRA b
-    drawn at random), one model at a time: 12a the online path (B4, 4
+    """Phase 12: whisper-tiny, pixtral-12b (20 of 40 layers), phi3.5-moe
+    (8 of 32 layers) and llama4-maverick (1 of 48 layers) at their
+    published widths, random weights from seed 0 in each config's
+    ``param_dtype`` (LoRA b drawn at random), one model at a time: 12a
+    the online path (B4, 4
     ingests of 64 tokens, 32 greedy tokens; whisper in concat and merge
     after ``encode_cross`` over 1500 frames, with a 448-token prefill;
     pixtral with a prefill of 1024 patch positions + 64 text tokens;
@@ -4106,7 +4128,7 @@ def family_phase(torch, m, card, archs=FAMILIES):
             f"train_mode {cfg.train_mode}, "
             f"{cfg.param_count() / 1e9:.3f} B params at this depth")
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
+        t0 = t_arch = time.perf_counter()
         params = m.init_lm(cfg, seed=0)
         randomize_lora_b(torch, params, seed=100)
         torch.cuda.synchronize()
@@ -4161,6 +4183,8 @@ def family_phase(torch, m, card, archs=FAMILIES):
             del params
             gc.collect()
             torch.cuda.empty_cache()
+            r["seconds"] = time.perf_counter() - t_arch
+            log(f"  12 {arch}: took {r['seconds']:.1f} s")
             continue
         log(f"  12d {arch}: cross-check, 2 layers full width fp32, CUDA vs "
             "CPU")
@@ -4222,6 +4246,8 @@ def family_phase(torch, m, card, archs=FAMILIES):
         del params, run, extra
         gc.collect()
         torch.cuda.empty_cache()
+        r["seconds"] = time.perf_counter() - t_arch
+        log(f"  12 {arch}: took {r['seconds']:.1f} s")
     for arch, r in rec.items():
         for mode in ("concat", "merge"):
             if mode not in r:
@@ -5876,6 +5902,601 @@ def phase16(torch, m, card):
     return counts, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the sequence-sharded prefill and ingest
+# ---------------------------------------------------------------------------
+
+# 17a's shapes (B4, bf16 q; the last lane sees no key): LLaMA-7B's
+# prefill block (Sq 448, 32 x 128, over 32 memory rows and a 480-token
+# cache), Qwen2's 14/2 at hd 64 and Gemma-2B's 8/1 at hd 256 at the same
+# block, and an ingest block (64 tokens + 8 <COMP>) over an int8 cache
+MMA_LSE_CASES = [
+    dict(label="prefill 32/32 hd128", Sq=448, H=32, Hkv=32, D=128),
+    dict(label="prefill 14/2 hd64", Sq=448, H=14, Hkv=2, D=64),
+    dict(label="prefill 8/1 hd256", Sq=448, H=8, Hkv=1, D=256),
+    dict(label="ingest 32/32 hd128 int8", Sq=72, H=32, Hkv=32, D=128,
+         ncomp=8, int8=True),
+]
+
+
+def mma_lse_inputs(torch, quantize_kv, *, label, Sq, H, Hkv, D, ncomp=0,
+                   int8=False, B=4, seed=170):
+    """17a's inputs from ``seed``: (q, segs, q_idx, q_seg, scale, the
+    segments as the kernel reads them).  Per-lane metadata: lanes 0-2 see
+    32 memory rows, a 480-token cache and their causal block; lane B-1
+    sees no key (no memory, no cache, q_idx below every key's).  With
+    ``int8`` the cache is int8 with float32 scales, and the last item
+    holds it dequantized into bf16 (what the mma.sync route reads)."""
+    del label
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    q = rn(B, Sq, H, D)
+    mk, mv = rn(B, 128, Hkv, D), rn(B, 128, Hkv, D)
+    ck, cv = rn(B, 512, Hkv, D), rn(B, 512, Hkv, D)
+    sk, sv = rn(B, Sq, Hkv, D), rn(B, Sq, Hkv, D)
+    ar = torch.arange(Sq, device=dev, dtype=torch.int32)
+    comp = torch.zeros(Sq, device=dev, dtype=torch.bool)
+    if ncomp:
+        comp[Sq - ncomp:] = True
+    qi = ar.expand(B, Sq).clone()
+    qi[B - 1] = -5
+    qs = torch.ones_like(qi)
+    lens = torch.tensor([32] * (B - 1) + [0], device=dev, dtype=torch.int32)
+    clen = torch.tensor([480] * (B - 1) + [0], device=dev, dtype=torch.int32)
+    self_seg = seg_dict(sk, sv, idx=ar, seg=torch.ones_like(ar), comp=comp)
+    mem = seg_dict(mk, mv, length=lens)
+    if int8:
+        ck8, cks = quantize_kv(ck)
+        cv8, cvs = quantize_kv(cv)
+        cache = seg_dict(ck8, cv8, k_scale=cks, v_scale=cvs, length=clen)
+        read = [mem, seg_dict((ck8.float() * cks[..., None]).bfloat16(),
+                              (cv8.float() * cvs[..., None]).bfloat16(),
+                              length=clen), self_seg]
+    else:
+        cache = seg_dict(ck, cv, length=clen)
+        read = None
+    segs = [mem, cache, self_seg]
+    return q, segs, qi, qs, D ** -0.5, read or segs
+
+
+def mma_lse_check(torch, dattn, quantize_kv, card):
+    """17a: the mma.sync route (bf16 q, Sq > 2) with its log-sum-exp
+    against the plain version, at ``MMA_LSE_CASES``: the output within
+    bf16_tol (phase 2's), the lse within 1e-5 x its largest (14c's; an
+    int8 cache's against the plain version over the keys dequantized into
+    bf16, as the route reads them), the output bit-equal with and
+    without the lse, the lane that sees no key exactly 0 with lse -inf.
+    Times the route with and without the lse (device ms), its plain
+    version with the lse and the library's flash attention, whose second
+    output is the lse (no mask: every key of the concatenation visible),
+    at the first case.  Returns the record."""
+    rec = {}
+    for case in MMA_LSE_CASES:
+        label = case["label"]
+        q, segs, qi, qs, scale, read = mma_lse_inputs(torch, quantize_kv,
+                                                      **case)
+        B, Sq, H, D = q.shape
+        out, lse = dattn.segmented_flash_attention(q, segs, qi, qs, scale,
+                                                   lse=True)
+        out0 = dattn.segmented_flash_attention(q, segs, qi, qs, scale)
+        wo = dattn.plain(q, segs, qi, qs, scale)
+        _, wl = dattn.plain(q, read, qi, qs, scale, lse=True)
+        torch.cuda.synchronize()
+        if not torch.equal(out, out0):
+            raise AssertionError(f"17a {label}: the lse changed the output")
+        if not bool((out[B - 1] == 0).all()) or not \
+                bool(torch.isneginf(lse[B - 1]).all()):
+            raise AssertionError(f"17a {label}: the lane with no key is not "
+                                 "exactly 0 with lse -inf")
+        if not torch.equal(torch.isneginf(lse), torch.isneginf(wl)):
+            raise AssertionError(f"17a {label}: -inf rows differ from the "
+                                 "plain version's")
+        err = max_err(out, wo)
+        check(f"17a mma.sync route {label} B{B} Sq{Sq} output (kernel vs "
+              "plain)", err, bf16_tol(wo))
+        live = torch.isfinite(wl)
+        lerr = (lse[live] - wl[live]).abs().max().item()
+        check(f"17a mma.sync route {label} lse (kernel vs plain"
+              + (" over the bf16 keys" if case.get("int8") else "") + ")",
+              lerr, 1e-5 * wl[live].abs().max().item())
+        rec[label] = dict(max_abs_err=err, lse_err=lerr)
+    # times at LLaMA-7B's prefill block: four input sets in turn, so that
+    # the reads of a call (~50 MB) do not stay in the 50 MB L2
+    sets = [mma_lse_inputs(torch, quantize_kv, **MMA_LSE_CASES[0],
+                           seed=180 + j) for j in range(4)]
+    q, segs, qi, qs, scale, _ = sets[0]
+    B, Sq, H, D = q.shape
+
+    def kernel(lse):
+        def call(i):
+            q, segs, qi, qs, scale, _ = sets[i % 4]
+            return dattn.segmented_flash_attention(q, segs, qi, qs, scale,
+                                                   lse=lse)
+        return call
+    # with and without the lse in turns, three windows each: the medians
+    # (a profiler window now and then reads far off)
+    no, yes = [], []
+    for _ in range(3):
+        no.append(device_ms(torch, kernel(False), only="segmented_attention"))
+        yes.append(device_ms(torch, kernel(True), only="segmented_attention"))
+    t_no, t_lse = sorted(no)[1], sorted(yes)[1]
+    t_plain = device_ms(torch, lambda i: dattn.plain(q, segs, qi, qs, scale,
+                                                     lse=True), iters=5)
+    # the library: lanes 0-2's keys (32 memory rows, 480 cached, the
+    # block) concatenated, every key visible; the same four sets in turn
+    def lanes(x):
+        return x[:3].transpose(1, 2).contiguous()
+    lib = [(lanes(st[0]),) + tuple(
+        lanes(torch.cat([sg[kv][:, :n] for sg, n in
+                         zip(st[1], (32, 480, Sq))], 1)) for kv in "kv")
+        for st in sets]
+
+    def library(i):
+        return torch.ops.aten._scaled_dot_product_flash_attention(
+            *lib[i % 4], scale=scale)
+    t_lib = device_ms(torch, library)
+    # bytes: q, o, the keys read once, the lse; operations: the pairs the
+    # CCM mask lets through (lanes 0-2: every memory and cached key, the
+    # causal block), two products of 2 H D each
+    nk = 3 * (32 + 480) + 3 * Sq
+    pairs = 3 * Sq * (32 + 480) + 3 * Sq * (Sq + 1) // 2
+    nbytes = 2 * q.numel() * 2 + nk * H * D * 2 * 2 + B * H * Sq * 4
+    bms, by = bound(nbytes, 4.0 * H * D * pairs, PEAK_BF16)
+    cost = (t_lse - t_no) / t_no
+    log(f"  17a mma.sync route, LLaMA-7B prefill block B{B} Sq{Sq} "
+        f"{H}x{D}: {t_no:.4f} ms without the lse, {t_lse:.4f} ms with it "
+        f"(medians of 3 windows in turns: {[round(x, 4) for x in no]} / "
+        f"{[round(x, 4) for x in yes]}; the lse costs {100 * cost:.2f} %), "
+        f"plain with lse {t_plain:.4f} ms, the "
+        f"library's flash attention with lse (3 lanes, no mask) "
+        f"{t_lib:.4f} ms, bound {bms:.4f} ms ({by}) [{card}]")
+    first = rec[MMA_LSE_CASES[0]["label"]]
+    rec["row"] = dict(max_abs_err=first["max_abs_err"],
+                      lse_err=first["lse_err"], ms=t_lse,
+                      no_lse_ms=t_no, lse_cost=cost, plain_ms=t_plain,
+                      library_ms=t_lib, bound_ms=bms, bound_by=by)
+    return rec
+
+
+def seq_blocks_check(torch, dattn, card):
+    """17b: a prefill block (448 rows at length 24400) and an ingest
+    block (64 + 8 <COMP> rows at length 24500) of LLaMA-7B's heads (32 x
+    128, bf16, B1) over a 32768-key cache cut in 4 blocks of 8192: each
+    block's mma.sync kernel with its lse (the memory and the block's own
+    keys on block 0), combined by ``models.attention.combine_blocks``
+    over a LocalGroup of 4, against the kernel over the whole cache
+    within bf16_tol, and against the plain version.  Times the
+    whole-cache kernel, the 4 block kernels and the ranks with the
+    combine."""
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.models.attention import combine_blocks
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(171)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    B, H, D, S, n = 1, 32, 128, 32768, 4
+    blk = S // n
+    k, v = rn(B, S, H, D), rn(B, S, H, D)
+    mk, mv = rn(B, 128, H, D), rn(B, 128, H, D)
+    scale = D ** -0.5
+    rec = {}
+    for label, Sq, length, ncomp in (("prefill", 448, 24400, 0),
+                                     ("ingest", 72, 24500, 8)):
+        q = rn(B, Sq, H, D)
+        sk, sv = rn(B, Sq, H, D), rn(B, Sq, H, D)
+        ar = torch.arange(Sq, device=dev, dtype=torch.int32)
+        comp = torch.zeros(Sq, device=dev, dtype=torch.bool)
+        if ncomp:
+            comp[Sq - ncomp:] = True
+        one = torch.ones_like(ar)
+        self_seg = seg_dict(sk, sv, idx=ar, seg=one, comp=comp)
+        whole = [seg_dict(mk, mv), seg_dict(k, v, length=length), self_seg]
+        blocks = [([seg_dict(mk, mv)] if i == 0 else [])
+                  + [seg_dict(k[:, i * blk:(i + 1) * blk],
+                              v[:, i * blk:(i + 1) * blk],
+                              length=min(max(length - i * blk, 0), blk))]
+                  + ([self_seg] if i == 0 else []) for i in range(n)]
+        want = dattn.segmented_flash_attention(q, whole, ar, one, scale)
+
+        def sharded():
+            grp = TPX.LocalGroup(n)
+
+            def rank(i):
+                o, l = dattn.segmented_flash_attention(q, blocks[i], ar, one,
+                                                       scale, lse=True)
+                return combine_blocks(o, l, grp.member(i))
+            return grp.run(rank)
+        outs = sharded()
+        plain = dattn.plain(q, whole, ar, one, scale)
+        torch.cuda.synchronize()
+        for i, o in enumerate(outs):
+            if i == 0:
+                check(f"17b {label} block of {Sq} rows over {n} cache blocks "
+                      f"of {blk} keys at length {length}, {H}x{D} bf16 "
+                      "(combined vs the whole-cache kernel)",
+                      max_err(o, want), bf16_tol(want))
+                check(f"17b {label} (combined vs plain)", max_err(o, plain),
+                      bf16_tol(plain))
+            elif not torch.equal(o, outs[0]):
+                raise AssertionError(f"17b {label}: the ranks' combined "
+                                     "outputs differ")
+        t_whole = device_ms(torch, lambda i: dattn.segmented_flash_attention(
+            q, whole, ar, one, scale), only="segmented_attention")
+        t_blocks = device_ms(torch, lambda i: [
+            dattn.segmented_flash_attention(q, b, ar, one, scale, lse=True)
+            for b in blocks], only="segmented_attention")
+        t_all = device_ms(torch, lambda i: sharded())
+        t_loop = time_ms(torch, lambda i: sharded(), iters=5, warmup=1)
+        keys = length + 128 + Sq
+        pairs = Sq * (length + 128) + Sq * (Sq + 1) // 2
+        bms, by = bound(2 * q.numel() * 2 + keys * H * D * 2 * 2,
+                        4.0 * H * D * pairs, PEAK_BF16)
+        log(f"  17b {label}: the whole-cache kernel {t_whole:.4f} ms, the 4 "
+            f"block kernels with lse {t_blocks:.4f} ms of device time "
+            f"together ({t_blocks / t_whole:.2f} x), with the combine "
+            f"{t_all:.4f} ms ({t_all / t_whole:.2f} x), bound {bms:.4f} ms "
+            f"({by}); the 4 ranks in turn with the combine {t_loop:.3f} ms "
+            f"(CUDA events, host included) [{card}]")
+        rec[label] = dict(whole_ms=t_whole, blocks_ms=t_blocks,
+                          blocks_combine_ms=t_all, loop_ms=t_loop,
+                          bound_ms=bms, bound_by=by)
+    return rec
+
+
+def seq_world_of_one(torch, m, params, cfg, card):
+    """17c: ``make_ingest_step`` / ``make_prefill_step`` /
+    ``make_decode_step`` with ``shard_cache_seq=True,
+    batch_sharded=False`` and ``generate(seq_shard=True)`` in an NCCL
+    world of one rank on a (1, 1) mesh, against ``dist=None``, bit-equal
+    (a one-block combine is out x 1 / 1), on LLaMA-7B's 32 layers (B1, a
+    2048-token cache): 2 ingests of 64 tokens, a 448-token prefill, a
+    448-token prefill at length 1800 (clamped at the buffer's end), 4
+    decode steps and 8 generated tokens, concat and merge: the logits,
+    the cache and the memory.  Returns the sharded runs' launches."""
+    import torch.distributed as tdist
+    from repro_torch.distributed.context import free_port, init_world
+    from repro_torch.launch import serve as SRV
+    from repro_torch.launch.mesh import make_debug_mesh, make_dist
+    PI, ops = m.PI, m.ops
+    dev = init_world(0, 1, free_port(), params["embed"].device)   # NCCL
+    counts = {}
+    try:
+        dist = make_dist(make_debug_mesh(1, 1, device=dev))
+        gen = torch.Generator(device=dev).manual_seed(172)
+        ctx = [torch.randint(0, cfg.vocab_size, (1, 64), generator=gen,
+                             device=dev) for _ in range(2)]
+        prompt = torch.randint(0, cfg.vocab_size, (1, 448), generator=gen,
+                               device=dev)
+        for mode in ("concat", "merge"):
+            c = cfg.replace(ccm=dataclasses.replace(cfg.ccm, mode=mode))
+            kw = dict(shard_cache_seq=True, batch_sharded=False)
+            ing, pre = SRV.make_ingest_step(c, dist, **kw), \
+                SRV.make_prefill_step(c, dist, **kw)
+            dec = SRV.make_decode_step(c, dist, **kw)
+
+            def online(st, sharded):
+                for x in ctx:
+                    st = ing(params, st, x) if sharded else \
+                        PI.ingest_context(params, c, st, x)
+                lgs = []
+                for at in (None, 1800):
+                    if at is not None:
+                        st = st._replace(cache=st.cache._replace(length=at))
+                    lg, st = pre(params, st, prompt) if sharded else \
+                        PI.prefill(params, c, st, prompt)
+                    lgs.append(lg)
+                for _ in range(4):
+                    tok = lgs[-1][:, -1].argmax(-1)[:, None]
+                    lg, st = dec(params, st, tok) if sharded else \
+                        PI.decode_step(params, c, st, tok)
+                    lgs.append(lg)
+                g = PI.generate(params, c, clone_state(torch, st),
+                                prompt[:, :64], 8,
+                                dist=dist if sharded else None,
+                                seq_shard=sharded)
+                return lgs, st, g
+            st0 = PI.init_online_state(c, 1, 2048, device=dev)
+            _, st_d = pre.place(params, clone_state(torch, st0))
+            got = counted(ops, counts, lambda: online(st_d, True))
+            want = online(st0, False)
+            bad = [i for i, (a, b) in enumerate(zip(got[0], want[0]))
+                   if not torch.equal(a, b)]
+            for name in ("k", "v"):
+                if not torch.equal(getattr(got[1].cache, name),
+                                   getattr(want[1].cache, name)) or not \
+                        torch.equal(getattr(got[1].mem, name),
+                                    getattr(want[1].mem, name)):
+                    bad.append(f"state {name}")
+            if bad or not torch.equal(got[2], want[2]):
+                raise AssertionError(f"17c {mode}: differ at {bad} or in "
+                                     "generate's tokens")
+            log(f"  17c {mode}: the sequence-sharded builders (1 data rank "
+                "over NCCL) and generate(seq_shard=True): logits of 2 "
+                "ingests' state, 2 prefills of 448 (the second clamped at "
+                "the buffer's end) and 4 decode steps, the cache and memory, "
+                "8 generated tokens, bit-equal to dist=None (B1, "
+                f"{c.n_layers} layers)")
+            del got, want, st_d, st0
+        return counts
+    finally:
+        tdist.destroy_process_group()
+
+
+def seq_cache_layer(torch, cfg, li: int, which: int, S: int, dev):
+    """Layer ``li`` of 17d's random cache (``which`` 0: k, 1: v) from its
+    own seed: (1, S, Hkv, hd) bf16."""
+    g = torch.Generator(device=dev).manual_seed(1700 + 2 * li + which)
+    return torch.randn((1, S, cfg.n_kv_heads, cfg.hd), generator=g,
+                       device=dev, dtype=torch.bfloat16)
+
+
+def seq_rank_loop(torch, m, params, cfg, card):
+    """17d: LLaMA-7B at full width (32 layers, bf16, B1) over a
+    32768-token cache of random K/V, with the sequence split in 4 blocks
+    of 8192 held by the 4 data ranks of a LocalGroup (each a ``SeqShard``
+    over its member, in turn on the card), against the whole cache: an
+    ingest (64 tokens) at length 24500, a 448-token prefill at length
+    24400 (its block crosses 24576, from rank 2's range into rank 3's), a
+    448-token prefill at length 32700 (it clamps at the buffer's end:
+    rows 32320-32767) and 8 greedy decode tokens (each written on the
+    last row).  Every run decodes the whole cache's greedy tokens, so
+    that each step's logits are compared on the same input.  The witness
+    is another bf16 path over the same cache, the same chain over 2
+    blocks of 16384.  Held: the logits within bf16_tol_paths of the whole
+    cache's, or within 2 x the witness's distance where that is larger
+    (as 11d holds a bf16 session to its witness); the greedy picks equal
+    (but at a near-tie of the whole cache's two best logits, which is
+    logged); each rank's block against the whole run's rows there: layer
+    0's written rows bit-equal, every layer's within bf16_tol_paths (or 2
+    x the witness's distance), and bit-equal to the random cache where no
+    step wrote.  Returns the 4-rank run's launches and the record."""
+    import numpy as np
+    from repro_torch.core import inference as I
+    from repro_torch.distributed import tensor_parallel as TPX
+    PI, ops = m.PI, m.ops
+    dev = params["embed"].device
+    S = 32768
+    L = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(173)
+    ctx = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen,
+                        device=dev)
+    p1, p2 = (torch.randint(0, cfg.vocab_size, (1, 448), generator=gen,
+                            device=dev) for _ in range(2))
+
+    def chain(st, step, feed=None):
+        """ingest, prefill, prefill, 8 decode tokens; ``step(op, st, x)``
+        runs one op.  The decode takes its own greedy picks, or ``feed``'s
+        tokens where given (every run then decodes the same tokens).
+        Returns (logits, its greedy picks, state)."""
+        def at(st, n_):
+            return st._replace(cache=st.cache._replace(length=n_))
+        st = step("ingest", at(st, 24500), ctx)
+        lgs = []
+        for n_, p in ((24400, p1), (32700, p2)):
+            lg, st = step("prefill", at(st, n_), p)
+            lgs.append(lg[:, -1])
+        toks = []
+        for j in range(8):
+            toks.append(lgs[-1].argmax(-1))
+            tok = toks[-1] if feed is None else feed[:, j]
+            lg, st = step("decode", st, tok[:, None])
+            lgs.append(lg[:, -1])
+        return lgs, torch.stack(toks, 1), st
+
+    def run(seq=None):
+        def step(op, st, x):
+            if op == "ingest":
+                return PI.ingest_context(params, cfg, st, x, seq_shard=seq)
+            if op == "prefill":
+                return PI.prefill(params, cfg, st, x, seq_shard=seq)
+            return PI.decode_step(params, cfg, st, x, seq_shard=seq)
+        return step
+
+    def state(n, i):
+        """Data rank i's state of n: its block of the random cache."""
+        blk = S // n
+        st = PI.init_online_state(cfg, 1, blk, device=dev)
+        for li in range(L):
+            for w, buf in enumerate((st.cache.k, st.cache.v)):
+                buf[li].copy_(seq_cache_layer(torch, cfg, li, w, S, dev)
+                              [:, i * blk:(i + 1) * blk])
+        return st
+
+    def sharded(n, feed, counts=None):
+        """The chain on n data ranks in turn, decoding ``feed``: (rank 0's
+        logits and greedy picks, every rank's state, host seconds)."""
+        grp = TPX.LocalGroup(n)
+        sts = [state(n, i) for i in range(n)]
+        seqs = [I.SeqShard(grp.member(i), i, n) for i in range(n)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+
+        def ranks():
+            return grp.run(lambda i: chain(sts[i], run(seqs[i]), feed))
+        outs = counted(ops, counts, ranks) if counts is not None \
+            else ranks()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for i, o in enumerate(outs[1:], 1):
+            if not all(torch.equal(a, b) for a, b in zip(o[0], outs[0][0])) \
+                    or not torch.equal(o[1], outs[0][1]):
+                raise AssertionError(f"17d n={n}: rank {i}'s logits or "
+                                     "tokens differ from rank 0's")
+        return outs[0][0], outs[0][1], [o[2] for o in outs], secs
+
+    def ratios(lgs, want):
+        return [max_err(a, b) / bf16_tol(b) for a, b in zip(lgs, want)]
+
+    def ratio(lgs, want):
+        return max(ratios(lgs, want))
+
+    def picks(toks, want_lgs, label):
+        """The greedy picks against the whole cache's; a pick may differ
+        only where the whole cache's two best logits lie within
+        bf16_tol_paths of each other (a tie the two paths may break
+        either way).  Returns the number of equal picks."""
+        same = 0
+        for j in range(toks.shape[1]):
+            if torch.equal(toks[:, j], want_toks[:, j]):
+                same += 1
+                continue
+            lg = want_lgs[j + 1].float()
+            top = lg.topk(2, dim=-1).values
+            gap = (top[:, 0] - top[:, 1]).min().item()
+            if not gap <= bf16_tol_paths(lg):
+                raise AssertionError(
+                    f"17d {label}: greedy pick {j} {toks[:, j].tolist()} vs "
+                    f"the whole cache's {want_toks[:, j].tolist()}, whose "
+                    f"two best logits lie {gap:.4f} apart")
+            log(f"  17d {label}: greedy pick {j} differs at a near-tie of "
+                f"the whole cache's logits ({gap:.4f} <= bf16_tol_paths)")
+        return same
+
+    rec, counts = {}, {}
+    with torch.no_grad():
+        st_w = state(1, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_lgs, want_toks, want_st = chain(st_w, run())
+        torch.cuda.synchronize()
+        rec["whole_s"] = time.perf_counter() - t0
+        n = 4
+        blk = S // n
+        lgs, toks, sts, rec["sharded_s"] = sharded(n, want_toks, counts)
+        same = picks(toks, want_lgs, "4 blocks")
+        worst = ratio(lgs, want_lgs)
+        wrote = np.zeros(S, bool)
+        wrote[24400:24848] = True
+        wrote[32320:] = True
+
+        def cache_rows(sts, n, label):
+            """Each rank's block against the whole run's rows there: the
+            rows no step wrote bit-equal to the random cache (in both
+            runs), layer 0's written rows bit-equal (both runs compute
+            them from the same embeddings), and each layer's written rows'
+            distance from the whole run's in x bf16_tol_paths (the larger
+            of k and v)."""
+            blk = S // n
+            out = []
+            for li in range(L):
+                r = 0.0
+                for w, name in enumerate(("k", "v")):
+                    init = seq_cache_layer(torch, cfg, li, w, S, dev)[0]
+                    whole = getattr(want_st.cache, name)[li, 0]
+                    for i in range(n):
+                        mine = getattr(sts[i].cache, name)[li, 0]
+                        lo = i * blk
+                        rows = torch.from_numpy(wrote[lo:lo + blk]).to(dev)
+                        part = whole[lo:lo + blk]
+                        if not torch.equal(mine[~rows], init[lo:lo + blk][~rows]) \
+                                or not torch.equal(part[~rows],
+                                                   init[lo:lo + blk][~rows]):
+                            raise AssertionError(f"17d {label} layer {li} "
+                                                 f"{name} rank {i}: an "
+                                                 "unwritten row moved")
+                        if not rows.any():
+                            continue
+                        if li == 0 and not torch.equal(mine[rows],
+                                                       part[rows]):
+                            raise AssertionError(f"17d {label} rank {i}: "
+                                                 "layer 0's written rows "
+                                                 "differ from the whole "
+                                                 "run's")
+                        r = max(r, max_err(mine[rows], part[rows])
+                                / bf16_tol_paths(part[rows]))
+                out.append(r)
+            return out
+        cache4 = cache_rows(sts, n, "4 blocks")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del sts
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the witness: the same chain over 2 blocks
+        lg2, tok2, sts2, _ = sharded(2, want_toks)
+        w_ratio = ratio(lg2, want_lgs)
+        w_pair = ratio(lgs, lg2)
+        same2 = picks(tok2, want_lgs, "2 blocks")
+        cache2 = cache_rows(sts2, 2, "2 blocks")
+        del sts2, st_w, want_st
+        gc.collect()
+        torch.cuda.empty_cache()
+    cache_worst, cache_wit = max(cache4), max(cache2)
+    log(f"  17d logits by step (x bf16_tol: 2 prefills, 8 decode steps), 4 "
+        f"blocks vs the whole cache: "
+        f"{[round(x, 3) for x in ratios(lgs, want_lgs)]}; 2 blocks: "
+        f"{[round(x, 3) for x in ratios(lg2, want_lgs)]}")
+    log(f"  17d written cache rows by layer (x bf16_tol_paths, the larger of "
+        f"k and v), 4 blocks: {[round(x, 3) for x in cache4]}; 2 blocks: "
+        f"{[round(x, 3) for x in cache2]}")
+    log(f"  17d witness (x bf16_tol, the worst of 10 logit rows): 4 blocks "
+        f"vs the whole cache {worst:.3f} / 2 blocks vs the whole cache "
+        f"{w_ratio:.3f} / 4 blocks vs 2 blocks {w_pair:.3f}; greedy picks "
+        f"equal to the whole cache's: {same} of 8 (4 blocks), {same2} of 8 "
+        "(2 blocks)")
+    # bf16_tol_paths, or, where the cell's two bf16 paths lie farther
+    # apart (the witness: another split of the same cache), within 2 x
+    # the witness's distance, as 11d holds a bf16 session to its witness
+    bound = max(2.0, 2.0 * w_ratio)
+    if worst > bound:
+        raise AssertionError(f"17d: the sharded run's logits lie {worst:.3f}"
+                             f" x bf16_tol from the whole cache's (bound "
+                             f"{bound:.3f}: bf16_tol_paths, or 2 x the "
+                             "2-block witness)")
+    if cache_worst > max(1.0, 2.0 * cache_wit):
+        raise AssertionError(f"17d: written cache rows at {cache_worst:.3f} "
+                             f"x bf16_tol_paths (2-block witness "
+                             f"{cache_wit:.3f})")
+    log(f"  17d: 4 data ranks over a {S}-token cache: logits "
+        f"{worst:.3f} x bf16_tol from the whole cache's (bound "
+        f"{bound:.3f}), {same} of 8 greedy "
+        f"picks equal (every run decodes the whole cache's), written "
+        f"cache rows within {cache_worst:.3f} x bf16_tol_paths (2 blocks "
+        f"{cache_wit:.3f}; layer 0 bit-equal), every other row bit-equal; "
+        f"the whole run {rec['whole_s']:.2f} s, the 4 ranks in turn "
+        f"{rec['sharded_s']:.2f} s (host clock); peak {peak:.1f} GiB "
+        f"[{card}]")
+    rec.update(worst=worst, bound=bound, witness_2_blocks=w_ratio,
+               witness_4_vs_2=w_pair,
+               picks_equal=same, picks_equal_2_blocks=same2,
+               cache_worst=cache_worst, cache_witness=cache_wit,
+               peak_gib=peak)
+    return counts, rec
+
+
+def phase17(torch, m, params, cfg, card):
+    """Phase 17 on LLaMA-7B's weights: 17a the mma.sync route's lse, 17b
+    the blocks against the whole cache at the kernel, 17c the builders
+    in an NCCL world of one, 17d the data ranks in turn at full width."""
+    t0 = time.perf_counter()
+    log("  17a: the mma.sync route's log-sum-exp")
+    rec = {"17a": mma_lse_check(torch, m.dattn, m.PI.quantize_kv, card)}
+    log("  17b: prefill and ingest blocks over a cache cut in 4, combined")
+    rec["17b"] = seq_blocks_check(torch, m.dattn, card)
+    log("  17c: the sequence-sharded builders in an NCCL world of one rank, "
+        "(1, 1) mesh")
+    counts = seq_world_of_one(torch, m, params, cfg, card)
+    log("  17d: 4 data ranks in turn (LocalGroup) over a 32768-token cache")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loop_counts, rec["17d"] = seq_rank_loop(torch, m, params, cfg, card)
+    add_counts(counts, loop_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in ("segmented_attention_mma_lse", "segmented_attention_splitk",
+              "cond_lora_wgmma"):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"phase 17: no launch of {k} ({counts})")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"  phase 17 launches: {({k: v for k, v in counts.items() if v})}; "
+        f"took {rec['seconds']:.1f} s [{card}]")
+    return counts, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5968,6 +6589,14 @@ def main() -> int:
         phase16(torch, m14, card)
         log(f"  --phase16: done ({time.perf_counter() - t_start:.1f} s)")
         return 0
+    if "--phase17" in sys.argv[1:]:
+        log("phase 17 alone (--phase17): LLaMA-7B (32 layers, bf16, seed 0)")
+        cfg = llama_7b_paper.config()
+        params = init_lm(cfg, seed=0)
+        randomize_lora_b(torch, params, seed=100)
+        phase17(torch, m14, params, cfg, card)
+        log(f"  --phase17: done ({time.perf_counter() - t_start:.1f} s)")
+        return 0
 
     log("phase 2: kernels against their plain versions on the card")
     seg = check_segmented(torch, F, dattn, PI.quantize_kv, card)
@@ -6042,6 +6671,14 @@ def main() -> int:
         "dist= entry points, the rank loop at full width, the sequence-"
         "sharded decode")
     p14_counts, rec14 = phase14(torch, m14, params, cfg, card)
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    log("phase 17: the sequence-sharded prefill and ingest: the mma.sync "
+        "route's lse, the blocks at the kernel, the builders in an NCCL "
+        "world of one, 4 data ranks at full width")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p17_counts, rec17 = phase17(torch, m14, params, cfg, card)
     log(f"  peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
     log("phase 8: CCM streaming (sink + sliding window + compressed memory)")
@@ -6150,7 +6787,8 @@ def main() -> int:
     # recurrent families, 12: the encoder-decoder, the VLM and MoE, 13: the
     # sharded engines and the data-parallel step, 14, 15 and 16: the dist=
     # entry points and the tensor-parallel rank loops: dense, MoE, and the
-    # recurrent, encoder-decoder and VLM families)
+    # recurrent, encoder-decoder and VLM families; 17: the sequence-
+    # sharded builders and the data ranks over a cut cache)
     by_phase = {k: {"3": totals[k], "5": train_counts.get(k, 0),
                     "7": serve_counts[k], "8": stream_counts[k],
                     "9": zoo_counts[k], "10": base_counts.get(k, 0),
@@ -6158,18 +6796,20 @@ def main() -> int:
                     "13": p13_counts.get(k, 0),
                     "14": p14_counts.get(k, 0),
                     "15": p15_counts.get(k, 0),
-                    "16": p16_counts.get(k, 0)}
+                    "16": p16_counts.get(k, 0),
+                    "17": p17_counts.get(k, 0)}
                 for k in ("segmented_attention_splitk",
                           "segmented_attention_mma", "cond_lora_wgmma",
                           "ccm_attention_mma", "ccm_attention_backward_mma")}
     for k, need in (("segmented_attention_splitk", ("3", "8", "9", "11",
-                                                    "12", "14", "15", "16")),
+                                                    "12", "14", "15", "16",
+                                                    "17")),
                     ("segmented_attention_mma", ("3", "7", "8", "9", "11",
                                                  "12", "13", "14", "15",
-                                                 "16")),
+                                                 "16", "17")),
                     ("cond_lora_wgmma", ("3", "5", "7", "8", "9", "10",
                                          "11", "12", "13", "14", "15",
-                                         "16")),
+                                         "16", "17")),
                     ("ccm_attention_mma", ("5", "9", "11", "12", "13",
                                            "14", "15", "16")),
                     ("ccm_attention_backward_mma", ("5", "9", "11", "12",
@@ -6208,6 +6848,18 @@ def main() -> int:
              launches=sum(by_phase["segmented_attention_mma"].values()),
              launches_by_phase=by_phase["segmented_attention_mma"],
              kernel_route="mma.sync (bf16, Sq > 2)", **seg["prefill"]),
+        dict(name="segmented_attention_mma_lse", route="cuda",
+             source="src/repro_torch/csrc/segmented_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:160",
+             launches=p17_counts["segmented_attention_mma_lse"],
+             launches_by_phase={"17": p17_counts[
+                 "segmented_attention_mma_lse"]},
+             kernel_route="mma.sync with the log-sum-exp (bf16, Sq > 2; "
+             "the sequence-sharded prefill and ingest)",
+             **{k: rec17["17a"]["row"][k] for k in (
+                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "no_lse_ms", "lse_err")},
+             blocks=rec17["17b"]),
         dict(name="cond_lora", route="cuda",
              source="src/repro_torch/csrc/cond_lora.cu",
              replaces="src/repro/kernels/cond_lora.py:48",

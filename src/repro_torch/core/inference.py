@@ -156,10 +156,12 @@ def init_online_state(cfg: ModelConfig, batch: int, max_cache_len: int,
 # ---------------------------------------------------------------------------
 
 class SeqShard(NamedTuple):
-    """The sequence-sharded decode's view of the KV cache: this data
-    rank's block ``rank`` of ``n`` contiguous blocks of the cache's
-    sequence axis, and the collectives over the data axes that combine
-    the blocks' attention (`models.attention.combine_blocks`)."""
+    """The sequence-sharded cache's view of the KV cache: this data rank's
+    block ``rank`` of ``n`` contiguous blocks of the cache's sequence
+    axis, and the collectives over the data axes that combine the
+    blocks' attention (`models.attention.combine_blocks`).  The decode,
+    the prefill and the ingest read it; the decode and the prefill
+    write their block of new rows through it (`cache_plan`)."""
     coll: Any
     rank: int
     n: int
@@ -177,19 +179,24 @@ class SeqShard(NamedTuple):
         return cls(TPX.GroupCollectives(dist.group(axes), dist.n_data),
                    dist.rank_in(axes), dist.n_data)
 
-    def cache_plan(self, cache: KVCache, S: int):
-        """(this block's valid length, the new token's write plan here or
-        None).  The write lands where the unsharded cache's would, the
-        reference's clamp at the buffer's end included."""
+    def cache_plan(self, cache: KVCache, S: int, valid_len=None):
+        """(this block's valid length, the write plan of a block of ``S``
+        new rows here, or None where the block misses this rank).  The
+        block lands where the unsharded cache's would, the reference's
+        clamp at the buffer's end included (`masks.block_rows`); each
+        rank writes the rows that fall in its range, as local rows."""
         length = uniform(cache.length)
-        if S != 1 or cache.lane_major or length is None:
-            raise ValueError("the sequence-sharded cache takes one-token "
-                             "decode steps of a shared length")
+        if valid_len is not None or cache.lane_major or length is None:
+            raise ValueError("the sequence-sharded cache takes blocks of "
+                             "one shared length (no ragged lanes, no "
+                             "lane-major cache)")
         blk = cache.k.shape[2]
-        lo = self.rank * blk
-        at = min(max(int(length), 0), blk * self.n - S)
-        plan = M.plan_block_write(at - lo, S, blk) \
-            if lo <= at < lo + blk else None
+        lo, total = self.rank * blk, blk * self.n
+        at = min(max(int(length), 0), max(total - S, 0))
+        rows = min(S, total)
+        plan = M.plan_block_write(at - lo, S, blk, rows,
+                                  device=cache.k.device) \
+            if lo < at + rows and at < lo + blk else None
         return min(max(int(length) - lo, 0), blk), plan
 
     def attend(self, cfg: ModelConfig, q, segs, q_info):
@@ -275,9 +282,9 @@ def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
     rank): ``params`` is its shard and the state holds its KV heads (the
     cache, the memory and the cross K/V; ``online_state_pspecs``), while
     Mamba2 layers run whole and read and write ``state.ssm`` whole.
-    ``seq`` (`SeqShard`, decode only): the cache holds this data rank's
-    block of the sequence; the block write goes to the rank that owns
-    the position.
+    ``seq`` (`SeqShard`): the cache holds this data rank's block of the
+    sequence; each rank writes the rows of the new block that fall in
+    its range (`SeqShard.cache_plan`).
     """
     cache, mem, ssm, cross = state.cache, state.mem, state.ssm, state.cross
     B, S = x.shape[:2]
@@ -289,7 +296,7 @@ def _stack_pass(params, cfg: ModelConfig, x, positions, *, comp_gate,
         else None
     write = write_to_cache and cache is not None
     if seq is not None:
-        cache_len, plan = seq.cache_plan(cache, S)
+        cache_len, plan = seq.cache_plan(cache, S, valid_len)
         write = write and plan is not None
     else:
         plan = M.plan_block_write(cache.length, S, cache.k.shape[2],
@@ -385,7 +392,7 @@ def _valid_lanes(valid_len, B: int, dev) -> torch.Tensor:
 def ingest_context(params, cfg: ModelConfig, state: OnlineState,
                    chunk_tokens: torch.Tensor,
                    valid_len: Optional[Counter] = None,
-                   dist=None) -> OnlineState:
+                   dist=None, seq_shard=None) -> OnlineState:
     """Online step for a new context c(t): compress it (g_comp: the model
     runs over [c(t) | <COMP>^m] with the conditional LoRA firing at the
     <COMP> rows) and fold the <COMP> KV into memory (g_update).  The raw
@@ -403,10 +410,13 @@ def ingest_context(params, cfg: ModelConfig, state: OnlineState,
     ``dist`` (a mesh splitting the model, or a `TensorParallel` rank):
     ``params`` is this rank's shard and the state holds its KV heads
     (``online_state_pspecs``); the merge g_update and the int8 scales act
-    on them."""
+    on them.  ``seq_shard`` as in `decode_step`: the block reads this
+    data rank's block of the cache, and every data rank folds the same
+    combined <COMP> KV into its whole memory."""
     B, lc = chunk_tokens.shape
     _no_ragged(cfg, valid_len, "ingest")
     tp = TPX.tp_of(cfg, dist)
+    seq = SeqShard.of(dist, seq_shard) if state.cache is not None else None
     if cfg.family == "ssm":
         x = _embed_block(cfg, params, chunk_tokens, _positions(
             state.pos, torch.arange(lc, device=chunk_tokens.device), B),
@@ -439,7 +449,7 @@ def ingest_context(params, cfg: ModelConfig, state: OnlineState,
     x, _, comp_kv = _stack_pass(
         params, cfg, x, positions, comp_gate=comp_gate, q_info=info,
         self_info=info, state=state, write_to_cache=False, collect_comp=lc,
-        tp=tp)
+        valid_len=valid_len, tp=tp, seq=seq)
     new_mem = update_memory(cfg, state.mem, comp_kv[0], comp_kv[1], consumed)
     return state._replace(mem=new_mem, pos=state.pos + consumed)
 
@@ -448,7 +458,8 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
             tokens: torch.Tensor, impl: Optional[str] = None,
             full_logits: bool = False,
             valid_len: Optional[Counter] = None,
-            patches: Optional[torch.Tensor] = None, dist=None):
+            patches: Optional[torch.Tensor] = None, dist=None,
+            seq_shard=None):
     """Process input I(t) attending [Mem(t), cache, self-causal]; its KV
     is cached.  Returns (logits, new_state) — last position only unless
     ``full_logits``.  ``dist`` as in `ingest_context`; the logits are then
@@ -465,10 +476,17 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
     replace the first P positions' token embeddings.  The block must hold them
     (P <= S; the reference's concatenation would change the block's
     length otherwise): a shorter block raises ValueError before any state
-    is written."""
+    is written.
+
+    ``seq_shard`` as in `decode_step`: the block attends this data rank's
+    block of the cache, and each rank writes the block's rows that fall
+    in its range, so a block may cross from one rank's range into the
+    next; the start clamps at the buffer's end as the unsharded cache's
+    does."""
     B, S = tokens.shape
     _no_ragged(cfg, valid_len, "prefill")
     tp = TPX.tp_of(cfg, dist)
+    seq = SeqShard.of(dist, seq_shard) if state.cache is not None else None
     if patches is not None and patches.shape[1] > S:
         raise ValueError(
             f"prefill of {S} tokens with {patches.shape[1]} patches: the "
@@ -492,7 +510,7 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
     x, new_cache, _ = _stack_pass(
         params, cfg, x, positions, comp_gate=None, q_info=info,
         self_info=info, state=state, write_to_cache=True, collect_comp=None,
-        impl=impl, valid_len=valid_len, tp=tp)
+        impl=impl, valid_len=valid_len, tp=tp, seq=seq)
     logits = T.lm_logits(params, cfg, x if full_logits else x[:, -1:], tp=tp)
     return logits, state._replace(cache=new_cache, pos=state.pos + adv)
 
@@ -504,15 +522,16 @@ def decode_step(params, cfg: ModelConfig, state: OnlineState,
     self keys carry index 2**30 + i, past every cached index.  Mamba2
     layers take the per-token recurrence.  ``dist`` as in `prefill`.
 
-    ``seq_shard`` (the sequence-sharded decode,
+    ``seq_shard`` (the sequence-sharded cache,
     ``online_state_pspecs(shard_cache_seq=True, batch_sharded=False)``):
     True with a ``DistContext``, or a `SeqShard`.  The cache is this data
     rank's block of the sequence; each data rank attends its block (the
     memory and the self key on data rank 0 alone) with the kernel's
     log-sum-exp, and the blocks combine over the data axes.  The new
-    token's KV goes to the rank that owns its position.  A state with no
-    cache (the ssm family) has nothing to shard (the reference's spec
-    shards no dim of it), and every data rank runs it whole."""
+    token's KV goes to the rank that owns its position.  Ragged lanes and
+    lane-major caches raise ValueError.  A state with no cache (the ssm
+    family) has nothing to shard (the reference's spec shards no dim of
+    it), and every data rank runs it whole."""
     B, S = tokens.shape
     tp = TPX.tp_of(cfg, dist)
     seq = SeqShard.of(dist, seq_shard) if state.cache is not None else None
@@ -579,15 +598,22 @@ def greedy(logits: torch.Tensor, cfg: ModelConfig, dist=None) -> torch.Tensor:
 def generate(params, cfg: ModelConfig, state: OnlineState,
              prompt: torch.Tensor, max_new: int, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             impl: Optional[str] = None, dist=None) -> torch.Tensor:
+             impl: Optional[str] = None, dist=None,
+             seq_shard=None) -> torch.Tensor:
     """Greedy / temperature sampling: prefill ``prompt`` then decode.
     Returns (B, max_new) int32 tokens.  Temperature sampling draws from
     ``generator`` (a fresh one seeded with 0 on the logits' device when
     None).  ``dist`` as in `prefill`: the pick spans the ranks'
     vocabulary blocks (`greedy`; sampling draws from the gathered
-    logits, the same draw on every rank)."""
+    logits, the same draw on every rank).  ``seq_shard`` as in
+    `decode_step`, for the prefill and every decode step; every data
+    rank then holds the whole batch (an ``ep`` MoE reckons its capacity
+    as `tensor_parallel.replicated_rows` says)."""
+    seq = SeqShard.of(dist, seq_shard) if state.cache is not None else None
+    if seq is not None:
+        dist = TPX.replicated_rows(cfg, dist)
     logits, state = prefill(params, cfg, state, prompt, impl=impl,
-                            dist=dist)
+                            dist=dist, seq_shard=seq)
     tok = greedy(logits[:, -1], cfg, dist).to(torch.int32)
     toks = [tok]
     if temperature > 0 and generator is None:
@@ -595,7 +621,7 @@ def generate(params, cfg: ModelConfig, state: OnlineState,
         generator.manual_seed(0)
     for _ in range(max_new - 1):
         lg, state = decode_step(params, cfg, state, tok[:, None], impl=impl,
-                                dist=dist)
+                                dist=dist, seq_shard=seq)
         lg = lg[:, -1]
         if temperature > 0:
             lg = gather_vocab(lg, cfg, dist)

@@ -38,11 +38,11 @@
 // A bf16 call with float32 K/V is refused (cudaErrorInvalidValue; the
 // wrapper raises before the launch).
 //
-// Optional output (routes 0 and 1): each q row's log-sum-exp of its
-// visible scaled logits, m + log l of the running softmax (-inf for a row
-// that sees no key), to `lse` (B, Hq, Sq) float32; a null `lse` writes
+// Optional output (every route): each q row's log-sum-exp of its visible
+// scaled logits, m + log l of the running softmax (-inf for a row that
+// sees no key), to `lse` (B, Hq, Sq) float32; a null `lse` writes
 // nothing.  Attention over keys split across ranks combines by it (the
-// sequence-sharded decode).  Route 2 refuses it.
+// sequence-sharded decode, prefill and ingest).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <limits.h>
@@ -872,7 +872,10 @@ segmented_attention_splitk_kernel(const __grid_constant__ AttnParams p,
 // whole (decided, with the tile precheck, from a summary of the block's
 // rows: least and largest q_idx, one segment or not); the per-lane
 // length bound is as in route 1.  A head dim that is not a multiple of 16
-// is zero-padded in the last k-step of Q K^T.
+// is zero-padded in the last k-step of Q K^T.  With `lse`, one lane of
+// each quad writes its row's m ln 2 + log l (m in base 2) from the
+// running max and the quad's reduced l; the rest of the epilogue is the
+// same with or without it.
 
 struct MmaLayout {           // byte offsets into dynamic shared memory
   int rse, q, ring, meta, view, qm, qr, total;
@@ -1142,6 +1145,9 @@ segmented_attention_mma_kernel(const __grid_constant__ AttnParams p) {
     const float inv = l > 0.f ? 1.f / l : 0.f;
     const int row = q0 + r0 + 8 * hh;
     if (row >= p.Sq) continue;
+    if (p.lse && tq == 0)             // m is in base 2: lse = m ln 2 + log l
+      p.lse[((long long)b * p.Hq + h) * p.Sq + row] =
+          l > 0.f ? mrow[hh] * LN2_F + logf(l) : -INFINITY;
     __nv_bfloat16* orow = out + b * p.o_lane + row * p.o_tok + h * p.o_head;
 #pragma unroll
     for (int n = 0; n < NDT; ++n) {
@@ -1200,7 +1206,7 @@ extern "C" int segmented_attention_launch(const AttnParams* params, int route,
   const AttnParams& p = *params;
   if (p.D <= 0 || p.D > MAX_D || (p.D & 7) || p.nseg < 1 ||
       p.nseg > MAX_SEGS || p.Hkv <= 0 || p.Hq % p.Hkv || route < 0 ||
-      route > 2 || (route == 2 && p.lse))
+      route > 2)
     return (int)cudaErrorInvalidValue;
   if (route > 0)
     for (int si = 0; si < p.nseg; ++si)

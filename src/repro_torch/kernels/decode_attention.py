@@ -44,6 +44,7 @@ SM_COUNT = 132      # H100 SXM streaming multiprocessors
 launches = 0         # kernel launches (the count chip_smoke reads)
 splitk_launches = 0  # of them: the bf16 split-K decode route (Sq <= 2)
 mma_launches = 0     # of them: the bf16 mma.sync route (Sq > 2)
+mma_lse_launches = 0  # of those: with the log-sum-exp
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
@@ -177,9 +178,8 @@ def segmented_flash_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
     takes the CUDA-core route; bf16 q (with bf16 or int8 K/V) the split-K
     decode route when Sq <= 2, else the mma.sync route.  ``lse``: also
     returns the rows' log-sum-exp (B, Hq, Sq) float32 (-inf where a row
-    sees no key), written by the same launch; the mma.sync route does not
-    take it (``ValueError``)."""
-    global launches, splitk_launches, mma_launches
+    sees no key), written by the same launch on every route."""
+    global launches, splitk_launches, mma_launches, mma_lse_launches
     if q.dtype not in (torch.float32, torch.bfloat16) or q.ndim != 4:
         raise ValueError(f"q must be (B, Sq, Hq, D) float32/bf16, got "
                          f"{q.dtype} {tuple(q.shape)}")
@@ -190,9 +190,6 @@ def segmented_flash_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
         raise ValueError("q: last dim must be contiguous")
     if q.dtype == torch.bfloat16 and Sq > 2:
         _check_vec(q, "q")           # the mma.sync route copies 16-byte rows
-        if lse:
-            raise ValueError("lse: the mma.sync route (bf16 q, Sq > 2) does "
-                             "not write the log-sum-exp")
     segs = [s for s in segs
             if s["k"].shape[2 if s.get("layer") is not None else 1]]
     if not 1 <= len(segs) <= MAX_SEGS:
@@ -303,4 +300,5 @@ def segmented_flash_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
     launches += 1
     splitk_launches += route == 1
     mma_launches += route == 2
+    mma_lse_launches += route == 2 and lse
     return (out, rows) if lse else out

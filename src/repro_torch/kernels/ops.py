@@ -21,10 +21,12 @@ from repro_torch.kernels import session_gather as _sess
 
 # op name -> (module, name of its launch counter); the ``_splitk``,
 # ``_mma`` and ``_wgmma`` entries count the tensor-core routes' share of
-# their kernel's launches
+# their kernel's launches, ``_mma_lse`` the mma.sync route's launches
+# that write the log-sum-exp
 _KERNELS = {"segmented_attention": (_dattn, "launches"),
             "segmented_attention_splitk": (_dattn, "splitk_launches"),
             "segmented_attention_mma": (_dattn, "mma_launches"),
+            "segmented_attention_mma_lse": (_dattn, "mma_lse_launches"),
             "cond_lora": (_lora, "launches"),
             "cond_lora_wgmma": (_lora, "wgmma_launches"),
             "kv_merge_update": (_merge, "launches"),

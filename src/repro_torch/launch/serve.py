@@ -185,33 +185,49 @@ def _with_specs(fn: Callable, cfg: ModelConfig, dist: DistContext,
     return ShardedStep(fn, cfg, dist, state_specs, tok_spec)
 
 
-def _op_dist(cfg: ModelConfig, dist: Optional[DistContext], spec_kw):
-    """The ``dist`` an op runs with (`tensor_parallel.replicated_rows`
-    where the batch is not sharded)."""
-    if dist is None or spec_kw.get("batch_sharded", True):
-        return dist
-    return TPX.replicated_rows(cfg, dist)
+def _op_dists(cfg: ModelConfig, dist: Optional[DistContext],
+              spec_kw) -> Callable:
+    """A builder's () -> (the ``dist`` its op runs with, the sequence-
+    sharded cache's `core.inference.SeqShard` or None), taken at the
+    step's first call: the model axis's and the data axes' groups are
+    collectives every rank joins there.  Where the batch is not sharded
+    the op runs with `tensor_parallel.replicated_rows`.
 
+    ``shard_cache_seq=True`` splits the cache's sequence over the data
+    axes and takes ``batch_sharded=False`` (every data rank holds the
+    whole batch): with the batch split too, the tokens' and the memory's
+    rows would lie over the same axes as the cache's blocks, and the
+    builder raises ValueError."""
+    if dist is None:
+        return lambda: (None, None)
+    rows = spec_kw.get("batch_sharded", True)
+    if spec_kw.get("shard_cache_seq") and rows:
+        raise ValueError(
+            "shard_cache_seq=True takes batch_sharded=False: each data rank "
+            "holds every lane of its block of the cache, which a split of "
+            "the tokens' and the memory's rows over the same axes breaks")
+    got = []
 
-def _decode_only(spec_kw, what: str) -> None:
-    if spec_kw.get("shard_cache_seq"):
-        raise NotImplementedError(
-            f"{what} over a sequence-sharded cache: only decode steps read "
-            "one (ROADMAP queue 1 item 4b-sp, the sequence-sharded prefill "
-            "and ingest)")
+    def get():
+        if not got:
+            got.append((dist if rows else TPX.replicated_rows(cfg, dist),
+                        I.SeqShard.of(dist, spec_kw.get("shard_cache_seq"))))
+        return got[0]
+    return get
 
 
 def make_prefill_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
                       impl: Optional[str] = None, **spec_kw) -> Callable:
     """(params, state, tokens, patches=None) -> (logits, state):
-    ``core.inference.prefill`` (last-position logits)."""
-    if dist is not None:
-        _decode_only(spec_kw, "a prefill")
-    op = _op_dist(cfg, dist, spec_kw)
+    ``core.inference.prefill`` (last-position logits).  With
+    ``shard_cache_seq=True`` and ``batch_sharded=False`` the prefill over
+    the sequence-sharded cache (``prefill(seq_shard=)``)."""
+    dists = _op_dists(cfg, dist, spec_kw)
 
     def fn(params, state, tokens, patches=None):
+        op, seq = dists()
         return I.prefill(params, cfg, state, tokens, impl=impl,
-                         patches=patches, dist=op)
+                         patches=patches, dist=op, seq_shard=seq)
 
     if dist is None:
         return fn
@@ -221,13 +237,13 @@ def make_prefill_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
 def make_decode_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
                      **spec_kw) -> Callable:
     """(params, state, tokens (B, 1)) -> (logits, state).  With
-    ``shard_cache_seq=True`` (and ``batch_sharded=False``, as the
-    reference's long-context cell) the sequence-sharded decode
+    ``shard_cache_seq=True`` and ``batch_sharded=False`` (the reference's
+    long-context cell) the sequence-sharded decode
     (``core.inference.decode_step(seq_shard=)``)."""
-    op = _op_dist(cfg, dist, spec_kw)
-    seq = I.SeqShard.of(dist, spec_kw.get("shard_cache_seq"))
+    dists = _op_dists(cfg, dist, spec_kw)
 
     def fn(params, state, tokens):
+        op, seq = dists()
         return I.decode_step(params, cfg, state, tokens, dist=op,
                              seq_shard=seq)
 
@@ -238,13 +254,15 @@ def make_decode_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
 
 def make_ingest_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
                      **spec_kw) -> Callable:
-    """(params, state, tokens) -> state: ``core.inference.ingest_context``."""
-    if dist is not None:
-        _decode_only(spec_kw, "an ingest")
-    op = _op_dist(cfg, dist, spec_kw)
+    """(params, state, tokens) -> state: ``core.inference.ingest_context``
+    (over the sequence-sharded cache with ``shard_cache_seq=True`` and
+    ``batch_sharded=False``)."""
+    dists = _op_dists(cfg, dist, spec_kw)
 
     def fn(params, state, tokens):
-        return I.ingest_context(params, cfg, state, tokens, dist=op)
+        op, seq = dists()
+        return I.ingest_context(params, cfg, state, tokens, dist=op,
+                                seq_shard=seq)
 
     if dist is None:
         return fn

@@ -190,12 +190,12 @@ def test_serve_engine_needs_a_device_and_refuses_unported_options(
 def _unported_cases():
     """Multi-device options whose refusal slice 14 settles: a family
     other than dense and MoE on a mesh that splits the model now builds
-    its train step and its stream step (the model axis's process group
-    is taken at the first call); what stays unported, a prefill over a
-    sequence-sharded cache, raises NotImplementedError naming its ROADMAP
-    item (4b-sp).  (Sharded MoE, item 4b-ii, is
-    ``tests/test_torch_moe_tp.py``; the other families,
-    ``tests/test_torch_tp_families.py``.)"""
+    its train step and its stream step, and a prefill or an ingest over a
+    sequence-sharded cache builds too (the model axis's and the data
+    axes' process groups are taken at the first call).  (Sharded MoE,
+    item 4b-ii, is ``tests/test_torch_moe_tp.py``; the other families,
+    ``tests/test_torch_tp_families.py``; the sequence-sharded prefill and
+    ingest, item 4b-sp, ``tests/test_torch_seq_shard.py``.)"""
     from repro_torch.configs import whisper_tiny
     from repro_torch.core.masks import segment_layout
     from repro_torch.distributed.context import DistContext
@@ -217,21 +217,19 @@ def _unported_cases():
             cfg, segment_layout(2, 4, 2, 4), AdamWConfig(), dist=dist),
         "prefill-seq-shard": lambda: SRV.make_prefill_step(
             dense, dist, shard_cache_seq=True, batch_sharded=False),
+        "ingest-seq-shard": lambda: SRV.make_ingest_step(
+            dense, dist, shard_cache_seq=True, batch_sharded=False),
         "stream-step-dist": lambda: SRV.make_stream_step(cfg, dist=dist),
     }
 
 
-# the options still refused, by the ROADMAP item each names; the others
-# build
-_UNPORTED_ITEM = {"prefill-seq-shard": "4b-sp"}
-
-
 @pytest.mark.parametrize("case", ["train-n_model", "prefill-seq-shard",
-                                  "stream-step-dist"])
+                                  "ingest-seq-shard", "stream-step-dist"])
 def test_unported_multi_device_options_name_slice_14(case):
-    if case not in _UNPORTED_ITEM:
-        assert callable(_unported_cases()[case]())
-        return
-    with pytest.raises(NotImplementedError,
-                       match=_UNPORTED_ITEM[case] + r"\b"):
-        _unported_cases()[case]()
+    assert callable(_unported_cases()[case]())
+
+
+def test_no_port_module_refuses_the_sequence_sharded_prefill():
+    """No port module names ROADMAP item 4b-sp in a refusal any more."""
+    hits = [str(p) for p in PORT.rglob("*.py") if "4b-sp" in p.read_text()]
+    assert not hits, hits

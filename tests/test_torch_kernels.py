@@ -287,7 +287,8 @@ def test_cpu_ops_launch_no_kernel():
     pops.session_scatter(slab, [1], pops.session_gather(slab, [0]))
     assert pops.launch_counts() == {
         "segmented_attention": 0, "segmented_attention_splitk": 0,
-        "segmented_attention_mma": 0, "cond_lora": 0, "cond_lora_wgmma": 0,
+        "segmented_attention_mma": 0, "segmented_attention_mma_lse": 0,
+        "cond_lora": 0, "cond_lora_wgmma": 0,
         "kv_merge_update": 0,
         "ccm_attention": 0, "ccm_attention_backward": 0,
         "ccm_attention_mma": 0, "ccm_attention_backward_mma": 0,
