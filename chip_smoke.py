@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phase15  # the card, the build and phase 15 only
     python3 chip_smoke.py --phase16  # the card, the build and phase 16 only
     python3 chip_smoke.py --phase17  # the card, the build and phase 17 only
+    python3 chip_smoke.py --phase18  # the card, the build and phase 18 only
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the build of the
@@ -201,9 +202,30 @@ Phases (any failure raises, and the script exits non-zero):
      over a 32768-token cache at full width (an ingest, a prefill whose
      block crosses a rank edge, one that clamps at the buffer's end, 8
      greedy tokens) against the whole cache within ``bf16_tol_paths``
-     beside a witness, every unwritten cache row bit-equal;
+     beside a witness, every unwritten cache row bit-equal; 17b also
+     times the plain version and the library's flash attention with the
+     lse over the whole cache;
+ 18. (after 16) the cells of ``launch/specs.py`` and the dry run of
+     ``launch/dryrun.py``: (a) every registry arch (LLaMA-7B on phase 3's
+     weights at its 32 layers, and the ten of ``ASSIGNED``) x the four
+     shapes, ``build_cell(..., smoke=True)`` (seq 512; batch 4 for train,
+     2 otherwise; pixtral-12b's train and prefill at 1536 tokens, which
+     hold its 1024 patch positions), ``dist=None``, at full width with
+     phase 12's depth cuts and zamba2-1.2b at its 6 whole attention sites
+     (36 of 38 layers), the cell's meta arguments made on the card from
+     random weights of seed 0, then LLaMA-7B's train cell with the
+     ``merge`` variant and its decode with ``int8kv``: host ms, finite
+     outputs, launches; (b) each kind at LLaMA-7B's first 2 layers in
+     float32, card against CPU within 1e-3 x max|.| (loss and every
+     moment, logits and every state leaf); (c) each kind's ``dist`` cell
+     on a (1, 1) mesh in an NCCL world of one, bit-equal to ``dist=None``;
+     (d) each 18a cell's dry-run record on the meta device: its argument
+     bytes equal to the card args' bytes, its peak bytes beside
+     ``max_memory_allocated``, its FLOPs over the measured ms; (e) the dry
+     run of LLaMA-7B's four shapes on the 16 x 16 shape-only mesh, the
+     seconds per cell;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
-launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17,
+launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18,
 the mma.sync route's launches with the lse in phase 17, and
 the CCM kernel's phase-12 launches by whisper's encoder, read from the
 counters around each of its launches), then the result line.  Phase 2 also
@@ -6070,7 +6092,8 @@ def seq_blocks_check(torch, dattn, card):
     over a LocalGroup of 4, against the kernel over the whole cache
     within bf16_tol, and against the plain version.  Times the
     whole-cache kernel, the 4 block kernels and the ranks with the
-    combine."""
+    combine, and over the whole cache with the lse its plain version and
+    the library's flash attention."""
     from repro_torch.distributed import tensor_parallel as TPX
     from repro_torch.models.attention import combine_blocks
     dev = "cuda"
@@ -6131,6 +6154,21 @@ def seq_blocks_check(torch, dattn, card):
             for b in blocks], only="segmented_attention")
         t_all = device_ms(torch, lambda i: sharded())
         t_loop = time_ms(torch, lambda i: sharded(), iters=5, warmup=1)
+        # the whole cache with the lse: the plain version, and the
+        # library's flash attention (its 2nd output the lse) over the
+        # memory, the cache's first ``length`` keys and the block, every
+        # key visible (no mask)
+        t_plain = device_ms(torch, lambda i: dattn.plain(
+            q, whole, ar, one, scale, lse=True), iters=3)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (torch.cat([a, c[:, :length], b], 1).transpose(1, 2)
+                  .contiguous() for a, c, b in ((mk, k, sk), (mv, v, sv)))
+
+        def library(i):
+            return torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, scale=scale)
+        t_lib = device_ms(torch, library)
+        del qt, kt, vt
         keys = length + 128 + Sq
         pairs = Sq * (length + 128) + Sq * (Sq + 1) // 2
         bms, by = bound(2 * q.numel() * 2 + keys * H * D * 2 * 2,
@@ -6140,9 +6178,12 @@ def seq_blocks_check(torch, dattn, card):
             f"together ({t_blocks / t_whole:.2f} x), with the combine "
             f"{t_all:.4f} ms ({t_all / t_whole:.2f} x), bound {bms:.4f} ms "
             f"({by}); the 4 ranks in turn with the combine {t_loop:.3f} ms "
-            f"(CUDA events, host included) [{card}]")
+            f"(CUDA events, host included); over the whole cache with "
+            f"the lse, the plain version {t_plain:.4f} ms, the library's "
+            f"flash attention (no mask) {t_lib:.4f} ms [{card}]")
         rec[label] = dict(whole_ms=t_whole, blocks_ms=t_blocks,
                           blocks_combine_ms=t_all, loop_ms=t_loop,
+                          plain_ms=t_plain, library_ms=t_lib,
                           bound_ms=bms, bound_by=by)
     return rec
 
@@ -6497,6 +6538,319 @@ def phase17(torch, m, params, cfg, card):
     return counts, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the dry run's cells (launch/specs.py, launch/dryrun.py) on the card
+# ---------------------------------------------------------------------------
+
+P18_SHAPES = ("prefill_32k", "decode_32k", "long_500k", "train_4k")
+# 18a's depth cuts (never width): phase 12's (FAM_DEPTH: one card's memory
+# and the script's time) and the hybrid cut to its whole attention sites
+# (6 sites of 6 layers: its last 2 Mamba2 layers dropped)
+P18_DEPTH = dict(FAM_DEPTH, **{"zamba2-1.2b": 36})
+# the VLM's train and prefill cells hold its 1024 patch positions and 512
+# text tokens: the smoke shape's 512 tokens cannot hold the patches (nor
+# can the reference's step)
+P18_VLM_SEQ = 1024 + 512
+# the routes phase 18 must launch
+P18_KERNELS = ("segmented_attention_splitk", "segmented_attention_mma",
+               "cond_lora_wgmma", "ccm_attention_mma",
+               "ccm_attention_backward_mma", "kv_cummean",
+               "kv_cummean_backward")
+
+
+def p18_cell(m, cfg, shape: str, dist=None):
+    """The cell of ``shape`` at phase 18's scale: ``build_cell(smoke=True)``
+    (seq 512; batch 4 for train, 2 otherwise), the VLM's train and
+    prefill cells at ``P18_VLM_SEQ``."""
+    SP = m.specs
+    if cfg.family != "vlm" or shape not in ("train_4k", "prefill_32k"):
+        return SP.build_cell(cfg, shape, dist, smoke=True)
+    spec = dataclasses.replace(SP._scaled_shape(SP.SHAPES[shape], True),
+                               seq=P18_VLM_SEQ)
+    build = SP.build_train_cell if spec.kind == "train" \
+        else SP.build_prefill_cell
+    cell = build(cfg, spec, dist)
+    cell.name = f"{cfg.name}:{shape}"
+    return cell
+
+
+def card_args(torch, m, cfg, cell, params, dev, seed: int, draw_on=None):
+    """The cell's ``meta`` arguments made on ``dev``: the weights are
+    ``params``'s leaves at the same key paths (a partition keeps its None
+    leaves), the moments zeros, token ids drawn in [0, vocab), the loss
+    mask ones, int8 K/V in [-127, 127], every other float leaf (frames,
+    patches, the state's K/V, memory, SSM states and int8 scales) from
+    N(0, 0.5^2) in its dtype; host counters as the cell set them.  The
+    draws come from ``seed`` on ``draw_on`` (default ``dev``)."""
+    PP = m.PP
+    src = dev if draw_on is None else torch.device(draw_on)
+    gen = torch.Generator(device=src).manual_seed(seed)
+
+    def weight(path, x):
+        if x is None:
+            return None
+        w = params
+        for k in path:
+            w = w[k]
+        if w.shape != x.shape or w.dtype != x.dtype:
+            raise AssertionError(f"{cell.name} {'/'.join(path)}: weights "
+                                 f"{tuple(w.shape)} {w.dtype}, cell "
+                                 f"{tuple(x.shape)} {x.dtype}")
+        return w
+
+    def draw(x, name=""):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.dtype == torch.int8:
+            y = torch.randint(-127, 128, x.shape, generator=gen, device=src,
+                              dtype=torch.int8)
+        elif not x.dtype.is_floating_point:
+            y = torch.randint(0, cfg.vocab_size, x.shape, generator=gen,
+                              device=src, dtype=x.dtype)
+        elif name == "loss_mask":
+            y = torch.ones(x.shape, dtype=x.dtype, device=src)
+        else:
+            y = (torch.randn(x.shape, generator=gen, device=src)
+                 * 0.5).to(x.dtype)
+        return y.to(dev)
+
+    a = cell.args
+    if isinstance(a[2], m.PA.AdamWState):
+        def zeros(_, x):
+            return None if x is None else torch.zeros(x.shape, dtype=x.dtype,
+                                                      device=dev)
+        return (PP.tree_map(weight, a[0]), PP.tree_map(weight, a[1]),
+                a[2]._replace(mu=PP.tree_map(zeros, a[2].mu),
+                              nu=PP.tree_map(zeros, a[2].nu)),
+                {k: draw(v, k) for k, v in a[3].items()}, None)
+    return (PP.tree_map(weight, a[0]),
+            m.TPX.map_by_spec(lambda x, _: draw(x), a[1], None)) \
+        + tuple(draw(x) for x in a[2:])
+
+
+def p18_run(torch, m, cfg, cell, args, counts, card):
+    """Run a cell on the card (launches counted into ``counts``): (its
+    result, host ms synchronised, whether every float leaf is finite)."""
+    grad = isinstance(args[2], m.PA.AdamWState)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.nullcontext() if grad else torch.no_grad():
+        out = counted(m.ops, counts, lambda: cell.fn(*args))
+    ms = (time.perf_counter() - t0) * 1e3
+    finite = all(bool(torch.isfinite(x).all()) for x in m.dryrun._tensors(out)
+                 if x.is_floating_point())
+    return out, ms, finite
+
+
+def p18_cells(torch, m, card, llama):
+    """18a and 18d: every registry arch x the four shapes at full width
+    (``P18_DEPTH``'s cuts), ``dist=None``, on the card from random weights
+    of seed 0 (LLaMA-7B: phase 3's, at its 32 layers), then LLaMA-7B's
+    train cell with the ``merge`` variant and its decode with ``int8kv``.
+    Each cell runs twice on its arguments (the first call's launches
+    counted): host ms of each, finite outputs; its dry-run record at the
+    same scale (the meta device): argument bytes equal to the card args'
+    bytes, its peak bytes beside the card's (the args' bytes and the most
+    ``max_memory_allocated`` rose above them), FLOPs over the second
+    call's ms."""
+    from repro_torch.configs.registry import ASSIGNED
+    counts, rows = {}, []
+    archs = ("llama-7b",) + tuple(ASSIGNED)
+    for arch in archs:
+        cfg = m.get_config(arch)
+        if arch in P18_DEPTH:
+            cfg = cfg.replace(n_layers=P18_DEPTH[arch])
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch == "llama-7b":
+            params = llama
+        else:
+            params = m.init_lm(cfg, seed=0)
+            if cfg.family != "ssm":             # mamba2 has no LoRA
+                randomize_lora_b(torch, params, seed=100)
+        dev = params["embed"].device
+        cells = [(cfg, s, "") for s in P18_SHAPES]
+        if arch == "llama-7b":
+            cells[1:1] = [(cfg.replace(kv_cache_dtype="int8"), "decode_32k",
+                           "int8kv")]
+            cells.append((cfg.replace(ccm=dataclasses.replace(
+                cfg.ccm, mode="merge")), "train_4k", "merge"))
+        for c, shape, variant in cells:
+            cell = p18_cell(m, c, shape)
+            rec = m.dryrun.measure(cell)
+            args = card_args(torch, m, c, cell, params, dev, seed=180)
+            held = m.dryrun._storage_bytes(m.dryrun._tensors(args))
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = {}
+            _, ms, finite = p18_run(torch, m, c, cell, args, got, card)
+            add_counts(counts, got)
+            # the card's peak as the record counts it: the args and the
+            # most the step held at once beside them
+            peak = held + torch.cuda.max_memory_allocated() - before
+            _, ms2, finite2 = p18_run(torch, m, c, cell, args, {}, card)
+            mem, flops = rec["memory"], rec["cost"]["flops"]
+            name = cell.name + (f" ({variant})" if variant else "")
+            row = dict(cell=name, layers=c.n_layers, ms=ms, ms_again=ms2,
+                       finite=finite and finite2,
+                       arg_bytes=mem["argument_bytes"], card_arg_bytes=held,
+                       peak_bytes=mem["peak_bytes"], card_peak_bytes=peak,
+                       peak_ratio=mem["peak_bytes"] / peak, flops=flops,
+                       tflops=flops / ms2 / 1e9,
+                       launches={k: v for k, v in got.items() if v})
+            rows.append(row)
+            finite = row["finite"]
+            log(f"  18a {name} ({c.n_layers} L): {ms:.1f} ms, again "
+                f"{ms2:.1f} ms, finite {finite}; 18d args "
+                f"{mem['argument_bytes']} B (card {held}), peak meta "
+                f"{mem['peak_bytes'] / 2 ** 30:.3f} / card "
+                f"{peak / 2 ** 30:.3f} GiB = {row['peak_ratio']:.3f}, "
+                f"{flops:.4g} FLOPs over the 2nd call = {row['tflops']:.2f} "
+                f"TFLOP/s [{card}]; launches {row['launches']}")
+            if not finite:
+                raise AssertionError(f"18a {name}: non-finite outputs")
+            if held != mem["argument_bytes"]:
+                raise AssertionError(f"18d {name}: argument_bytes "
+                                     f"{mem['argument_bytes']} != the card "
+                                     f"args' {held}")
+            del args
+        del params
+    return counts, rows
+
+
+def p18_xcheck(torch, m, llama, cfg):
+    """18b: each kind's cell at LLaMA-7B's first 2 layers, full width,
+    float32, on the card (kernels) against the CPU (plain versions) from
+    the same arguments (drawn on the CPU): the loss, the gradients' norm
+    and every gradient (train: each device's first moment after one step
+    over its own clip factor, ``mu / (0.1 min(1, clip / norm))``), the
+    logits and every state leaf (the others), each within 1e-3 x
+    max|CPU|.  Returns the worst ratio per kind."""
+    c2 = cfg.replace(n_layers=2, compute_dtype="float32",
+                     param_dtype="float32")
+    clip = m.PA.AdamWConfig().clip_norm
+    base = fp32_layers(torch, llama, "cpu")
+    worst = {}
+    for shape in P18_SHAPES:
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            # a copy each: the train step updates its weights in place
+            pp = m.PP.tree_map(lambda _, x: x.clone().to(dev), base)
+            cell = p18_cell(m, c2, shape)
+            args = card_args(torch, m, c2, cell, pp, torch.device(dev),
+                             seed=181, draw_on="cpu")
+            grad = isinstance(args[2], m.PA.AdamWState)
+            with contextlib.nullcontext() if grad else torch.no_grad():
+                out = cell.fn(*args)
+            if grad:
+                met = out[2]
+                norm = met["grad_norm"].detach().cpu()
+                f = 0.1 * min(1.0, clip / max(norm.item(), 1e-9))
+                named = {"loss": met["loss"], "grad_norm": norm,
+                         **{"grad " + "/".join(k): v / f
+                            for k, v in m.PP.leaves(out[1].mu)}}
+            else:
+                named = {"logits": out[0], **{
+                    f"state {i}": x for i, x in enumerate(
+                        m.dryrun._tensors(out[1])) if x.is_floating_point()}}
+            outs[dev] = {k: v.detach().cpu() for k, v in named.items()}
+            del pp, args, out
+        ratios = {}
+        for k, b in outs["cpu"].items():
+            lim = 1e-3 * b.abs().max().item()
+            err = max_err(outs["cuda"][k], b)
+            ratios[k] = err / lim if lim else (0.0 if err == 0 else math.inf)
+        top = sorted(ratios.items(), key=lambda kv: -kv[1])[:3]
+        worst[shape] = top[0][1]
+        log(f"  18b {shape}: {len(ratios)} leaves, worst max|d| / "
+            f"(1e-3 max|CPU|): " + ", ".join(f"{k} {r:.3f}" for k, r in top))
+        if worst[shape] > 1:
+            raise AssertionError(f"18b {shape}: {top}")
+    return worst
+
+
+def p18_world_of_one(torch, m, llama, cfg, card, n_layers: int = 4):
+    """18c: each kind's ``dist`` cell on a (1, 1) mesh in an NCCL world
+    of one rank, bit-equal to its ``dist=None`` cell (LLaMA-7B's first
+    ``n_layers`` layers, bf16; train under deterministic algorithms):
+    the loss, leaves and moments, the logits and every state leaf.
+    Returns the dist runs' launches."""
+    import torch.distributed as tdist
+    from repro_torch.distributed.context import free_port, init_world
+    from repro_torch.launch.mesh import make_debug_mesh, make_dist
+    c4 = cfg.replace(n_layers=n_layers)
+    dev = init_world(0, 1, free_port(), llama["embed"].device)   # NCCL
+    counts = {}
+    try:
+        dist = make_dist(make_debug_mesh(1, 1, device=dev))
+        for shape in P18_SHAPES:
+            outs = []
+            for d in (dist, None):
+                pp = m.PP.tree_map(lambda _, x: x.detach().clone(),
+                                   first_layers(llama, n_layers))
+                cell = p18_cell(m, c4, shape, d)
+                args = card_args(torch, m, c4, cell, pp, dev, seed=182)
+                with deterministic(torch):
+                    out, _, _ = p18_run(torch, m, c4, cell, args,
+                                        counts if d is not None else {},
+                                        card)
+                outs.append(m.dryrun._tensors(out))
+                del pp, args
+            diff = [i for i, (a, b) in enumerate(zip(*outs))
+                    if not torch.equal(a, b)]
+            if diff or len(outs[0]) != len(outs[1]):
+                raise AssertionError(f"18c {shape}: leaves {diff} differ")
+            log(f"  18c {shape}: the dist cell on a (1, 1) mesh bit-equal to "
+                f"dist=None ({len(outs[0])} leaves)")
+    finally:
+        tdist.destroy_process_group()
+    return counts
+
+
+def phase18(torch, m, card):
+    """Phase 18: the cells of ``launch/specs.py`` and the dry run of
+    ``launch/dryrun.py`` on the card (18a-e)."""
+    import tempfile
+    t0 = time.perf_counter()
+    cfg = m.get_config("llama-7b")
+    llama = m.init_lm(cfg, seed=0)          # phase 3's weights
+    randomize_lora_b(torch, llama, seed=100)
+    log("  18a/18d: every registry arch x 4 shapes, dist=None, at full "
+        "width, against its dry-run record")
+    counts, rows = p18_cells(torch, m, card, llama)
+    log("  18b: 2 layers at full width in float32, card vs CPU")
+    worst = p18_xcheck(torch, m, llama, cfg)
+    log("  18c: the dist cells in an NCCL world of one rank, (1, 1) mesh")
+    add_counts(counts, p18_world_of_one(torch, m, llama, cfg, card))
+    del llama
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  18e: the dry run of LLaMA-7B's four shapes on the 16 x 16 mesh "
+        "(the host, the meta device)")
+    dry = {}
+    with tempfile.TemporaryDirectory() as out:
+        for shape in m.specs.SHAPES:
+            r = m.dryrun.run_cell("llama-7b", shape, "single", out,
+                                  force=True)
+            dry[shape] = dict(s=r["lower_s"] + r["compile_s"],
+                              flops=r["cost"]["flops"],
+                              peak_bytes=r["memory"]["peak_bytes"],
+                              collective_total=r["collective_total"])
+            log(f"  18e llama-7b {shape} single: {dry[shape]['s']:.2f} s, "
+                f"{r['cost']['flops']:.4g} FLOPs, peak "
+                f"{r['memory']['peak_bytes'] / 2 ** 30:.2f} GiB, collectives "
+                f"{r['collective_total'] / 2 ** 20:.1f} MiB a device")
+    for k in P18_KERNELS:
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"phase 18: no launch of {k} ({counts})")
+    rec = dict(cells=rows, xcheck=worst, dryrun=dry,
+               seconds=time.perf_counter() - t0)
+    log(f"  phase 18 launches: {({k: v for k, v in counts.items() if v})}; "
+        f"took {rec['seconds']:.1f} s [{card}]")
+    return counts, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6588,6 +6942,15 @@ def main() -> int:
             "whisper-tiny and pixtral-12b")
         phase16(torch, m14, card)
         log(f"  --phase16: done ({time.perf_counter() - t_start:.1f} s)")
+        return 0
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.launch import dryrun, specs
+    m18 = types.SimpleNamespace(**vars(m14), specs=specs, dryrun=dryrun,
+                                TPX=TPX)
+    if "--phase18" in sys.argv[1:]:
+        log("phase 18 alone (--phase18): the dry run's cells on the card")
+        phase18(torch, m18, card)
+        log(f"  --phase18: done ({time.perf_counter() - t_start:.1f} s)")
         return 0
     if "--phase17" in sys.argv[1:]:
         log("phase 17 alone (--phase17): LLaMA-7B (32 layers, bf16, seed 0)")
@@ -6781,6 +7144,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     p16_counts, _ = phase16(torch, m14, card)
 
+    log("phase 18: the dry run's cells (launch/specs.py) on the card: every "
+        "registry arch x 4 shapes, 2 float32 layers card vs CPU, the dist "
+        "cells in an NCCL world of one, the dry run's counts")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p18_counts, rec18 = phase18(torch, m18, card)
+
     # the tensor-core routes' launches in each main-path phase (3: online,
     # 5: training, 7: the 32-layer serve engine, 8: streaming, 9: the zoo,
     # 10: the baselines' training and the serve-metrics demo, 11: the
@@ -6797,24 +7168,25 @@ def main() -> int:
                     "14": p14_counts.get(k, 0),
                     "15": p15_counts.get(k, 0),
                     "16": p16_counts.get(k, 0),
-                    "17": p17_counts.get(k, 0)}
+                    "17": p17_counts.get(k, 0),
+                    "18": p18_counts.get(k, 0)}
                 for k in ("segmented_attention_splitk",
                           "segmented_attention_mma", "cond_lora_wgmma",
                           "ccm_attention_mma", "ccm_attention_backward_mma")}
     for k, need in (("segmented_attention_splitk", ("3", "8", "9", "11",
                                                     "12", "14", "15", "16",
-                                                    "17")),
+                                                    "17", "18")),
                     ("segmented_attention_mma", ("3", "7", "8", "9", "11",
                                                  "12", "13", "14", "15",
-                                                 "16", "17")),
+                                                 "16", "17", "18")),
                     ("cond_lora_wgmma", ("3", "5", "7", "8", "9", "10",
                                          "11", "12", "13", "14", "15",
-                                         "16", "17")),
+                                         "16", "17", "18")),
                     ("ccm_attention_mma", ("5", "9", "11", "12", "13",
-                                           "14", "15", "16")),
+                                           "14", "15", "16", "18")),
                     ("ccm_attention_backward_mma", ("5", "9", "11", "12",
                                                     "13", "14", "15",
-                                                    "16"))):
+                                                    "16", "18"))):
         if any(by_phase[k][ph] <= 0 for ph in need):
             raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
     for k in ("kv_merge_update", "session_gather", "session_scatter"):
@@ -6911,14 +7283,16 @@ def main() -> int:
              launches=train_counts["kv_cummean"]
              + rec_counts["kv_cummean"] + fam_counts["kv_cummean"]
              + p13_counts["kv_cummean"] + p14_counts["kv_cummean"]
-             + p15_counts["kv_cummean"] + p16_counts["kv_cummean"],
+             + p15_counts["kv_cummean"] + p16_counts["kv_cummean"]
+             + p18_counts["kv_cummean"],
              launches_by_phase={"5": train_counts["kv_cummean"],
                                 "11": rec_counts["kv_cummean"],
                                 "12": fam_counts["kv_cummean"],
                                 "13": p13_counts["kv_cummean"],
                                 "14": p14_counts["kv_cummean"],
                                 "15": p15_counts["kv_cummean"],
-                                "16": p16_counts["kv_cummean"]},
+                                "16": p16_counts["kv_cummean"],
+                                "18": p18_counts["kv_cummean"]},
              **cummean),
         dict(name="kv_cummean_backward", route="cuda",
              source="src/repro_torch/csrc/kv_cummean.cu",
@@ -6929,14 +7303,16 @@ def main() -> int:
              + p13_counts["kv_cummean_backward"]
              + p14_counts["kv_cummean_backward"]
              + p15_counts["kv_cummean_backward"]
-             + p16_counts["kv_cummean_backward"],
+             + p16_counts["kv_cummean_backward"]
+             + p18_counts["kv_cummean_backward"],
              launches_by_phase={"5": train_counts["kv_cummean_backward"],
                                 "11": rec_counts["kv_cummean_backward"],
                                 "12": fam_counts["kv_cummean_backward"],
                                 "13": p13_counts["kv_cummean_backward"],
                                 "14": p14_counts["kv_cummean_backward"],
                                 "15": p15_counts["kv_cummean_backward"],
-                                "16": p16_counts["kv_cummean_backward"]},
+                                "16": p16_counts["kv_cummean_backward"],
+                                "18": p18_counts["kv_cummean_backward"]},
              **cummean_bwd),
         dict(name="session_gather", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",

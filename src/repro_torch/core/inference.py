@@ -176,8 +176,8 @@ class SeqShard(NamedTuple):
             raise ValueError("seq_shard=True needs the mesh's DistContext "
                              "(its data axes hold the cache's blocks)")
         axes = dist.batch_axes
-        return cls(TPX.GroupCollectives(dist.group(axes), dist.n_data),
-                   dist.rank_in(axes), dist.n_data)
+        return cls(TPX.axis_collectives(dist, axes), dist.rank_in(axes),
+                   dist.n_data)
 
     def cache_plan(self, cache: KVCache, S: int, valid_len=None):
         """(this block's valid length, the write plan of a block of ``S``

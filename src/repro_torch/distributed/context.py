@@ -10,7 +10,11 @@ gives the process group of a tuple of axes, the stand-in for a
 ``shard_map`` collective's ``axis_name``.  The mesh can also be any
 object with ``axis_names`` and a ``shape`` mapping (the reference's
 ``AbstractMesh`` idiom): the sharding rules need no more, and only
-``group`` and ``rank_in`` need a process group.
+``group`` and ``rank_in`` need a process group.  A `ShapeMesh` (the
+reference's placeholder devices: axes and sizes, no device, no process
+group) runs as its rank 0: its ``group`` is a `CountingCollectives`,
+whose collectives move nothing and count the bytes they would move (the
+dry run, `launch.dryrun`).
 
 The backend follows the device: NCCL for CUDA tensors, ``gloo`` for the
 CPU.  A collective on a CUDA tensor never goes through a ``gloo`` group,
@@ -49,6 +53,69 @@ def divisible(n: int, by: int) -> bool:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeMesh:
+    """A mesh of named axes and their sizes that holds no device and no
+    process group.  Its rank is rank 0 (``get_coordinate``); the
+    collectives of its groups (`CountingCollectives`) add the bytes each
+    device would receive to ``counts``, by kind."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    counts: Dict[str, int] = dataclasses.field(
+        default_factory=dict, compare=False, hash=False, repr=False)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
+
+    def get_coordinate(self) -> Tuple[int, ...]:
+        return (0,) * len(self.sizes)
+
+
+class CountingCollectives:
+    """The collectives of a group of ``n`` ranks of a `ShapeMesh`, with
+    ``tensor_parallel.GroupCollectives``' interface: nothing moves.  Each
+    call returns an empty output of the collective's shape on its input's
+    device (the meta device in the dry run) and adds the bytes of its
+    result, what one device receives (as the reference's dry run counts
+    an HLO collective's result shape), to ``counts`` under the
+    reference's name of its kind.  A group of one rank counts nothing, as
+    XLA emits no collective over one device."""
+
+    def __init__(self, counts: Dict[str, int], n: int):
+        self.counts, self.n = counts, n
+
+    def _count(self, kind: str, y: torch.Tensor) -> torch.Tensor:
+        if self.n > 1:
+            self.counts[kind] = self.counts.get(kind, 0) \
+                + y.numel() * y.element_size()
+        return y
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return self._count("all-reduce", torch.empty_like(x))
+
+    max = sum
+
+    def all_reduce_(self, x: torch.Tensor) -> torch.Tensor:
+        """The in-place all-reduce (`all_reduce_`): ``x`` itself."""
+        return self._count("all-reduce", x)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        shape = list(x.shape)
+        shape[dim] *= self.n
+        return self._count("all-gather", x.new_empty(shape))
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        return self._count("all-to-all", torch.empty_like(x))
+
+
+@dataclasses.dataclass(frozen=True)
 class DistContext:
     mesh: object                             # DeviceMesh (or shape-only)
     data_axes: Tuple[str, ...] = ("data",)   # batch sharding axes
@@ -82,7 +149,12 @@ class DistContext:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         if axes not in self._groups:
             mesh = self.mesh
-            if len(axes) == 1:
+            if isinstance(mesh, ShapeMesh):
+                n = 1
+                for a in axes:
+                    n *= axis_size(mesh, a)
+                self._groups[axes] = CountingCollectives(mesh.counts, n)
+            elif len(axes) == 1:
                 self._groups[axes] = mesh.get_group(axes[0])
             else:
                 names = list(mesh.mesh_dim_names)
@@ -103,20 +175,27 @@ class DistContext:
         given): the block of a ``batch_spec``-sharded batch it holds."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         coord = self.mesh.get_coordinate()
-        names = list(self.mesh.mesh_dim_names)
+        names = axis_names(self.mesh)
         r = 0
         for a in axes:
-            d = names.index(a)
-            r = r * self.mesh.size(d) + coord[d]
+            r = r * axis_size(self.mesh, a) + coord[names.index(a)]
         return r
 
     def all_reduce(self, x: torch.Tensor, axes: Axes,
                    op=tdist.ReduceOp.SUM) -> torch.Tensor:
         """In-place all-reduce of ``x`` over ``axes``; returns ``x``."""
-        group = self.group(axes)
-        check_backend(x, group)
-        tdist.all_reduce(x, op=op, group=group)
-        return x
+        return all_reduce_(x, self.group(axes), op)
+
+
+def all_reduce_(x: torch.Tensor, group, op=tdist.ReduceOp.SUM) -> torch.Tensor:
+    """In-place all-reduce of ``x`` over ``group``, a process group (its
+    backend matching ``x``'s device, `check_backend`) or a `ShapeMesh`'s
+    `CountingCollectives`; returns ``x``."""
+    if isinstance(group, CountingCollectives):
+        return group.all_reduce_(x)
+    check_backend(x, group)
+    tdist.all_reduce(x, op=op, group=group)
+    return x
 
 
 def check_backend(x: torch.Tensor, group=None) -> None:

@@ -105,7 +105,8 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as tdist
 
-from repro_torch.distributed.context import (DistContext, axis_size,
+from repro_torch.distributed.context import (CountingCollectives,
+                                             DistContext, axis_size,
                                              check_backend)
 from repro_torch.models.config import (ModelConfig, pos_table_rows,
                                        require_ported)
@@ -403,11 +404,21 @@ class _LocalMember:
 
 
 def collectives(dist):
-    """The model-axis collectives of a ``DistContext`` (its process
-    group) or a `TensorParallel` (what it was given)."""
+    """The model-axis collectives of a ``DistContext`` (`axis_collectives`)
+    or a `TensorParallel` (what it was given)."""
     if isinstance(dist, TensorParallel):
         return dist.coll
-    return GroupCollectives(dist.group(dist.model_axis), dist.n_model)
+    return axis_collectives(dist, dist.model_axis)
+
+
+def axis_collectives(dist: DistContext, axes):
+    """The collectives over the ranks of ``axes`` of a ``DistContext``:
+    `GroupCollectives` over their process group, or, on a shape-only mesh
+    (`context.ShapeMesh`), its `CountingCollectives`."""
+    group = dist.group(axes)
+    if isinstance(group, CountingCollectives):
+        return group
+    return GroupCollectives(group, _size(dist, _axes(axes)))
 
 
 # ---------------------------------------------------------------------------
@@ -632,7 +643,7 @@ def gather_by_spec(x: torch.Tensor, spec, dist: DistContext) -> torch.Tensor:
         axes = _axes(d)
         k = _size(dist, axes) if axes else 1
         if k > 1:
-            x = GroupCollectives(dist.group(axes), k).gather(x, i)
+            x = axis_collectives(dist, axes).gather(x, i)
     return x
 
 

@@ -405,3 +405,24 @@ def ccm_attention(q, k, v, q_idx, q_seg, k_idx, k_seg, k_comp,
     on a CUDA device; returns o with q's strides."""
     return _CcmAttention.apply(q, k, v, q_idx, q_seg, k_idx, k_seg, k_comp,
                                k_valid, float(scale))
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         backward: bool = False) -> Tuple[float, float]:
+    """(FLOPs, bytes) of the forward launch (``backward``: the two
+    backward launches) on q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), from the
+    shapes (what ``ops`` charges on the meta device).  The visible pairs
+    are counted causal, Sq (Sq + 1) / 2 per lane and query head: the CCM
+    mask, a subset of the causal one, lives in the metadata's values,
+    which a meta tensor does not hold, so this is an upper bound.  4 hd
+    FLOPs a pair forward (QK^T, PV), 10 hd backward (QK^T again, dP, dV,
+    dQ, dK); q, k, v and o read or written once, the float32 lse too,
+    and backward dO read and dQ, dK, dV written."""
+    B, Sq, Hq, D = q.shape
+    pairs = B * Hq * Sq * (Sq + 1) // 2
+    qkv = sum(t.numel() * t.element_size() for t in (q, k, v))
+    o = q.numel() * q.element_size()
+    lse = B * Hq * Sq * 4
+    if backward:
+        return 10.0 * D * pairs, float(2 * qkv + 2 * o + lse)
+    return 4.0 * D * pairs, float(qkv + o + lse)

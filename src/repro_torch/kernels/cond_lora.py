@@ -177,3 +177,46 @@ def cond_lora(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     """``cond_lora_matmul`` under autograd: gradients reach x, a, b and
     bias, and ``w`` where it requires one (full training)."""
     return _CondLoRA.apply(x, w, a, b, gate, float(scale), bias)
+
+
+def _nbytes(t) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
+def cost(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+         b: torch.Tensor, bias: Optional[torch.Tensor] = None):
+    """(FLOPs, bytes) of one launch, from the shapes (what ``ops``
+    charges on the meta device): 2MKN for x @ W and 2Mr(K + N) for the
+    rank product; x, W, a, b, the float32 gate and the bias read once, y
+    written once."""
+    M, K = x.shape
+    N, r = w.shape[1], a.shape[0]
+    flops = 2.0 * M * K * N + 2.0 * M * r * (K + N)
+    nbytes = sum(_nbytes(t) for t in (x, w, a, b, bias)) + 4 * M \
+        + M * N * x.element_size()
+    return flops, float(nbytes)
+
+
+def backward_cost(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor, need) -> tuple:
+    """(FLOPs, bytes) of `_CondLoRA.backward`'s matmuls for the gradients
+    ``need`` asks for (its ``needs_input_grad``): dx = dy W^T + the rank
+    product, dW = x^T dy, da and db; dy and the operands read once, each
+    gradient written once."""
+    M, K = x.shape
+    N, r = w.shape[1], a.shape[0]
+    flops = 2.0 * M * r * N                  # u = (gate dy) b^T
+    nbytes = M * N * x.element_size() + _nbytes(b)
+    if need[0]:
+        flops += 2.0 * M * N * K + 2.0 * M * r * K
+        nbytes += _nbytes(w) + _nbytes(a) + 2 * _nbytes(x)
+    if need[1]:
+        flops += 2.0 * M * K * N
+        nbytes += _nbytes(x) + _nbytes(w)
+    if need[2]:
+        flops += 2.0 * M * r * K
+        nbytes += _nbytes(x) + _nbytes(a)
+    if need[3]:
+        flops += 2.0 * M * K * r + 2.0 * M * r * N
+        nbytes += _nbytes(x) + _nbytes(a) + _nbytes(b)
+    return flops, float(nbytes)

@@ -302,3 +302,37 @@ def segmented_flash_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
     mma_launches += route == 2
     mma_lse_launches += route == 2 and lse
     return (out, rows) if lse else out
+
+
+def _nbytes(t) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
+def cost(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
+         lse: bool = False) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one launch on these arguments, from their shapes
+    and host lengths alone (what ``ops`` charges on the meta device): 4 hd
+    FLOPs for each visible (q, k) pair of each query head (QK^T and PV),
+    each visible key row of every segment read once with its scales, q
+    read and the output (and the lse) written once.  A segment's visible
+    keys are its host length (its capacity where the length is a tensor
+    or None); a segment with per-token metadata is the new rows' own
+    block, causal where it holds as many keys as there are q rows."""
+    B, Sq, Hq, D = q.shape
+    pairs = 0
+    nbytes = 2 * _nbytes(q) + (B * Hq * Sq * 4 if lse else 0)
+    for s in segs:
+        k = s["k"]
+        S, Hkv = k.shape[-3], k.shape[-2]
+        n = s.get("length")
+        n = S if n is None or isinstance(n, torch.Tensor) \
+            else min(max(int(n), 0), S)
+        if s.get("idx") is not None:
+            pairs += Sq * (Sq + 1) // 2 if S == Sq else Sq * n
+        else:
+            pairs += Sq * n
+        rows = B * n * Hkv
+        nbytes += 2 * rows * D * k.element_size()
+        if s.get("k_scale") is not None:
+            nbytes += 2 * rows * s["k_scale"].element_size()
+    return 4.0 * D * B * Hq * pairs, float(nbytes)

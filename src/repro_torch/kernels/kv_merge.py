@@ -375,3 +375,22 @@ def kv_cummean(*hs: torch.Tensor):
     CUDA tensors of one shape and dtype, in one launch; returns a tuple
     of one output per input."""
     return _KVCumMean.apply(*hs)
+
+
+def merge_cost(mems: Sequence[torch.Tensor],
+               hs: Sequence[torch.Tensor]) -> tuple:
+    """(FLOPs, bytes) of one merge launch over the k and v memories (what
+    ``ops`` charges on the meta device): 3 FLOPs an element, the memory
+    read and written and ``h`` read once."""
+    n = sum(m.numel() for m in mems)
+    nbytes = sum(2 * m.numel() * m.element_size() + h.numel() * h.element_size()
+                 for m, h in zip(mems, hs))
+    return 3.0 * n, float(nbytes)
+
+
+def cummean_cost(hs: Sequence[torch.Tensor]) -> tuple:
+    """(FLOPs, bytes) of one running-mean launch, forward or reverse, over
+    one or two tensors: 2 FLOPs an element (the running sum, the
+    division), each element read once and written once."""
+    n = sum(h.numel() for h in hs)
+    return 2.0 * n, float(sum(2 * h.numel() * h.element_size() for h in hs))

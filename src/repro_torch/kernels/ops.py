@@ -4,11 +4,19 @@ Each op dispatches on the DEVICE OF ITS TENSORS: CPU tensors take the
 plain PyTorch version (``kernels/ref.py``); CUDA tensors launch the
 hand-written kernel, which raises on anything it does not take.  There is
 no fallback from a CUDA tensor to the plain version.
+
+``meta`` tensors (shapes and dtypes, no data: the dry run of
+`launch.dryrun`) launch nothing: the op returns empty outputs of the
+kernel's shapes and dtypes (gradients too, under autograd) and charges
+the kernel's FLOPs and bytes, by the formula its wrapper module keeps
+(``cost``), to every `KernelCost` that `count_kernels` has made active.
+The in-place ops write nothing and return their operand.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -50,12 +58,84 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
+class KernelCost:
+    """The FLOPs and bytes the kernel ops charged on meta tensors while
+    it was active (`count_kernels`): totals, and ``by_op[name]`` =
+    [calls, FLOPs, bytes] per op (a backward under its op's name with
+    ``_backward``)."""
+
+    def __init__(self):
+        self.flops = 0.0
+        self.bytes = 0.0
+        self.by_op: Dict[str, List[float]] = {}
+
+    def add(self, name: str, flops: float, nbytes: float) -> None:
+        self.flops += flops
+        self.bytes += nbytes
+        row = self.by_op.setdefault(name, [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += flops
+        row[2] += nbytes
+
+
+_ACTIVE: List[KernelCost] = []
+
+
+@contextlib.contextmanager
+def count_kernels(cost: Optional[KernelCost] = None):
+    """Charge the kernel ops run on meta tensors inside the block to
+    ``cost`` (a new `KernelCost` when None), which it yields."""
+    cost = KernelCost() if cost is None else cost
+    _ACTIVE.append(cost)
+    try:
+        yield cost
+    finally:
+        _ACTIVE.remove(cost)
+
+
+def _charge(name: str, flops: float, nbytes: float) -> None:
+    for c in _ACTIVE:
+        c.add(name, flops, nbytes)
+
+
+def _empty(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+class _MetaKernel(torch.autograd.Function):
+    """A differentiable kernel op on meta tensors: ``outs`` ((shape,
+    dtype) pairs) come back empty and ``cost`` (FLOPs, bytes) is charged
+    under ``name``; the backward charges ``backward_cost(needs_input_grad
+    of the tensors)`` under ``name + "_backward"`` and gives empty
+    gradients of the inputs' shapes."""
+
+    @staticmethod
+    def forward(ctx, name, outs, cost, backward_cost, *inputs):
+        ctx.name, ctx.backward_cost = name, backward_cost
+        ctx.specs = [(x.shape, x.dtype) for x in inputs]
+        _charge(name, *cost)
+        res = tuple(_empty(s, d) for s, d in outs)
+        return res if len(res) > 1 else res[0]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        need = ctx.needs_input_grad[4:]
+        _charge(ctx.name + "_backward", *ctx.backward_cost(need))
+        return (None,) * 4 + tuple(_empty(s, d) if n else None
+                                   for (s, d), n in zip(ctx.specs, need))
+
+
 def segmented_attention(q: torch.Tensor, segs: Sequence[Dict[str, Any]],
                         q_idx, q_seg, scale: float, lse: bool = False):
     """q (B, Sq, Hq, D) over in-place KV segments — see
     ``decode_attention`` for the segment-dict schema.  With ``lse``,
     returns (out, lse (B, Hq, Sq) float32): the rows' log-sum-exp of the
     scaled visible logits, -inf where a row sees no key."""
+    if q.is_meta:
+        _charge("segmented_attention", *_dattn.cost(q, segs, lse))
+        out = _empty(q.shape, q.dtype)
+        B, Sq, Hq, _ = q.shape
+        return (out, _empty((B, Hq, Sq), torch.float32)) if lse else out
     if q.is_cuda:
         return _dattn.segmented_flash_attention(q, segs, q_idx, q_seg, scale,
                                                 lse=lse)
@@ -68,6 +148,12 @@ def cond_lora(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (M,K) @ w (K,N) (+bias) + gate * (x @ a.T @ b) * scale — fused.
     Differentiable in x, w, a, b and bias."""
+    if x.is_meta:
+        ts = (x, w, a, b) + (() if bias is None else (bias,))
+        return _MetaKernel.apply(
+            "cond_lora", [((x.shape[0], w.shape[1]), x.dtype)],
+            _lora.cost(x, w, a, b, bias),
+            lambda need: _lora.backward_cost(x, w, a, b, need), *ts)
     if x.is_cuda:
         return _lora.cond_lora(x, w, a, b, gate.detach().float().contiguous(),
                                scale, bias)
@@ -78,6 +164,9 @@ def kv_merge_update(mem: torch.Tensor, h: torch.Tensor,
                     a: float) -> torch.Tensor:
     """(1 - a) * mem + a * h in float32, written IN PLACE into ``mem``
     (returned).  ``a`` is a host float."""
+    if mem.is_meta:
+        _charge("kv_merge_update", *_merge.merge_cost([mem], [h]))
+        return mem
     if mem.is_cuda:
         return _merge.kv_merge_update_(mem, h, a)
     return mem.copy_(_ref.kv_merge_ref(mem, h, a))
@@ -93,6 +182,9 @@ def kv_merge_update_lanes(mems: Sequence[torch.Tensor],
     ``lane_axis`` (0 or 1) of the (d0, d1, ...) memories; ``hs`` may be
     strided views along d0 and d1 and of another float dtype.  One kernel
     launch on CUDA."""
+    if mems[0].is_meta:
+        _charge("kv_merge_update", *_merge.merge_cost(mems, hs))
+        return mems
     if mems[0].is_cuda:
         return _merge.kv_merge_update_lanes_(mems, hs, a, lane_axis)
     for mem, h in zip(mems, hs):
@@ -106,6 +198,10 @@ def ccm_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Sk, Hkv, D), ``KeyInfo`` metadata; returns (B, Sq, Hq, D).
     Differentiable in q, k, v.  The CUDA kernels read the (B, S, H, D)
     tensors in place through strides (no transpose copy, no padding)."""
+    if q.is_meta:
+        return _MetaKernel.apply(
+            "ccm_attention", [(q.shape, q.dtype)], _attn.cost(q, k, v),
+            lambda need: _attn.cost(q, k, v, backward=True), q, k, v)
     args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             q_info.idx, q_info.seg, k_info.idx, k_info.seg, k_info.comp,
             k_info.valid)
@@ -122,11 +218,19 @@ def _as_3d(h: torch.Tensor, dim: int) -> torch.Tensor:
                      math.prod(h.shape[dim + 1:]))
 
 
+def _meta_cummean(*hs: torch.Tensor):
+    c = _merge.cummean_cost(hs)
+    return _MetaKernel.apply("kv_cummean", [(h.shape, h.dtype) for h in hs],
+                             c, lambda need: c, *hs)
+
+
 def kv_cummean(h: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Running means of h along ``dim``, float32 accumulation, rounded
     once to h.dtype.  Differentiable.  On CUDA the kernel reads h as an
     (outer, T, inner) view through its strides (the inner dims must
     flatten to one unit-stride axis, else they are copied)."""
+    if h.is_meta:
+        return _meta_cummean(h)
     if not h.is_cuda:
         return _ref.kv_cummean_ref(h, dim)
     return _merge.kv_cummean(_as_3d(h, dim))[0].reshape(h.shape)
@@ -137,6 +241,8 @@ def kv_cummean_pair(hk: torch.Tensor, hv: torch.Tensor,
     """``kv_cummean`` of the k and the v groups of a layer (one shape and
     dtype) in one kernel launch on CUDA, forward and backward; each is
     read through its own strides."""
+    if hk.is_meta:
+        return _meta_cummean(hk, hv)
     if not hk.is_cuda:
         return _ref.kv_cummean_pair_ref(hk, hv, dim)
     ok, ov = _merge.kv_cummean(_as_3d(hk, dim), _as_3d(hv, dim))
@@ -147,6 +253,11 @@ def session_gather(slab: torch.Tensor, ids: Sequence[int],
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Arena pack: slab (S, ...), ``ids`` B host ints in [0, S) -> (B, ...)
     rows (into ``out`` when given).  Any dtype; ids out of range raise."""
+    if slab.is_meta:
+        rows = _empty((len(ids),) + tuple(slab.shape[1:]), slab.dtype) \
+            if out is None else out
+        _charge("session_gather", *_sess.cost(rows))
+        return rows
     if slab.is_cuda:
         return _sess.session_gather(slab, ids, out)
     rows = _ref.session_gather_ref(slab, _sess.check_ids(ids, slab.shape[0]))
@@ -158,6 +269,9 @@ def session_scatter(slab: torch.Tensor, ids: Sequence[int],
     """Arena unpack: ``slab[ids] = rows`` IN PLACE (returned).  Duplicate
     ids (pad lanes on the scratch row) race: each element of that row
     ends up holding one of their values."""
+    if slab.is_meta:
+        _charge("session_scatter", *_sess.cost(rows))
+        return slab
     if slab.is_cuda:
         return _sess.session_scatter(slab, ids, rows)
     return _ref.session_scatter_ref(

@@ -136,3 +136,10 @@ def session_scatter(slab: torch.Tensor, ids: Sequence[int],
         _launch(rows, slab, ids, row_bytes, scatter=True)
         scatter_launches += 1
     return slab
+
+
+def cost(rows: torch.Tensor) -> tuple:
+    """(FLOPs, bytes) of one gather or scatter of ``rows`` (what ``ops``
+    charges on the meta device): no arithmetic, each row read once and
+    written once."""
+    return 0.0, float(2 * rows.numel() * rows.element_size())

@@ -3,12 +3,14 @@
 Defined as FUNCTIONS so that importing this module touches no device
 and no process group.
 
-Two kinds of mesh, as in the reference:
+Three kinds of mesh, as in the reference:
 
 - a ``DeviceMesh`` of ranks over the axes ``data`` / ``model`` (``pod``
   first on the multi-pod mesh) for training; it needs a process group
   initialised beforehand (``distributed.context.init_world``), one
   process per rank;
+- a shape-only mesh (``make_shape_mesh``: axes and sizes, no device)
+  for the dry run, which runs as its rank 0;
 - the serve engine's session mesh: ``make_session_mesh(n)`` is a 1-D
   tuple of devices over the axis ``"shards"``, one device per arena
   shard, all driven by one process (the reference's single-controller
@@ -22,7 +24,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.context import DistContext, axis_names
+from repro_torch.distributed.context import (DistContext, ShapeMesh,
+                                             axis_names)
 
 
 def _mk(shape, axes, device: DeviceLike = None):
@@ -44,10 +47,23 @@ def _mk(shape, axes, device: DeviceLike = None):
     return init_device_mesh(dev.type, tuple(shape), mesh_dim_names=tuple(axes))
 
 
+# the production meshes: (shape, axes) of the single pod and the two pods
+PRODUCTION = {"single": ((16, 16), ("data", "model")),
+              "multi": ((2, 16, 16), ("pod", "data", "model"))}
+
+
 def make_production_mesh(*, multi_pod: bool = False, device: DeviceLike = None):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return _mk(shape, axes, device)
+    return _mk(*PRODUCTION["multi" if multi_pod else "single"], device)
+
+
+def make_shape_mesh(shape, axes) -> ShapeMesh:
+    """A mesh of ``shape`` over ``axes`` with no device and no process
+    group (the reference's placeholder devices): the sharding rules and
+    the local layout read it, and a ``DistContext`` over it runs as its
+    rank 0 with counting collectives (`context.ShapeMesh`).  The dry run
+    (`launch.dryrun`) takes the production meshes so:
+    ``make_shape_mesh(*PRODUCTION["single"])``."""
+    return ShapeMesh(tuple(axes), tuple(int(s) for s in shape))
 
 
 def make_dist(mesh) -> DistContext:

@@ -152,10 +152,14 @@ class ShardedStep:
         self.logit_spec = SH.P(tok_spec[0], None, vocab)
 
     def __call__(self, params, state, tokens, *args, **kw):
-        tokens = TPX.shard_by_spec(tokens, self.tok_spec, self.dist)
-        args = [self._rows(a) for a in args]
         kw = {k: self._rows(v) for k, v in kw.items()}
-        return self.fn(params, state, tokens, *args, **kw)
+        return self.fn(params, state, *self.rows(tokens, *args), **kw)
+
+    def rows(self, tokens, *args) -> tuple:
+        """This rank's rows of the global tokens and of each tensor
+        argument after them, as a call cuts them."""
+        return (TPX.shard_by_spec(tokens, self.tok_spec, self.dist),) \
+            + tuple(self._rows(a) for a in args)
 
     def _rows(self, x):
         if not isinstance(x, torch.Tensor):

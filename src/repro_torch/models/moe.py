@@ -115,6 +115,27 @@ def _expert_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     return torch.cat(outs) if outs else chain(0, xs[:0])
 
 
+def _spread(total: int, parts: int) -> list:
+    """``total`` rows over ``parts`` groups as evenly as they go."""
+    return [total // parts + (i < total % parts) for i in range(parts)]
+
+
+def host_counts(ids: torch.Tensor, n: int, expect: list,
+                keep: torch.Tensor = None) -> list:
+    """``bincount(ids, minlength=n)`` as host ints, and after them the
+    number of False in ``keep`` when given: a layer's one host read (one
+    synchronisation).  A meta tensor (the dry run, `launch.dryrun`:
+    shapes, no values) has no ids to count; the counts are then
+    ``expect``, each group at its expected load (the one place the model
+    code reads the device that the meta device cannot answer)."""
+    if ids.is_meta:
+        return list(expect)
+    parts = [torch.bincount(ids, minlength=n)]
+    if keep is not None:
+        parts.append((~keep).sum().view(1))
+    return torch.cat(parts).tolist()
+
+
 def _moe_local(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                xf: torch.Tensor, keep=None, tp=None) -> torch.Tensor:
     """Sort-based MoE: xf (N, d) -> (N, d), dropless unless ``keep``
@@ -136,7 +157,7 @@ def _moe_local(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)
     xr = TPX.copy_to_tp(xf, tp).repeat_interleave(k, dim=0)[order]
-    sizes = torch.bincount(eids, minlength=E).tolist()        # host sync
+    sizes = host_counts(eids, E, _spread(N * k, E))
     y = TPX.reduce_from_tp(_expert_ffn(cfg, p, xr, sizes), tp)[inv]
     y = y.reshape(N, k, d) * topw[..., None].to(y.dtype)
     return y.sum(dim=1)
@@ -255,8 +276,9 @@ def _moe_ep_shard(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     rx = _AllToAll.apply(xr[fill], tp.coll).reshape(n * s, d)
     re = tp.coll.all_to_all(ids[fill]).reshape(n * s)
     order = torch.argsort(re, stable=True)
-    stats = torch.cat([torch.bincount(re, minlength=e_local + 1),
-                       (~keep).sum().view(1)]).tolist()      # host sync
+    kept = min(N * k // n, tp.row_blocks * C)   # the meta device's load
+    stats = host_counts(re, e_local + 1, _spread(kept, e_local)
+                        + [n * s - kept, N * k - n * kept], keep)
     sizes, dropped = stats[:e_local], stats[-1]
     if tp.rank == 0:
         EP_DROPS["assignments"] += N * k

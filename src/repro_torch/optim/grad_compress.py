@@ -113,23 +113,18 @@ def compressed_psum(grads: Any, axis_name, ef: Optional[EFState] = None,
     feedback; returns (reduced_grads, new_ef).
 
     ``axis_name``: the process group of the data (and pod) ranks
-    (``DistContext.group(dist.batch_axes)``).  With
+    (``DistContext.group(dist.batch_axes)``; on a shape-only mesh its
+    counting group).  With
     ``codec="none"`` (or no ``ef``) each gradient is SUM-all-reduced as
     it is, in place; otherwise `compress_with_ef` runs first on this
     rank's gradients and residual and the compressed gradients are
     SUM-all-reduced.  A CUDA tensor goes through NCCL only
     (`distributed.context.check_backend`).  ``split``: as in
     `compress_with_ef`."""
-    import torch.distributed as tdist
-
-    from repro_torch.distributed.context import check_backend
+    from repro_torch.distributed.context import all_reduce_
 
     def reduce(_, g):
-        if g is None:
-            return None
-        check_backend(g, axis_name)
-        tdist.all_reduce(g, op=tdist.ReduceOp.SUM, group=axis_name)
-        return g
+        return None if g is None else all_reduce_(g, axis_name)
 
     if codec == "none" or ef is None:
         return tree_map(reduce, grads), ef

@@ -3,6 +3,7 @@ port's CLIs (``examples/train_online_torch.py``,
 ``scripts/serve_metrics_torch.py``) import neither ``jax`` nor the
 reference package ``repro``, and the port's entry points refuse to run
 without a device when no CUDA card is present."""
+import dataclasses
 import os
 import re
 import subprocess
@@ -74,6 +75,32 @@ def test_clis_run_without_jax_and_need_a_device(cli):
                          timeout=120, cwd=ROOT)
     assert run.returncode != 0
     assert "no CUDA device" in run.stderr
+
+
+def test_dryrun_needs_no_jax_no_xla_flags_and_no_card():
+    """``launch.dryrun`` imports with ``jax`` and ``repro`` unimportable,
+    sets no ``XLA_FLAGS`` and calls nothing of ``torch.cuda`` at import
+    (every such call raises here), and its source touches no
+    environment variable."""
+    code = ("import os, sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            "import torch\n"
+            "def refuse(*a, **k):\n"
+            "    raise AssertionError('a CUDA call at import')\n"
+            "for f in ('is_available', 'device_count', 'current_device',\n"
+            "          'init', '_lazy_init', 'synchronize', 'get_device_name'):\n"
+            "    setattr(torch.cuda, f, refuse)\n"
+            "import repro_torch.launch.dryrun as D\n"
+            "assert 'XLA_FLAGS' not in os.environ\n"
+            "print('ok', len(D.VARIANTS))\n")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
+    assert "environ" not in (PORT / "launch" / "dryrun.py").read_text()
 
 
 def test_entry_points_need_a_device(monkeypatch):
@@ -190,8 +217,9 @@ def test_serve_engine_needs_a_device_and_refuses_unported_options(
 def _unported_cases():
     """Multi-device options whose refusal slice 14 settles: a family
     other than dense and MoE on a mesh that splits the model now builds
-    its train step and its stream step, and a prefill or an ingest over a
-    sequence-sharded cache builds too (the model axis's and the data
+    its train step and its stream step, a prefill or an ingest over a
+    sequence-sharded cache builds too, and the reference's ZeRO-3 train
+    cell still raises, naming ROADMAP item 4b-v (the model axis's and the data
     axes' process groups are taken at the first call).  (Sharded MoE,
     item 4b-ii, is ``tests/test_torch_moe_tp.py``; the other families,
     ``tests/test_torch_tp_families.py``; the sequence-sharded prefill and
@@ -200,6 +228,7 @@ def _unported_cases():
     from repro_torch.core.masks import segment_layout
     from repro_torch.distributed.context import DistContext
     from repro_torch.launch import serve as SRV
+    from repro_torch.launch.specs import build_cell
     from repro_torch.launch.train import make_train_step
     from repro_torch.models.config import ModelConfig
     from repro_torch.optim.adamw import AdamWConfig
@@ -215,6 +244,10 @@ def _unported_cases():
     return {
         "train-n_model": lambda: make_train_step(
             cfg, segment_layout(2, 4, 2, 4), AdamWConfig(), dist=dist),
+        # the reference's ZeRO-3 train cell: not ported (ROADMAP 4b-v)
+        "train-fsdp-cell": lambda: build_cell(
+            dense.replace(sharding_strategy="fsdp", ccm=dataclasses.replace(
+                dense.ccm, max_steps=2)), "train_4k", dist, smoke=True),
         "prefill-seq-shard": lambda: SRV.make_prefill_step(
             dense, dist, shard_cache_seq=True, batch_sharded=False),
         "ingest-seq-shard": lambda: SRV.make_ingest_step(
@@ -224,8 +257,13 @@ def _unported_cases():
 
 
 @pytest.mark.parametrize("case", ["train-n_model", "prefill-seq-shard",
-                                  "ingest-seq-shard", "stream-step-dist"])
+                                  "ingest-seq-shard", "stream-step-dist",
+                                  "train-fsdp-cell"])
 def test_unported_multi_device_options_name_slice_14(case):
+    if case == "train-fsdp-cell":
+        with pytest.raises(NotImplementedError, match="4b-v"):
+            _unported_cases()[case]()
+        return
     assert callable(_unported_cases()[case]())
 
 
