@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phase16  # the card, the build and phase 16 only
     python3 chip_smoke.py --phase17  # the card, the build and phase 17 only
     python3 chip_smoke.py --phase18  # the card, the build and phase 18 only
+    python3 chip_smoke.py --phase19  # the card, the build and phase 19 only
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the build of the
@@ -114,7 +115,7 @@ Phases (any failure raises, and the script exits non-zero):
      each config's ``param_dtype``, one model at a time: whisper-tiny (4
      + 4 layers, 1500 random frames, 448-token prefills), pixtral-12b
      (20 of its 40 layers, bf16, 1024 random patch rows of width 1024),
-     phi3.5-moe (8 of its 32 layers, bf16) and llama4-maverick (1 of 48
+     phi3.5-moe (4 of its 32 layers, bf16) and llama4-maverick (1 of 48
      layers, 128 experts top-1): (a) the online path (B4, 4 ingests of
      64, 32 greedy tokens; whisper's ``encode_cross`` at B4 through the
      CCM kernel with every key <COMP>, then concat and merge; pixtral's
@@ -224,8 +225,20 @@ Phases (any failure raises, and the script exits non-zero):
      ``max_memory_allocated``, its FLOPs over the measured ms; (e) the dry
      run of LLaMA-7B's four shapes on the 16 x 16 shape-only mesh, the
      seconds per cell;
+ 19. (after 18) ZeRO-3 (``sharding_strategy="fsdp"``) on LLaMA-7B: (a)
+     in an NCCL world of one on a (1, 1) mesh, the fsdp train step
+     (concat, merge), ``TrainLoop`` for 2 steps, the three ``dist=``
+     builders with ``generate`` and ``make_stream_step``, each bit-equal
+     to ``dist=None``; (c) the dry run's four fsdp cells on the meta
+     device against the same cells on the card (argument bytes equal,
+     the peak beside ``max_memory_allocated``); (b) 14b's full-width
+     block at n = 2, 4, 8: the ranks' ZeRO-3 blocks gathered and cut per
+     layer, bit-equal to the tensor-parallel loop, with one layer's
+     gather time, and the ZeRO-3 training forward, each rank on its own
+     rows of a B8 batch, within ``bf16_tol`` of the unsharded loss;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
-launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18,
+launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18
+and 19,
 the mma.sync route's launches with the lse in phase 17, and
 the CCM kernel's phase-12 launches by whisper's encoder, read from the
 counters around each of its launches), then the result line.  Phase 2 also
@@ -261,6 +274,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -3368,12 +3382,15 @@ RECURRENT = ("mamba2-370m", "zamba2-1.2b")
 # gradients through more layers lie past the 1e-3 limit from float64,
 # scripts/recurrent_xcheck_probe.py) and its context tokens; and the
 # training layout (S 1280 = 5 SSD chunks of 256; S 1152 = 9 of 128: a
-# block must be at most ssm_chunk tokens or a multiple of it)
+# block must be at most ssm_chunk tokens or a multiple of it); 11d's
+# float32 engine depth, held against float64 sessions on the host (6
+# layers; the hybrid 7: one group of 6 and its shared site, then 1; at
+# 12 / 13 layers the float64 sessions took 65 s of a slow host's run)
 REC = {"mamba2-370m": dict(lc=64, xcut=dict(n_layers=2), xlc=62,
-                           ecut=dict(n_layers=12),
+                           ecut=dict(n_layers=6),
                            layout=(16, 62, 2, 256), modes=("concat",) * 2),
        "zamba2-1.2b": dict(lc=56, xcut=dict(n_layers=9, attn_every=4),
-                           xlc=56, ecut=dict(n_layers=13),
+                           xlc=56, ecut=dict(n_layers=7),
                            layout=ZAMBA_LAYOUT,
                            modes=("concat", "concat", "merge"))}
 
@@ -3608,7 +3625,7 @@ def recurrent_serve(torch, m, params, cfg, card, record):
     and one 32-token query (exact lengths: a recurrent state cannot skip
     pad tokens), one fork of a resident session.  Run twice on the same
     traffic.  (1) float32 compute at the depth ``REC[...]["ecut"]`` (the
-    published layer pattern, its first 12 or 13 layers: the float64
+    published layer pattern, its first 6 or 7 layers: the float64
     sessions on the CPU cost ~4 s a layer at full depth): every answer
     (B32) held within 1e-3 x max|logit| of its session run alone in
     float64 on the CPU (F64), the lane check at every layer of the cut
@@ -3931,8 +3948,10 @@ FAMILIES = ("whisper-tiny", "pixtral-12b", "phi3.5-moe-42b-a6.6b",
 # in bf16, llama4-maverick's 128 experts 32 GB a layer; phi3.5-moe and
 # pixtral-12b are cut to keep the script within its time limit (at 16
 # and 40 layers they were phase 12's two longest paths, 96.1 and 67.3 s
-# on an NVIDIA H100 80GB HBM3 at 700 W), every check and launch kept
-FAM_DEPTH = {"pixtral-12b": 20, "phi3.5-moe-42b-a6.6b": 8,
+# on an NVIDIA H100 80GB HBM3 at 700 W; phi3.5-moe at 8 layers still
+# took 92.5 s of a 1088 s run on a slow host), every check and launch
+# kept
+FAM_DEPTH = {"pixtral-12b": 20, "phi3.5-moe-42b-a6.6b": 4,
              "llama4-maverick-400b-a17b": 1}
 # whisper's published n_text_ctx (Radford et al. 2022): 448-token prefills
 WHISPER_TEXT = 448
@@ -4118,7 +4137,7 @@ def encoder_ccm_launches(PT, ops, tally):
 
 def family_phase(torch, m, card, archs=FAMILIES):
     """Phase 12: whisper-tiny, pixtral-12b (20 of 40 layers), phi3.5-moe
-    (8 of 32 layers) and llama4-maverick (1 of 48 layers) at their
+    (4 of 32 layers) and llama4-maverick (1 of 48 layers) at their
     published widths, random weights from seed 0 in each config's
     ``param_dtype`` (LoRA b drawn at random), one model at a time: 12a
     the online path (B4, 4
@@ -4587,6 +4606,99 @@ def same_tree(torch, PP, a, b) -> list:
     return ["/".join(k) for k in b if not torch.equal(a[k], b[k])]
 
 
+def online_builders_check(torch, m, params, cfg, dist, counts, tag: str):
+    """The three ``dist=`` builders (ingest twice, a 448-token prefill, 4
+    decode steps) and ``generate`` (8 tokens) at phase 3's cell (B4, a
+    512-token cache) on ``dist``, bit-equal to ``dist=None`` (the dist
+    runs' launches counted into ``counts``).  Returns the initial state,
+    the contexts and the prompt."""
+    from repro_torch.launch import serve as SRV
+    PI = m.PI
+    dev = params["embed"].device
+    B, CACHE = 4, 512
+    gen = torch.Generator(device=dev).manual_seed(140)
+    ctx = [torch.randint(0, cfg.vocab_size, (B, 64), generator=gen,
+                         device=dev) for _ in range(2)]
+    prompt = torch.randint(0, cfg.vocab_size, (B, 448), generator=gen,
+                           device=dev)
+    ing, pre = SRV.make_ingest_step(cfg, dist), \
+        SRV.make_prefill_step(cfg, dist)
+    dec = SRV.make_decode_step(cfg, dist)
+
+    def online(p, st, tp_dist):
+        for c in ctx:
+            st = ing(p, st, c) if tp_dist else \
+                PI.ingest_context(params, cfg, st, c)
+        lg, st = pre(p, st, prompt) if tp_dist else \
+            PI.prefill(params, cfg, st, prompt)
+        lgs = [lg]
+        for _ in range(4):
+            tok = lgs[-1][:, -1].argmax(-1)[:, None]
+            lg, st = dec(p, st, tok) if tp_dist else \
+                PI.decode_step(params, cfg, st, tok)
+            lgs.append(lg)
+        g = PI.generate(p, cfg, clone_state(torch, st), prompt[:, :64],
+                        8, dist=dist if tp_dist else None)
+        return lgs, st, g
+    st0 = PI.init_online_state(cfg, B, CACHE, device=dev)
+    p_d, st_d = ing.place(params, clone_state(torch, st0))
+    got = counted(m.ops, counts, lambda: online(p_d, st_d, True))
+    want = online(params, clone_state(torch, st0), False)
+    bad = [i for i, (a, b) in enumerate(zip(got[0], want[0]))
+           if not torch.equal(a, b)]
+    for name in ("k", "v"):
+        if not torch.equal(getattr(got[1].cache, name),
+                           getattr(want[1].cache, name)) or not \
+                torch.equal(getattr(got[1].mem, name),
+                            getattr(want[1].mem, name)):
+            bad.append(f"state {name}")
+    if bad or not torch.equal(got[2], want[2]):
+        raise AssertionError(f"{tag} builders: differ at {bad} or in "
+                             "generate's tokens")
+    log(f"  {tag} make_ingest_step / make_prefill_step / make_decode_step"
+        "(dist=) and generate(dist=): logits of 2 ingests, a 448-token "
+        "prefill and 4 decode steps, the cache and memory, 8 generated "
+        f"tokens, bit-equal to dist=None (B4, {cfg.n_layers} layers"
+        f"{', ' + cfg.sharding_strategy})")
+    return st0, ctx, prompt
+
+
+def stream_builder_check(torch, m, params, cfg, dist, counts, tag: str):
+    """``make_stream_step`` on ``dist`` at phase 8b's cell (4 layers, W
+    512, 10 chunks of 64: two evictions), bit-equal to ``dist=None``."""
+    from repro_torch.launch import serve as SRV
+    STR = m.STR
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev).manual_seed(141)
+    p4 = first_layers(params, 4)
+    c4 = cfg.replace(n_layers=4, ccm=dataclasses.replace(
+        cfg.ccm, stream_window=512, stream_chunk=64, stream_mem_slots=4))
+    toks = torch.randint(0, cfg.vocab_size, (2, 640), generator=gen,
+                         device=dev)
+    sstep = SRV.make_stream_step(c4, dist)
+
+    def stream(p, st, tp_dist):
+        out = []
+        for i in range(10):
+            t = toks[:, i * 64:(i + 1) * 64]
+            lg, st = sstep(p, st, t) if tp_dist else \
+                STR.stream_step(p4, c4, st, t)
+            out.append(lg)
+        return out, st
+    s0 = STR.init_stream_state(c4, 2, device=dev)
+    p_d, s_d = sstep.place(p4, clone_state(torch, s0))
+    got = counted(m.ops, counts, lambda: stream(p_d, s_d, True))
+    want = stream(p4, clone_state(torch, s0), False)
+    if not all(torch.equal(a, b) for a, b in zip(got[0], want[0])) or \
+            not torch.equal(got[1].win_k, want[1].win_k) or \
+            not torch.equal(got[1].mem.k, want[1].mem.k) or \
+            got[1].mem.slots != want[1].mem.slots:
+        raise AssertionError(f"{tag} make_stream_step(dist=) differs")
+    log(f"  {tag} make_stream_step(dist=): 10 chunks of 64 (2 "
+        f"evictions, {got[1].mem.slots} memory groups) bit-equal to "
+        "dist=None (4 layers, W 512)")
+
+
 def tp_world_of_one(torch, m, params, cfg, card):
     """14a: every new entry point with ``dist=`` in an NCCL world of one
     rank on a (1, 1) mesh, against ``dist=None``, bit-equal (NCCL cannot
@@ -4604,9 +4716,8 @@ def tp_world_of_one(torch, m, params, cfg, card):
     import torch.distributed as tdist
     from repro_torch.distributed import tensor_parallel as TPX
     from repro_torch.distributed.context import free_port, init_world
-    from repro_torch.launch import serve as SRV
     from repro_torch.launch.mesh import make_debug_mesh, make_dist
-    PI, STR, TR, PD, PA, PP, ops = m.PI, m.STR, m.TR, m.PD, m.PA, m.PP, m.ops
+    PI, TR, PD, PA, PP, ops = m.PI, m.TR, m.PD, m.PA, m.PP, m.ops
     dev = init_world(0, 1, free_port(), params["embed"].device)   # NCCL
     counts = {}
     try:
@@ -4645,52 +4756,8 @@ def tp_world_of_one(torch, m, params, cfg, card):
                 "leaves, moments)")
         del tp, tq, opt, oq
 
-        B, CACHE = 4, 512
-        gen = torch.Generator(device=dev).manual_seed(140)
-        ctx = [torch.randint(0, cfg.vocab_size, (B, 64), generator=gen,
-                             device=dev) for _ in range(2)]
-        prompt = torch.randint(0, cfg.vocab_size, (B, 448), generator=gen,
-                               device=dev)
-        ing, pre = SRV.make_ingest_step(cfg, dist), \
-            SRV.make_prefill_step(cfg, dist)
-        dec = SRV.make_decode_step(cfg, dist)
-
-        def online(st, tp_dist):
-            for c in ctx:
-                st = ing(params, st, c) if tp_dist else \
-                    PI.ingest_context(params, cfg, st, c)
-            lg, st = pre(params, st, prompt) if tp_dist else \
-                PI.prefill(params, cfg, st, prompt)
-            lgs = [lg]
-            for _ in range(4):
-                tok = lgs[-1][:, -1].argmax(-1)[:, None]
-                lg, st = dec(params, st, tok) if tp_dist else \
-                    PI.decode_step(params, cfg, st, tok)
-                lgs.append(lg)
-            g = PI.generate(params, cfg, clone_state(torch, st), prompt[:, :64],
-                            8, dist=dist if tp_dist else None)
-            return lgs, st, g
-        st0 = PI.init_online_state(cfg, B, CACHE, device=dev)
-        _, st_d = ing.place(params, clone_state(torch, st0))
-        got = counted(ops, counts, lambda: online(st_d, True))
-        want = online(clone_state(torch, st0), False)
-        bad = [i for i, (a, b) in enumerate(zip(got[0], want[0]))
-               if not torch.equal(a, b)]
-        for name in ("k", "v"):
-            if not torch.equal(getattr(got[1].cache, name),
-                               getattr(want[1].cache, name)) or not \
-                    torch.equal(getattr(got[1].mem, name),
-                                getattr(want[1].mem, name)):
-                bad.append(f"state {name}")
-        if bad or not torch.equal(got[2], want[2]):
-            raise AssertionError(f"14a builders: differ at {bad} or in "
-                                 "generate's tokens")
-        log(f"  14a make_ingest_step / make_prefill_step / make_decode_step"
-            "(dist=) and generate(dist=): logits of 2 ingests, a 448-token "
-            "prefill and 4 decode steps, the cache and memory, 8 generated "
-            f"tokens, bit-equal to dist=None (B4, {cfg.n_layers} layers)")
-        del got, want, st_d
-
+        st0, ctx, prompt = online_builders_check(torch, m, params, cfg, dist,
+                                                 counts, "14a")
         # the split path itself at n = 1: a TensorParallel view over the
         # mesh's NCCL model-axis group, so that the tensor-parallel code's
         # every reduce, max and gather (forward and backward) runs
@@ -4735,33 +4802,7 @@ def tp_world_of_one(torch, m, params, cfg, card):
             "and the greedy pick bit-equal to dist=None")
         del got, want, st0, tq, ga, gb
 
-        p4 = first_layers(params, 4)
-        c4 = cfg.replace(n_layers=4, ccm=dataclasses.replace(
-            cfg.ccm, stream_window=512, stream_chunk=64, stream_mem_slots=4))
-        toks = torch.randint(0, cfg.vocab_size, (2, 640), generator=gen,
-                             device=dev)
-        sstep = SRV.make_stream_step(c4, dist)
-
-        def stream(st, tp_dist):
-            out = []
-            for i in range(10):
-                t = toks[:, i * 64:(i + 1) * 64]
-                lg, st = sstep(p4, st, t) if tp_dist else \
-                    STR.stream_step(p4, c4, st, t)
-                out.append(lg)
-            return out, st
-        s0 = STR.init_stream_state(c4, 2, device=dev)
-        _, s_d = sstep.place(p4, clone_state(torch, s0))
-        got = counted(ops, counts, lambda: stream(s_d, True))
-        want = stream(clone_state(torch, s0), False)
-        if not all(torch.equal(a, b) for a, b in zip(got[0], want[0])) or \
-                not torch.equal(got[1].win_k, want[1].win_k) or \
-                not torch.equal(got[1].mem.k, want[1].mem.k) or \
-                got[1].mem.slots != want[1].mem.slots:
-            raise AssertionError("14a make_stream_step(dist=) differs")
-        log(f"  14a make_stream_step(dist=): 10 chunks of 64 (2 "
-            f"evictions, {got[1].mem.slots} memory groups) bit-equal to "
-            "dist=None (4 layers, W 512)")
+        stream_builder_check(torch, m, params, cfg, dist, counts, "14a")
         return counts
     finally:
         tdist.destroy_process_group()
@@ -4785,7 +4826,7 @@ def rank_state(torch, st, tp):
                                                   conv=ssm.conv.clone()))
 
 
-def tp_rank_loop(torch, m, card):
+def tp_rank_loop(torch, m, card, blocks=TP_BLOCKS, zero3=None):
     """14b: one block at full width (``n_layers=1``) of LLaMA-7B at n = 2,
     4 and 8 and of Gemma-2B at n = 2, random weights (seed 14, LoRA b
     drawn), bf16.  The n ranks of a ``LocalGroup`` run on the card in
@@ -4797,13 +4838,17 @@ def tp_rank_loop(torch, m, card):
     concat, then merge), each held against the unsharded block on the
     card within bf16_tol (logits gathered over the vocabulary blocks).
     The kernels' launches and the rank loop's time beside the unsharded
-    block's.  Returns the rank loops' launches and the record."""
+    block's.  Returns the rank loops' launches and the record.
+    ``zero3`` (phase 19b, over ``blocks``): called after each mode's rank
+    loop as ``zero3(cfg, params, train, online, st0, outs, n, here)``,
+    which runs the ZeRO-3 checks on the same block and returns the mode's
+    record (the tensor-parallel loop is then not timed)."""
     from repro_torch.distributed import tensor_parallel as TPX
     from repro_torch.optim.losses import next_token_loss
     PI, PT, PD, ops = m.PI, m.PT, m.PD, m.ops
     counts, rec = {}, {}
     layout = m.segment_layout(*ZOO_LAYOUT)
-    for arch, n in TP_BLOCKS:
+    for arch, n in blocks:
         base = m.get_config(arch).replace(n_layers=1)
         params = m.init_lm(base, seed=14)
         randomize_lora_b(torch, params, seed=114)
@@ -4851,9 +4896,11 @@ def tp_rank_loop(torch, m, card):
             with torch.no_grad():
                 want = whole()
                 outs = counted(ops, here, loop)
-                t_whole = time_ms(torch, lambda i: whole(), iters=3,
-                                  warmup=1)
-                t_loop = time_ms(torch, lambda i: loop(), iters=3, warmup=1)
+                if zero3 is None:
+                    t_whole = time_ms(torch, lambda i: whole(), iters=3,
+                                      warmup=1)
+                    t_loop = time_ms(torch, lambda i: loop(), iters=3,
+                                     warmup=1)
             for rk, ((lg, loss), (lp, ld)) in enumerate(outs):
                 for name, a, b in (("train logits", lg, want[0][0]),
                                    ("loss", loss, want[0][1]),
@@ -4866,6 +4913,10 @@ def tp_rank_loop(torch, m, card):
                     elif not err <= bf16_tol(b):
                         raise AssertionError(f"14b {arch} n={n} rank {rk} "
                                              f"{name}: {err}")
+            if zero3 is not None:
+                r[mode] = zero3(cfg, params, train, online, st0, outs, n,
+                                here)
+                continue
             r[mode] = dict(whole_ms=t_whole, loop_ms=t_loop,
                            per_rank_ms=t_loop / n)
             log(f"  14b {arch} n={n} {mode}: the {n} ranks in turn "
@@ -6851,6 +6902,259 @@ def phase18(torch, m, card):
     return counts, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 19: ZeRO-3 (sharding_strategy="fsdp")
+# ---------------------------------------------------------------------------
+
+# 19b's blocks: LLaMA-7B at n = 2, 4, 8, as 14b's
+FSDP_BLOCKS = (("llama-7b", 2), ("llama-7b", 4), ("llama-7b", 8))
+# the kernels phase 19 launches (19a trains, serves and streams; 19b's
+# rank loops run forward only)
+FSDP_KERNELS = ("cond_lora_wgmma", "segmented_attention_splitk",
+                "segmented_attention_mma", "ccm_attention_mma",
+                "ccm_attention_backward_mma", "kv_merge_update",
+                "kv_cummean", "kv_cummean_backward")
+
+
+def fsdp_world_of_one(torch, m, params, cfg, card):
+    """19a and 19c in an NCCL world of one rank on a (1, 1) mesh, under
+    ``sharding_strategy="fsdp"`` (every stored block a whole leaf; the
+    gathers, reduce-scatters and all-reduces go through NCCL groups of
+    one rank).  19a, against ``dist=None``, bit-equal (the train steps
+    under deterministic algorithms): ``jit_train_step``'s placed step at
+    phase 5's cell (B4, S1216, LoRA), one concat and one merge AdamW step;
+    ``TrainLoop`` for 2 steps; the three ``dist=`` builders and
+    ``generate`` (14a's cell) and ``make_stream_step`` (4 layers).  19c:
+    the dry run's fsdp cells of the four shapes (phase 18's scale) built on
+    the meta device over a (1, 1) shape mesh, then on the card: their
+    argument bytes against the card's, the peak against
+    ``max_memory_allocated``.  Returns the dist runs' launches and 19c's
+    rows."""
+    import torch.distributed as tdist
+    from repro_torch.distributed.context import free_port, init_world
+    from repro_torch.launch.mesh import (make_debug_mesh, make_dist,
+                                         make_shape_mesh)
+    TR, PD, PA, PP, ops = m.TR, m.PD, m.PA, m.PP, m.ops
+    dev = init_world(0, 1, free_port(), params["embed"].device)   # NCCL
+    fcfg = cfg.replace(sharding_strategy="fsdp")
+    counts, rows = {}, []
+    try:
+        dist = make_dist(make_debug_mesh(1, 1, device=dev))
+        layout = m.segment_layout(*ZOO_LAYOUT)
+        batch = PD.sample_kv_batch(PD.ShardableIndexIterator(0, 4)
+                                   .key_for(0), layout, 4, device=dev)
+        tp0, fp0 = PP.partition(params, TR.trainable_mask_for(cfg, params))
+        ocfg = PA.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+
+        def clone(t):
+            return PP.tree_map(lambda _, x: None if x is None
+                               else x.detach().clone(), t)
+        for mode in ("concat", "merge"):
+            c = cfg.replace(ccm=dataclasses.replace(cfg.ccm, mode=mode))
+            fc = c.replace(sharding_strategy="fsdp")
+            with deterministic(torch):
+                step = TR.jit_train_step(
+                    TR.make_train_step(fc, layout, ocfg, dist), fc, dist,
+                    None, None, batch, None)
+                tp, fp, opt = step.place(clone(tp0), fp0,
+                                         PA.init_adamw(tp0))
+                tp, opt, mt, _ = counted(ops, counts, lambda: step(
+                    tp, fp, opt, batch))
+                tq, oq, mq, _ = TR.make_train_step(c, layout, ocfg)(
+                    clone(tp0), fp0, PA.init_adamw(tp0), batch)
+            diff = same_tree(torch, PP, tp, tq) \
+                + same_tree(torch, PP, opt.mu, oq.mu) \
+                + same_tree(torch, PP, opt.nu, oq.nu)
+            if mt["loss"].item() != mq["loss"].item() or diff:
+                raise AssertionError(f"19a fsdp train {mode}: loss "
+                                     f"{mt['loss'].item()} vs "
+                                     f"{mq['loss'].item()}, differ {diff}")
+            log(f"  19a jit_train_step(dist=) under fsdp, {mode}: one AdamW "
+                f"step bit-equal to dist=None (loss {mt['loss'].item():.4f},"
+                " leaves, moments)")
+            del tp, tq, opt, oq
+
+        def loop_run(c, d):
+            lp = TR.TrainLoop(c, layout, ocfg, 4, dist=d, device=dev)
+            hist = lp.run(2, log_every=0)
+            return [h["loss"] for h in hist], lp.tp
+        with deterministic(torch):
+            ha, ta = counted(ops, counts, lambda: loop_run(fcfg, dist))
+            gc.collect()
+            torch.cuda.empty_cache()
+            hb, tb = loop_run(cfg, None)
+        if ha != hb or same_tree(torch, PP, ta, tb):
+            raise AssertionError(f"19a TrainLoop under fsdp: {ha} vs {hb}")
+        log(f"  19a TrainLoop(dist=) under fsdp: 2 steps bit-equal to "
+            f"dist=None (losses {ha}, trainable leaves)")
+        del ta, tb
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        online_builders_check(torch, m, params, fcfg, dist, counts, "19a")
+        stream_builder_check(torch, m, params, fcfg, dist, counts, "19a")
+
+        shape = make_shape_mesh((1, 1), ("data", "model"))
+        for name in P18_SHAPES:
+            rec = m.dryrun.measure(p18_cell(m, fcfg, name, make_dist(shape)),
+                                   shape.counts)
+            cell = p18_cell(m, fcfg, name, dist)
+            args = card_args(torch, m, fcfg, cell, params, dev, seed=190)
+            held = m.dryrun._storage_bytes(m.dryrun._tensors(args))
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _, ms, finite = p18_run(torch, m, fcfg, cell, args, counts,
+                                    card)
+            peak = held + torch.cuda.max_memory_allocated() - before
+            mem = rec["memory"]
+            row = dict(cell=cell.name + " (fsdp)", ms=ms, finite=finite,
+                       arg_bytes=mem["argument_bytes"], card_arg_bytes=held,
+                       peak_bytes=mem["peak_bytes"], card_peak_bytes=peak,
+                       peak_ratio=mem["peak_bytes"] / peak)
+            rows.append(row)
+            log(f"  19c {row['cell']} ({fcfg.n_layers} L): {ms:.1f} ms, "
+                f"finite {finite}; args {mem['argument_bytes']} B (card "
+                f"{held}), peak meta {mem['peak_bytes'] / 2 ** 30:.3f} / "
+                f"card {peak / 2 ** 30:.3f} GiB = {row['peak_ratio']:.3f} "
+                f"[{card}]")
+            if not finite:
+                raise AssertionError(f"19c {cell.name}: non-finite outputs")
+            if held != mem["argument_bytes"]:
+                raise AssertionError(f"19c {cell.name}: argument_bytes "
+                                     f"{mem['argument_bytes']} != the card "
+                                     f"args' {held}")
+            del args
+    finally:
+        tdist.destroy_process_group()
+    return counts, rows
+
+
+def zero3_block(torch, m, card):
+    """19b's checks on one 14b block (`tp_rank_loop`'s ``zero3``): (i)
+    the ranks of a ``LocalGroup`` in turn on their ZeRO-3 blocks, each
+    layer gathered and cut as the serve path does, bit-equal to the
+    tensor-parallel loop's outputs on the same block (the same local
+    weights, the same kernels); the one-layer gather's device ms (the
+    group's concat of the blocks on the card) and the loop's time; (ii)
+    in concat mode, the ZeRO-3 training forward: each rank its own rows
+    of a B8 batch, the layer whole, the loss's parts summed, against the
+    unsharded loss within bf16_tol."""
+    from repro_torch.distributed import fsdp as FS
+    from repro_torch.distributed import tensor_parallel as TPX
+    TR, PD, PP, ops = m.TR, m.PD, m.PP, m.ops
+    layout = m.segment_layout(*ZOO_LAYOUT)
+
+    def run(cfg, params, train, online, st0, outs, n, here):
+        fcfg = cfg.replace(sharding_strategy="fsdp")
+        stored = [FS.shard_fsdp(params, fcfg,
+                                TPX.TensorParallel(fcfg, n, r, None))
+                  for r in range(n)]
+
+        def zloop():
+            grp = TPX.LocalGroup(n)
+            ranks = TPX.local_ranks(fcfg, grp)
+            sts = [rank_state(torch, st0, tp) for tp in ranks]
+            return grp.run(lambda i: (train(stored[i], ranks[i]),
+                                      online(stored[i], sts[i], ranks[i])))
+        leaves = []
+        for path, _ in PP.leaves(params["layers"]):
+            d = FS.gather_dim(("layers",) + path, fcfg, n)
+            if d is not None:
+                blocks = []
+                for st in stored:
+                    x = st["layers"]
+                    for k in path:
+                        x = x[k]
+                    blocks.append(x[0])
+                leaves.append((d, blocks))
+        nbytes = sum(b[0].numel() * b[0].element_size() * n
+                     for _, b in leaves)
+        with torch.no_grad():
+            zouts = counted(ops, here, zloop)
+            t_loop = time_ms(torch, lambda i: zloop(), iters=3, warmup=1)
+            t_gather = time_ms(torch, lambda i: [torch.cat(b, d)
+                                                 for d, b in leaves])
+        flat = [x for o in outs for pair in o for x in pair]
+        zflat = [x for o in zouts for pair in o for x in pair]
+        bad = [i for i, (a, b) in enumerate(zip(zflat, flat))
+               if not torch.equal(a, b)]
+        if bad or len(flat) != len(zflat):
+            raise AssertionError(f"19b n={n} {cfg.ccm.mode}: the ZeRO-3 "
+                                 f"blocks' outputs {bad} differ from the "
+                                 "tensor-parallel loop's")
+        r = dict(loop_ms=t_loop, per_rank_ms=t_loop / n, gather_ms=t_gather,
+                 gather_bytes=nbytes)
+        log(f"  19b(i) LLaMA-7B n={n} {cfg.ccm.mode}: the ZeRO-3 blocks "
+            "gathered and cut per layer, bit-equal to the tensor-parallel "
+            f"loop (training forward + loss, ingest, prefill, decode; every "
+            f"rank); the {n} ranks in turn {t_loop:.2f} ms ({t_loop / n:.2f}"
+            f" ms a rank); one layer's all-gather (the group's concat of "
+            f"{nbytes / 2 ** 20:.1f} MiB on the card) {t_gather:.3f} ms "
+            f"[{card}]")
+        if cfg.ccm.mode != "concat":
+            return r
+        dev = params["embed"].device
+        b8 = PD.sample_kv_batch(PD.ShardableIndexIterator(0, 8).key_for(0),
+                                layout, 8, device=dev)
+        mask = TR.trainable_mask_for(cfg, params)
+        count = b8["loss_mask"].float().sum()
+
+        def rows(i):
+            k = 8 // n
+            return {name: v[i * k:(i + 1) * k] for name, v in b8.items()}
+
+        def zfwd():
+            grp = TPX.LocalGroup(n)
+            return grp.run(lambda i: TR._loss_fn(
+                *PP.partition(stored[i], mask), fcfg, layout, rows(i),
+                dist=FS.Fsdp(fcfg, n, i, grp.member(i)), count=count))
+        with torch.no_grad():
+            want = TR._loss_fn(*PP.partition(params, mask), cfg, layout, b8)
+            parts = counted(ops, here, zfwd)
+            t_fwd = time_ms(torch, lambda i: zfwd(), iters=3, warmup=1)
+        loss = functools.reduce(torch.add, parts)
+        check(f"19b(ii) LLaMA-7B n={n}: the ZeRO-3 training forward, each "
+              "rank its own rows (B8 S1216), the loss's parts summed, vs the "
+              "unsharded loss", max_err(loss, want), bf16_tol(want))
+        r.update(train_forward_ms=t_fwd, loss=loss.item(),
+                 loss_whole=want.item())
+        log(f"  19b(ii) LLaMA-7B n={n}: loss {loss.item():.6f} vs "
+            f"{want.item():.6f}; the {n} ranks in turn {t_fwd:.2f} ms "
+            f"({t_fwd / n:.2f} ms a rank, {8 // n} rows each) [{card}]")
+        return r
+    return run
+
+
+def phase19(torch, m, card):
+    """Phase 19: ZeRO-3 on LLaMA-7B: 19a and 19c in an NCCL world of one
+    rank (`fsdp_world_of_one`), 19b the full-width block's rank loops
+    (`tp_rank_loop` with `zero3_block`)."""
+    t0 = time.perf_counter()
+    cfg = m.get_config("llama-7b")
+    llama = m.init_lm(cfg, seed=0)          # phase 3's weights
+    randomize_lora_b(torch, llama, seed=100)
+    log("  19a/19c: the fsdp dist= entry points and cells in an NCCL world "
+        "of one rank, (1, 1) mesh (LLaMA-7B, 32 layers, bf16)")
+    counts, cells = fsdp_world_of_one(torch, m, llama, cfg, card)
+    del llama
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  19b: one full-width LLaMA-7B block, the ZeRO-3 blocks of a "
+        "LocalGroup's ranks in turn on the card")
+    rec = {}
+    loop_counts, rec["19b"] = tp_rank_loop(torch, m, card, FSDP_BLOCKS,
+                                           zero3_block(torch, m, card))
+    add_counts(counts, loop_counts)
+    missing = [k for k in FSDP_KERNELS if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase 19: no launch of {missing} ({counts})")
+    rec.update(cells=cells, seconds=time.perf_counter() - t0)
+    log(f"  phase 19 launches: {({k: v for k, v in counts.items() if v})}; "
+        f"took {rec['seconds']:.1f} s [{card}]")
+    return counts, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6951,6 +7255,11 @@ def main() -> int:
         log("phase 18 alone (--phase18): the dry run's cells on the card")
         phase18(torch, m18, card)
         log(f"  --phase18: done ({time.perf_counter() - t_start:.1f} s)")
+        return 0
+    if "--phase19" in sys.argv[1:]:
+        log("phase 19 alone (--phase19): ZeRO-3 on LLaMA-7B")
+        phase19(torch, m18, card)
+        log(f"  --phase19: done ({time.perf_counter() - t_start:.1f} s)")
         return 0
     if "--phase17" in sys.argv[1:]:
         log("phase 17 alone (--phase17): LLaMA-7B (32 layers, bf16, seed 0)")
@@ -7152,6 +7461,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     p18_counts, rec18 = phase18(torch, m18, card)
 
+    log("phase 19: ZeRO-3 (sharding_strategy='fsdp'): the dist= entry "
+        "points and the dry run's cells in an NCCL world of one, the "
+        "full-width block's ZeRO-3 ranks in turn")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p19_counts, rec19 = phase19(torch, m18, card)
+
     # the tensor-core routes' launches in each main-path phase (3: online,
     # 5: training, 7: the 32-layer serve engine, 8: streaming, 9: the zoo,
     # 10: the baselines' training and the serve-metrics demo, 11: the
@@ -7169,24 +7486,25 @@ def main() -> int:
                     "15": p15_counts.get(k, 0),
                     "16": p16_counts.get(k, 0),
                     "17": p17_counts.get(k, 0),
-                    "18": p18_counts.get(k, 0)}
+                    "18": p18_counts.get(k, 0),
+                    "19": p19_counts.get(k, 0)}
                 for k in ("segmented_attention_splitk",
                           "segmented_attention_mma", "cond_lora_wgmma",
                           "ccm_attention_mma", "ccm_attention_backward_mma")}
     for k, need in (("segmented_attention_splitk", ("3", "8", "9", "11",
                                                     "12", "14", "15", "16",
-                                                    "17", "18")),
+                                                    "17", "18", "19")),
                     ("segmented_attention_mma", ("3", "7", "8", "9", "11",
                                                  "12", "13", "14", "15",
-                                                 "16", "17", "18")),
+                                                 "16", "17", "18", "19")),
                     ("cond_lora_wgmma", ("3", "5", "7", "8", "9", "10",
                                          "11", "12", "13", "14", "15",
-                                         "16", "17", "18")),
+                                         "16", "17", "18", "19")),
                     ("ccm_attention_mma", ("5", "9", "11", "12", "13",
-                                           "14", "15", "16", "18")),
+                                           "14", "15", "16", "18", "19")),
                     ("ccm_attention_backward_mma", ("5", "9", "11", "12",
                                                     "13", "14", "15",
-                                                    "16", "18"))):
+                                                    "16", "18", "19"))):
         if any(by_phase[k][ph] <= 0 for ph in need):
             raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
     for k in ("kv_merge_update", "session_gather", "session_scatter"):
@@ -7251,7 +7569,8 @@ def main() -> int:
              + p13_counts.get("kv_merge_update", 0)
              + p14_counts["kv_merge_update"]
              + p15_counts["kv_merge_update"]
-             + p16_counts["kv_merge_update"],
+             + p16_counts["kv_merge_update"]
+             + p19_counts["kv_merge_update"],
              launches_by_phase={"3": totals["kv_merge_update"],
                                 "7": merge_counts["kv_merge_update"],
                                 "8": stream_counts["kv_merge_update"],
@@ -7261,7 +7580,8 @@ def main() -> int:
                                 "13": p13_counts.get("kv_merge_update", 0),
                                 "14": p14_counts["kv_merge_update"],
                                 "15": p15_counts["kv_merge_update"],
-                                "16": p16_counts["kv_merge_update"]},
+                                "16": p16_counts["kv_merge_update"],
+                                "19": p19_counts["kv_merge_update"]},
              **merge),
         dict(name="ccm_attention", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
@@ -7284,7 +7604,7 @@ def main() -> int:
              + rec_counts["kv_cummean"] + fam_counts["kv_cummean"]
              + p13_counts["kv_cummean"] + p14_counts["kv_cummean"]
              + p15_counts["kv_cummean"] + p16_counts["kv_cummean"]
-             + p18_counts["kv_cummean"],
+             + p18_counts["kv_cummean"] + p19_counts["kv_cummean"],
              launches_by_phase={"5": train_counts["kv_cummean"],
                                 "11": rec_counts["kv_cummean"],
                                 "12": fam_counts["kv_cummean"],
@@ -7292,7 +7612,8 @@ def main() -> int:
                                 "14": p14_counts["kv_cummean"],
                                 "15": p15_counts["kv_cummean"],
                                 "16": p16_counts["kv_cummean"],
-                                "18": p18_counts["kv_cummean"]},
+                                "18": p18_counts["kv_cummean"],
+                                "19": p19_counts["kv_cummean"]},
              **cummean),
         dict(name="kv_cummean_backward", route="cuda",
              source="src/repro_torch/csrc/kv_cummean.cu",
@@ -7304,7 +7625,8 @@ def main() -> int:
              + p14_counts["kv_cummean_backward"]
              + p15_counts["kv_cummean_backward"]
              + p16_counts["kv_cummean_backward"]
-             + p18_counts["kv_cummean_backward"],
+             + p18_counts["kv_cummean_backward"]
+             + p19_counts["kv_cummean_backward"],
              launches_by_phase={"5": train_counts["kv_cummean_backward"],
                                 "11": rec_counts["kv_cummean_backward"],
                                 "12": fam_counts["kv_cummean_backward"],
@@ -7312,7 +7634,8 @@ def main() -> int:
                                 "14": p14_counts["kv_cummean_backward"],
                                 "15": p15_counts["kv_cummean_backward"],
                                 "16": p16_counts["kv_cummean_backward"],
-                                "18": p18_counts["kv_cummean_backward"]},
+                                "18": p18_counts["kv_cummean_backward"],
+                                "19": p19_counts["kv_cummean_backward"]},
              **cummean_bwd),
         dict(name="session_gather", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",

@@ -50,6 +50,7 @@ from repro_torch.core.memory import (Counter, MemState, init_memory,
                                      mem_layers, per_lane, uniform,
                                      update_memory)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import fsdp as FS
 from repro_torch.distributed import tensor_parallel as TPX
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -416,6 +417,7 @@ def ingest_context(params, cfg: ModelConfig, state: OnlineState,
     B, lc = chunk_tokens.shape
     _no_ragged(cfg, valid_len, "ingest")
     tp = TPX.tp_of(cfg, dist)
+    params = FS.view(params, cfg, dist)
     seq = SeqShard.of(dist, seq_shard) if state.cache is not None else None
     if cfg.family == "ssm":
         x = _embed_block(cfg, params, chunk_tokens, _positions(
@@ -486,6 +488,7 @@ def prefill(params, cfg: ModelConfig, state: OnlineState,
     B, S = tokens.shape
     _no_ragged(cfg, valid_len, "prefill")
     tp = TPX.tp_of(cfg, dist)
+    params = FS.view(params, cfg, dist)
     seq = SeqShard.of(dist, seq_shard) if state.cache is not None else None
     if patches is not None and patches.shape[1] > S:
         raise ValueError(
@@ -534,6 +537,7 @@ def decode_step(params, cfg: ModelConfig, state: OnlineState,
     it), and every data rank runs it whole."""
     B, S = tokens.shape
     tp = TPX.tp_of(cfg, dist)
+    params = FS.view(params, cfg, dist)
     seq = SeqShard.of(dist, seq_shard) if state.cache is not None else None
     ar = torch.arange(S, device=tokens.device)
     positions = _positions(state.pos, ar, B)
@@ -557,10 +561,11 @@ def encode_cross(params, cfg: ModelConfig, frames: torch.Tensor,
     rank's KV heads (all of them unless the "kv" regime splits them), as
     ``online_state_pspecs`` places ``cross``."""
     tp = TPX.tp_of(cfg, dist)
+    params = FS.view(params, cfg, dist)
     enc = T.encode(params, cfg, frames, dist=tp)
     ks, vs = [], []
     for li in range(cfg.n_layers):
-        xa = T.layer_params(params, li)["xattn"]
+        xa = T.layer_params(params, li, "xattn")
         # the weights alone (no biases), as the reference projects here
         _, k, v = A.qkv_project(cfg, {n: xa[n] for n in ("wq", "wk", "wv",
                                                          "wo")},

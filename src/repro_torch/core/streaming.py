@@ -36,6 +36,7 @@ from repro_torch.core.memory import (Counter, MemState, evict_oldest,
                                      init_memory, mem_layers, per_lane,
                                      recompress_memory, update_memory)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import fsdp as FS
 from repro_torch.distributed import tensor_parallel as TPX
 from repro_torch.models.config import ModelConfig, require_ported
 
@@ -94,6 +95,8 @@ def compress_from_kv(params, cfg: ModelConfig, mem: MemState,
     m = cfg.ccm.comp_len
     B = blk_k.shape[0 if mem.lane_major else 1]
     dev = blk_k.device
+    tp = TPX.tp_of(cfg, dist)
+    params = FS.view(params, cfg, dist)
     off = torch.arange(m, device=dev)
     x = params["comp_embed"].to(cfg.cdtype)[:m][None].expand(B, m, -1)
     info = I._self_info(off.to(torch.int32),
@@ -104,8 +107,7 @@ def compress_from_kv(params, cfg: ModelConfig, mem: MemState,
         params, cfg, x.contiguous(), I._positions(pos0, off, B),
         comp_gate=torch.ones((B, m), dtype=cfg.cdtype, device=dev),
         q_info=info, self_info=info, state=I.OnlineState(cache=block, mem=mem),
-        write_to_cache=False, collect_comp=0, impl=impl,
-        tp=TPX.tp_of(cfg, dist))
+        write_to_cache=False, collect_comp=0, impl=impl, tp=tp)
     full = np.asarray(mem.slots) >= mem.max_slots(m)
     if full.any():
         mem = evict_oldest(mem, m, None if full.all() else full)
@@ -238,6 +240,7 @@ def stream_step(params, cfg: ModelConfig, st: StreamState,
             f"stream_sink ({sink}) + stream_chunk ({cc}) exceeds "
             f"stream_window ({W}): the eviction block does not fit")
     dist = TPX.dropless(TPX.tp_of(cfg, dist))
+    params = FS.view(params, cfg, dist)
     pending = eviction_pending(cfg, st, c if valid_len is None
                                else valid_len)
     if pending.any():

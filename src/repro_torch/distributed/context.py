@@ -114,6 +114,11 @@ class CountingCollectives:
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         return self._count("all-to-all", torch.empty_like(x))
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        shape = list(x.shape)
+        shape[dim] //= self.n
+        return self._count("reduce-scatter", x.new_empty(shape))
+
 
 @dataclasses.dataclass(frozen=True)
 class DistContext:
@@ -154,21 +159,27 @@ class DistContext:
                 for a in axes:
                     n *= axis_size(mesh, a)
                 self._groups[axes] = CountingCollectives(mesh.counts, n)
-            elif len(axes) == 1:
-                self._groups[axes] = mesh.get_group(axes[0])
             else:
-                names = list(mesh.mesh_dim_names)
-                dims = [names.index(a) for a in axes]
-                rest = [d for d in range(len(names)) if d not in dims]
-                ranks = mesh.mesh.permute(rest + dims).reshape(
-                    -1, int(torch.tensor([mesh.size(d) for d in dims]).prod()))
-                mine = None
-                for row in ranks.tolist():        # same order on every rank
-                    g = tdist.new_group(row)
-                    if tdist.get_rank() in row:
-                        mine = g
-                self._groups[axes] = mine
+                # axes of one rank add nothing: the group of the others
+                wide = tuple(a for a in axes if axis_size(mesh, a) > 1)
+                self._groups[axes] = self._build(wide or axes[:1])
         return self._groups[axes]
+
+    def _build(self, axes: Tuple[str, ...]):
+        mesh = self.mesh
+        if len(axes) == 1:
+            return mesh.get_group(axes[0])
+        names = list(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in axes]
+        rest = [d for d in range(len(names)) if d not in dims]
+        ranks = mesh.mesh.permute(rest + dims).reshape(
+            -1, int(torch.tensor([mesh.size(d) for d in dims]).prod()))
+        mine = None
+        for row in ranks.tolist():        # same order on every rank
+            g = tdist.new_group(row)
+            if tdist.get_rank() in row:
+                mine = g
+        return mine
 
     def rank_in(self, axes: Axes) -> int:
         """This rank's linear index over ``axes`` (row-major in the order

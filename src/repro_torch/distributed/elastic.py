@@ -47,9 +47,10 @@ def remesh_restore(ckpt: CheckpointManager, step: int, cfg: ModelConfig,
     Every rank of a data-parallel mesh keeps them whole; on a mesh that
     splits the model (``n_model > 1``, every family) each rank keeps its
     shard of every tree in the state that has the params' key paths
-    (``tensor_parallel.shard_params``: leaves the rules do not split stay
-    whole), so a checkpoint written at one ``n_model`` restores at
-    another."""
+    (``fsdp.shard_model``: the tensor-parallel local layout, leaves the
+    rules do not split whole; under ``sharding_strategy="fsdp"`` its
+    ``param_spec`` blocks), so a checkpoint written at one ``n_model``,
+    or under one strategy, restores at another."""
     del trainable
     from repro_torch.launch.mesh import make_dist
     from repro_torch.launch.train import check_mesh
@@ -64,17 +65,17 @@ def remesh_restore(ckpt: CheckpointManager, step: int, cfg: ModelConfig,
 def _shard_state(state, cfg: ModelConfig, dist: DistContext):
     """This rank's shard of a checkpointed state: its params-shaped trees
     (at any depth) and the moments of an ``AdamWState``."""
-    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.distributed.fsdp import shard_model
     from repro_torch.optim.adamw import AdamWState
 
     def walk(x):
         if isinstance(x, dict):
             return {k: walk(v) for k, v in x.items()}
         if isinstance(x, AdamWState):
-            return x._replace(mu=TPX.shard_params(x.mu, cfg, dist),
-                              nu=TPX.shard_params(x.nu, cfg, dist))
+            return x._replace(mu=shard_model(x.mu, cfg, dist),
+                              nu=shard_model(x.nu, cfg, dist))
         return x
-    return walk(TPX.shard_params(state, cfg, dist))
+    return walk(shard_model(state, cfg, dist))
 
 
 def _rank_main(rank: int, world: int, port: int, device, fn, args, out):

@@ -77,6 +77,12 @@ position tables add none: ``split_dim`` splits them as the spec does.
 ``tests/test_torch_tp_families.py`` check that these are the only
 departures.
 
+ZeRO-3 (``sharding_strategy="fsdp"``, `distributed.fsdp`) stores the
+weights by ``param_pspecs`` itself, with no departure: a stored block is
+only storage and may cut a leaf mid-head.  Serving under it gathers each
+layer's leaves whole and cuts them to the local layout above
+(`TensorParallel.stored`), so the blocks run as they do here.
+
 COLLECTIVES.  ``copy_to_tp`` (identity forward, sum backward) marks the
 entry of a split computation: the gradient of its replicated input, and
 of a replicated leaf used inside it (a column-parallel LoRA ``a``, the
@@ -119,10 +125,17 @@ def require_tp_family(cfg: ModelConfig, n: int = 1) -> None:
     """Tensor parallelism runs every family of the registry (an unknown
     one raises, `require_ported`).  An MoE split over ``n`` ranks needs
     ``d_ff % n == 0`` (``ragged_tp``) or ``n_experts % n == 0``
-    (``ep``), as the reference's ``shard_map`` does."""
+    (``ep``), as the reference's ``shard_map`` does.  ``ep`` under
+    ``sharding_strategy="fsdp"`` raises NotImplementedError."""
     require_ported(cfg)
     if cfg.family != "moe" or n == 1:
         return
+    if cfg.moe_impl == "ep" and cfg.sharding_strategy == "fsdp":
+        raise NotImplementedError(
+            f"{cfg.name}: moe_impl='ep' under sharding_strategy='fsdp' on a "
+            f"model axis of {n}: ep's capacity is reckoned per block of the "
+            "data rows, which ZeRO-3 splits over the model axis too; not "
+            "ported (ROADMAP item 4b-v-c)")
     if cfg.moe_impl == "ep":
         if cfg.n_experts % n:
             raise ValueError(f"ep splits the experts over the model axis: "
@@ -304,6 +317,17 @@ class GroupCollectives:
         tdist.all_to_all_single(out, x, group=self.group)
         return out
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The sum over the ranks of ``x``, cut in n blocks along ``dim``:
+        this rank's block."""
+        x = x.movedim(dim, 0).contiguous()
+        check_backend(x, self.group)
+        out = x.new_empty((x.shape[0] // self.n,) + tuple(x.shape[1:]))
+        # reduce_scatter_tensor under its newer name where torch has it
+        getattr(tdist, "reduce_scatter_single",
+                tdist.reduce_scatter_tensor)(out, x, group=self.group)
+        return out.movedim(0, dim)
+
 
 class LocalGroup:
     """n ranks in one process, on one device, run as TURNS: rank r's
@@ -402,6 +426,9 @@ class _LocalMember:
         return torch.stack([y[self.rank] for y in
                             self.group._exchange(self.rank, x)])
 
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return _block(self.sum(x), dim, self.n, self.rank)
+
 
 def collectives(dist):
     """The model-axis collectives of a ``DistContext`` (`axis_collectives`)
@@ -465,6 +492,14 @@ class TensorParallel:
         return self.rank * self.cfg.n_kv_heads // self.n
 
     @property
+    def stored(self) -> bool:
+        """Whether the params this rank is given are ZeRO-3 storage
+        (``sharding_strategy="fsdp"``): each layer's leaves are gathered
+        whole and cut to this rank's local layout as it runs
+        (`distributed.fsdp.view`)."""
+        return self.cfg.sharding_strategy == "fsdp"
+
+    @property
     def ff_split(self) -> bool:
         return _ff_split(self.cfg, self.n)
 
@@ -494,13 +529,18 @@ def tp_of(cfg: ModelConfig, dist) -> Optional[TensorParallel]:
     """The tensor-parallel view of ``dist``: None without a model split
     (``dist`` None, or a mesh with ``n_model == 1``: then every path runs
     as on one device), ``dist`` itself when it is one, else this rank's
-    view over the mesh's model-axis group.  A split the family cannot
-    take raises (`require_tp_family`)."""
+    view over the mesh's model-axis group; a `distributed.fsdp.Fsdp`
+    rank's own view (None in training, where each rank runs its layers
+    whole).  A split the family cannot take raises
+    (`require_tp_family`)."""
     if dist is None:
         return None
     if isinstance(dist, TensorParallel):
         require_tp_family(cfg, dist.n)
         return dist
+    from repro_torch.distributed.fsdp import Fsdp
+    if isinstance(dist, Fsdp):
+        return dist.tp
     if dist.n_model == 1:
         return None
     require_tp_family(cfg, dist.n_model)

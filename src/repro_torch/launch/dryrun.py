@@ -19,9 +19,11 @@ per device:
   - cost: ``flops``, the aten matmuls (``FlopCounterMode``) and the
     kernel ops' own counts; ``bytes accessed``, the operands and results
     of those same ops (elementwise ops are not counted);
-  - collective bytes by kind (all-reduce, all-gather, all-to-all), the
-    bytes one device receives, as the reference counts an HLO
-    collective's result;
+  - collective bytes by kind (all-reduce, all-gather, reduce-scatter,
+    all-to-all), the bytes one device receives, as the reference counts
+    an HLO collective's result (under ``--variant fsdp`` the per-layer
+    all-gathers of the weights and, in training, the reduce-scatters of
+    their gradients);
   - ``calibrated``: the same counts.  The reference fits ``base + b L``
     over reduced-depth compiles because XLA counts a scanned layer body
     once; the port runs every layer in Python, so its counts are direct.
@@ -213,8 +215,9 @@ def main(argv=None):
                     choices=["single", "multi", "both"])
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--variant", default=None,
-                    help="'+'-joined cfg variants: int8kv,noremat,ep,merge,"
-                         "ccmserve (fsdp raises: ROADMAP 4b-v)")
+                    help="'+'-joined cfg variants: fsdp,int8kv,noremat,ep,"
+                         "merge,ccmserve (fsdp+ep on a model axis > 1 "
+                         "raises: ROADMAP 4b-v-c)")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", default=OUT_DIR)
     args = ap.parse_args(argv)

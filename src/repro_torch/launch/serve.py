@@ -33,8 +33,13 @@ back as the rank's rows and vocabulary block, as the reference's
 whole).  With ``batch_sharded=False`` every data rank holds the whole
 batch, and an ``ep`` MoE reckons its capacity per block of ``B S /
 n_data`` rows, as the reference's ``shard_map`` splits them
-(`tensor_parallel.replicated_rows`).  Without ``dist`` a builder returns
-the op itself (no jit).
+(`tensor_parallel.replicated_rows`).  Under ZeRO-3
+(``sharding_strategy="fsdp"``) ``place`` stores the params by
+``param_spec`` (`distributed.fsdp`), and the op gathers each layer's
+leaves and cuts them to the tensor-parallel local layout as it runs:
+the states keep their specs, which split KV heads over the model axis
+whatever the strategy.  Without ``dist`` a builder returns the op
+itself (no jit).
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ import torch
 
 from repro_torch.core import inference as I
 from repro_torch.core import streaming as STR
+from repro_torch.distributed import fsdp as FS
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tensor_parallel as TPX
 from repro_torch.distributed.context import DistContext, divisible
@@ -129,8 +135,9 @@ class ShardedStep:
     """The port's counterpart of the reference's ``_jit_with_specs``: an
     online op run by every rank on its shards, with ``dist``.
 
-    ``place(params, state)`` cuts the whole params (``tensor_parallel.
-    shard_params``) and the whole state (by the state specs:
+    ``place(params, state)`` cuts the whole params (``fsdp.shard_model``:
+    the tensor-parallel local layout, or the ZeRO-3 blocks under
+    ``fsdp``) and the whole state (by the state specs:
     ``online_state_pspecs`` / ``stream_state_pspecs``) into this rank's
     shards; the call takes them, the GLOBAL tokens (cut to the rank's
     rows by the tokens' spec) and returns the rank's logits (its rows,
@@ -167,7 +174,7 @@ class ShardedStep:
         return TPX.shard_by_spec(x, SH.P(self.tok_spec[0]), self.dist)
 
     def place(self, params, state):
-        return (TPX.shard_params(params, self.cfg, self.dist),
+        return (FS.shard_model(params, self.cfg, self.dist),
                 TPX.map_by_spec(lambda x, sp: TPX.shard_by_spec(
                     x, sp, self.dist), state, self.state_specs))
 
@@ -182,7 +189,8 @@ class ShardedStep:
 def _with_specs(fn: Callable, cfg: ModelConfig, dist: DistContext,
                 batch_sharded: bool = True, shard_cache_seq: bool = False,
                 params_shapes=None) -> ShardedStep:
-    del params_shapes        # the local layout is a function of (cfg, mesh)
+    del params_shapes        # the layout is a function of (cfg, mesh)
+    TPX.require_tp_family(cfg, dist.n_model)
     state_specs, tok_spec = serve_specs(cfg, dist,
                                         batch_sharded=batch_sharded,
                                         shard_cache_seq=shard_cache_seq)

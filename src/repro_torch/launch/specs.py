@@ -33,10 +33,11 @@ With ``dist`` (a ``DistContext``; a shape-only mesh in the dry run,
 train step's `PlacedStep`, the serve builders' `ShardedStep`) and
 ``args`` hold this rank's shards of the weights, moments and state, with
 the global batch or tokens, which the step cuts to the rank's rows;
-``local_args`` is what the rank holds of them (the rows cut).  The
-reference's ZeRO-3 train cell (``sharding_strategy="fsdp"``) has no
-counterpart in the port's explicit tensor parallelism: it raises
-``NotImplementedError`` (ROADMAP item 4b-v).
+``local_args`` is what the rank holds of them (the rows cut).  Under
+ZeRO-3 (``sharding_strategy="fsdp"``, `distributed.fsdp`) the weights
+and moments are the rank's ``param_spec`` blocks, and the train cell
+lays its batch over every mesh axis, as the reference's does; the
+serve cells keep the states' specs.
 
 The serving buckets (``SERVE_*_BUCKETS`` and the helpers below them) are
 the serve engine's, copied as they are (pure Python).
@@ -300,12 +301,6 @@ def build_train_cell(cfg: ModelConfig, spec: ShapeSpec,
     seq, enc_len = _enc_split(cfg, spec.seq)
     if seq >= 2048:
         cfg = cfg.replace(attn_impl="chunked")
-    if cfg.sharding_strategy == "fsdp" and dist is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the ZeRO-3 train cell (sharding_strategy='fsdp': "
-            "the batch over every mesh axis, the weights gathered per layer) "
-            "is not ported; the port splits the model by explicit tensor "
-            "parallelism (ROADMAP item 4b-v)")
     layout = train_layout(cfg, seq)
     pshapes = params_specs(cfg)
     trainable = TR.trainable_mask_for(cfg, pshapes)
@@ -321,7 +316,9 @@ def build_train_cell(cfg: ModelConfig, spec: ShapeSpec,
                            trainable)
     tp_s, fp_s, opt_s = fn.place(tp_s, fp_s, opt_s)
     return Cell(f"{cfg.name}:train", fn, (tp_s, fp_s, opt_s, batch_s, None),
-                note, (tp_s, fp_s, opt_s, TR.local_rows(batch_s, dist), None))
+                note, (tp_s, fp_s, opt_s,
+                       TR.local_rows(batch_s, dist, TR.row_axes(cfg, dist)),
+                       None))
 
 
 def _serve_cell(name: str, fn, cfg: ModelConfig, dist, params, state,

@@ -39,6 +39,20 @@ the whole leaf, as the reference's automatic model axis does, and the
 clipping norm sums the split leaves over the model axis.  ``TrainLoop``
 writes whole leaves (``tensor_parallel.gather_params``), so a
 checkpoint does not depend on the mesh.
+ZERO-3 (``cfg.sharding_strategy == "fsdp"``, `distributed.fsdp`): each
+rank stores its ``param_spec`` block of every leaf and of its moments
+(``fsdp.shard_fsdp``; `jit_train_step`'s ``place``), takes its own block
+of rows over EVERY mesh axis (data, then model, rank-major: the
+reference's train cell), and runs each layer whole on them, its leaves
+gathered as it runs; the gather's backward reduce-scatters the
+gradient over the model axis.  A leaf stored whole (a ``P()`` spec) has
+a partial gradient on each model rank, all-reduced over the model axis
+first.  Then the data-axis reduce (and its codec) acts as above: a
+stored block takes its int8 scale and top-k threshold over the whole
+leaf, and the clipping norm sums the stored blocks' squares over the
+model axis.  Rows that do not split over ``n_data * n_model`` raise
+ValueError.  The loss's divisor is the mask count over every axis (with
+a codec, the data block's: the model axis's).
 On one device ``grad_codec`` is accepted and the step trains exactly as
 with "none", as the reference does with ``dist=None`` (no residual is
 allocated; the reference allocates one and never reads it).  The loop
@@ -64,6 +78,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core import masks as M
 from repro_torch.data.synthetic import ShardableIndexIterator, sample_kv_batch
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import fsdp as FS
 from repro_torch.distributed import tensor_parallel as TPX
 from repro_torch.distributed.context import DistContext, divisible
 from repro_torch.models import transformer as T
@@ -80,7 +95,8 @@ from repro_torch.optim.losses import next_token_loss
 def check_mesh(cfg: ModelConfig, dist: Optional[DistContext]) -> None:
     """A mesh that splits the model (``n_model > 1``) takes every family,
     an MoE one where its experts split over it
-    (`tensor_parallel.require_tp_family`)."""
+    (`tensor_parallel.require_tp_family`; ``ep`` under ``fsdp`` raises
+    NotImplementedError)."""
     if dist is not None and dist.n_model > 1:
         TPX.require_tp_family(cfg, dist.n_model)
 
@@ -97,7 +113,8 @@ def _loss_fn(tp, fp, cfg: ModelConfig, layout: M.SegmentLayout,
     """The masked tail loss; ``count`` is the divisor's mask count (see
     `next_token_loss`).  The forward runs on this rank's rows alone; with
     a mesh that splits the model (or a `TensorParallel` rank), on this
-    rank's shard of it."""
+    rank's shard of it; with a `distributed.fsdp.Fsdp` rank, its ZeRO-3
+    storage."""
     tpx = TPX.tp_of(cfg, dist)
     params = PT.merge(tp, fp)
     kw = {}
@@ -105,23 +122,33 @@ def _loss_fn(tp, fp, cfg: ModelConfig, layout: M.SegmentLayout,
         kw["frames"] = batch["frames"]
     if cfg.family == "vlm":
         kw["patches"] = batch["patches"]
-    logits = T.train_forward(params, cfg, batch["tokens"], layout, dist=tpx,
+    logits = T.train_forward(params, cfg, batch["tokens"], layout, dist=dist,
                              **kw)
     tail = batch["tokens"][:, layout.seq_len - layout.tail_len:]
     return next_token_loss(logits, tail, batch["loss_mask"], count, tp=tpx)
 
 
-def local_rows(batch: Dict[str, torch.Tensor],
-               dist: DistContext) -> Dict[str, torch.Tensor]:
-    """This rank's block of a global batch (``batch_spec``: the batch dim
-    split over the data and pod axes, rank-major)."""
-    n = dist.n_data
-    r = dist.rank_in(dist.batch_axes)
+def row_axes(cfg: ModelConfig, dist: DistContext) -> tuple:
+    """The mesh axes a training batch's rows split over: the data and pod
+    axes (``batch_spec``), and under ``fsdp`` the model axis after them
+    (the reference's ZeRO-3 train cell)."""
+    if cfg.sharding_strategy == "fsdp":
+        return tuple(dist.batch_axes) + (dist.model_axis,)
+    return tuple(dist.batch_axes)
+
+
+def local_rows(batch: Dict[str, torch.Tensor], dist: DistContext,
+               axes=None) -> Dict[str, torch.Tensor]:
+    """This rank's block of a global batch: the batch dim split over
+    ``axes`` (default the data and pod axes, ``batch_spec``), rank-major."""
+    axes = tuple(dist.batch_axes) if axes is None else tuple(axes)
+    n = TPX._size(dist, axes)
+    r = dist.rank_in(axes)
     out = {}
     for k, v in batch.items():
         if not divisible(v.shape[0], n):
             raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
-                             f"split over {n} data ranks")
+                             f"split over {n} ranks of {axes}")
         b = v.shape[0] // n
         out[k] = v[r * b:(r + 1) * b]
     return out
@@ -143,29 +170,46 @@ def make_train_step(cfg: ModelConfig, layout: M.SegmentLayout,
     check_mesh(cfg, dist)
 
     def step(tp, fp, opt: AdamWState, batch, ef: Optional[EFState] = None):
-        tpx = TPX.tp_of(cfg, dist)
+        fs = FS.train_rank(cfg, dist) if dist is not None \
+            and cfg.sharding_strategy == "fsdp" else None
+        tpx = None if fs is not None else TPX.tp_of(cfg, dist)
         leaves = [x for _, x in PT.leaves(tp)]
         for x in leaves:
             x.requires_grad_(True)
         count = None
         if dist is not None:
             group = dist.group(dist.batch_axes)
-            batch = local_rows(batch, dist)
+            rows = row_axes(cfg, dist)
+            batch = local_rows(batch, dist, rows)
+            mask = batch["loss_mask"].float().sum()
             if grad_codec == "none":
                 # the global masked mean: divide by the global count
-                count = dist.all_reduce(batch["loss_mask"].float().sum(),
-                                        dist.batch_axes)
+                count = dist.all_reduce(mask, rows)
+            elif fs is not None:
+                # the data block's mean, as the reference's codec sees it
+                count = dist.all_reduce(mask, dist.model_axis)
         with torch.enable_grad():
-            loss = _loss_fn(tp, fp, cfg, layout, batch, dist=tpx,
+            loss = _loss_fn(tp, fp, cfg, layout, batch, dist=fs or tpx,
                             count=count)
             grads = torch.autograd.grad(loss, leaves)
         loss = loss.detach()
         it = iter(grads)
         gtree = PT.tree_map(lambda _, x: None if x is None else next(it), tp)
         # the model-axis collectives at each leaf split over that axis
-        split = None if tpx is None else PT.tree_map(
-            lambda path, g: tpx.coll if g is not None and TPX.split_dim(
-                path, cfg, tpx.n) is not None else None, gtree)
+        # (tensor parallel) or stored cut over it (ZeRO-3)
+        split = None
+        if tpx is not None:
+            split = PT.tree_map(
+                lambda path, g: tpx.coll if g is not None and TPX.split_dim(
+                    path, cfg, tpx.n) is not None else None, gtree)
+        elif fs is not None:
+            split = PT.tree_map(
+                lambda path, g: fs.coll if g is not None and FS.gather_dim(
+                    path, cfg, fs.n) is not None else None, gtree)
+            # a leaf stored whole: each model rank's rows gave a part
+            gtree = PT.tree_map(lambda _, g, c: g if g is None or c is not
+                                None else fs.coll.sum(g), gtree, split)
+            loss = fs.coll.sum(loss)
         if dist is not None:
             gtree, ef = compressed_psum(gtree, group, ef, grad_codec,
                                         topk_frac, split)
@@ -176,7 +220,9 @@ def make_train_step(cfg: ModelConfig, layout: M.SegmentLayout,
                     lambda _, g: None if g is None else g / dist.n_data,
                     gtree)
                 loss = loss / dist.n_data
-        gnorm = None if tpx is None else _tp_global_norm(gtree, split, tpx)
+        # (one model rank holds whole leaves: AdamW's own norm)
+        gnorm = None if split is None or (fs or tpx).n == 1 else \
+            _split_global_norm(gtree, split, (fs or tpx).coll)
         tp, opt, metrics = adamw_update(opt_cfg, tp, gtree, opt, gnorm=gnorm)
         metrics["loss"] = loss
         return tp, opt, metrics, ef
@@ -184,10 +230,10 @@ def make_train_step(cfg: ModelConfig, layout: M.SegmentLayout,
     return step
 
 
-def _tp_global_norm(grads, split, tpx) -> torch.Tensor:
+def _split_global_norm(grads, split, coll) -> torch.Tensor:
     """The whole model's gradient norm from a rank's local leaves: the
-    squares of the leaves split over the model axis summed over it, the
-    whole leaves' counted once."""
+    squares of the leaves split (or stored cut) over the model axis
+    summed over it, the whole leaves' counted once."""
     parts = {True: [], False: []}
     PT.tree_map(lambda _, g, c: None if g is None else
                 parts[c is not None].append(torch.sum(g.float() ** 2)),
@@ -195,7 +241,7 @@ def _tp_global_norm(grads, split, tpx) -> torch.Tensor:
     dev = next(g for _, g in PT.leaves(grads)).device
     total = torch.zeros((), device=dev)
     if parts[True]:
-        total = tpx.coll.sum(torch.stack(parts[True]).sum())
+        total = coll.sum(torch.stack(parts[True]).sum())
     if parts[False]:
         total = total + torch.stack(parts[False]).sum()
     return torch.sqrt(total)
@@ -204,7 +250,8 @@ def _tp_global_norm(grads, split, tpx) -> torch.Tensor:
 class PlacedStep:
     """`jit_train_step`'s step: ``step_fn`` on this rank's shards, and
     ``place(tp, fp, opt)``, which cuts the whole trees (and moments) into
-    this rank's shards by the local layout (`tensor_parallel`), the
+    this rank's shards by the local layout (`tensor_parallel`), or under
+    ``fsdp`` into its ``param_spec`` blocks (`distributed.fsdp`), the
     counterpart of the reference's in/out shardings.  The reference's jit
     re-places its arguments at every call; the port's step updates its
     shards in place, so they are placed once and passed back as they
@@ -219,14 +266,14 @@ class PlacedStep:
 
     def place(self, tp, fp, opt: Optional[AdamWState] = None):
         def cut(t):
-            return TPX.shard_params(t, self.cfg, self.dist)
+            return FS.shard_model(t, self.cfg, self.dist)
         placed = (cut(tp), cut(fp))
         if opt is None:
             return placed
         return placed + (opt._replace(mu=cut(opt.mu), nu=cut(opt.nu)),)
 
     def gather(self, tree):
-        return TPX.gather_params(tree, self.cfg, self.dist)
+        return FS.gather_model(tree, self.cfg, self.dist)
 
 
 def jit_train_step(step_fn, cfg: ModelConfig, dist: DistContext,
@@ -237,13 +284,15 @@ def jit_train_step(step_fn, cfg: ModelConfig, dist: DistContext,
     block of the batch (`local_rows`) and on its shard of the model
     (``PlacedStep.place``: whole leaves on a data-parallel mesh, where
     every model-axis spec is one block).  This checks the mesh and the
-    batch's split."""
+    batch's split (under ``fsdp`` over every mesh axis: `row_axes`)."""
     del params_shapes, opt_shapes, trainable
     check_mesh(cfg, dist)
+    axes = row_axes(cfg, dist)
+    n = TPX._size(dist, axes)
     for k, v in batch_shapes.items():
-        if not divisible(v.shape[0], dist.n_data):
+        if not divisible(v.shape[0], n):
             raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
-                             f"split over {dist.n_data} data ranks")
+                             f"split over {n} ranks of {axes}")
     return PlacedStep(step_fn, cfg, dist)
 
 
@@ -271,9 +320,9 @@ class TrainLoop:
     writes the checkpoints, every rank reads them (`maybe_restore`), and
     ``run`` returns on every rank once the last one is on disk.  On a
     mesh that splits the model every rank initialises the whole model
-    from ``seed`` and keeps its shard; a checkpoint holds the whole
-    leaves (gathered over the model axis), so it restores onto any
-    mesh."""
+    from ``seed`` and keeps its shard (under ``fsdp``, its ``param_spec``
+    blocks); a checkpoint holds the whole leaves (gathered over the model
+    axis), so it restores onto any mesh and under either strategy."""
 
     def __init__(self, cfg: ModelConfig, layout: M.SegmentLayout,
                  opt_cfg: AdamWConfig, batch_size: int,
@@ -288,9 +337,11 @@ class TrainLoop:
         self.dist = dist
         params = T.init_lm(cfg, seed, device=self.device)
         self.trainable = trainable_mask_for(cfg, params)
-        self.tpx = TPX.tp_of(cfg, dist)
-        if self.tpx is not None:
-            params = TPX.shard_params(params, cfg, self.tpx)
+        self.split = dist is not None and dist.n_model > 1
+        self.tpx = None if cfg.sharding_strategy == "fsdp" \
+            else TPX.tp_of(cfg, dist)
+        if self.split:
+            params = FS.shard_model(params, cfg, dist)
         self.tp, self.fp = PT.partition(params, self.trainable)
         self.opt = init_adamw(self.tp)
         # this rank's error-feedback residual (one device: no reduce, so
@@ -317,9 +368,9 @@ class TrainLoop:
         restored, extra = self.ckpt.restore(latest, {"tp": self.tp,
                                                      "opt": self.opt})
         self.tp, self.opt = restored["tp"], restored["opt"]
-        if self.tpx is not None:            # whole leaves -> this shard
+        if self.split:                      # whole leaves -> this shard
             self.tp, self.opt = self._each(self.tp, self.opt,
-                                           TPX.shard_params)
+                                           FS.shard_model)
         self.it.load_state_dict(extra["iterator"])
         return int(extra["step"])
 
@@ -350,15 +401,15 @@ class TrainLoop:
         return self.history
 
     def _each(self, tp, opt, fn):
-        """``fn(tree, cfg, tpx)`` on the trainable tree and the moments."""
-        return fn(tp, self.cfg, self.tpx), opt._replace(
-            mu=fn(opt.mu, self.cfg, self.tpx),
-            nu=fn(opt.nu, self.cfg, self.tpx))
+        """``fn(tree, cfg, dist)`` on the trainable tree and the moments."""
+        return fn(tp, self.cfg, self.dist), opt._replace(
+            mu=fn(opt.mu, self.cfg, self.dist),
+            nu=fn(opt.nu, self.cfg, self.dist))
 
     def _save(self, step: int) -> None:
         tp, opt = self.tp, self.opt
-        if self.tpx is not None:            # every rank gathers
-            tp, opt = self._each(tp, opt, TPX.gather_params)
+        if self.split:                      # every rank gathers
+            tp, opt = self._each(tp, opt, FS.gather_model)
         if self._writes:
             self.ckpt.save(step, {"tp": tp, "opt": opt},
                            extra={"step": step,

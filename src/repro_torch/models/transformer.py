@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import baselines as BL
 from repro_torch.core import masks as M
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import fsdp as FS
 from repro_torch.distributed import tensor_parallel as TPX
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -150,12 +151,19 @@ def init_lm(cfg: ModelConfig, seed: int = 0,
     return p
 
 
-def layer_params(params: Params, li: int) -> Params:
-    """Views of layer ``li`` of the stacked ``params["layers"]`` tree."""
+def layer_params(params: Params, li: int, sub: Optional[str] = None
+                 ) -> Params:
+    """Views of layer ``li`` of the stacked ``params["layers"]`` tree (its
+    ``sub`` subtree alone, where given); of ZeRO-3 storage
+    (`distributed.fsdp.view`), the layer's leaves gathered."""
+    stack = params["layers"]
+    if isinstance(stack, FS.Stack):
+        return stack.layer(li, sub)
+
     def pick(t):
         return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) \
             else t[li]
-    return pick(params["layers"])
+    return pick(stack if sub is None else stack[sub])
 
 
 def add_learned_pos(table: torch.Tensor, x: torch.Tensor,
@@ -330,9 +338,12 @@ def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     when the mesh splits the model.  Attention blocks (the hybrid's
     ``shared_attn`` sites too) split; Mamba2 layers run whole on the
     replicated activations, so their gradients are whole on every rank
-    and never summed."""
+    and never summed.  Under ZeRO-3 (`distributed.fsdp`) ``params`` is
+    stored: each layer's leaves are gathered inside its (checkpointed)
+    body."""
     require_ported(cfg)
     tp = TPX.tp_of(cfg, dist)
+    params = FS.view(params, cfg, dist)
     remat = cfg.remat and torch.is_grad_enabled()
     attn = functools.partial(_attn_mlp_block, cfg, q_info=q_info,
                              k_info=k_info, comp_gate=comp_gate,
@@ -340,14 +351,13 @@ def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
                              cross=cross, tp=tp)
     for kind, i in layer_plan(cfg):
         if kind == "mamba":
-            lp = layer_params(params, i)
-
-            def body(h, lp=lp):
-                return _mamba_block(cfg, lp, h)[0]
+            def body(h, i=i):
+                return _mamba_block(cfg, layer_params(params, i), h)[0]
+        elif kind == "site":
+            body = functools.partial(attn, params["shared_attn"])
         else:
-            body = functools.partial(
-                attn, params["shared_attn"] if kind == "site"
-                else layer_params(params, i))
+            def body(h, i=i):
+                return attn(layer_params(params, i), h)
         x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
     return x
 
@@ -364,7 +374,7 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
     GSPMD lays its weights out by the same spec, and the math is the
     unsharded model's either way.)"""
     tp = TPX.tp_of(cfg, dist)
-    enc = params["encoder"]
+    enc = FS.view(params, cfg, dist)["encoder"]
     S = frames.shape[1]
     dev = frames.device
     pos = torch.arange(S, dtype=torch.int32, device=dev)
@@ -373,11 +383,12 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
     info = A.KeyInfo(idx=zero, seg=zero,
                      comp=torch.ones(S, dtype=torch.bool, device=dev))
     remat = cfg.remat and torch.is_grad_enabled()
+    block = functools.partial(_attn_mlp_block, cfg, q_info=info,
+                              k_info=info, comp_gate=None, positions=None,
+                              merge_ctx=None, tp=tp)
     for li in range(cfg.n_enc_layers):
-        body = functools.partial(
-            _attn_mlp_block, cfg, layer_params(enc, li), q_info=info,
-            k_info=info, comp_gate=None, positions=None, merge_ctx=None,
-            tp=tp)
+        def body(h, li=li):
+            return block(layer_params(enc, li), h)
         x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
     return L.apply_norm(cfg, enc["final_norm"], x)
 
@@ -426,8 +437,11 @@ def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     `TensorParallel` rank): ``params`` is this rank's shard and the
     logits are its vocabulary block when the vocabulary splits
     (`optim.losses.next_token_loss` takes them with the same ``dist``).
+    A `distributed.fsdp.Fsdp` rank: ``params`` is its ZeRO-3 storage;
+    the top-level leaves are gathered once, each layer's as it runs.
     """
     tp = TPX.tp_of(cfg, dist)
+    params = FS.view(params, cfg, dist)
     dev = tokens.device
     S = layout.seq_len
     seg = layout.seg_ids.to(dev)

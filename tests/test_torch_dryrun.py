@@ -1,6 +1,6 @@
 """The port's dry run (``repro_torch.launch.dryrun``) on the ``meta``
-device: its counts against closed forms written here, its refusal of the
-ZeRO-3 train cell, and its record's keys against the reference's
+device: its counts against closed forms written here, the ZeRO-3
+cells' storage and gathers, and its record's keys against the reference's
 (``repro/launch/dryrun.py``'s record, read from its source: the
 reference's dry run needs 512 placeholder devices, so it is not run)."""
 import ast
@@ -102,15 +102,95 @@ def test_train_cell_counts_its_backward():
         rec["kernels"]["cond_lora"][1]
 
 
+def _spec_bytes(tree, specs, dist) -> int:
+    """The bytes of a rank's blocks of ``tree``'s leaves by ``specs``."""
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.optim import partition as PP
+    total = 0
+    for path, x in PP.leaves(tree):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        y = TPX.shard_by_spec(x, spec, dist)
+        total += y.numel() * y.element_size()
+    return total
+
+
+def _gathered(tree, cfg, n: int):
+    """(top-level, stacked) whole bytes of the leaves stored cut."""
+    from repro_torch.distributed import fsdp as FS
+    from repro_torch.optim import partition as PP
+    top = layers = 0
+    for path, x in PP.leaves(tree):
+        if FS.gather_dim(path, cfg, n) is None:
+            continue
+        if path[0] == "layers":
+            layers += x.numel() * x.element_size()
+        else:
+            top += x.numel() * x.element_size()
+    return top, layers
+
+
 def test_fsdp_train_cell_names_roadmap_item_4b_v(tmp_path):
+    """The ZeRO-3 cells (ROADMAP item 4b-v, done) on the 16 x 16 shape
+    mesh: what a rank holds of the weights and moments is exactly its
+    blocks by the reference's specs (``param_pspecs``, no departure); the
+    train step gathers the top-level leaves once and every layer's twice
+    (the remat recompute), and reduce-scatters each trainable stored
+    block once; a decode step gathers every stored leaf once and
+    reduce-scatters nothing.  The batch lies over all 256 ranks."""
+    from repro_torch.distributed import fsdp as FS
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import train as TR
+    from repro_torch.optim import partition as PP
     mesh = PM.make_shape_mesh(*PM.PRODUCTION["single"])
+    dist = PM.make_dist(mesh)
     cfg = _tiny(sharding_strategy="fsdp")
-    with pytest.raises(NotImplementedError, match="4b-v"):
-        PS.build_cell(cfg, "train_4k", PM.make_dist(mesh), smoke=True)
-    with pytest.raises(NotImplementedError, match="4b-v"):
-        D.run_cell("smollm-360m", "train_4k", "single", str(tmp_path),
-                   variant="fsdp")
-    assert not list(tmp_path.iterdir())
+    assert cfg.remat and cfg.train_mode == "lora"
+    pshapes = PS.params_specs(cfg)
+    specs = SH.param_pspecs(cfg, pshapes, dist)
+    cell = PS.build_train_cell(cfg, PS.ShapeSpec("train", 512, 256), dist)
+    rec = D.measure(cell, mesh.counts)
+    tp_s, fp_s, opt_s, rows, _ = cell.local_args
+    assert D._storage_bytes(D._tensors((tp_s, fp_s))) == \
+        _spec_bytes(pshapes, specs, dist) < D._storage_bytes(
+            D._tensors(pshapes))
+    trainable, _ = PP.partition(pshapes, TR.trainable_mask_for(cfg, pshapes))
+    assert D._storage_bytes(D._tensors((opt_s.mu, opt_s.nu))) == \
+        2 * _spec_bytes(trainable, specs, dist)
+    assert tuple(rows["tokens"].shape) == (1, 512)
+    assert rec["memory"]["argument_bytes"] == D._storage_bytes(
+        D._tensors(cell.local_args))
+    top, layers = _gathered(pshapes, cfg, 16)
+    coll = rec["collective_bytes"]
+    assert coll["all-gather"] == top + 2 * layers
+    assert coll["reduce-scatter"] == sum(
+        x.numel() * x.element_size() // 16 for path, x in
+        PP.leaves(trainable) if FS.gather_dim(path, cfg, 16) is not None) > 0
+    cell = PS.build_decode_cell(cfg, PS.ShapeSpec("decode", 24, 16), dist)
+    rec = D.measure(cell, mesh.counts)
+    assert D._storage_bytes(D._tensors(cell.local_args[0])) == \
+        _spec_bytes(pshapes, specs, dist)
+    assert rec["collective_bytes"]["all-gather"] == top + layers
+    assert "reduce-scatter" not in rec["collective_bytes"]
+
+
+def test_fsdp_variant_record_differs_from_tp(tmp_path):
+    """``--variant fsdp`` writes the ZeRO-3 record, no longer the tensor-
+    parallel one under the fsdp name: SmolLM-360M's decode on the single
+    pod holds other argument bytes and gathers its weights."""
+    import json
+    args = ["--arch", "smollm-360m", "--shape", "decode_32k", "--mesh",
+            "single", "--out", str(tmp_path)]
+    D.main(args)
+    D.main(args + ["--variant", "fsdp"])
+    tp = json.loads((tmp_path / "smollm-360m__decode_32k__single.json")
+                    .read_text())
+    fs = json.loads((tmp_path / "smollm-360m__decode_32k__single__fsdp.json")
+                    .read_text())
+    assert fs["memory"]["argument_bytes"] != tp["memory"]["argument_bytes"]
+    assert fs["collective_bytes"]["all-gather"] > 0
+    assert "all-gather" not in tp["collective_bytes"]
 
 
 def _reference_record_keys():

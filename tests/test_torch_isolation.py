@@ -4,6 +4,7 @@ port's CLIs (``examples/train_online_torch.py``,
 reference package ``repro``, and the port's entry points refuse to run
 without a device when no CUDA card is present."""
 import dataclasses
+import functools
 import os
 import re
 import subprocess
@@ -219,14 +220,16 @@ def _unported_cases():
     other than dense and MoE on a mesh that splits the model now builds
     its train step and its stream step, a prefill or an ingest over a
     sequence-sharded cache builds too, and the reference's ZeRO-3 train
-    cell still raises, naming ROADMAP item 4b-v (the model axis's and the data
-    axes' process groups are taken at the first call).  (Sharded MoE,
+    cell builds, on a shape-only mesh (ROADMAP item 4b-v: every rank's
+    ``param_spec`` blocks; the model axis's and the data axes' process
+    groups are taken at the first call).  (Sharded MoE,
     item 4b-ii, is ``tests/test_torch_moe_tp.py``; the other families,
     ``tests/test_torch_tp_families.py``; the sequence-sharded prefill and
     ingest, item 4b-sp, ``tests/test_torch_seq_shard.py``.)"""
     from repro_torch.configs import whisper_tiny
     from repro_torch.core.masks import segment_layout
     from repro_torch.distributed.context import DistContext
+    from repro_torch.launch import mesh as PM
     from repro_torch.launch import serve as SRV
     from repro_torch.launch.specs import build_cell
     from repro_torch.launch.train import make_train_step
@@ -244,10 +247,12 @@ def _unported_cases():
     return {
         "train-n_model": lambda: make_train_step(
             cfg, segment_layout(2, 4, 2, 4), AdamWConfig(), dist=dist),
-        # the reference's ZeRO-3 train cell: not ported (ROADMAP 4b-v)
+        # the reference's ZeRO-3 train cell (ROADMAP 4b-v)
         "train-fsdp-cell": lambda: build_cell(
             dense.replace(sharding_strategy="fsdp", ccm=dataclasses.replace(
-                dense.ccm, max_steps=2)), "train_4k", dist, smoke=True),
+                dense.ccm, max_steps=2)), "train_4k",
+            PM.make_dist(PM.make_shape_mesh((2, 2), ("data", "model"))),
+            smoke=True),
         "prefill-seq-shard": lambda: SRV.make_prefill_step(
             dense, dist, shard_cache_seq=True, batch_sharded=False),
         "ingest-seq-shard": lambda: SRV.make_ingest_step(
@@ -261,10 +266,71 @@ def _unported_cases():
                                   "train-fsdp-cell"])
 def test_unported_multi_device_options_name_slice_14(case):
     if case == "train-fsdp-cell":
-        with pytest.raises(NotImplementedError, match="4b-v"):
-            _unported_cases()[case]()
+        # each rank stores its blocks: d_ff 128's wi (1, 64, 128) on its
+        # last dim, the 128 vocabulary rows of embed and lm_head's columns
+        cell = _unported_cases()[case]()
+        tp, fp = cell.args[0], cell.args[1]
+        assert tuple(fp["layers"]["mlp"]["wi"].shape) == (1, 64, 64)
+        assert tuple(fp["embed"].shape) == (64, 64)
+        assert tuple(cell.local_args[3]["tokens"].shape)[0] == 1
+        assert callable(cell.fn)
         return
     assert callable(_unported_cases()[case]())
+
+
+def _fsdp_ep_cases():
+    """Every ``dist=`` entry point, given ``moe_impl="ep"`` under
+    ``sharding_strategy="fsdp"`` on a model axis of 2."""
+    from repro_torch.configs import phi35_moe
+    from repro_torch.core.masks import segment_layout
+    from repro_torch.distributed.elastic import remesh_restore
+    from repro_torch.launch import mesh as PM
+    from repro_torch.launch import serve as SRV
+    from repro_torch.launch import train as TR
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.optim.adamw import AdamWConfig
+
+    mesh = PM.make_shape_mesh((2, 2), ("data", "model"))
+    dist = PM.make_dist(mesh)
+    cfg = phi35_moe.smoke(compute_dtype="float32").replace(
+        moe_impl="ep", sharding_strategy="fsdp")
+    layout = segment_layout(2, 4, 2, 4)
+    step = TR.make_train_step(cfg.replace(sharding_strategy="tp"), layout,
+                              AdamWConfig(), dist)
+    cases = {
+        "make_train_step": lambda: TR.make_train_step(cfg, layout,
+                                                      AdamWConfig(), dist),
+        "jit_train_step": lambda: TR.jit_train_step(step, cfg, dist, None,
+                                                    None, {}, None),
+        "TrainLoop": lambda: TR.TrainLoop(cfg, layout, AdamWConfig(), 4,
+                                          dist=dist, device="cpu"),
+        "remesh_restore": lambda: remesh_restore(None, 1, cfg, mesh, None,
+                                                 None),
+        "make_prefill_step": lambda: SRV.make_prefill_step(cfg, dist),
+        "make_decode_step": lambda: SRV.make_decode_step(cfg, dist),
+        "make_ingest_step": lambda: SRV.make_ingest_step(cfg, dist),
+        "make_stream_step": lambda: SRV.make_stream_step(cfg, dist),
+    }
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        cases[f"build_cell-{shape}"] = functools.partial(
+            build_cell, cfg, shape, dist, smoke=True)
+    return cases
+
+
+@pytest.mark.parametrize("case", ["make_train_step", "jit_train_step",
+                                  "TrainLoop", "remesh_restore",
+                                  "make_prefill_step", "make_decode_step",
+                                  "make_ingest_step", "make_stream_step",
+                                  "build_cell-train_4k",
+                                  "build_cell-prefill_32k",
+                                  "build_cell-decode_32k",
+                                  "build_cell-long_500k"])
+def test_fsdp_ep_refusal_names_roadmap_item_4b_v_c(case):
+    """ep's capacity under ZeRO-3 is not ported: every entry point raises
+    NotImplementedError naming ROADMAP item 4b-v-c, none runs it as
+    tensor parallelism."""
+    with pytest.raises(NotImplementedError, match="4b-v-c"):
+        _fsdp_ep_cases()[case]()
 
 
 def test_no_port_module_refuses_the_sequence_sharded_prefill():
