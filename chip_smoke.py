@@ -114,7 +114,7 @@ Phases (any failure raises, and the script exits non-zero):
      registry at their published widths, random weights from seed 0 in
      each config's ``param_dtype``, one model at a time: whisper-tiny (4
      + 4 layers, 1500 random frames, 448-token prefills), pixtral-12b
-     (20 of its 40 layers, bf16, 1024 random patch rows of width 1024),
+     (12 of its 40 layers, bf16, 1024 random patch rows of width 1024),
      phi3.5-moe (4 of its 32 layers, bf16) and llama4-maverick (1 of 48
      layers, 128 experts top-1): (a) the online path (B4, 4 ingests of
      64, 32 greedy tokens; whisper's ``encode_cross`` at B4 through the
@@ -203,7 +203,13 @@ Phases (any failure raises, and the script exits non-zero):
      over a 32768-token cache at full width (an ingest, a prefill whose
      block crosses a rank edge, one that clamps at the buffer's end, 8
      greedy tokens) against the whole cache within ``bf16_tol_paths``
-     beside a witness, every unwritten cache row bit-equal; 17b also
+     beside a witness, every unwritten cache row bit-equal; (e) the batch
+     split too (``batch_sharded=True``): B4 over an 8192-token cache cut
+     in 2 and in 4 data blocks, each rank B/n lanes of the tokens and the
+     memory (an ingest, a prefill across a rank edge, 4 decode steps),
+     bit-equal to the same ranks under ``batch_sharded=False`` and
+     within ``bf16_tol_paths`` of the whole cache, or 2 x the other cut's
+     distance where larger; 17b also
      times the plain version and the library's flash attention with the
      lse over the whole cache;
  18. (after 16) the cells of ``launch/specs.py`` and the dry run of
@@ -235,7 +241,15 @@ Phases (any failure raises, and the script exits non-zero):
      block at n = 2, 4, 8: the ranks' ZeRO-3 blocks gathered and cut per
      layer, bit-equal to the tensor-parallel loop, with one layer's
      gather time, and the ZeRO-3 training forward, each rank on its own
-     rows of a B8 batch, within ``bf16_tol`` of the unsharded loss;
+     rows of a B8 batch, within ``bf16_tol`` of the unsharded loss; (d)
+     ``moe_impl="ep"`` under ZeRO-3 on phi3.5-moe: 19a's entry points in
+     an NCCL world of one (4 of 32 layers) bit-equal to ``dist=None``,
+     and one full-width block at n = 2, 4: the ZeRO-3 training forward
+     and backward on B8 (each rank its rows, the ids of the data block
+     gathered) within ``bf16_tol`` of the unsharded block under ep's
+     drops, its drops equal to the tensor-parallel ep loop's, serving
+     bit-equal to that loop; a rank's ms beside the TP ep rank's and the
+     ids gather's;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
 launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18
 and 19,
@@ -3951,14 +3965,14 @@ FAMILIES = ("whisper-tiny", "pixtral-12b", "phi3.5-moe-42b-a6.6b",
 # on an NVIDIA H100 80GB HBM3 at 700 W; phi3.5-moe at 8 layers still
 # took 92.5 s of a 1088 s run on a slow host), every check and launch
 # kept
-FAM_DEPTH = {"pixtral-12b": 20, "phi3.5-moe-42b-a6.6b": 4,
+FAM_DEPTH = {"pixtral-12b": 12, "phi3.5-moe-42b-a6.6b": 4,
              "llama4-maverick-400b-a17b": 1}
 # whisper's published n_text_ctx (Radford et al. 2022): 448-token prefills
 WHISPER_TEXT = 448
 # per config: the online prefill (vlm: 1024 patch positions + 64 text
 # tokens) and its cache, the training layout and steps (None: online
 # only), and whether the engine's answers are held to bf16_tol_paths
-# beside serve_witness (pixtral's 20 bf16 layers; MoE's bf16 engine is
+# beside serve_witness (pixtral's 12 bf16 layers; MoE's bf16 engine is
 # held to bf16_tol_paths with its expert ids pinned, see serve_phase)
 FAM = {"whisper-tiny": dict(prompt=WHISPER_TEXT, cache=512,
                             layout=(16, 64, 4, 64),
@@ -4136,7 +4150,7 @@ def encoder_ccm_launches(PT, ops, tally):
 
 
 def family_phase(torch, m, card, archs=FAMILIES):
-    """Phase 12: whisper-tiny, pixtral-12b (20 of 40 layers), phi3.5-moe
+    """Phase 12: whisper-tiny, pixtral-12b (12 of 40 layers), phi3.5-moe
     (4 of 32 layers) and llama4-maverick (1 of 48 layers) at their
     published widths, random weights from seed 0 in each config's
     ``param_dtype`` (LoRA b drawn at random), one model at a time: 12a
@@ -6559,6 +6573,207 @@ def seq_rank_loop(torch, m, params, cfg, card):
     return counts, rec
 
 
+# 17e: the batch split over the data axes as well as the cache's sequence,
+# on LLaMA-7B: B4 over an 8192-token cache (17.2 GB at 32 layers), cut in
+# 2 and in 4 blocks; the chain's lengths (an ingest over 3000 cached
+# tokens, a 448-token prefill at 3900, which crosses 4096, an edge of both
+# cuts, then 4 decode steps)
+P17E_BATCH, P17E_CACHE, P17E_BLOCKS = 4, 8192, (2, 4)
+
+
+def seq_rows_loop(torch, m, params, cfg, card):
+    """17e: LLaMA-7B at full width and depth (32 layers, bf16) under
+    ``shard_cache_seq=True, batch_sharded=True``: B4 over an 8192-token
+    cache of random K/V cut in 2 and in 4 sequence blocks, held by the
+    data ranks of a LocalGroup in turn on the card.  Each rank holds its
+    block of every lane's cache and its B/n lanes of the memory and the
+    tokens; each op gathers those rows over the data axes
+    (``launch.serve.DataRows``, the builders' own), runs on the whole
+    batch over its block (``SeqShard``) and keeps its rows.  The chain:
+    an ingest of 64 tokens, a 448-token prefill whose block crosses a
+    rank edge, 4 decode steps fed the whole cache's greedy picks.  Held:
+    bit-equal to the same ranks under ``batch_sharded=False`` (each rank
+    the whole batch: logits, memory rows, the cache rows a step may
+    write, and every other row's sum of bits), and the logits
+    within bf16_tol_paths of the whole cache's, or within 2 x the other
+    cut's distance where that is larger (17d's witness).  Returns the
+    ``batch_sharded=True`` runs' launches and the record (host
+    seconds)."""
+    from repro_torch.core import inference as I
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.launch import serve as SRV
+    from repro_torch.launch.mesh import make_dist, make_shape_mesh
+    PI, ops = m.PI, m.ops
+    dev = params["embed"].device
+    B, S, L = P17E_BATCH, P17E_CACHE, cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(174)
+    ctx = torch.randint(0, cfg.vocab_size, (B, 64), generator=gen,
+                        device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (B, 448), generator=gen,
+                           device=dev)
+
+    def states(n, rows):
+        """The n data ranks' states: each its block of the random cache
+        (every lane) and, with ``rows``, its B/n lanes of the memory."""
+        blk = S // n
+        sts = [PI.init_online_state(cfg, B, blk, device=dev)
+               for _ in range(n)]
+        for li in range(L):
+            for w in range(2):
+                g = torch.Generator(device=dev).manual_seed(1740 + 2 * li + w)
+                x = torch.randn((B, S, cfg.n_kv_heads, cfg.hd), generator=g,
+                                device=dev, dtype=torch.bfloat16)
+                for i, st in enumerate(sts):
+                    (st.cache.k, st.cache.v)[w][li].copy_(
+                        x[:, i * blk:(i + 1) * blk])
+        if rows:
+            b = B // n
+            sts = [st._replace(mem=st.mem._replace(
+                k=st.mem.k[:, i * b:(i + 1) * b].clone(),
+                v=st.mem.v[:, i * b:(i + 1) * b].clone()))
+                for i, st in enumerate(sts)]
+        return sts
+
+    def chain(st, seq, rows, cut, feed):
+        """ingest at 3000, prefill at 3900, 4 decode steps of ``feed``
+        (or the run's own greedy picks): (last-position logits, picks,
+        state)."""
+        def step(kind, st, x):
+            def op(st, x):
+                if kind == "ingest":
+                    return PI.ingest_context(params, cfg, st, x,
+                                             seq_shard=seq)
+                if kind == "prefill":
+                    return PI.prefill(params, cfg, st, x, seq_shard=seq)
+                return PI.decode_step(params, cfg, st, x, seq_shard=seq)
+            return op(st, x) if rows is None else rows.run(op, st, x)
+
+        def at(st, n_):
+            return st._replace(cache=st.cache._replace(length=n_))
+        st = step("ingest", at(st, 3000), cut(ctx))
+        lg, st = step("prefill", at(st, 3900), cut(prompt))
+        lgs, toks = [lg[:, -1]], []
+        for j in range(4):
+            toks.append(lgs[-1].argmax(-1))
+            tok = toks[-1] if feed is None else cut(feed)[:, j]
+            lg, st = step("decode", st, tok[:, None])
+            lgs.append(lg[:, -1])
+        return lgs, torch.stack(toks, 1), st
+
+    def digest(st, i, n):
+        """What the comparison keeps of rank i's state (the states of two
+        runs do not fit on the card beside the params): its memory, its
+        cache rows a step may write (3900-4351) whole, and every other
+        row's sum over the heads of its bits (int16 view)."""
+        blk = S // n
+        lo, hi = min(max(3900 - i * blk, 0), blk), min(max(4352 - i * blk,
+                                                              0), blk)
+        out = {"mem_k": st.mem.k, "mem_v": st.mem.v}
+        for name in ("k", "v"):
+            x = getattr(st.cache, name)
+            out[name] = x[:, :, lo:hi].clone()
+            out[name + "_sums"] = torch.stack([
+                x[li].view(torch.int16).sum((-1, -2), dtype=torch.int64)
+                for li in range(L)])
+        return out
+
+    def sharded(n, rows, feed, counts=None):
+        """The chain on n data ranks in turn: (every rank's (logits,
+        picks, `digest` of its state), host seconds)."""
+        grp = TPX.LocalGroup(n)
+        sts = states(n, rows)
+        specs = SH.online_state_pspecs(
+            cfg, make_dist(make_shape_mesh((n, 1), ("data", "model"))),
+            batch_sharded=True, shard_cache_seq=True)
+        b = B // n
+
+        def rank(i):
+            member = grp.member(i)
+            dr = SRV.DataRows(member, i, n, specs) if rows else None
+            return chain(sts[i], I.SeqShard(member, i, n), dr,
+                         (lambda x: x[i * b:(i + 1) * b]) if rows
+                         else (lambda x: x), feed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = counted(ops, counts, lambda: grp.run(rank)) \
+            if counts is not None else grp.run(rank)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        del sts
+        return [(lg, tk, digest(st, i, n)) for i, (lg, tk, st)
+                in enumerate(outs)], secs
+
+    rec, counts, split = {}, {}, {}
+    with torch.no_grad():
+        st_w = states(1, False)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_lgs, want_toks, _ = chain(st_w, None, None, lambda x: x, None)
+        torch.cuda.synchronize()
+        rec["whole_s"] = time.perf_counter() - t0
+        del st_w
+        gc.collect()
+        torch.cuda.empty_cache()
+        for n in P17E_BLOCKS:
+            b = B // n
+            got, secs = sharded(n, True, want_toks, counts)
+            rep, secs_rep = sharded(n, False, want_toks)
+            bad = []
+            for i, ((lg, tk, st), (lr, tr, sr)) in enumerate(zip(got, rep)):
+                rows = slice(i * b, (i + 1) * b)
+                if not all(torch.equal(x, y[rows]) for x, y in zip(lg, lr)):
+                    bad.append(f"rank {i} logits")
+                for name in ("k", "v", "k_sums", "v_sums"):
+                    if not torch.equal(st[name], sr[name]):
+                        bad.append(f"rank {i} cache {name}")
+                for name in ("mem_k", "mem_v"):
+                    if not torch.equal(st[name], sr[name][:, rows]):
+                        bad.append(f"rank {i} {name}")
+            if bad:
+                raise AssertionError(f"17e n={n}: batch_sharded=True differs "
+                                     f"from batch_sharded=False at {bad}")
+            lgs = [torch.cat([o[0][j] for o in got]) for j in
+                   range(len(want_lgs))]
+            ratios = [max_err(a, w) / bf16_tol_paths(w)
+                      for a, w in zip(lgs, want_lgs)]
+            rec[n] = dict(rows_s=secs, replicated_s=secs_rep,
+                          worst=max(ratios))
+            split[n] = lgs
+            log(f"  17e n={n}: B{B} over a {S}-token cache in {n} blocks, "
+                f"the batch split over the same data ranks: bit-equal to "
+                f"batch_sharded=False (logits, the cache's written rows and "
+                f"every other row's bit sums, memory rows); "
+                f"logits by step vs the whole cache (x bf16_tol_paths: the "
+                f"prefill, 4 decode steps) {[round(x, 3) for x in ratios]}; "
+                f"the {n} ranks in turn {secs:.2f} s (batch_sharded=False "
+                f"{secs_rep:.2f} s), the whole cache {rec['whole_s']:.2f} s "
+                f"(host clock) [{card}]")
+            del got, rep
+            gc.collect()
+            torch.cuda.empty_cache()
+    # each cut within bf16_tol_paths of the whole cache or, where the two
+    # cuts lie farther from it, within 2 x the other cut's distance (17d's
+    # witness rule: each block's attention is rounded to bf16 before the
+    # combine, a third bf16 path beside the whole cache's)
+    a, b = P17E_BLOCKS
+    pair = max(max_err(x, y) / bf16_tol_paths(y)
+               for x, y in zip(split[a], split[b]))
+    rec["between_cuts"] = pair
+    for n, other in ((a, b), (b, a)):
+        bound = max(1.0, 2.0 * rec[other]["worst"])
+        if rec[n]["worst"] > bound:
+            raise AssertionError(f"17e n={n}: logits {rec[n]['worst']:.3f} x "
+                                 f"bf16_tol_paths from the whole cache's "
+                                 f"(bound {bound:.3f}: 1, or 2 x the "
+                                 f"{other}-block cut's)")
+    log(f"  17e witness (x bf16_tol_paths, the worst of 5 logit rows): "
+        f"{a} blocks vs the whole cache {rec[a]['worst']:.3f}, {b} blocks "
+        f"{rec[b]['worst']:.3f}, {a} vs {b} blocks {pair:.3f}; each held "
+        "within 1, or 2 x the other cut's distance")
+    return counts, rec
+
+
 def phase17(torch, m, params, cfg, card):
     """Phase 17 on LLaMA-7B's weights: 17a the mma.sync route's lse, 17b
     the blocks against the whole cache at the kernel, 17c the builders
@@ -6577,6 +6792,16 @@ def phase17(torch, m, params, cfg, card):
     torch.cuda.reset_peak_memory_stats()
     loop_counts, rec["17d"] = seq_rank_loop(torch, m, params, cfg, card)
     add_counts(counts, loop_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  17e: the batch split too (batch_sharded=True): B4 over an "
+        "8192-token cache, 2 and 4 data ranks in turn")
+    rows_counts, rec["17e"] = seq_rows_loop(torch, m, params, cfg, card)
+    add_counts(counts, rows_counts)
+    log(f"  17e beside 17d (host clock): 17d's 4 ranks in turn "
+        f"{rec['17d']['sharded_s']:.2f} s (B1, 32768 keys, 11 ops); 17e's "
+        + ", ".join(f"{n} ranks {rec['17e'][n]['rows_s']:.2f} s"
+                    for n in P17E_BLOCKS) + " (B4, 8192 keys, 6 ops)")
     gc.collect()
     torch.cuda.empty_cache()
     for k in ("segmented_attention_mma_lse", "segmented_attention_splitk",
@@ -7126,10 +7351,329 @@ def zero3_block(torch, m, card):
     return run
 
 
+# 19d: moe_impl="ep" under ZeRO-3 on phi3.5-moe: the model-axis sizes of
+# the block's rank loops (mesh (1, n)); the world of one at phase 12's
+# depth (4 of 32 layers)
+FSDP_EP_SIZES = (2, 4)
+
+
+def fsdp_ep_world_of_one(torch, m, card):
+    """19d(i): phi3.5-moe at full width, phase 12's 4 of its 32 layers,
+    bf16 (seed 15, LoRA b drawn), ``moe_impl="ep"`` under ``fsdp`` in an
+    NCCL world of one rank on a (1, 1) mesh: ``jit_train_step``'s placed
+    step at phase 5's cell (B4, S1216, LoRA, concat), ``TrainLoop`` for 2
+    steps, the three ``dist=`` builders with ``generate``
+    (`online_builders_check`) and ``make_stream_step``
+    (`stream_builder_check`), each bit-equal to ``dist=None`` (the train
+    steps under deterministic algorithms).  Returns the dist runs'
+    launches."""
+    import torch.distributed as tdist
+    from repro_torch.distributed.context import free_port, init_world
+    from repro_torch.launch.mesh import make_debug_mesh, make_dist
+    TR, PD, PA, PP, ops = m.TR, m.PD, m.PA, m.PP, m.ops
+    dev = init_world(0, 1, free_port(), "cuda")                 # NCCL
+    counts = {}
+    try:
+        dist = make_dist(make_debug_mesh(1, 1, device=dev))
+        cfg = m.get_config(MOE_TP_ARCH).replace(n_layers=4, moe_impl="ep")
+        fcfg = cfg.replace(sharding_strategy="fsdp")
+        params = m.init_lm(cfg, seed=15)
+        randomize_lora_b(torch, params, seed=115)
+        layout = m.segment_layout(*ZOO_LAYOUT)
+        batch = PD.sample_kv_batch(PD.ShardableIndexIterator(0, 4)
+                                   .key_for(0), layout, 4, device=dev)
+        tp0, fp0 = PP.partition(params, TR.trainable_mask_for(cfg, params))
+        ocfg = PA.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=100)
+
+        def clone(t):
+            return PP.tree_map(lambda _, x: None if x is None
+                               else x.detach().clone(), t)
+        with deterministic(torch):
+            step = TR.jit_train_step(TR.make_train_step(fcfg, layout, ocfg,
+                                                        dist), fcfg, dist,
+                                     None, None, batch, None)
+            tp, fp, opt = step.place(clone(tp0), fp0, PA.init_adamw(tp0))
+            tp, opt, mt, _ = counted(ops, counts, lambda: step(tp, fp, opt,
+                                                               batch))
+            tq, oq, mq, _ = TR.make_train_step(cfg, layout, ocfg)(
+                clone(tp0), fp0, PA.init_adamw(tp0), batch)
+        diff = same_tree(torch, PP, tp, tq) + same_tree(
+            torch, PP, opt.mu, oq.mu) + same_tree(torch, PP, opt.nu, oq.nu)
+        if mt["loss"].item() != mq["loss"].item() or diff:
+            raise AssertionError(f"19d fsdp+ep train: loss {mt['loss'].item()}"
+                                 f" vs {mq['loss'].item()}, differ {diff}")
+        log(f"  19d jit_train_step(dist=) under fsdp+ep: one AdamW step "
+            f"bit-equal to dist=None (loss {mt['loss'].item():.4f}, leaves, "
+            "moments)")
+        del tp, tq, opt, oq
+
+        def loop_run(c, d):
+            lp = TR.TrainLoop(c, layout, ocfg, 4, dist=d, device=dev)
+            hist = lp.run(2, log_every=0)
+            return [h["loss"] for h in hist], lp.tp
+        with deterministic(torch):
+            ha, ta = counted(ops, counts, lambda: loop_run(fcfg, dist))
+            gc.collect()
+            torch.cuda.empty_cache()
+            hb, tb = loop_run(cfg, None)
+        if ha != hb or same_tree(torch, PP, ta, tb):
+            raise AssertionError(f"19d TrainLoop under fsdp+ep: {ha} vs {hb}")
+        log(f"  19d TrainLoop(dist=) under fsdp+ep: 2 steps bit-equal to "
+            f"dist=None (losses {ha}, trainable leaves)")
+        del ta, tb
+        gc.collect()
+        torch.cuda.empty_cache()
+        online_builders_check(torch, m, params, fcfg, dist, counts, "19d")
+        stream_builder_check(torch, m, params, fcfg, dist, counts, "19d")
+    finally:
+        tdist.destroy_process_group()
+    return counts
+
+
+def fsdp_ep_block(torch, m, card):
+    """19d(ii): one full-width block of phi3.5-moe (``n_layers=1``, random
+    weights of seed 15, LoRA b drawn, bf16) under ``moe_impl="ep"`` and
+    ``fsdp`` at n = 2 and 4 (mesh (1, n)), the ranks of a LocalGroup in
+    turn on the card.  Training (full, remat off): each rank stores its
+    ZeRO-3 blocks, gathers the layer whole, runs its own rows of a B8
+    batch (S1216) and reckons ep's drops over the whole block from the
+    expert ids gathered over the model axis (``models.moe.
+    _moe_ep_rows``); the loss's parts summed and every gathered leaf's
+    gradient summed over the ranks (taken to the gathered leaves: the
+    gathers' own backward, a reduce-scatter, would need the ranks' turns,
+    which autograd's device thread cannot take) within bf16_tol of the
+    unsharded block under ``moe_ep_unsharded(..., n, blocks=1)``, the
+    expert ids pinned to the unsharded block's; its drops equal to those
+    of phase 15's tensor-parallel ``ep`` rank loop on the same forward.
+    Serving: the ZeRO-3 blocks gathered and cut along E per layer
+    (ingest, prefill and decode, B4), bit-equal to the tensor-parallel
+    ``ep`` loop.  Prints a rank's share of the training forward in ms
+    beside the tensor-parallel ep rank's, and the ids gather in ms.
+    Returns the launches and the record."""
+    import threading
+    from repro_torch.distributed import fsdp as FS
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.models import moe as MOE
+    PI, TR, PD, PP, ops = m.PI, m.TR, m.PD, m.PP, m.ops
+
+    @dataclasses.dataclass(frozen=True)
+    class Seen(FS.Fsdp):
+        """A ZeRO-3 training rank that keeps each leaf it gathers."""
+        seen: list = None
+
+        def leaf(self, path, x):
+            y = super().leaf(path, x)
+            self.seen.append((tuple(path), y))
+            return y
+
+    base = m.get_config(MOE_TP_ARCH).replace(n_layers=1, moe_impl="ep",
+                                              train_mode="full", remat=False)
+    fcfg = base.replace(sharding_strategy="fsdp")
+    params = m.init_lm(base, seed=15)
+    randomize_lora_b(torch, params, seed=115)
+    dev = params["embed"].device
+    layout = m.segment_layout(*ZOO_LAYOUT)
+    b8 = PD.sample_kv_batch(PD.ShardableIndexIterator(0, 8).key_for(0),
+                            layout, 8, device=dev)
+    count = b8["loss_mask"].float().sum()
+    mask = TR.trainable_mask_for(base, params)
+    gen = torch.Generator(device=dev).manual_seed(191)
+    ctx = torch.randint(0, base.vocab_size, (4, 64), generator=gen,
+                        device=dev)
+    prompt = torch.randint(0, base.vocab_size, (4, 64), generator=gen,
+                           device=dev)
+    st0 = PI.init_online_state(base, 4, 256, device=dev)
+    tls = threading.local()
+    counts, rec = {}, {}
+
+    def online(p, c, st, tp):
+        st = PI.ingest_context(p, c, st, ctx, dist=tp)
+        lp, st = PI.prefill(p, c, st, prompt, dist=tp)
+        ld, st = PI.decode_step(p, c, st, prompt[:, :1], dist=tp)
+        return PI.gather_vocab(lp, c, tp), PI.gather_vocab(ld, c, tp)
+
+    for n in FSDP_EP_SIZES:
+        here, k = {}, 8 // n
+        with torch.no_grad():
+            stored = [FS.shard_fsdp(params, fcfg,
+                                    TPX.TensorParallel(fcfg, n, r, None))
+                      for r in range(n)]
+            shards = [TPX.shard_params(params, base,
+                                       TPX.TensorParallel(base, n, r, None))
+                      for r in range(n)]
+
+        def rows(i):
+            return {name: v[i * k:(i + 1) * k] for name, v in b8.items()}
+
+        def zloss(i, fs):
+            return TR._loss_fn(*PP.partition(stored[i], mask), fcfg, layout,
+                               rows(i), dist=fs, count=count)
+
+        def tloss(ranks, i):
+            return TR._loss_fn(*PP.partition(shards[i], mask), base, layout,
+                               b8, dist=ranks[i], count=count)
+
+        # the unsharded block under ep's drops at n, its routes recorded
+        whole = PP.tree_map(lambda _, x: x.detach().clone()
+                            .requires_grad_(True), params)
+        calls = []
+        with torch.enable_grad(), ep_unsharded(n), \
+                moe_routes(recorded_routes(calls)):
+            want = TR._loss_fn(*PP.partition(whole, mask), base, layout, b8,
+                               count=count)
+            wg = torch.autograd.grad(want, [x for _, x in PP.leaves(whole)],
+                                     allow_unused=True)
+        want_g = {p: g for (p, _), g in zip(PP.leaves(whole), wg)}
+        del whole, wg
+
+        def pick_rows(flips):
+            """Each ZeRO-3 rank (``tls.rank``) takes its rows of the
+            unsharded block's ids."""
+            picks = {}
+
+            def pick(cfg, w, xf, route):
+                i = tls.rank
+                if i not in picks:
+                    ids = calls[0]
+                    N = ids.shape[0] // n
+                    picks[i] = pinned_routes(torch, [ids[i * N:(i + 1) * N]],
+                                             flips)
+                return picks[i](cfg, w, xf, route)
+            return pick
+
+        # training: the ZeRO-3 ranks' forward in turn, then each rank's
+        # backward to its gathered leaves
+        for st in stored:
+            for _, x in PP.leaves(st):
+                x.requires_grad_(True)
+        grp = TPX.LocalGroup(n)
+        seen = [[] for _ in range(n)]
+        flips = []
+
+        def zfwd(i):
+            tls.rank = i
+            with torch.enable_grad():
+                return zloss(i, Seen(fcfg, n, i, grp.member(i),
+                                     seen=seen[i]))
+        MOE.EP_DROPS.update(assignments=0, dropped=0)
+        with moe_routes(pick_rows(flips)):
+            parts = counted(ops, here, lambda: grp.run(zfwd))
+        drops = dict(MOE.EP_DROPS)
+        total = {}
+
+        def backward():
+            for i in range(n):
+                gs = torch.autograd.grad(parts[i], [y for _, y in seen[i]],
+                                         allow_unused=True)
+                for (p, _), g in zip(seen[i], gs):
+                    if g is not None:
+                        total[p] = total.get(p, 0) + g.float()
+        counted(ops, here, backward)
+        for st in stored:
+            for _, x in PP.leaves(st):
+                x.requires_grad_(False)
+        loss = functools.reduce(torch.add, [x.detach() for x in parts])
+        del parts, seen
+        check(f"19d phi3.5-moe ep n={n}: the ZeRO-3 training loss (each rank "
+              "its rows of B8 S1216, ids pinned) vs the unsharded block under "
+              "ep's drops", max_err(loss, want.detach()), bf16_tol(want))
+        worst, where = 0.0, None
+        for p, g in want_g.items():
+            got = total.get(p)
+            if g is None or got is None:
+                if (g is None) != (got is None):
+                    raise AssertionError(f"19d n={n} {'/'.join(p)}: a "
+                                         "gradient on one side only")
+                continue
+            g = g[0] if p[0] == "layers" else g
+            err, tol = max_err(got, g), bf16_tol(g)
+            r = err / tol if tol else (0.0 if err == 0 else math.inf)
+            if r > worst:
+                worst, where = r, "/".join(p)
+        check(f"19d phi3.5-moe ep n={n}: every gradient, summed over the "
+              f"ranks, vs the unsharded block's (x bf16_tol of the leaf; "
+              f"worst {where})", worst, 1.0)
+        del total, want_g
+
+        # the tensor-parallel ep rank loop on the same forward and ids
+        tflips = []
+        tgrp = TPX.LocalGroup(n)
+        tranks = TPX.local_ranks(base, tgrp)
+        MOE.EP_DROPS.update(assignments=0, dropped=0)
+        with torch.no_grad(), moe_routes(rank_routes(torch, calls, tflips)):
+            tgrp.run(lambda i: tloss(tranks, i))
+        tp_drops = dict(MOE.EP_DROPS)
+        if drops != tp_drops:
+            raise AssertionError(f"19d n={n}: ZeRO-3 drops {drops} vs the "
+                                 f"tensor-parallel ep loop's {tp_drops}")
+
+        # serving: the ZeRO-3 blocks gathered and cut along E, bit-equal to
+        # the tensor-parallel ep loop
+        def serve_loop(c, trees):
+            grp = TPX.LocalGroup(n)
+            ranks = TPX.local_ranks(c, grp)
+            sts = [rank_state(torch, st0, tp) for tp in ranks]
+            return grp.run(lambda i: online(trees[i], c, sts[i], ranks[i]))
+        with torch.no_grad():
+            zs = counted(ops, here, lambda: serve_loop(fcfg, stored))
+            ts = serve_loop(base, shards)
+        bad = [(i, j) for i, (a, b) in enumerate(zip(zs, ts))
+               for j in range(2) if not torch.equal(a[j], b[j])]
+        if bad:
+            raise AssertionError(f"19d n={n}: ZeRO-3 serving differs from "
+                                 f"the tensor-parallel ep loop at {bad}")
+
+        # a rank's share of the training forward (the port's own routes),
+        # and the ids gather (the group's concat on the card)
+        def zloop(_):
+            g = TPX.LocalGroup(n)
+            return g.run(lambda i: zloss(i, FS.Fsdp(fcfg, n, i,
+                                                    g.member(i))))
+
+        def tloop(_):
+            g = TPX.LocalGroup(n)
+            rk = TPX.local_ranks(base, g)
+            return g.run(lambda i: tloss(rk, i))
+        ids = [torch.randint(0, base.n_experts, (k * layout.seq_len,
+                                                 base.top_k), device=dev)
+               for _ in range(n)]
+        with torch.no_grad():
+            t_z = time_ms(torch, zloop, iters=3, warmup=1)
+            t_t = time_ms(torch, tloop, iters=3, warmup=1)
+            t_ids = time_ms(torch, lambda i: torch.cat(ids))
+        rec[n] = dict(zero3_rank_ms=t_z / n, tp_ep_rank_ms=t_t / n,
+                      ids_gather_ms=t_ids, loss=loss.item(),
+                      loss_whole=want.item(), grad_worst=worst,
+                      dropped=drops["dropped"],
+                      assignments=drops["assignments"],
+                      route_flips=sum(flips))
+        log(f"  19d phi3.5-moe ep n={n}: ZeRO-3 training loss "
+            f"{loss.item():.6f} vs {want.item():.6f}, gradients within "
+            f"{worst:.3f} x bf16_tol; ep dropped {drops['dropped']} of "
+            f"{drops['assignments']} assignments, as the tensor-parallel "
+            f"ep loop; {sum(flips)} rows whose own top-k differs from the "
+            f"pinned; serving (ingest, prefill, decode) bit-equal to the "
+            f"tensor-parallel ep loop; the training forward a rank "
+            f"{t_z / n:.2f} ms (its {k} rows, the layer gathered whole) vs "
+            f"a tensor-parallel ep rank {t_t / n:.2f} ms (all 8 rows, "
+            f"{base.n_experts // n} experts); the ids gather "
+            f"({n} x {k * layout.seq_len} x {base.top_k} int64) "
+            f"{t_ids:.4f} ms [{card}]")
+        add_counts(counts, here)
+        del stored, shards
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, rec
+
+
 def phase19(torch, m, card):
     """Phase 19: ZeRO-3 on LLaMA-7B: 19a and 19c in an NCCL world of one
     rank (`fsdp_world_of_one`), 19b the full-width block's rank loops
-    (`tp_rank_loop` with `zero3_block`)."""
+    (`tp_rank_loop` with `zero3_block`); 19d ``ep`` under ZeRO-3 on
+    phi3.5-moe (`fsdp_ep_world_of_one`, `fsdp_ep_block`)."""
     t0 = time.perf_counter()
     cfg = m.get_config("llama-7b")
     llama = m.init_lm(cfg, seed=0)          # phase 3's weights
@@ -7146,6 +7690,18 @@ def phase19(torch, m, card):
     loop_counts, rec["19b"] = tp_rank_loop(torch, m, card, FSDP_BLOCKS,
                                            zero3_block(torch, m, card))
     add_counts(counts, loop_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  19d: moe_impl='ep' under ZeRO-3 on phi3.5-moe: the fsdp+ep "
+        "dist= entry points in an NCCL world of one rank, (1, 1) mesh (4 "
+        "layers, bf16)")
+    add_counts(counts, fsdp_ep_world_of_one(torch, m, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  19d: one full-width phi3.5-moe block, the ZeRO-3 ranks of a "
+        "LocalGroup in turn (training forward and backward, serving)")
+    ep_counts, rec["19d"] = fsdp_ep_block(torch, m, card)
+    add_counts(counts, ep_counts)
     missing = [k for k in FSDP_KERNELS if counts.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"phase 19: no launch of {missing} ({counts})")

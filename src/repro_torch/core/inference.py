@@ -185,7 +185,8 @@ class SeqShard(NamedTuple):
         new rows here, or None where the block misses this rank).  The
         block lands where the unsharded cache's would, the reference's
         clamp at the buffer's end included (`masks.block_rows`); each
-        rank writes the rows that fall in its range, as local rows."""
+        rank writes the rows that fall in its range, as local rows, in
+        every lane."""
         length = uniform(cache.length)
         if valid_len is not None or cache.lane_major or length is None:
             raise ValueError("the sequence-sharded cache takes blocks of "
@@ -195,8 +196,8 @@ class SeqShard(NamedTuple):
         lo, total = self.rank * blk, blk * self.n
         at = min(max(int(length), 0), max(total - S, 0))
         rows = min(S, total)
-        plan = M.plan_block_write(at - lo, S, blk, rows,
-                                  device=cache.k.device) \
+        plan = M.plan_block_write([at - lo] * cache.k.shape[1], S, blk,
+                                  rows, device=cache.k.device) \
             if lo < at + rows and at < lo + blk else None
         return min(max(int(length) - lo, 0), blk), plan
 

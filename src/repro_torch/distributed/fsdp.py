@@ -27,11 +27,11 @@ reduce-scatter of the gradient along it backward.  Two modes:
 
 - training (an `Fsdp` rank with ``tp=None``, `launch.train`): each rank
   runs every layer whole, as ``dist=None`` does, on its own block of
-  rows (the batch over every mesh axis); the gradient of a stored block
-  is the reduce-scatter of the ranks' partial gradients.  Under
-  ``cfg.remat`` the gather sits inside the checkpointed layer, so a
-  layer's whole weights live only while it runs (two gathers a layer:
-  the forward and the recompute);
+  rows (the batch over every mesh axis; ``ep``'s drops are the data
+  block's); the gradient of a stored block is the reduce-scatter of the
+  ranks' partial gradients.  Under ``cfg.remat`` the gather sits inside
+  the checkpointed layer, so a layer's whole weights live only while it
+  runs (two gathers a layer: the forward and the recompute);
 - serving (a `tensor_parallel.TensorParallel` rank whose config is
   ``fsdp``: ``TensorParallel.stored``): each layer's gathered leaves are
   cut to the tensor-parallel local layout (``tensor_parallel.split_dim``)
@@ -39,9 +39,11 @@ reduce-scatter of the gradient along it backward.  Two modes:
   stream states keep the reference's specs, which split KV heads over
   the model axis whatever the strategy.
 
-``moe_impl="ep"`` under ``fsdp`` on a model axis of more than one rank
-raises NotImplementedError (ROADMAP item 4b-v-c,
-`tensor_parallel.require_tp_family`).
+``moe_impl="ep"`` runs in both modes.  A training rank runs its experts
+whole on its rows, with the drops the reference's ``shard_map`` makes
+over the whole data block: the expert ids are gathered over the model
+axis (``models.moe._moe_ep_rows``).  A serving rank cuts its layer
+along E and runs ``ep``'s all-to-all as under ``tp``.
 """
 from __future__ import annotations
 

@@ -81,7 +81,8 @@ ZeRO-3 (``sharding_strategy="fsdp"``, `distributed.fsdp`) stores the
 weights by ``param_pspecs`` itself, with no departure: a stored block is
 only storage and may cut a leaf mid-head.  Serving under it gathers each
 layer's leaves whole and cuts them to the local layout above
-(`TensorParallel.stored`), so the blocks run as they do here.
+(`TensorParallel.stored`), so the blocks run as they do here (``ep``'s
+experts cut along E, `_moe_ep_shard`'s exchange as under ``tp``).
 
 COLLECTIVES.  ``copy_to_tp`` (identity forward, sum backward) marks the
 entry of a split computation: the gradient of its replicated input, and
@@ -125,17 +126,12 @@ def require_tp_family(cfg: ModelConfig, n: int = 1) -> None:
     """Tensor parallelism runs every family of the registry (an unknown
     one raises, `require_ported`).  An MoE split over ``n`` ranks needs
     ``d_ff % n == 0`` (``ragged_tp``) or ``n_experts % n == 0``
-    (``ep``), as the reference's ``shard_map`` does.  ``ep`` under
-    ``sharding_strategy="fsdp"`` raises NotImplementedError."""
+    (``ep``), as the reference's ``shard_map`` does, under either
+    ``sharding_strategy`` (under ``fsdp`` a training rank reckons ``ep``'s
+    drops over its data block, ``models.moe``)."""
     require_ported(cfg)
     if cfg.family != "moe" or n == 1:
         return
-    if cfg.moe_impl == "ep" and cfg.sharding_strategy == "fsdp":
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl='ep' under sharding_strategy='fsdp' on a "
-            f"model axis of {n}: ep's capacity is reckoned per block of the "
-            "data rows, which ZeRO-3 splits over the model axis too; not "
-            "ported (ROADMAP item 4b-v-c)")
     if cfg.moe_impl == "ep":
         if cfg.n_experts % n:
             raise ValueError(f"ep splits the experts over the model axis: "

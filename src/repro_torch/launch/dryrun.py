@@ -216,8 +216,7 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--variant", default=None,
                     help="'+'-joined cfg variants: fsdp,int8kv,noremat,ep,"
-                         "merge,ccmserve (fsdp+ep on a model axis > 1 "
-                         "raises: ROADMAP 4b-v-c)")
+                         "merge,ccmserve")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--out", default=OUT_DIR)
     args = ap.parse_args(argv)

@@ -33,7 +33,11 @@ back as the rank's rows and vocabulary block, as the reference's
 whole).  With ``batch_sharded=False`` every data rank holds the whole
 batch, and an ``ep`` MoE reckons its capacity per block of ``B S /
 n_data`` rows, as the reference's ``shard_map`` splits them
-(`tensor_parallel.replicated_rows`).  Under ZeRO-3
+(`tensor_parallel.replicated_rows`).  With ``shard_cache_seq=True`` the
+cache's sequence lies over the data axes; with the batch split over
+them too, each op gathers the rows of the tokens and of the batch-split
+state leaves, runs on the whole batch and keeps its own (`DataRows`).
+Under ZeRO-3
 (``sharding_strategy="fsdp"``) ``place`` stores the params by
 ``param_spec`` (`distributed.fsdp`), and the op gathers each layer's
 leaves and cuts them to the tensor-parallel local layout as it runs:
@@ -197,49 +201,99 @@ def _with_specs(fn: Callable, cfg: ModelConfig, dist: DistContext,
     return ShardedStep(fn, cfg, dist, state_specs, tok_spec)
 
 
+class DataRows:
+    """The sequence-sharded cache with the batch split
+    (``shard_cache_seq=True, batch_sharded=True``): the data axes hold
+    the cache's sequence blocks, and the rows of the tokens, of the
+    memory's k/v and of the ``ssm`` and ``cross`` leaves
+    (``online_state_pspecs``).  ``run`` gathers those rows over the data
+    axes, runs the op on the whole batch as ``batch_sharded=False`` runs
+    it, and keeps this rank's rows of its logits and of those leaves; the
+    cache's blocks and the counters pass as they are.  ``coll``: the
+    collectives over the data axes (``n`` ranks, this one ``rank``);
+    ``specs``: the state's spec tree (``online_state_pspecs``)."""
+
+    def __init__(self, coll, rank: int, n: int, specs):
+        self.coll, self.rank, self.n, self.specs = coll, rank, n, specs
+
+    @classmethod
+    def of(cls, cfg: ModelConfig, dist: DistContext) -> "DataRows":
+        axes = dist.batch_axes
+        return cls(TPX.axis_collectives(dist, axes), dist.rank_in(axes),
+                   dist.n_data, SH.online_state_pspecs(
+                       cfg, dist, batch_sharded=True, shard_cache_seq=True))
+
+    def _state(self, state, fn):
+        """``fn(x, dim)`` on each leaf whose spec splits its batch dim."""
+        return TPX.map_by_spec(
+            lambda x, sp: fn(x, 1) if sp is not None and len(sp) > 1
+            and sp[1] is not None else x, state, self.specs)
+
+    def whole(self, x, dim: int = 0):
+        return x if x is None else self.coll.gather(x, dim)
+
+    def mine(self, x, dim: int = 0):
+        return TPX._block(x, dim, self.n, self.rank)
+
+    def run(self, op: Callable, state, tokens, *extra):
+        """``op(state, tokens, *extra)`` (a state, or (logits, state)) on
+        the gathered rows; ``extra`` are row tensors (or None)."""
+        out = op(self._state(state, self.whole), self.whole(tokens),
+                 *[self.whole(x) for x in extra])
+        if isinstance(out, I.OnlineState):
+            return self._state(out, self.mine)
+        return self.mine(out[0]), self._state(out[1], self.mine)
+
+
 def _op_dists(cfg: ModelConfig, dist: Optional[DistContext],
               spec_kw) -> Callable:
     """A builder's () -> (the ``dist`` its op runs with, the sequence-
-    sharded cache's `core.inference.SeqShard` or None), taken at the
-    step's first call: the model axis's and the data axes' groups are
-    collectives every rank joins there.  Where the batch is not sharded
-    the op runs with `tensor_parallel.replicated_rows`.
+    sharded cache's `core.inference.SeqShard` or None, the `DataRows`
+    that gather the batch or None), taken at the step's first call: the
+    model axis's and the data axes' groups are collectives every rank
+    joins there.  Where every data rank holds the whole batch the op runs
+    with `tensor_parallel.replicated_rows`.
 
     ``shard_cache_seq=True`` splits the cache's sequence over the data
-    axes and takes ``batch_sharded=False`` (every data rank holds the
-    whole batch): with the batch split too, the tokens' and the memory's
-    rows would lie over the same axes as the cache's blocks, and the
-    builder raises ValueError."""
+    axes.  With ``batch_sharded=False`` every data rank holds the whole
+    batch; with ``batch_sharded=True`` the rows of the tokens and the
+    memory lie over the same axes, and the op gathers them (`DataRows`),
+    as the reference's GSPMD does under its specs."""
     if dist is None:
-        return lambda: (None, None)
+        return lambda: (None, None, None)
     rows = spec_kw.get("batch_sharded", True)
-    if spec_kw.get("shard_cache_seq") and rows:
-        raise ValueError(
-            "shard_cache_seq=True takes batch_sharded=False: each data rank "
-            "holds every lane of its block of the cache, which a split of "
-            "the tokens' and the memory's rows over the same axes breaks")
+    seq = spec_kw.get("shard_cache_seq", False)
     got = []
 
     def get():
         if not got:
-            got.append((dist if rows else TPX.replicated_rows(cfg, dist),
-                        I.SeqShard.of(dist, spec_kw.get("shard_cache_seq"))))
+            got.append((dist if rows and not seq
+                        else TPX.replicated_rows(cfg, dist),
+                        I.SeqShard.of(dist, seq),
+                        DataRows.of(cfg, dist) if rows and seq else None))
         return got[0]
     return get
+
+
+def _on_rows(rows: Optional[DataRows], op: Callable, state, tokens, *extra):
+    return op(state, tokens, *extra) if rows is None \
+        else rows.run(op, state, tokens, *extra)
 
 
 def make_prefill_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
                       impl: Optional[str] = None, **spec_kw) -> Callable:
     """(params, state, tokens, patches=None) -> (logits, state):
     ``core.inference.prefill`` (last-position logits).  With
-    ``shard_cache_seq=True`` and ``batch_sharded=False`` the prefill over
-    the sequence-sharded cache (``prefill(seq_shard=)``)."""
+    ``shard_cache_seq=True`` the prefill over the sequence-sharded cache
+    (``prefill(seq_shard=)``), on the whole batch (gathered over the data
+    axes where ``batch_sharded=True``, `DataRows`)."""
     dists = _op_dists(cfg, dist, spec_kw)
 
     def fn(params, state, tokens, patches=None):
-        op, seq = dists()
-        return I.prefill(params, cfg, state, tokens, impl=impl,
-                         patches=patches, dist=op, seq_shard=seq)
+        op, seq, rows = dists()
+        return _on_rows(rows, lambda st, tk, pt: I.prefill(
+            params, cfg, st, tk, impl=impl, patches=pt, dist=op,
+            seq_shard=seq), state, tokens, patches)
 
     if dist is None:
         return fn
@@ -249,15 +303,15 @@ def make_prefill_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
 def make_decode_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
                      **spec_kw) -> Callable:
     """(params, state, tokens (B, 1)) -> (logits, state).  With
-    ``shard_cache_seq=True`` and ``batch_sharded=False`` (the reference's
-    long-context cell) the sequence-sharded decode
-    (``core.inference.decode_step(seq_shard=)``)."""
+    ``shard_cache_seq=True`` (the reference's long-context cell) the
+    sequence-sharded decode (``core.inference.decode_step(seq_shard=)``),
+    on the whole batch as in `make_prefill_step`."""
     dists = _op_dists(cfg, dist, spec_kw)
 
     def fn(params, state, tokens):
-        op, seq = dists()
-        return I.decode_step(params, cfg, state, tokens, dist=op,
-                             seq_shard=seq)
+        op, seq, rows = dists()
+        return _on_rows(rows, lambda st, tk: I.decode_step(
+            params, cfg, st, tk, dist=op, seq_shard=seq), state, tokens)
 
     if dist is None:
         return fn
@@ -267,14 +321,14 @@ def make_decode_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
 def make_ingest_step(cfg: ModelConfig, dist: Optional[DistContext] = None,
                      **spec_kw) -> Callable:
     """(params, state, tokens) -> state: ``core.inference.ingest_context``
-    (over the sequence-sharded cache with ``shard_cache_seq=True`` and
-    ``batch_sharded=False``)."""
+    (over the sequence-sharded cache with ``shard_cache_seq=True``, on
+    the whole batch as in `make_prefill_step`)."""
     dists = _op_dists(cfg, dist, spec_kw)
 
     def fn(params, state, tokens):
-        op, seq = dists()
-        return I.ingest_context(params, cfg, state, tokens, dist=op,
-                                seq_shard=seq)
+        op, seq, rows = dists()
+        return _on_rows(rows, lambda st, tk: I.ingest_context(
+            params, cfg, st, tk, dist=op, seq_shard=seq), state, tokens)
 
     if dist is None:
         return fn

@@ -45,14 +45,17 @@ rank stores its ``param_spec`` block of every leaf and of its moments
 of rows over EVERY mesh axis (data, then model, rank-major: the
 reference's train cell), and runs each layer whole on them, its leaves
 gathered as it runs; the gather's backward reduce-scatters the
-gradient over the model axis.  A leaf stored whole (a ``P()`` spec) has
-a partial gradient on each model rank, all-reduced over the model axis
-first.  Then the data-axis reduce (and its codec) acts as above: a
-stored block takes its int8 scale and top-k threshold over the whole
-leaf, and the clipping norm sums the stored blocks' squares over the
-model axis.  Rows that do not split over ``n_data * n_model`` raise
-ValueError.  The loss's divisor is the mask count over every axis (with
-a codec, the data block's: the model axis's).
+gradient over the model axis.  An ``ep`` MoE drops what the
+reference's ``shard_map`` drops over the whole data block
+(`models.moe`: the expert ids are gathered over the model axis).  A
+leaf stored whole (a ``P()`` spec) has a partial gradient on each model
+rank, all-reduced over the model axis first.  Then the data-axis
+reduce (and its codec) acts as above: a stored block takes its int8
+scale and top-k threshold over the whole leaf, and the clipping norm
+sums the stored blocks' squares over the model axis.  Rows that do
+not split over ``n_data * n_model`` raise ValueError.  The loss's
+divisor is the mask count over every axis (with a codec, the data
+block's: the model axis's).
 On one device ``grad_codec`` is accepted and the step trains exactly as
 with "none", as the reference does with ``dist=None`` (no residual is
 allocated; the reference allocates one and never reads it).  The loop
@@ -95,8 +98,7 @@ from repro_torch.optim.losses import next_token_loss
 def check_mesh(cfg: ModelConfig, dist: Optional[DistContext]) -> None:
     """A mesh that splits the model (``n_model > 1``) takes every family,
     an MoE one where its experts split over it
-    (`tensor_parallel.require_tp_family`; ``ep`` under ``fsdp`` raises
-    NotImplementedError)."""
+    (`tensor_parallel.require_tp_family`), under either strategy."""
     if dist is not None and dist.n_model > 1:
         TPX.require_tp_family(cfg, dist.n_model)
 

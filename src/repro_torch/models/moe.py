@@ -45,9 +45,23 @@ enters through ``copy_to_tp``.  ``cfg.moe_impl`` picks the strategy:
   reference's body does, would hand each owner n cotangents of one row:
   JAX scales them by 1/n, autograd would not.)
 
+UNDER ZeRO-3 TRAINING (``dist=`` a `distributed.fsdp.Fsdp` rank with
+``tp=None``): each rank runs the layer whole, its experts gathered, on
+its own share of a data block's rows (the batch split over the data
+axes and then the model axis, `launch.train.local_rows`).  The
+reference's ``shard_map`` hands every model rank the whole data block
+(``P(ba)``), so ``ep``'s capacity is reckoned over ``B S / n_data``
+rows.  ``_moe_ep_rows`` routes this rank's rows, all-gathers the
+integer expert ids over the model axis in rank order (the order the
+rows were cut in), reckons ``ep_slots`` over the whole block and runs
+the dropless path on its own rows under its slice of that keep mask.
+No gradient crosses the gather (it carries ids): the router's and the
+experts' come from this rank's rows, and the ZeRO-3 backward sums and
+reduce-scatters them as for any other leaf.
+
 `moe_ep_unsharded` computes on one device what ``ep`` at n computes (the
 dropless path under the same keep mask); `EP_DROPS` counts the
-assignments ``ep`` dropped (rank 0's calls).
+assignments ``ep`` dropped, once per data block (model rank 0's calls).
 """
 from __future__ import annotations
 
@@ -57,6 +71,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import fsdp as FS
 from repro_torch.distributed import tensor_parallel as TPX
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -146,19 +161,33 @@ def _moe_local(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     this rank's ``d_ff`` slice of every expert, the expert branch enters
     through ``copy_to_tp`` and its partial sums leave through one reduce
     over the model axis (``_moe_tp_shard``)."""
-    N, d = xf.shape
-    k, E = cfg.top_k, cfg.n_experts
     topw, topi = _route(cfg, p["router"], xf)
     if keep is not None:
         keep = keep(topi) if callable(keep) else keep
         topw = topw * keep
+    return _combine(cfg, p, xf, topw, topi, tp)
+
+
+def _combine(cfg: ModelConfig, p: Dict[str, torch.Tensor], xf: torch.Tensor,
+             topw: torch.Tensor, topi: torch.Tensor, tp=None,
+             block_keep=None) -> torch.Tensor:
+    """`_moe_local` after its router: each row's ``k`` assignments through
+    their experts, combined by ``topw``.  ``block_keep``: the keep mask
+    of the whole data block, whose assignments and drops go to
+    `EP_DROPS` (read with the group sizes: the layer's one host read)."""
+    N, d = xf.shape
+    k, E = cfg.top_k, cfg.n_experts
     eids = topi.reshape(-1)                                   # (N*k,)
     order = torch.argsort(eids, stable=True)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)
     xr = TPX.copy_to_tp(xf, tp).repeat_interleave(k, dim=0)[order]
-    sizes = host_counts(eids, E, _spread(N * k, E))
-    y = TPX.reduce_from_tp(_expert_ffn(cfg, p, xr, sizes), tp)[inv]
+    expect = _spread(N * k, E) + ([] if block_keep is None else [0])
+    stats = host_counts(eids, E, expect, block_keep)
+    if block_keep is not None:
+        EP_DROPS["assignments"] += block_keep.numel()
+        EP_DROPS["dropped"] += stats[E]
+    y = TPX.reduce_from_tp(_expert_ffn(cfg, p, xr, stats[:E]), tp)[inv]
     y = y.reshape(N, k, d) * topw[..., None].to(y.dtype)
     return y.sum(dim=1)
 
@@ -231,6 +260,21 @@ def moe_ep_unsharded(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                       keep=ep_keep(cfg, n, blocks)).reshape(B, S, d)
 
 
+def _moe_ep_rows(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                 xf: torch.Tensor, fs) -> torch.Tensor:
+    """``ep`` on a ZeRO-3 training rank (module docstring): ``p`` the
+    whole experts, ``xf`` this rank's share of a data block's rows, every
+    model rank's share of equal size.  The drops are ``ep_slots``' over
+    the block, from the ids gathered over the model axis."""
+    N = xf.shape[0]
+    topw, topi = _route(cfg, p["router"], xf)
+    ids = fs.coll.gather(topi, 0)                 # the block's, in row order
+    keep = ep_slots(ids, cfg.n_experts // fs.n, fs.n)[2].reshape(ids.shape)
+    mine = keep[fs.rank * N:(fs.rank + 1) * N]
+    return _combine(cfg, p, xf, topw * mine, topi,
+                    block_keep=keep if fs.rank == 0 else None)
+
+
 class _AllToAll(torch.autograd.Function):
     """x (n, ...) -> (n, ...): row j of the output is rank j's row r.  Its
     own adjoint: the backward is the reverse all-to-all."""
@@ -299,11 +343,15 @@ def apply_moe(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
               dist=None) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d) through the experts; with ``dist``
     splitting the model, through ``cfg.moe_impl``'s strategy on this
-    rank's shard (module docstring)."""
+    rank's shard; on a ZeRO-3 training rank, the whole experts on its
+    rows, with ``ep``'s drops over its data block (module docstring)."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     tp = TPX.tp_of(cfg, dist)
-    if tp is None:
+    if tp is None and isinstance(dist, FS.Fsdp) and dist.n > 1 \
+            and cfg.moe_impl == "ep":
+        y = _moe_ep_rows(cfg, p, xf, dist)
+    elif tp is None:
         y = _moe_local(cfg, p, xf)
     elif cfg.moe_impl == "ep":
         y = _moe_ep_shard(cfg, p, xf, tp)

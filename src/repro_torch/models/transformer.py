@@ -263,20 +263,24 @@ def cross_attend(cfg: ModelConfig, lp: Params, x: torch.Tensor,
 
 
 def ffn(cfg: ModelConfig, lp: Params, h: torch.Tensor,
-        tp=None) -> torch.Tensor:
+        tp=None, moe=None) -> torch.Tensor:
     """The block's feed-forward: the experts where the layer has them
-    (with ``tp``, split by ``cfg.moe_impl``)."""
+    (with ``tp``, split by ``cfg.moe_impl``; ``moe``, the ``dist`` they
+    take in place of ``tp``)."""
     if "moe" in lp:
-        return MOE.apply_moe(cfg, lp["moe"], h, tp)
+        return MOE.apply_moe(cfg, lp["moe"], h, tp if moe is None else moe)
     return L.apply_mlp(cfg, lp["mlp"], h, tp)
 
 
 def _attn_mlp_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
                     q_info, k_info, comp_gate, positions,
-                    merge_ctx, cross=None, tp=None) -> torch.Tensor:
+                    merge_ctx, cross=None, tp=None,
+                    moe=None) -> torch.Tensor:
     """One block; with ``tp`` (a rank of `distributed.tensor_parallel`)
     its two partial sums, after the attention's ``wo`` and after the
-    MLP's, go through ``tp``'s model-axis reduce."""
+    MLP's, go through ``tp``'s model-axis reduce.  ``moe``: the ``dist``
+    the feed-forward takes in place of ``tp`` (a ZeRO-3 training rank,
+    whose ``ep`` experts reckon their drops over its data block)."""
     h = L.apply_norm(cfg, lp["ln1"], x)
     q, k, v = A.qkv_project(cfg, lp["attn"], h, comp_gate,
                             positions if cfg.pos_embed == "rope" else None,
@@ -299,7 +303,7 @@ def _attn_mlp_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, *,
     if cross is not None:
         x = cross_attend(cfg, lp, x, cross, tp)
     h = L.apply_norm(cfg, lp["ln2"], x)
-    return x + ffn(cfg, lp, h, tp)
+    return x + ffn(cfg, lp, h, tp, moe)
 
 
 def _mamba_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
@@ -340,7 +344,8 @@ def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     replicated activations, so their gradients are whole on every rank
     and never summed.  Under ZeRO-3 (`distributed.fsdp`) ``params`` is
     stored: each layer's leaves are gathered inside its (checkpointed)
-    body."""
+    body; a training rank's `Fsdp` reaches the MoE layers
+    (``models.moe.apply_moe``)."""
     require_ported(cfg)
     tp = TPX.tp_of(cfg, dist)
     params = FS.view(params, cfg, dist)
@@ -348,7 +353,8 @@ def forward_hidden(params: Params, cfg: ModelConfig, x: torch.Tensor, *,
     attn = functools.partial(_attn_mlp_block, cfg, q_info=q_info,
                              k_info=k_info, comp_gate=comp_gate,
                              positions=positions, merge_ctx=merge_ctx,
-                             cross=cross, tp=tp)
+                             cross=cross, tp=tp,
+                             moe=dist if isinstance(dist, FS.Fsdp) else None)
     for kind, i in layer_plan(cfg):
         if kind == "mamba":
             def body(h, i=i):
@@ -502,7 +508,8 @@ def train_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         if cfg.family == "encdec" else None
     x = forward_hidden(params, cfg, x, q_info=q_info, k_info=k_info,
                        comp_gate=comp_gate, positions=pos,
-                       merge_ctx=merge_ctx, cross=cross, dist=tp)
+                       merge_ctx=merge_ctx, cross=cross,
+                       dist=dist if isinstance(dist, FS.Fsdp) else tp)
     if logits_slice is None:
         logits_slice = (S - layout.tail_len, layout.tail_len)
     start, length = logits_slice

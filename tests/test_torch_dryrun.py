@@ -193,6 +193,34 @@ def test_fsdp_variant_record_differs_from_tp(tmp_path):
     assert "all-gather" not in tp["collective_bytes"]
 
 
+def test_fsdp_ep_variant_record(tmp_path):
+    """``--variant fsdp+ep`` writes phi3.5-moe's ZeRO-3 train record
+    (ROADMAP item 4b-v-c, done): other argument bytes than ``--variant
+    ep``'s, and all-gathers that hold, beside ``--variant fsdp``'s
+    weights, each MoE layer's expert ids over its data block, gathered
+    over the model axis in the forward and again in the remat
+    recompute."""
+    arch = "phi3.5-moe-42b-a6.6b"
+    args = ["--arch", arch, "--shape", "train_4k", "--mesh", "single",
+            "--out", str(tmp_path)]
+    rec = {}
+    for v in ("ep", "fsdp+ep", "fsdp"):
+        D.main(args + ["--variant", v])
+        rec[v] = json.loads((tmp_path / f"{arch}__train_4k__single__{v}.json")
+                            .read_text())
+    assert rec["fsdp+ep"]["memory"]["argument_bytes"] != \
+        rec["ep"]["memory"]["argument_bytes"]
+    cfg = D._apply_variant(D.get_config(arch), "fsdp+ep")
+    dist = PM.make_dist(PM.make_shape_mesh(*PM.PRODUCTION["single"]))
+    rows, seq = PS.build_cell(cfg, "train_4k", dist).local_args[3][
+        "tokens"].shape                      # this rank's of its data block
+    ids = rows * dist.n_model * seq * cfg.top_k * 8             # int64
+    gathers = rec["fsdp+ep"]["collective_bytes"]["all-gather"]
+    assert dist.n_model > 1 and cfg.remat
+    assert gathers - rec["fsdp"]["collective_bytes"]["all-gather"] == \
+        cfg.n_layers * 2 * ids
+
+
 def _reference_record_keys():
     """The keys of the record ``repro/launch/dryrun.py``'s ``run_cell``
     writes, and those of its ``memory`` entry, from its source."""

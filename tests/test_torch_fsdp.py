@@ -7,7 +7,10 @@ in the port against the reference, in one ``gloo`` world of 4 ranks
   and (2, 2) against the reference's GSPMD ``jit_train_step`` on
   ``make_debug_mesh``: ``smollm_360m.smoke`` (full training; its 180
   ``wq`` columns are stored cut mid-head) and ``phi35_moe.smoke``
-  (``ragged_tp``, LoRA); the int8 and top-k codecs at (2, 2) against the
+  (``ragged_tp``, LoRA; and ``ep``, its router skewed so that the drops
+  over each data block are many, which the reference reckons over the
+  whole block and a rank's rows alone would not); the int8 and top-k
+  codecs at (2, 2) against the
   reference's ``jax.jit(step)`` with the codec: the loss, every updated
   leaf and both moments, gathered to whole leaves.  A (1, 2) mesh is
   ranks {0, 1} and ranks {2, 3} of the world, each pair running the
@@ -20,14 +23,17 @@ in the port against the reference, in one ``gloo`` world of 4 ranks
   checkpoints under both strategies;
 - the three ``dist=`` serve builders and ``make_stream_step`` under
   ``fsdp`` at (1, 2) against the reference's builders given
-  ``params_shapes``: the logits and the state;
+  ``params_shapes``: the logits and the state; under ``fsdp`` with
+  ``ep`` against the port's own builders under ``tp`` with ``ep``;
 - mamba2, zamba2, whisper and pixtral (smoke): the fsdp train step and
   prefill builder at (1, 2) against the port's ``dist=None``;
 - ``reduce_scatter`` over a gloo pair.
 
 In one process: rows that do not split over every mesh axis raise, the
 gather dims follow ``param_spec`` (its ties and the leaves it keeps
-whole), and the shape mesh's and ``LocalGroup``'s ``reduce_scatter``.
+whole), the shape mesh's and ``LocalGroup``'s ``reduce_scatter``, and
+``ep`` on ZeRO-3 training ranks (a ``LocalGroup``): the keep mask from
+the gathered ids is ``ep_slots`` over the whole data block.
 
 The ranks are spawned processes that import this module, so the
 reference's imports sit in the functions only the test process runs.
@@ -54,14 +60,19 @@ REL = 1e-4
 LAYOUT = (4, 8, 2, 8)                # t_steps, chunk, comp_len, tail
 B = 4
 OPT = dict(lr=1e-3, warmup_steps=2, total_steps=6)
-# model -> config module (smoke, float32, fsdp)
-MODELS = {"smollm": "smollm_360m", "phi35": "phi35_moe"}
+# model -> config module (smoke, float32, fsdp), and the overrides of
+# those that have them
+MODELS = {"smollm": "smollm_360m", "phi35": "phi35_moe",
+          "phi35-ep": "phi35_moe"}
+OVER = {"phi35-ep": {"moe_impl": "ep"}}
 # case -> (mesh, model, codec)
 CASES = {
     "smollm-1x2": ((1, 2), "smollm", "none"),
     "smollm-2x2": ((2, 2), "smollm", "none"),
     "phi35-1x2": ((1, 2), "phi35", "none"),
     "phi35-2x2": ((2, 2), "phi35", "none"),
+    "phi35-ep-1x2": ((1, 2), "phi35-ep", "none"),
+    "phi35-ep-2x2": ((2, 2), "phi35-ep", "none"),
     "smollm-int8-2x2": ((2, 2), "smollm", "int8"),
     "smollm-topk-2x2": ((2, 2), "smollm", "topk"),
 }
@@ -74,7 +85,9 @@ FAMILIES = {"mamba2": "mamba2_370m", "zamba2": "zamba2_12b",
 def _cfg(pkg, model, **kw):
     mod = importlib.import_module(f"{pkg}.configs.{MODELS.get(model, model)}")
     cfg = mod.smoke(compute_dtype="float32", param_dtype="float32")
-    return cfg.replace(sharding_strategy="fsdp", **kw)
+    return cfg.replace(**{"sharding_strategy": "fsdp",
+                          **OVER.get(model, {}), **kw})
+
 
 
 def _inputs():
@@ -94,12 +107,16 @@ def _inputs():
         keys = jax.random.split(jax.random.PRNGKey(7 + i), len(leaves))
         p = tdef.unflatten([x + 0.02 * jax.random.normal(k, x.shape, x.dtype)
                             for x, k in zip(leaves, keys)])
-        params[model] = jax.tree.map(np.asarray, p)
+        params[model] = jax.tree.map(np.array, p)
         b = jsample(jax.random.PRNGKey(1), JM.segment_layout(*LAYOUT), B)
         b = {k: np.array(v) for k, v in b.items()}
         b["tokens"] = b["tokens"] % cfg.vocab_size
         b["loss_mask"][0, :3] = 0
         batches[model] = b
+        if model in OVER:
+            # the router turned so that ep drops (the MoE split's tests')
+            from test_torch_moe_tp import skew
+            params[model] = skew("phi35_moe", params[model], b["tokens"])
     rng = np.random.default_rng(0)
     t = {"ctx": rng.integers(0, 256, (2, 6)),
          "ctx2": rng.integers(0, 256, (2, 5)),
@@ -135,7 +152,7 @@ fresh = lambda st: jax.tree.map(lambda x: jnp.array(np.asarray(x)), st)
 def cfg_of(model, **kw):
     mod = importlib.import_module("repro.configs." + {models}[model])
     return mod.smoke(compute_dtype="float32", param_dtype="float32").replace(
-        sharding_strategy="fsdp", **kw)
+        sharding_strategy="fsdp", **{over}.get(model, {{}}), **kw)
 
 out = {{}}
 for key, (shape, model, codec) in {cases}.items():
@@ -188,7 +205,8 @@ pickle.dump(out, open(sys.argv[2], "wb"))
 
 def _reference(inp, tmp_path):
     src = textwrap.dedent(_REF.format(layout=LAYOUT, models=MODELS,
-                                      cases=CASES, opt=OPT, stream=STREAM))
+                                      over=OVER, cases=CASES, opt=OPT,
+                                      stream=STREAM))
     out = tmp_path / "ref.pkl"
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
@@ -229,6 +247,7 @@ def _train(dists, params_all, batches):
     from repro_torch.distributed import sharding as SH
     from repro_torch.distributed import tensor_parallel as TPX
     from repro_torch.launch import train as TR
+    from repro_torch.models import moe as MOE
     from repro_torch.optim import adamw as PA
     from repro_torch.optim import grad_compress as PG
     from repro_torch.optim import partition as PP
@@ -257,10 +276,12 @@ def _train(dists, params_all, batches):
                 if not torch.equal(x, TPX.shard_by_spec(w, spec, dist)):
                     stored.append((key, "/".join(path)))
         ef = None if codec == "none" else PG.init_ef(ptp)
+        MOE.EP_DROPS.update(assignments=0, dropped=0)
         ptp, popt, m, _ = jstep(ptp, pfp, popt, batch, ef)
         out[key] = dict(loss=float(m["loss"]), tp=_flat(jstep.gather(ptp)),
                         mu=_flat(jstep.gather(popt.mu)),
-                        nu=_flat(jstep.gather(popt.nu)))
+                        nu=_flat(jstep.gather(popt.nu)),
+                        drops=dict(MOE.EP_DROPS))
     return out, stored
 
 
@@ -345,6 +366,42 @@ def _serve(dists, params_all, t):
     st = step.gather_state(st)
     out["stream"] = dict(logits=logits, win_k=n(st.win_k), mem_k=n(st.mem.k),
                          slots=int(st.mem.slots), pos=int(st.pos))
+    out["serve-ep"] = {s: _serve_ep(dist, params_all["phi35-ep"], tt,
+                                    _cfg("repro_torch", "phi35-ep",
+                                         sharding_strategy=s))
+                       for s in ("fsdp", "tp")}
+    return out
+
+
+def _serve_ep(dist, params_np, tt, cfg):
+    """The three builders and the stream step under ``cfg`` (``ep``): the
+    gathered logits and states."""
+    from repro_torch.core import inference as I
+    from repro_torch.core import streaming as STR
+    from repro_torch.launch import serve as SRV
+    from repro_torch.models.config import CCMConfig as PCCM
+    from repro_torch.params import params_from_numpy
+
+    n = lambda x: x.detach().numpy().copy()          # noqa: E731
+    params = params_from_numpy(params_np, cfg, device="cpu")
+    ing, pre = SRV.make_ingest_step(cfg, dist), SRV.make_prefill_step(cfg,
+                                                                      dist)
+    dec = SRV.make_decode_step(cfg, dist)
+    pl, st = ing.place(params, I.init_online_state(cfg, 2, 32, device="cpu"))
+    st = ing(pl, st, tt["ctx"])
+    lp, st = pre(pl, st, tt["prompt"])
+    ld, st = dec(pl, st, tt["tok"])
+    st = dec.gather_state(st)
+    out = dict(prefill=n(pre.gather_logits(lp)),
+               decode=n(dec.gather_logits(ld)), k=n(st.cache.k),
+               mem_k=n(st.mem.k))
+    scfg = cfg.replace(ccm=PCCM(comp_len=2, max_steps=4, **STREAM))
+    step = SRV.make_stream_step(scfg, dist)
+    pl, st = step.place(params, STR.init_stream_state(scfg, 2, device="cpu"))
+    for i, c in enumerate(tt["stream"]):
+        lg, st = step(pl, st, c)
+        out[f"stream{i}"] = n(step.gather_logits(lg))
+    out["win_k"] = n(step.gather_state(st).win_k)
     return out
 
 
@@ -485,6 +542,32 @@ def test_fsdp_train_step_matches_reference(results, case):
             close(g[part][k], v, f"{case} {part} {k}")
 
 
+@pytest.mark.parametrize("case", [c for c in CASES
+                                  if CASES[c][1] in OVER])
+def test_fsdp_ep_drops_over_the_data_block(results, case):
+    """The ``ep`` cases drop (the skewed router overflows the first
+    owner), counted once for the data block's B S / n_data rows by
+    model rank 0, in each layer's forward and its recompute."""
+    got, _ = results
+    d = got["train"][case]["drops"]
+    shape = CASES[case][0]
+    cfg = _cfg("repro_torch", CASES[case][1])
+    rows = B // shape[0] * PM.segment_layout(*LAYOUT).seq_len
+    runs = cfg.n_layers * (2 if cfg.remat else 1)
+    assert d["assignments"] == runs * rows * cfg.top_k, d
+    assert d["dropped"] > 0, d
+
+
+def test_fsdp_ep_serve_builders_match_tp_ep(results):
+    """Under ``fsdp`` with ``ep`` the three builders and the stream step
+    (a gathered layer cut along E) give what ``tp`` with ``ep`` gives."""
+    got, _ = results
+    f, t = got["serve-ep"]["fsdp"], got["serve-ep"]["tp"]
+    assert sorted(f) == sorted(t) and len(t) == 5 + 6
+    for k, v in t.items():
+        close(f[k], v, f"serve-ep {k}")
+
+
 def test_fsdp_ranks_store_their_param_spec_blocks(results):
     """Every rank of every case stores exactly ``shard_by_spec`` of each
     leaf, frozen and trainable, and of each first moment."""
@@ -598,3 +681,49 @@ def test_reduce_scatter_on_the_shape_mesh_and_local_group():
     got = grp.run(lambda r: grp.member(r).reduce_scatter(xs[r], -1))
     s = xs[0] + xs[1]
     assert torch.equal(got[0], s[:, :2]) and torch.equal(got[1], s[:, 2:])
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_fsdp_ep_keep_mask_is_ep_slots_over_the_data_block(n):
+    """ZeRO-3 training ranks of a ``LocalGroup`` (each its share of a
+    data block's rows, the whole experts): the ids gathered over the
+    model axis give each rank its slice of ``ep_slots``' keep mask over
+    the whole block, so the ranks' rows are ``moe_ep_unsharded``'s at
+    ``blocks=1`` and their router and expert gradients sum to its; the
+    drops (many: the router is skewed) are the block's, counted once."""
+    from repro_torch.distributed import fsdp as FS
+    from repro_torch.distributed import tensor_parallel as TPX
+    from repro_torch.models import moe as MOE
+    cfg = _cfg("repro_torch", "phi35-ep").replace(n_experts=8)
+    gen = torch.Generator().manual_seed(11)
+    p = MOE.init_moe(gen, cfg, cfg.d_model, cfg.d_ff, "cpu")
+    x = torch.randn(8, 6, cfg.d_model, generator=gen)
+    p["router"][:, :2] += 3 * (x.mean((0, 1)) / x.mean((0, 1)).norm()
+                               )[:, None] * p["router"].std()
+    w = torch.randn(x.shape, generator=gen)
+    rows = x.shape[0] // n
+
+    def grads(fn, lo, hi):
+        """fn's rows lo:hi of x and the gradients of their weighted sum."""
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in p.items()}
+        y = fn(leaves, x[lo:hi])
+        g = torch.autograd.grad((y * w[lo:hi]).sum(), list(leaves.values()))
+        return y.detach(), dict(zip(leaves, g))
+    want_y, want_g = grads(lambda q, xs: MOE.moe_ep_unsharded(cfg, q, xs, n),
+                           0, x.shape[0])
+    _, topi = MOE._route(cfg, p["router"], x.reshape(-1, cfg.d_model))
+    keep = MOE.ep_slots(topi, cfg.n_experts // n, n)[2]
+    grp = TPX.LocalGroup(n)
+    MOE.EP_DROPS.update(assignments=0, dropped=0)
+    outs = grp.run(lambda r: grads(lambda q, xs: MOE.apply_moe(
+        cfg, q, xs, dist=FS.Fsdp(cfg, n, r, grp.member(r))),
+        r * rows, (r + 1) * rows))
+    assert MOE.EP_DROPS == {"assignments": keep.numel(),
+                            "dropped": int((~keep).sum())}
+    assert int((~keep).sum()) > 0
+    torch.testing.assert_close(torch.cat([y for y, _ in outs]), want_y,
+                               rtol=0, atol=1e-5)
+    for k, g in want_g.items():
+        torch.testing.assert_close(sum(o[1][k] for o in outs), g, rtol=1e-5,
+                                   atol=1e-5)

@@ -278,16 +278,24 @@ def test_unported_multi_device_options_name_slice_14(case):
     assert callable(_unported_cases()[case]())
 
 
-def _fsdp_ep_cases():
+def _fsdp_ep_cases(tmp_path):
     """Every ``dist=`` entry point, given ``moe_impl="ep"`` under
-    ``sharding_strategy="fsdp"`` on a model axis of 2."""
+    ``sharding_strategy="fsdp"`` on a model axis of 2 (ROADMAP item
+    4b-v-c, done), built on a shape-only (2, 2) mesh as rank (0, 0):
+    each returns what it returns under ``tp``, and what a rank stores is
+    its ``param_spec`` blocks.  (The numbers are
+    ``tests/test_torch_fsdp.py``'s.)"""
+    from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs import phi35_moe
     from repro_torch.core.masks import segment_layout
+    from repro_torch.distributed import fsdp as FS
     from repro_torch.distributed.elastic import remesh_restore
     from repro_torch.launch import mesh as PM
     from repro_torch.launch import serve as SRV
     from repro_torch.launch import train as TR
     from repro_torch.launch.specs import build_cell
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.optim import partition as PP
     from repro_torch.optim.adamw import AdamWConfig
 
     mesh = PM.make_shape_mesh((2, 2), ("data", "model"))
@@ -297,23 +305,48 @@ def _fsdp_ep_cases():
     layout = segment_layout(2, 4, 2, 4)
     step = TR.make_train_step(cfg.replace(sharding_strategy="tp"), layout,
                               AdamWConfig(), dist)
+    whole = init_lm(cfg, 0, device="cpu")
+    blocks = FS.shard_fsdp(whole, cfg, dist)
+
+    def same_blocks(tree, ref=blocks):
+        """``tree`` holds exactly ``ref``'s shapes at its leaves' paths."""
+        ref = dict(PP.leaves(ref))
+        return all(tuple(x.shape) == tuple(ref[p].shape)
+                   for p, x in PP.leaves(tree)) and bool(PP.leaves(tree))
+
+    def loop():
+        loop = TR.TrainLoop(cfg, layout, AdamWConfig(), 4, dist=dist,
+                            device="cpu")
+        return same_blocks(loop.tp)
+
+    def remesh():
+        ckpt = CheckpointManager(str(tmp_path), async_save=False)
+        tp, _ = PP.partition(whole, TR.trainable_mask_for(cfg, whole))
+        ckpt.save(1, {"tp": tp}, extra={"step": 1})
+        state, extra, _ = remesh_restore(ckpt, 1, cfg, mesh, {"tp": tp},
+                                         None)
+        return extra["step"] == 1 and same_blocks(state["tp"])
+
     cases = {
-        "make_train_step": lambda: TR.make_train_step(cfg, layout,
-                                                      AdamWConfig(), dist),
-        "jit_train_step": lambda: TR.jit_train_step(step, cfg, dist, None,
-                                                    None, {}, None),
-        "TrainLoop": lambda: TR.TrainLoop(cfg, layout, AdamWConfig(), 4,
-                                          dist=dist, device="cpu"),
-        "remesh_restore": lambda: remesh_restore(None, 1, cfg, mesh, None,
-                                                 None),
-        "make_prefill_step": lambda: SRV.make_prefill_step(cfg, dist),
-        "make_decode_step": lambda: SRV.make_decode_step(cfg, dist),
-        "make_ingest_step": lambda: SRV.make_ingest_step(cfg, dist),
-        "make_stream_step": lambda: SRV.make_stream_step(cfg, dist),
+        "make_train_step": lambda: callable(TR.make_train_step(
+            cfg, layout, AdamWConfig(), dist)),
+        "jit_train_step": lambda: same_blocks(TR.jit_train_step(
+            step, cfg, dist, None, None, {}, None).place(whole, {})[0]),
+        "TrainLoop": loop,
+        "remesh_restore": remesh,
+        "make_prefill_step": lambda: same_blocks(SRV.make_prefill_step(
+            cfg, dist).place(whole, None)[0]),
+        "make_decode_step": lambda: same_blocks(SRV.make_decode_step(
+            cfg, dist).place(whole, None)[0]),
+        "make_ingest_step": lambda: same_blocks(SRV.make_ingest_step(
+            cfg, dist).place(whole, None)[0]),
+        "make_stream_step": lambda: same_blocks(SRV.make_stream_step(
+            cfg, dist).place(whole, None)[0]),
     }
     for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
         cases[f"build_cell-{shape}"] = functools.partial(
-            build_cell, cfg, shape, dist, smoke=True)
+            lambda sh: callable(build_cell(cfg, sh, dist, smoke=True).fn),
+            shape)
     return cases
 
 
@@ -325,12 +358,19 @@ def _fsdp_ep_cases():
                                   "build_cell-prefill_32k",
                                   "build_cell-decode_32k",
                                   "build_cell-long_500k"])
-def test_fsdp_ep_refusal_names_roadmap_item_4b_v_c(case):
-    """ep's capacity under ZeRO-3 is not ported: every entry point raises
-    NotImplementedError naming ROADMAP item 4b-v-c, none runs it as
-    tensor parallelism."""
-    with pytest.raises(NotImplementedError, match="4b-v-c"):
-        _fsdp_ep_cases()[case]()
+def test_fsdp_ep_entry_points_build(case, tmp_path, monkeypatch):
+    """ep under ZeRO-3 runs: every entry point builds, a rank storing its
+    ZeRO-3 blocks.  (The shape mesh has no process group: the loop asks
+    torch.distributed for its rank, which is 0.)"""
+    from repro_torch.launch import train as TR
+    monkeypatch.setattr(TR.tdist, "get_rank", lambda *a, **k: 0)
+    assert _fsdp_ep_cases(tmp_path)[case]() is True
+
+
+def test_no_port_module_names_roadmap_item_4b_v_c():
+    """No port module names ROADMAP item 4b-v-c in a refusal any more."""
+    hits = [str(p) for p in PORT.rglob("*.py") if "4b-v-c" in p.read_text()]
+    assert not hits, hits
 
 
 def test_no_port_module_refuses_the_sequence_sharded_prefill():

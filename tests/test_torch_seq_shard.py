@@ -28,10 +28,19 @@ in one place, a decode whose write starts past the buffer's end, where
 the sharded jit drops the write that the unsharded op clamps onto the
 last row (the port clamps).
 
+With the batch split too (``shard_cache_seq=True, batch_sharded=True``:
+the cache's sequence and the rows of the tokens and the memory over the
+same data axes), the same chain at B4 from a B4 cache (dense at (2, 1),
+dense with an int8 cache at (4, 1), phi3.5-moe under ``ep`` at (2, 2))
+against the reference's own sharded jit with that layout (the same
+dropped write past the buffer's end set aside), and bit-equal to the
+port's ranks under ``batch_sharded=False``.
+
 In one process: the union of the ranks' write plans
 (``SeqShard.cache_plan``) against the unsharded ``plan_block_write`` over
 a grid of lengths, block sizes and rank counts; the refusals (ragged
-lanes, a lane-major cache, ``batch_sharded=True``).
+lanes, a lane-major cache); the builders under ``batch_sharded=True``
+on a shape-only mesh.
 
 The ranks are spawned processes that import this module, so the
 reference's imports sit in the functions only the test process runs.
@@ -59,7 +68,8 @@ DENSE = dict(name="d", family="dense", n_layers=2, d_model=64, n_heads=4,
 # model -> (config module, overrides of its smoke config); None: DENSE
 MODELS = {"dense": (None, {}), "zamba2": ("zamba2_12b", {}),
           "whisper": ("whisper_tiny", {}), "pixtral": ("pixtral_12b", {}),
-          "phi35_moe": ("phi35_moe", {"moe_impl": "ragged_tp"})}
+          "phi35_moe": ("phi35_moe", {"moe_impl": "ragged_tp"}),
+          "phi35_ep": ("phi35_moe", {"moe_impl": "ep"})}
 # chain -> (model, kv cache dtype, CCM mode): one reference run each
 CHAINS = {"dense": ("dense", "bfloat16", "concat"),
           "dense-merge": ("dense", "bfloat16", "merge"),
@@ -67,7 +77,8 @@ CHAINS = {"dense": ("dense", "bfloat16", "concat"),
           "zamba2": ("zamba2", "bfloat16", "concat"),
           "whisper": ("whisper", "bfloat16", "concat"),
           "pixtral": ("pixtral", "bfloat16", "concat"),
-          "phi35_moe": ("phi35_moe", "bfloat16", "concat")}
+          "phi35_moe": ("phi35_moe", "bfloat16", "concat"),
+          "phi35_ep": ("phi35_ep", "bfloat16", "concat")}
 # case -> (mesh, chain)
 CASES = {"dense-2x1": ((2, 1), "dense"), "dense-4x1": ((4, 1), "dense"),
          "dense-2x2": ((2, 2), "dense"),
@@ -77,6 +88,11 @@ CASES = {"dense-2x1": ((2, 1), "dense"), "dense-4x1": ((4, 1), "dense"),
          "whisper-2x1": ((2, 1), "whisper"),
          "pixtral-2x2": ((2, 2), "pixtral"),
          "phi35_moe-2x2": ((2, 2), "phi35_moe")}
+# the batch split too (batch_sharded=True), at B4: case -> (mesh, chain)
+ROWS = 4
+ROW_CASES = {"dense-rows-2x1": ((2, 1), "dense"),
+             "dense-int8-rows-4x1": ((4, 1), "dense-int8"),
+             "phi35_ep-rows-2x2": ((2, 2), "phi35_ep")}
 # the chain: (step name, op, cache length set before it or None)
 STEPS = (("ingest", "ingest", 40), ("edge", "prefill", 28),
          ("edge_decode", "decode", None), ("zero", "prefill", 0),
@@ -122,27 +138,34 @@ def _inputs():
                             for x, k in zip(leaves, keys)])
         params[model] = jax.tree.map(np.array, p)
     rng = np.random.default_rng(0)
-    caches = {}
-    for chain in CHAINS:
-        c = I.init_online_state(port_cfg(chain), 1, CACHE,
+
+    def cache(chain, b):
+        c = I.init_online_state(port_cfg(chain), b, CACHE,
                                 device="cpu").cache
         if c.quantized:
-            caches[chain] = dict(
-                k=rng.integers(-127, 128, c.k.shape).astype(np.int8),
-                v=rng.integers(-127, 128, c.v.shape).astype(np.int8),
-                k_scale=rng.uniform(0.002, 0.02, c.k_scale.shape),
-                v_scale=rng.uniform(0.002, 0.02, c.v_scale.shape))
+            out = dict(k=rng.integers(-127, 128, c.k.shape).astype(np.int8),
+                       v=rng.integers(-127, 128, c.v.shape).astype(np.int8),
+                       k_scale=rng.uniform(0.002, 0.02, c.k_scale.shape),
+                       v_scale=rng.uniform(0.002, 0.02, c.v_scale.shape))
         else:
-            caches[chain] = dict(k=rng.standard_normal(c.k.shape),
-                                 v=rng.standard_normal(c.v.shape))
-        caches[chain] = {k: v.astype(np.float32) if v.dtype != np.int8
-                         else v for k, v in caches[chain].items()}
+            out = dict(k=rng.standard_normal(c.k.shape),
+                       v=rng.standard_normal(c.v.shape))
+        return {k: v.astype(np.float32) if v.dtype != np.int8 else v
+                for k, v in out.items()}
+    used = {ch for _, ch in CASES.values()}
+    caches = {chain: cache(chain, 1) for chain in CHAINS if chain in used}
     t = {"ctx": rng.integers(0, 128, (1, 6)),
          "prompt": rng.integers(0, 128, (1, 10)),
          "tok": rng.integers(0, 128, (1, 1)),
          "prompt2": rng.integers(0, 128, (1, 3)),
          "frames": rng.standard_normal((1, SE, 64)),
          "patches": rng.standard_normal((1, 8, 1024))}
+    # the batch-split chains' B4 caches and tokens
+    for _, chain in ROW_CASES.values():
+        caches[chain, ROWS] = cache(chain, ROWS)
+    t.update(ctx4=rng.integers(0, 128, (ROWS, 6)),
+             prompt4=rng.integers(0, 128, (ROWS, 10)),
+             tok4=rng.integers(0, 128, (ROWS, 1)))
     t = {k: v.astype(np.int32) if v.dtype.kind == "i"
          else v.astype(np.float32) for k, v in t.items()}
     return params, caches, t
@@ -173,7 +196,8 @@ from repro.core import inference as I
 from repro.launch import serve as S
 from repro.launch.mesh import make_debug_mesh, make_dist
 sys.path.insert(0, {tests!r})
-from test_torch_seq_shard import CHAINS, STEPS, N_GEN, _ref_cfg
+from test_torch_seq_shard import (CASES, CHAINS, ROW_CASES, STEPS, N_GEN,
+                                  _ref_cfg)
 assert jax.device_count() == 4
 params_all, caches, t = pickle.load(open(sys.argv[1], "rb"))
 t = {{k: jnp.asarray(v) for k, v in t.items()}}
@@ -196,15 +220,16 @@ def state_np(st):
         d.update(xk=np_(st.cross[0]), xv=np_(st.cross[1]))
     return d
 
-def initial(cfg, params, chain):
-    st = I.init_online_state(cfg, 1, {cache})
-    c = {{k: jnp.asarray(v) for k, v in caches[chain].items()}}
+def initial(cfg, params, chain, b=1):
+    st = I.init_online_state(cfg, b, {cache})
+    c = {{k: jnp.asarray(v) for k, v in caches[chain if b == 1
+                                              else (chain, b)].items()}}
     st = st._replace(cache=st.cache._replace(**c))
     if cfg.family == "encdec":
         st = st._replace(cross=I.encode_cross(params, cfg, t["frames"]))
     return st
 
-def chain_run(cfg, params, st, ing, pre, dec, gen=True):
+def chain_run(cfg, params, st, ing, pre, dec, gen=True, sfx=""):
     res = {{}}
     for name, op, n in STEPS:
         if n is not None:
@@ -212,20 +237,21 @@ def chain_run(cfg, params, st, ing, pre, dec, gen=True):
                 length=jnp.asarray(n, jnp.int32)))
         lg = None
         if op == "ingest":
-            st = ing(params, st, t["ctx"])
+            st = ing(params, st, t["ctx" + sfx])
         elif op == "prefill" and name == "edge" and cfg.family == "vlm":
             lg, st = pre(params, st, t["prompt"], t["patches"])
         elif op == "prefill":
-            lg, st = pre(params, st, t["prompt"])
+            lg, st = pre(params, st, t["prompt" + sfx])
         else:
-            lg, st = dec(params, st, t["tok"])
+            lg, st = dec(params, st, t["tok" + sfx])
         res[name] = dict(logits=np_(lg), state=state_np(st))
     if gen:
         res["gen"] = np_(I.generate(params, cfg, st, t["prompt2"], N_GEN))
     return res
 
 out = {{}}
-for chain, (model, _, _) in CHAINS.items():
+for chain in sorted({{ch for _, ch in CASES.values()}}):
+    model = CHAINS[chain][0]
     cfg = _ref_cfg(chain)
     params = jax.tree.map(jnp.asarray, params_all[model])
     ing = jax.jit(lambda p, s, x: I.ingest_context(p, cfg, s, x))
@@ -248,13 +274,27 @@ for shape in {meshes}:
     out[("gspmd", shape)] = chain_run(cfg, params,
                                       initial(cfg, params, "dense"), ing,
                                       pre, dec, gen=False)
+# ... and with the batch split over the same data axes
+for case, (shape, chain) in ROW_CASES.items():
+    cfg = _ref_cfg(chain)
+    params = jax.tree.map(jnp.asarray, params_all[CHAINS[chain][0]])
+    dist = make_dist(make_debug_mesh(*shape))
+    kw = dict(shard_cache_seq=True, batch_sharded=True)
+    steps = [S.make_ingest_step(cfg, dist, **kw),
+             S.make_prefill_step(cfg, dist, **kw),
+             S.make_decode_step(cfg, dist, **kw)]
+    ing, pre, dec = [lambda p, s, *a, f=f: f(p, fresh(s), *a)
+                     for f in steps]
+    out[("rows", case)] = chain_run(cfg, params,
+                                    initial(cfg, params, chain, {rows}), ing,
+                                    pre, dec, gen=False, sfx="4")
 pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
 
 def _reference(inp, tmp_path):
     src = textwrap.dedent(_REF.format(
-        tests=os.path.join(REPO, "tests"), cache=CACHE,
+        tests=os.path.join(REPO, "tests"), cache=CACHE, rows=ROWS,
         meshes=sorted({CASES[c][0] for c in CASES
                        if CASES[c][1] == "dense"})))
     out = tmp_path / "ref.pkl"
@@ -303,51 +343,63 @@ def _mesh(shape, dev):
 def _world(dev, params_all, caches, t):
     """Every rank runs each case on its shards; rank 0 returns the
     gathered results."""
-    from repro_torch.core import inference as I
-    from repro_torch.launch import serve as SRV
-    from repro_torch.params import params_from_numpy
-
     tt = {k: torch.from_numpy(v.copy()) for k, v in t.items()}
     meshes, out = {}, {}
     for case, (shape, chain) in CASES.items():
         if shape not in meshes:
             meshes[shape] = _mesh(shape, dev)
-        dist = meshes[shape]
-        cfg = port_cfg(chain)
-        params = params_from_numpy(params_all[CHAINS[chain][0]], cfg,
-                                   device=dev)
-        kw = dict(shard_cache_seq=True, batch_sharded=False)
-        ing = SRV.make_ingest_step(cfg, dist, **kw)
-        pre = SRV.make_prefill_step(cfg, dist, **kw)
-        dec = SRV.make_decode_step(cfg, dist, **kw)
-        st = I.init_online_state(cfg, 1, CACHE, device=dev)
-        st = st._replace(cache=st.cache._replace(
-            **{k: torch.from_numpy(v.copy())
-               for k, v in caches[chain].items()}))
-        if cfg.family == "encdec":
-            st = st._replace(cross=I.encode_cross(params, cfg, tt["frames"]))
-        pl, st = pre.place(params, st)
-        assert st.cache.k.shape[2] == CACHE // dist.n_data   # its block
-        res = {}
-        for name, op, n in STEPS:
-            if n is not None:
-                st = st._replace(cache=st.cache._replace(length=n))
-            lg = None
-            if op == "ingest":
-                st = ing(pl, st, tt["ctx"])
-            elif op == "prefill" and name == "edge" and cfg.family == "vlm":
-                lg, st = pre(pl, st, tt["prompt"], tt["patches"])
-            elif op == "prefill":
-                lg, st = pre(pl, st, tt["prompt"])
-            else:
-                lg, st = dec(pl, st, tt["tok"])
-            res[name] = dict(logits=None if lg is None
-                             else _np(pre.gather_logits(lg)),
-                             state=state_np(pre.gather_state(st)))
+        out[case] = _chain(meshes[shape], params_all, caches, tt, chain)
+    for case, (shape, chain) in ROW_CASES.items():
+        for rows in (True, False):
+            out[case, rows] = _chain(meshes[shape], params_all, caches, tt,
+                                     chain, rows)
+    return out
+
+
+def _chain(dist, params_all, caches, tt, chain, rows=None):
+    """The chain on this rank's shards: B1 with ``batch_sharded=False``
+    and then ``generate`` (``rows`` None), or B4 with ``batch_sharded=
+    rows``."""
+    from repro_torch.core import inference as I
+    from repro_torch.launch import serve as SRV
+    from repro_torch.params import params_from_numpy
+
+    dev = tt["ctx"].device
+    cfg = port_cfg(chain)
+    params = params_from_numpy(params_all[CHAINS[chain][0]], cfg, device=dev)
+    kw = dict(shard_cache_seq=True, batch_sharded=bool(rows))
+    ing = SRV.make_ingest_step(cfg, dist, **kw)
+    pre = SRV.make_prefill_step(cfg, dist, **kw)
+    dec = SRV.make_decode_step(cfg, dist, **kw)
+    b, sfx = (1, "") if rows is None else (ROWS, "4")
+    st = I.init_online_state(cfg, b, CACHE, device=dev)
+    st = st._replace(cache=st.cache._replace(
+        **{k: torch.from_numpy(v.copy())
+           for k, v in caches[chain if b == 1 else (chain, b)].items()}))
+    if cfg.family == "encdec":
+        st = st._replace(cross=I.encode_cross(params, cfg, tt["frames"]))
+    pl, st = pre.place(params, st)
+    assert st.cache.k.shape[2] == CACHE // dist.n_data   # its block
+    res = {}
+    for name, op, n in STEPS:
+        if n is not None:
+            st = st._replace(cache=st.cache._replace(length=n))
+        lg = None
+        if op == "ingest":
+            st = ing(pl, st, tt["ctx" + sfx])
+        elif op == "prefill" and name == "edge" and cfg.family == "vlm":
+            lg, st = pre(pl, st, tt["prompt"], tt["patches"])
+        elif op == "prefill":
+            lg, st = pre(pl, st, tt["prompt" + sfx])
+        else:
+            lg, st = dec(pl, st, tt["tok" + sfx])
+        res[name] = dict(logits=None if lg is None
+                         else _np(pre.gather_logits(lg)),
+                         state=state_np(pre.gather_state(st)))
+    if rows is None:
         res["gen"] = _np(I.generate(pl, cfg, st, tt["prompt2"], N_GEN,
                                     dist=dist, seq_shard=True))
-        out[case] = res
-    return out
+    return res
 
 
 def close(got, want, what):
@@ -424,6 +476,46 @@ def test_seq_sharded_chain_matches_reference_sharded_jit(results, case):
               f"{case} {last[0]} {k} (unsharded)")
 
 
+def _clamp_decode_aside(g, w, what):
+    """The rows below the last of the clamped decode's cache leaves: the
+    reference's sharded jit drops a write that starts past the buffer's
+    end (``test_seq_sharded_chain_matches_reference_sharded_jit``)."""
+    last = STEPS[-1][0]
+    leaves = [k for k in ("k", "v", "k_scale", "v_scale")
+              if k in w[last]["state"]]
+    for k in leaves:
+        close(g[last]["state"][k][:, :, :-1], w[last]["state"][k][:, :, :-1],
+              f"{what} {last} {k}")
+    return {(last, k) for k in leaves}
+
+
+@pytest.mark.parametrize("case", list(ROW_CASES))
+def test_seq_sharded_rows_chain_matches_reference_sharded_jit(results,
+                                                              case):
+    """With the batch split over the data axes too, every step of the B4
+    chain against the reference's sharded jit under the same layout (the
+    one departure of that jit set aside as above)."""
+    got, want, _ = results
+    g, w = got[case, True], want[("rows", case)]
+    _same_chain(g, w, case, skip=_clamp_decode_aside(g, w, case))
+
+
+@pytest.mark.parametrize("case", list(ROW_CASES))
+def test_seq_sharded_rows_chain_equals_the_replicated_batch(results, case):
+    """The batch split (each op gathers the rows over the data axes and
+    keeps its own) gives bit for bit what every data rank holding the
+    whole batch gives."""
+    got, _, _ = results
+    g, w = got[case, True], got[case, False]
+    for name, _, _ in STEPS:
+        if w[name]["logits"] is not None:
+            np.testing.assert_array_equal(g[name]["logits"],
+                                          w[name]["logits"])
+        for k, v in w[name]["state"].items():
+            np.testing.assert_array_equal(g[name]["state"][k], v,
+                                          f"{case} {name} {k}")
+
+
 def test_chain_crosses_an_edge_and_clamps(results):
     """The chain's writes land where the cases say: rows 28-37 (across
     the edges at 32 of (2, 1) and (4, 1)) and the clamp at 54-63; every
@@ -449,38 +541,43 @@ def test_chain_crosses_an_edge_and_clamps(results):
 # host only: the write plan, the refusals
 # ---------------------------------------------------------------------------
 
-def _plan_rows(plan, blk, lo=0):
-    """A ``BlockWrite``'s (buffer row + lo, block row) pairs."""
+def _plan_rows(plan, blk, lanes=1):
+    """A ``BlockWrite``'s (lane, buffer row, block row) triples over a
+    block of ``lanes`` lanes."""
     if plan is None:
         return []
     if plan.start is not None:
-        return [(plan.start + j + lo, j) for j in range(plan.count)]
-    return [(int(r) + lo, int(j)) for r, j in zip(plan.rows, plan.src)]
+        return [(b, plan.start + j, j) for b in range(lanes)
+                for j in range(plan.count)]
+    return [(int(b), int(r), int(j))
+            for b, r, j in zip(plan.lanes, plan.rows, plan.src)]
 
 
 @pytest.mark.parametrize("n,blk", [(1, 8), (2, 8), (3, 5), (4, 16)])
 def test_seq_shard_write_plans_cover_the_unsharded_write(n, blk):
     """For every length (past the buffer's end included) and block size
     S (up to past the whole buffer), the ranks' writes together are the
-    unsharded write, each row once, and no rank writes outside its
-    block; each rank's valid length is its share of the unsharded one."""
+    unsharded write, each row of each of the 2 lanes once, and no rank
+    writes outside its block; each rank's valid length is its share of
+    the unsharded one."""
     from repro_torch.core import inference as I
     from repro_torch.core import masks as M
-    total = n * blk
-    cache = I.KVCache(k=torch.zeros(1, 1, blk, 1, 8),
-                      v=torch.zeros(1, 1, blk, 1, 8), length=0)
+    total, lanes = n * blk, 2
+    cache = I.KVCache(k=torch.zeros(1, lanes, blk, 1, 8),
+                      v=torch.zeros(1, lanes, blk, 1, 8), length=0)
     for length in range(0, total + 6):
         for S in range(1, total + 3):
-            want = _plan_rows(M.plan_block_write(length, S, total), total)
+            want = _plan_rows(M.plan_block_write(length, S, total), total,
+                              lanes)
             got, seen = [], 0
             for r in range(n):
                 c = cache._replace(length=length)
                 valid, plan = I.SeqShard(None, r, n).cache_plan(c, S)
                 seen += valid
                 assert 0 <= valid <= blk
-                rows = _plan_rows(plan, blk)
-                assert all(0 <= b < blk for b, _ in rows), (length, S, r)
-                got += [(b + r * blk, j) for b, j in rows]
+                rows = _plan_rows(plan, blk, lanes)
+                assert all(0 <= x < blk for _, x, _ in rows), (length, S, r)
+                got += [(b, x + r * blk, j) for b, x, j in rows]
             assert sorted(got) == sorted(want), (length, S)
             assert seen == min(length, total), (length, S)
 
@@ -500,9 +597,10 @@ def test_seq_shard_refuses_ragged_and_lane_major():
 
 @pytest.mark.parametrize("builder", ["make_prefill_step", "make_ingest_step",
                                      "make_decode_step"])
-def test_seq_shard_with_batch_sharded_raises(builder):
+def test_seq_shard_with_batch_sharded_builds(builder):
     """``shard_cache_seq=True`` with the batch split over the same data
-    axes is refused, naming the layout the builders take."""
+    axes builds: a step whose specs put the cache's sequence and the
+    tokens' and the memory's rows over the data axes."""
     from repro_torch.distributed.context import DistContext
     from repro_torch.launch import serve as SRV
     from repro_torch.models.config import ModelConfig
@@ -512,9 +610,12 @@ def test_seq_shard_with_batch_sharded_raises(builder):
         shape = {"data": 2, "model": 1}
 
     cfg = ModelConfig(**DENSE)
-    with pytest.raises(ValueError, match="batch_sharded=False"):
-        getattr(SRV, builder)(cfg, DistContext(mesh=Mesh()),
-                              shard_cache_seq=True)
+    step = getattr(SRV, builder)(cfg, DistContext(mesh=Mesh()),
+                                 shard_cache_seq=True)
+    assert isinstance(step, SRV.ShardedStep)
+    assert step.tok_spec[0] == "data"
+    assert step.state_specs.cache.k[1:3] == (None, "data")
+    assert step.state_specs.mem.k[1] == "data"
 
 
 def test_segmented_lse_on_a_block_with_a_row_that_sees_no_key():
