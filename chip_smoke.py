@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phase17  # the card, the build and phase 17 only
     python3 chip_smoke.py --phase18  # the card, the build and phase 18 only
     python3 chip_smoke.py --phase19  # the card, the build and phase 19 only
+    python3 chip_smoke.py --phase20  # the card, the build and phase 20 only
 
 Phases (any failure raises, and the script exits non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the build of the
@@ -250,9 +251,24 @@ Phases (any failure raises, and the script exits non-zero):
      drops, its drops equal to the tensor-parallel ep loop's, serving
      bit-equal to that loop; a rank's ms beside the TP ep rank's and the
      ids gather's;
+ 20. the paper's learn-and-answer loop (``launch/paper_loop.py``) and the
+     example CLIs: (a) ``tests/test_system.py``'s recipe on the card
+     (``bench_cfg()`` in float32: ``pretrain_base`` 800 steps, then
+     ``train_compression`` 800) and its four claims at its thresholds:
+     accuracy at t = 4 from memory above the base's with no context by
+     0.08; over the whole key space (eval seeds 99-103) acc(t=4) >=
+     acc(t=1) + 0.02; 4 ingests and a prefill within 5e-3 of
+     ``train_forward``'s last-row logits; the memory at t*m KV tokens
+     with an empty cache; the ms per training step; (b) LLaMA-7B (phase
+     3's weights, 32 layers, bf16): ``train_compression`` for 4 steps at
+     B32 x S264 (comp_len 8, 16 steps; no ``pretrain_base``: a full
+     fine-tune's moments do not fit one card), then ``eval_at_timesteps``
+     and ``eval_no_context``: a finite loss, every adapter leaf moved,
+     accuracies in [0, 1], ms per step and peak GiB; (c) the five
+     ``examples/*_torch.py`` CLIs at 20 training steps, each returning 0;
 then one ``{"kernels": [...]}`` line (with each tensor-core route's
-launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18
-and 19,
+launches in phases 3, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
+19 and 20 (phase 20's float32-route launches beside them),
 the mma.sync route's launches with the lse in phase 17, and
 the CCM kernel's phase-12 launches by whisper's encoder, read from the
 counters around each of its launches), then the result line.  Phase 2 also
@@ -281,7 +297,14 @@ attention decode and prefill at 32/8 and 40/8 hd 128, decode at 6/6 hd
 5/1 at n = 8, its column q K 5120 N 640 (phase 15), and phase 16's:
 segmented attention at zamba2-1.2b's 16/16 and 8/8 hd 64, pixtral-12b's
 4/1 hd 128 and whisper-tiny's 3/3 hd 64, CCM attention in whisper's
-encoder regime at 3/3, at zamba2's 16/16 and 8/8 and pixtral's 4/1.
+encoder regime at 3/3, at zamba2's 16/16 and 8/8 and pixtral's 4/1; and
+phase 20's: the paper loop's bench_cfg in float32 on the CUDA-core
+routes (GQA 4/2 hd 32: segmented attention at its ingest, prefill,
+decode and serve query; CCM attention forward and backward at B32 x S
+48; cond_lora at M 1536, K 128 to N 128 and 64) and LLaMA-7B's adapter
+step in bf16 (CCM attention at B32 x S 264, cond_lora at M 8448), and
+the bf16 CCM route's plan cache over the loop's layouts (t = 16, 1, 4,
+16, 1 at LLaMA-7B's heads, each held built and served from the cache).
 Needs one CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
@@ -627,12 +650,26 @@ SEG_ZOO_CASES = [
          Hkv=1),
     dict(label="decode 3/3 hd64 whisper TP n=2", Sq=1, clen=480, H=3, Hkv=3,
          D=64),
+    # phase 20's paper loop (``paper_loop.bench_cfg``: GQA 4/2 at hd 32,
+    # float32, the CUDA-core route): the last of 4 ingests of 8 tokens + 2
+    # <COMP> over 6 memory tokens and the 8-token prefill over 8 (20a's
+    # B8 online hold), a decode over a 64-token cache (the streaming
+    # demo's 80-key budget) and a serve query over the lane-major stacks
+    # of its 2 layers (the serve examples, B8)
+    dict(label="ingest 4/2 hd32 bench f32", Sq=10, clen=0, ncomp=2, B=8,
+         mem=6, H=4, Hkv=2, D=32, dt="float32"),
+    dict(label="prefill 4/2 hd32 bench f32", Sq=8, clen=0, B=8, mem=8, H=4,
+         Hkv=2, D=32, dt="float32"),
+    dict(label="decode 4/2 hd32 bench f32", Sq=1, clen=64, B=2, cap=80,
+         mem=16, H=4, Hkv=2, D=32, dt="float32"),
+    dict(label="serve query 4/2 hd32 bench f32", Sq=8, clen=None, B=8,
+         cap=64, Lr=2, H=4, Hkv=2, D=32, dt="float32"),
 ]
 
 
 def timed_segmented(torch, F, dattn, quantize_kv, rn, card, *, label, Sq,
                     clen, int8=False, B=4, Hkv=32, cap=512, mem=32, H=32,
-                    D=128, ncomp=0, Lr=8):
+                    D=128, ncomp=0, Lr=8, dt="bfloat16"):
     """One segmented-attention shape: checked against the plain version,
     then timed beside it, SDPA over the explicit concatenation of the
     valid keys (with the CCM mask; GQA through ``enable_gqa``) and the
@@ -642,13 +679,16 @@ def timed_segmented(torch, F, dattn, quantize_kv, rn, card, *, label, Sq,
     Lr, S, H, D) memory (128 rows) and cache (``cap`` rows) with per-lane
     lengths and per-lane layer ids.  The zoo's GQA and MQA caches (0.5-2 MB a layer)
     stay in the 50 MB L2 across the four layers rotated here, where a
-    model's other work between two layers would evict them."""
+    model's other work between two layers would evict them.  ``dt``
+    "float32" takes the CUDA-core route (held at 1e-4 x max|plain|, bound
+    at the float32 rate)."""
     dev = "cuda"
     L = 32
     G = H // Hkv
     decode = Sq <= 2
     serve = clen is None
-    bf = torch.bfloat16
+    bf = getattr(torch, dt)
+    es = torch.finfo(bf).bits // 8
     scale = D ** -0.5
     q = rn(B, Sq, H, D, dtype=bf)
     sk, sv = rn(B, Sq, Hkv, D, dtype=bf), rn(B, Sq, Hkv, D, dtype=bf)
@@ -697,7 +737,8 @@ def timed_segmented(torch, F, dattn, quantize_kv, rn, card, *, label, Sq,
     torch.cuda.synchronize()
     err = max_err(out, want)
     check(f"segmented {label} B{B} Sq{Sq} H{H}/{Hkv} hd{D}", err,
-          bf16_tol(want))
+          1e-4 * want.abs().max().item() if bf == torch.float32
+          else bf16_tol(want))
     if not bool(torch.isfinite(out).all()):
         raise AssertionError(f"segmented {label}: non-finite output")
 
@@ -771,14 +812,15 @@ def timed_segmented(torch, F, dattn, quantize_kv, rn, card, *, label, Sq,
         "segmented_attention",
         lambda i: dattn.plain(q, segs4[i % 4], idx, one, scale), library)
     n = nkeys[0]                                  # keys over all lanes
-    kv_bytes = n * Hkv * D * 2 * 2
+    kv_bytes = n * Hkv * D * es * 2
     if int8:                                      # the cache part is int8
         nc = B * clen
-        kv_bytes -= nc * Hkv * D * 2 * 2
+        kv_bytes -= nc * Hkv * D * es * 2
         kv_bytes += nc * Hkv * (D + 4) * 2
-    nbytes = kv_bytes + 2 * q.numel() * 2
+    nbytes = kv_bytes + 2 * q.numel() * es
     ops_ = 4.0 * H * D * pairs[0]
-    bms, by = bound(nbytes, ops_, PEAK_BF16)
+    bms, by = bound(nbytes, ops_,
+                    PEAK_F32 if bf == torch.float32 else PEAK_BF16)
     report(f"segmented {label} (library: SDPA)", t, bms, by, card)
     return dict(max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                 library_ms=t["library_ms"], bound_ms=bms, bound_by=by)
@@ -791,8 +833,9 @@ def check_cond_lora(torch, clora, card):
     shapes (K = N = 4096, r = 8) gated, ungated and with bias, each timed
     beside its plain version, the library call and the bound, then the
     zoo's projections at M = 288 (SmolLM's K 960 -> N 320, Qwen2's
-    896 -> 128, Gemma's 2048 -> 256, and 2048 -> 2048 with a bias).
-    Returns {M (LLaMA-7B) or "M K N": row}."""
+    896 -> 128, Gemma's 2048 -> 256, and 2048 -> 2048 with a bias), then
+    phase 20's (LLaMA-7B's at M 8448, bench_cfg's in float32 at 1e-4 x
+    max|plain|).  Returns {M (LLaMA-7B) or "M K N": row}."""
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(2)
     bf = torch.bfloat16
@@ -821,7 +864,7 @@ def check_cond_lora(torch, clora, card):
     # ingest; 4864: a training step (4 x 1216).  The zoo's weights
     # (0.2-8.4 MB; zamba2-1.2b's M 256) stay in the L2 across the four
     # rotated here.
-    for M, K, N, with_bias in ((288, 4096, 4096, False),
+    for M, K, N, with_bias, *rest in ((288, 4096, 4096, False),
                                (576, 4096, 4096, False),
                                (4864, 4096, 4096, False),
                                (288, 960, 320, False), (288, 896, 128, False),
@@ -849,12 +892,23 @@ def check_cond_lora(torch, clora, card):
                                (288, 512, 4096, False),
                                # phase 15's: llama4-maverick's column-
                                # parallel q at n = 8 (40 x 128 / 8)
-                               (288, 5120, 640, False)):
-        ws = [rn(K, N, std=K ** -0.5) for _ in range(4)]  # LLaMA: > L2
-        a, b = rn(r, K, std=K ** -0.5), rn(r, N, std=0.05)
-        bias = rn(N)
+                               (288, 5120, 640, False),
+                               # phase 20's: LLaMA-7B's adapter step (B32
+                               # x S 264); the paper loop's training step
+                               # (bench_cfg, B32 x S 48: q and o 128 ->
+                               # 128, k and v 128 -> 64), float32 on the
+                               # CUDA-core route
+                               (8448, 4096, 4096, False),
+                               (1536, 128, 128, False, "float32"),
+                               (1536, 128, 64, False, "float32")):
+        dt = getattr(torch, rest[0]) if rest else bf
+        f32 = dt == torch.float32
+        ws = [rn(K, N, std=K ** -0.5, dtype=dt)
+              for _ in range(4)]                           # LLaMA: > L2
+        a, b = rn(r, K, std=K ** -0.5, dtype=dt), rn(r, N, std=0.05, dtype=dt)
+        bias = rn(N, dtype=dt)
         tb = bias if with_bias else None
-        x = rn(M, K)
+        x = rn(M, K, dtype=dt)
         gate = ((torch.arange(M, device=dev) % 72) >= 64).float()
         errs = []
         for gname, gt, bs in (("gated", gate, None),
@@ -864,9 +918,10 @@ def check_cond_lora(torch, clora, card):
             want = clora.plain(x, ws[0], a, b, gt, 2.0, bias=bs)
             torch.cuda.synchronize()
             errs.append(max_err(out, want))
-            check(f"cond_lora {gname} M{M} K{K} N{N} r{r}", errs[-1],
-                  bf16_tol(want))
-        g2 = gate.to(bf)[:, None]
+            check(f"cond_lora {gname} M{M} K{K} N{N} r{r}"
+                  f"{' float32' if f32 else ''}", errs[-1],
+                  1e-4 * want.abs().max().item() if f32 else bf16_tol(want))
+        g2 = gate.to(dt)[:, None]
         lb = 0 if tb is None else tb
         t = timings(
             torch,
@@ -875,12 +930,13 @@ def check_cond_lora(torch, clora, card):
             "cond_lora",
             lambda i: clora.plain(x, ws[i % 4], a, b, gate, 2.0, bias=tb),
             lambda i: x @ ws[i % 4] + lb + g2 * ((x @ a.T) @ b) * 2.0)
-        nbytes = 2 * (M * K + K * N + r * K + r * N + M * N
-                      + (N if with_bias else 0)) + 4 * M
+        nbytes = (4 if f32 else 2) * (M * K + K * N + r * K + r * N + M * N
+                                      + (N if with_bias else 0)) + 4 * M
         ops_ = 2.0 * M * K * N + 2.0 * M * K * r + 2.0 * M * r * N
-        bms, by = bound(nbytes, ops_, PEAK_BF16)
+        bms, by = bound(nbytes, ops_, PEAK_F32 if f32 else PEAK_BF16)
         key = M if (K, N) == (4096, 4096) else \
-            f"M{M} K{K} N{N}{' bias' if with_bias else ''}"
+            f"M{M} K{K} N{N}{' bias' if with_bias else ''}" \
+            f"{' float32' if f32 else ''}"
         report(f"cond_lora {key} (library: x@W + gate*(x@A^T@B)*s)", t, bms,
                by, card)
         rows[key] = dict(max_abs_err=errs[2 if with_bias else 0], ms=t["ms"],
@@ -1243,12 +1299,22 @@ def check_ccm_attention(torch, F, ca, segment_layout, card):
                                  (16, 16, 64, ZAMBA_LAYOUT, " zamba2 TP n=2"),
                                  (8, 8, 64, ZAMBA_LAYOUT, " zamba2 TP n=4"),
                                  (4, 1, 128, ZOO_LAYOUT,
-                                  " pixtral TP n=8")):
+                                  " pixtral TP n=8"),
+                                 # phase 20: the paper loop's training step
+                                 # (bench_cfg, float32: B32 x S 48) and
+                                 # LLaMA-7B's adapter step at its comp_len
+                                 # 8 and 16 steps (B32 x S 264, bf16)
+                                 (4, 2, 32, BENCH_LAYOUT, " bench f32"),
+                                 (32, 32, 128, P20_FULL_LAYOUT,
+                                  " paper loop")):
+        B = 32 if lay in (BENCH_LAYOUT, P20_FULL_LAYOUT) else 4
+        dt = "float32" if lay == BENCH_LAYOUT else "bfloat16"
         f, b = timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
-                         lay)
+                         lay, B=B, dt=dt)
         S = lay if isinstance(lay, int) else segment_layout(*lay).seq_len
-        zoo += [dict(f, shape=f"forward B4 S{S} {Hq}/{Hkv} hd{D}{tag}"),
-                dict(b, shape=f"backward B4 S{S} {Hq}/{Hkv} hd{D}{tag}")]
+        zoo += [dict(f, shape=f"forward B{B} S{S} {Hq}/{Hkv} hd{D}{tag}"),
+                dict(b, shape=f"backward B{B} S{S} {Hq}/{Hkv} hd{D}{tag}")]
+    ccm_plan_cache(torch, ca, segment_layout, rn)
     fwd_row["shapes"] = [r for r in zoo if r["shape"].startswith("forward")]
     bwd_row["shapes"] = [r for r in zoo if r["shape"].startswith("backward")]
     return fwd_row, bwd_row
@@ -1262,34 +1328,80 @@ ZAMBA_LAYOUT = (16, 56, 8, 128)
 # whisper's encoder regime (phase 12): Whisper's published n_audio_ctx,
 # 1500 frames, not a multiple of the 64-row tile
 WHISPER_FRAMES = 1500
+# phase 20's layouts: ``paper_loop.layout_for`` at bench_cfg's 4 steps of
+# 8 + 2 <COMP> and an 8-token tail (S 48), and at LLaMA-7B's comp_len 8
+# and max_steps 16 (S 264)
+BENCH_LAYOUT = (4, 8, 2, 8)
+P20_FULL_LAYOUT = (16, 8, 8, 8)
+
+
+def ccm_plan_cache(torch, ca, segment_layout, rn):
+    """The bf16 route's plan cache across one run of the paper loop at
+    LLaMA-7B's heads, in its order: the training layout (t = 16, B32),
+    the eval's t = 1 and t = 4 (B16), then the training layout and t = 1
+    again, each with metadata built anew as ``train_forward`` builds it
+    and each layout called twice (the second call is served from the
+    cache, as a model's second layer is): forward and gradients held to
+    the plain version at ``timed_ccm``'s bf16 tolerances."""
+    dev = "cuda"
+    mma0 = (ca.mma_launches, ca.bwd_mma_launches)
+    for t, B in ((16, 32), (1, 16), (4, 16), (16, 32), (1, 16)):
+        lay = segment_layout(t, *P20_FULL_LAYOUT[1:])
+        S = lay.seq_len
+        idx, seg, comp = ccm_meta(torch, lay, dev)
+        meta = (idx, seg, idx, seg, comp, None)
+        x = [rn(B, 32, S, 128, dtype=torch.bfloat16) for _ in range(4)]
+        want = None
+        for call in ("built", "cached"):
+            q, k, v = (y.detach().requires_grad_(True) for y in x[:3])
+            got = ca.ccm_attention(q, k, v, *meta, 128 ** -0.5)
+            got = (got,) + torch.autograd.grad(got, (q, k, v), x[3])
+            if want is None:
+                q, k, v = (y.detach().requires_grad_(True) for y in x[:3])
+                want = ca.plain(q, k, v, *meta, 128 ** -0.5)
+                want = (want,) + torch.autograd.grad(want, (q, k, v), x[3])
+            torch.cuda.synchronize()
+            for name, a, b in zip(("fwd", "dq", "dk", "dv"), got, want):
+                check(f"ccm_attention plan cache t={t} B{B} S{S} {call} "
+                      f"{name}", max_err(a, b), 2.0 ** (-6 if name == "fwd"
+                                                       else -5)
+                      * b.float().abs().max().item())
+        del x, got, want
+    if (ca.mma_launches - mma0[0], ca.bwd_mma_launches - mma0[1]) != (10, 10):
+        raise AssertionError("plan cache: a call missed the tensor-core route")
 
 
 def timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
-              layout=ZOO_LAYOUT):
-    """CCM attention at a training shape (B4; by default the concat
+              layout=ZOO_LAYOUT, B=4, dt="bfloat16"):
+    """CCM attention at a training shape (B lanes; by default the concat
     layout of 16 steps of 64 + 8 <COMP> and a 64-token tail, S 1216) with
     Hq query and Hkv key/value heads of width D, bf16: forward and
     backward held to the plain version, then each timed beside it, SDPA
     with the CCM mask (``enable_gqa`` where Hq > Hkv) and the bound.
     ``layout`` an int S is the encoder regime: every key a <COMP> key at
     index 0 of segment 0, so every query sees every key, and the library
-    call is SDPA without a mask.  Returns the (forward, backward) rows."""
+    call is SDPA without a mask.  ``dt`` "float32" takes the CUDA-core
+    route (held at 1e-4 x max|plain|, bound at the float32 rate; it builds
+    no plan).  Returns the (forward, backward) rows."""
     dev = "cuda"
     encoder = isinstance(layout, int)
     if encoder:
-        B, S = 4, layout
+        S = layout
         idx = seg = torch.zeros(S, device=dev, dtype=torch.int32)
         comp = torch.ones(S, device=dev, dtype=torch.bool)
     else:
         lay = segment_layout(*layout)
-        B, S = 4, lay.seq_len
+        S = lay.seq_len
         idx, seg, comp = ccm_meta(torch, lay, dev)
     H = Hq
     gqa = Hq != Hkv
-    tag = f"B4 {Hq}/{Hkv} S{S} hd{D}{' encoder' if encoder else ''}"
+    bf = getattr(torch, dt)
+    f32 = bf == torch.float32
+    es = torch.finfo(bf).bits // 8
+    tag = (f"B{B} {Hq}/{Hkv} S{S} hd{D}{' encoder' if encoder else ''}"
+           f"{' float32' if f32 else ''}")
     meta = (idx, seg, idx, seg, comp, None)
     scale = D ** -0.5
-    bf = torch.bfloat16
     # 4 sets (LLaMA-7B: 4 x 160 MB > L2)
     sets = [(rn(B, Hq, S, D, dtype=bf), rn(B, Hkv, S, D, dtype=bf),
              rn(B, Hkv, S, D, dtype=bf), rn(B, Hq, S, D, dtype=bf))
@@ -1309,8 +1421,9 @@ def timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
     for name, a, b in zip(("fwd", "dq", "dk", "dv"), got, want):
         errs[name] = max_err(a, b)
         top = b.float().abs().max().item()
-        check(f"ccm_attention {name} {tag} bf16 (training shape)",
-              errs[name], 2.0 ** (-6 if name == "fwd" else -5) * top)
+        check(f"ccm_attention {name} {tag}{'' if f32 else ' bf16'} "
+              "(training shape)", errs[name],
+              1e-4 * top if f32 else 2.0 ** (-6 if name == "fwd" else -5) * top)
     del got, want
     # the (q, k) pairs the CCM mask lets through: the work this data needs
     mask = (idx[None, :] <= idx[:, None]) \
@@ -1320,7 +1433,7 @@ def timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
         if pairs != B * H * S * S:
             raise AssertionError(f"{tag}: the encoder mask hides a pair")
         mask = None              # the same function: SDPA with no mask
-    if (Hq, Hkv, D) == (32, 32, 128):
+    if (Hq, Hkv, D, B) == (32, 32, 128, 4) and layout == ZOO_LAYOUT:
         nq, nk = -(-S // 16), -(-S // 32)  # the float32 route's 16 x 32 tiles
         padded = torch.zeros(nq * 16, nk * 32, dtype=torch.bool, device=dev)
         padded[:S, :S] = mask
@@ -1335,9 +1448,11 @@ def timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
             f"{pl.nq * pl.nk} 64 x 64 tiles "
             f"({pairs / (B * H) / ((nat + cmp_) * 64 * 64):.3f} of their "
             "pairs visible)")
-    plan_ms = device_ms(torch, lambda i: ca.plan(*meta, B, S, S, dev), 10)
-    log(f"  ccm_attention plan() at the training shape: {plan_ms:.4f} ms "
-        f"device, built once per set of metadata [{card}]")
+    plan_ms = None
+    if not f32:
+        plan_ms = device_ms(torch, lambda i: ca.plan(*meta, B, S, S, dev), 10)
+        log(f"  ccm_attention plan() at {tag}: {plan_ms:.4f} ms device, built "
+            f"once per set of metadata [{card}]")
 
     def fwd_k(i):
         return ca.ccm_attention_fwd(*sets[i % 4][:3], *meta, scale)
@@ -1352,8 +1467,9 @@ def timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
     t_f = timings(torch, fwd_k, "ccm_attention_fwd", fwd_p, fwd_l)
     qo = 2 * B * Hq * S * D                       # q and o (or dO, dq)
     kv = 2 * B * Hkv * S * D                      # k and v (or dk, dv)
-    nb = 2 * (qo + kv) + 4 * B * Hq * S           # bf16 + the log-sum-exp
-    bms, by = bound(nb, 4.0 * D * pairs, PEAK_BF16)
+    nb = es * (qo + kv) + 4 * B * Hq * S          # + the log-sum-exp
+    peak = PEAK_F32 if f32 else PEAK_BF16
+    bms, by = bound(nb, 4.0 * D * pairs, peak)
     report(f"ccm_attention forward {tag} (library: SDPA with the CCM mask)",
            t_f, bms, by, card)
     fwd_row = dict(max_abs_err=errs["fwd"], ms=t_f["ms"],
@@ -1404,8 +1520,8 @@ def timed_ccm(torch, F, ca, segment_layout, card, rn, Hq, Hkv, D,
                library_ms=device_ms(torch, bwd_l, 20), **t_pb)
     del lib_g
     # q k v o dO -> dq dk dv, the log-sum-exp and the row sums of dO * O
-    nb = 2 * (2 * qo + 2 * kv) + 8 * B * Hq * S
-    bms, by = bound(nb, 10.0 * D * pairs, PEAK_BF16)
+    nb = es * (2 * qo + 2 * kv) + 8 * B * Hq * S
+    bms, by = bound(nb, 10.0 * D * pairs, peak)
     report(f"ccm_attention backward {tag} (library: SDPA backward)", t_b,
            bms, by, card)
     log(f"  ccm_attention backward {tag}: {bms / t_b['ms']:.3f} of the "
@@ -1962,11 +2078,17 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
     def sample(x):
         flat = x.detach().reshape(-1)
         return flat[::max(1, flat.numel() >> 20)].clone()
-    # the frozen leaves' copy for the bitwise check lives on the host: a
-    # second copy on the card would not fit beside phi3.5-moe's 16 layers
+    # the frozen leaves' copy for the bitwise check lives on the card where
+    # it takes at most half the free memory (LLaMA-7B's 12.6 GB beside a
+    # step's 17.3 GiB peak), else on the host (phi3.5-moe's frozen leaves
+    # at the 16 layers it had before ``FAM_DEPTH`` cut it to 4 would not
+    # fit twice); the steps' peaks leave out its ``held`` bytes
     t0 = time.perf_counter()
-    frozen0 = {"/".join(p): x.to("cpu", copy=True)
-               for p, x in PP.leaves(fp)}
+    nbytes = sum(x.numel() * x.element_size() for _, x in PP.leaves(fp))
+    keep = dev if nbytes <= torch.cuda.mem_get_info()[0] // 2 else "cpu"
+    held = torch.cuda.memory_allocated()
+    frozen0 = {"/".join(p): x.to(keep, copy=True) for p, x in PP.leaves(fp)}
+    held = torch.cuda.memory_allocated() - held
     copy_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -1981,7 +2103,8 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
         losses.append(metrics["loss"].item())
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+        peak = max(peak, (torch.cuda.max_memory_allocated() - held)
+                   / 2 ** 30)
         c1 = ops.launch_counts()
         got = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
         norms.append(metrics["grad_norm"].item())
@@ -2016,9 +2139,11 @@ def train_steps(torch, ops, clora, TR, PD, PA, PP, segment_layout, params,
                              f"{len(modes) * 4 * L}")
     moved = "none of the" if "compressive" in modes \
         and cfg.train_mode == "lora" else "all"
+    n_frozen = len(frozen0)
+    del frozen0
     log(f"  {label}: {moved} {len(PP.leaves(tp))} trainable leaves moved "
-        f"at every step, {len(frozen0)} frozen leaves bitwise unchanged "
-        f"(host copy and compare {copy_s:.1f} s); opt step {opt.step}, peak "
+        f"at every step, {n_frozen} frozen leaves bitwise unchanged "
+        f"({'card' if keep == dev else 'host'} copy and compare {copy_s:.1f} s); opt step {opt.step}, peak "
         f"{peak:.2f} GiB")
     return types.SimpleNamespace(
         fns=fns, cfgs=cfgs, tp=tp, fp=fp, opt=opt, batch=batch,
@@ -7711,6 +7836,214 @@ def phase19(torch, m, card):
     return counts, rec
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the paper's learn-and-answer loop and the example CLIs
+# ---------------------------------------------------------------------------
+
+P20_STEPS = 800          # tests/test_system.py's recipe: 800 + 800 steps
+P20_LR = 3e-3
+P20_FULL_STEPS = 4       # 20b: LLaMA-7B's adapter steps
+# the example CLIs at 20 training steps, each with a line its run prints
+P20_CLIS = (
+    ("quickstart_torch", ["--steps", "20"], "query accuracy FROM MEMORY"),
+    ("serve_online_torch", ["--steps", "20"], "accuracy from memory"),
+    ("streaming_demo_torch", ["--steps", "20", "--tokens", "512"],
+     "StreamingLLM (drop)"),
+    ("serve_many_users_torch", ["--steps", "20"],
+     "accuracy from compressed memory"),
+    ("train_online_torch", ["--ablate-lora", "--steps", "20"],
+     "default     LoRA acc@t4"))
+# the kernels phase 20 must launch: the float32 routes (20a, 20c), the
+# tensor-core routes of LLaMA-7B's bf16 (20b), the engine's rows (20c)
+P20_KERNELS = ("segmented_attention", "cond_lora", "cond_lora_wgmma",
+               "ccm_attention", "ccm_attention_backward",
+               "ccm_attention_mma", "ccm_attention_backward_mma",
+               "session_gather", "session_scatter")
+
+
+def synced_s(torch, t0: float) -> float:
+    """Host seconds since ``t0`` once the card has finished its work."""
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def paper_recipe(torch, m, card):
+    """20a: ``tests/test_system.py``'s fixture (``pretrain_base(800)``,
+    then ``train_compression(800)``, lr 3e-3, the port's seeds 0 and 1)
+    and its four claims, at its thresholds."""
+    PL = m.PL
+    rec = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = PL.pretrain_base(P20_STEPS, seed=0, lr=P20_LR)
+    rec["pretrain_s"] = synced_s(torch, t0)
+    cfg = PL.bench_cfg()
+    t0 = time.perf_counter()
+    params = PL.train_compression(base, cfg, P20_STEPS, seed=1, lr=P20_LR)
+    rec["compression_s"] = synced_s(torch, t0)
+    rec["pretrain_ms_per_step"] = rec["pretrain_s"] / P20_STEPS * 1e3
+    rec["compression_ms_per_step"] = rec["compression_s"] / P20_STEPS * 1e3
+    log(f"  20a: pretrain_base {P20_STEPS} steps in {rec['pretrain_s']:.1f} "
+        f"s ({rec['pretrain_ms_per_step']:.2f} ms a step), "
+        f"train_compression {P20_STEPS} steps in "
+        f"{rec['compression_s']:.1f} s ({rec['compression_ms_per_step']:.2f} "
+        f"ms a step; host clock around the synchronized loop, B32 x S "
+        f"{PL.layout_for(PL.T_MAX).seq_len}) [{card}]")
+
+    t0 = time.perf_counter()
+    rec.update(PL.claims(base, params, cfg))
+    acc, acc0 = rec["acc4"], rec["acc0"]
+    log(f"  20a hold 1: accuracy at t = 4 from memory {acc:.4f}, the base "
+        f"with no context {acc0:.4f}: margin {acc - acc0:.4f} (needs > 0.08)")
+    if not acc > acc0 + 0.08:
+        raise AssertionError(f"20a: memory {acc} does not beat no context "
+                             f"{acc0} by 0.08")
+    acc1, acc4 = rec["acc1_all"], rec["acc4_all"]
+    seeds = PL.EVAL_SEEDS
+    log(f"  20a hold 2: over the whole key space, eval seeds "
+        f"{seeds[0]}-{seeds[-1]}: acc(t=1) {acc1:.4f}, acc(t=4) {acc4:.4f}: "
+        f"margin {acc4 - acc1:.4f} (needs >= 0.02); per seed "
+        f"{rec['per_seed']}")
+    if not acc4 >= acc1 + 0.02:
+        raise AssertionError(f"20a: acc(t=4) {acc4} < acc(t=1) {acc1} + 0.02")
+    check("20a hold 3: online (4 ingests, prefill) = train_forward, last "
+          "row, B8", rec["online_err"], 5e-3)
+    t, mm = PL.T_MAX, cfg.ccm.comp_len
+    mem, cached = rec["memory_tokens"], rec["cache_length"]
+    log(f"  20a hold 4: memory {mem} KV tokens after {t} ingests of "
+        f"{PL.CHUNK} (t*m = {t * mm}), cache length {cached}")
+    if mem != t * mm or cached != 0:
+        raise AssertionError(f"20a: memory {mem} != {t * mm} or cache "
+                             f"{cached} != 0")
+    rec["eval_s"] = synced_s(torch, t0)
+    log(f"  20a: the holds' evaluations took {rec['eval_s']:.1f} s")
+    # where a step goes: the device's busy share over 3 steps of each loop
+    # (its init included)
+    for label, fn in (("pretrain_base", lambda: PL.pretrain_base(
+            3, seed=0, lr=P20_LR)), ("train_compression", lambda:
+            PL.train_compression(base, cfg, 3, seed=1, lr=P20_LR))):
+        rec[f"{label}_profile"] = {}
+        profile_window(torch, fn, f"20a {label}, 3 steps", card,
+                       stats=rec[f"{label}_profile"])
+    return rec
+
+
+def paper_full_width(torch, m, card):
+    """20b: ``train_compression`` on LLaMA-7B at full width (phase 3's
+    weights), then ``eval_at_timesteps`` and ``eval_no_context``.  Its
+    base is random, so nothing is learnt: the loss is finite, every
+    adapter leaf moved off ``train_compression``'s own init (drawn again
+    from its seed) and the accuracies lie in [0, 1]."""
+    PL = m.PL
+    cfg = m.get_config("llama-7b")
+    base = m.init_lm(cfg, seed=0)
+    randomize_lora_b(torch, base, seed=100)
+    layout = PL.layout_for(cfg.ccm.max_steps, cfg.ccm.comp_len)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = PL.train_compression(base, cfg, P20_FULL_STEPS, seed=1,
+                                  lr=P20_LR)
+    rec = dict(train_s=synced_s(torch, t0),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    rec["ms_per_step"] = rec["train_s"] / P20_FULL_STEPS * 1e3
+    log(f"  20b: train_compression {P20_FULL_STEPS} steps at B32 x S "
+        f"{layout.seq_len} in {rec['train_s']:.2f} s ({rec['ms_per_step']:.1f} "
+        f"ms a step, its init included), peak {rec['peak_gib']:.2f} GiB "
+        f"[{card}]")
+    fresh = m.init_lm(cfg, seed=1)
+    init = {p: x for p, x in m.PP.leaves(fresh)
+            if "lora" in p or "comp_embed" in p}
+    del fresh
+    stuck = [p for p, x in m.PP.leaves(params)
+             if p in init and torch.equal(x, init[p])]
+    log(f"  20b: {len(init)} adapter leaves, {len(init) - len(stuck)} moved")
+    if stuck or not init:
+        raise AssertionError(f"20b: adapter leaves that did not move: {stuck}")
+    del init
+    with torch.no_grad():
+        batch = m.PD.sample_kv_batch(m.PD.generator(3, 0), layout, 32,
+                                     PL.TASK)
+        logits = m.PT.train_forward(params, cfg, batch["tokens"], layout)
+        tail = batch["tokens"][:, layout.seq_len - layout.tail_len:]
+        rec["loss"] = float(m.losses.next_token_loss(logits, tail,
+                                                     batch["loss_mask"]))
+    t0 = time.perf_counter()
+    rec["accs"] = PL.eval_at_timesteps(params, cfg, ts=(1, 4), n_batches=1)
+    rec["acc_no_context"] = PL.eval_no_context(base, cfg, ts=(1, 4),
+                                               n_batches=1)
+    rec["eval_s"] = synced_s(torch, t0)
+    log(f"  20b: loss on the first training batch after training "
+        f"{rec['loss']:.4f}; accuracy {rec['accs']}, with no context "
+        f"{rec['acc_no_context']} (1 batch of 16 each; {rec['eval_s']:.2f} s)")
+    values = list(rec["accs"].values()) + list(rec["acc_no_context"].values())
+    if not math.isfinite(rec["loss"]) or \
+            not all(0.0 <= a <= 1.0 for a in values):
+        raise AssertionError(f"20b: loss {rec['loss']}, accuracies {values}")
+    return rec
+
+
+def example_clis(torch, card):
+    """20c: each ``examples/*_torch.py`` CLI's ``main`` on the card at 20
+    training steps, its printed lines logged."""
+    import importlib.util
+    import io
+    rec = {}
+    for name, argv, want in P20_CLIS:
+        path = ROOT / "examples" / f"{name}.py"
+        spec = importlib.util.spec_from_file_location(f"_{name}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main(argv)
+        rec[name] = dict(rc=rc, seconds=synced_s(torch, t0))
+        for line in out.getvalue().splitlines():
+            if line.strip():
+                log(f"    {name}: {line}")
+        log(f"  20c: {name} {' '.join(argv)}: exit {rc} in "
+            f"{rec[name]['seconds']:.1f} s [{card}]")
+        if rc != 0 or want not in out.getvalue():
+            raise AssertionError(f"20c: {name} exited {rc} or printed no "
+                                 f"{want!r}")
+    return rec
+
+
+def phase20(torch, m, card):
+    """Phase 20: the paper's learn-and-answer loop on the card (20a the
+    reference recipe and ``tests/test_system.py``'s claims, 20b LLaMA-7B
+    at full width) and the example CLIs (20c); each part's launches
+    counted on its own."""
+    t0 = time.perf_counter()
+    counts, by_part, rec = {}, {}, {}
+    for part, fn in (("20a", lambda: paper_recipe(torch, m, card)),
+                     ("20b", lambda: paper_full_width(torch, m, card)),
+                     ("20c", lambda: example_clis(torch, card))):
+        by_part[part] = {}
+        rec[part] = counted(m.ops, by_part[part], fn)
+        add_counts(counts, by_part[part])
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  {part} launches: "
+            f"{({k: v for k, v in by_part[part].items() if v})}")
+    need = {"20a": ("segmented_attention", "cond_lora", "ccm_attention",
+                    "ccm_attention_backward"),
+            "20b": ("cond_lora_wgmma", "ccm_attention_mma",
+                    "ccm_attention_backward_mma"),
+            "20c": ("segmented_attention", "cond_lora", "ccm_attention",
+                    "session_gather", "session_scatter")}
+    missing = [(p, k) for p, ks in need.items() for k in ks
+               if by_part[p].get(k, 0) <= 0]
+    missing += [k for k in P20_KERNELS if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase 20: no launch of {missing} ({by_part})")
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"  phase 20 launches: {({k: v for k, v in counts.items() if v})}; "
+        f"took {rec['seconds']:.1f} s [{card}]")
+    return counts, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7816,6 +8149,15 @@ def main() -> int:
         log("phase 19 alone (--phase19): ZeRO-3 on LLaMA-7B")
         phase19(torch, m18, card)
         log(f"  --phase19: done ({time.perf_counter() - t_start:.1f} s)")
+        return 0
+    from repro_torch.launch import paper_loop
+    from repro_torch.optim import losses
+    m20 = types.SimpleNamespace(**vars(m14), PL=paper_loop, losses=losses)
+    if "--phase20" in sys.argv[1:]:
+        log("phase 20 alone (--phase20): the paper's learn-and-answer loop "
+            "and the example CLIs")
+        phase20(torch, m20, card)
+        log(f"  --phase20: done ({time.perf_counter() - t_start:.1f} s)")
         return 0
     if "--phase17" in sys.argv[1:]:
         log("phase 17 alone (--phase17): LLaMA-7B (32 layers, bf16, seed 0)")
@@ -8025,6 +8367,14 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     p19_counts, rec19 = phase19(torch, m18, card)
 
+    log("phase 20: the paper's learn-and-answer loop (launch/paper_loop.py): "
+        "20a the reference recipe and tests/test_system.py's claims, 20b "
+        "LLaMA-7B's adapter at full width, 20c the example CLIs")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p20_counts, rec20 = phase20(torch, m20, card)
+
     # the tensor-core routes' launches in each main-path phase (3: online,
     # 5: training, 7: the 32-layer serve engine, 8: streaming, 9: the zoo,
     # 10: the baselines' training and the serve-metrics demo, 11: the
@@ -8032,7 +8382,8 @@ def main() -> int:
     # sharded engines and the data-parallel step, 14, 15 and 16: the dist=
     # entry points and the tensor-parallel rank loops: dense, MoE, and the
     # recurrent, encoder-decoder and VLM families; 17: the sequence-
-    # sharded builders and the data ranks over a cut cache)
+    # sharded builders and the data ranks over a cut cache; 18: the dry
+    # run's cells; 19: ZeRO-3; 20: the paper's loop at LLaMA-7B's bf16)
     by_phase = {k: {"3": totals[k], "5": train_counts.get(k, 0),
                     "7": serve_counts[k], "8": stream_counts[k],
                     "9": zoo_counts[k], "10": base_counts.get(k, 0),
@@ -8043,7 +8394,8 @@ def main() -> int:
                     "16": p16_counts.get(k, 0),
                     "17": p17_counts.get(k, 0),
                     "18": p18_counts.get(k, 0),
-                    "19": p19_counts.get(k, 0)}
+                    "19": p19_counts.get(k, 0),
+                    "20": p20_counts.get(k, 0)}
                 for k in ("segmented_attention_splitk",
                           "segmented_attention_mma", "cond_lora_wgmma",
                           "ccm_attention_mma", "ccm_attention_backward_mma")}
@@ -8055,12 +8407,14 @@ def main() -> int:
                                                  "16", "17", "18", "19")),
                     ("cond_lora_wgmma", ("3", "5", "7", "8", "9", "10",
                                          "11", "12", "13", "14", "15",
-                                         "16", "17", "18", "19")),
+                                         "16", "17", "18", "19", "20")),
                     ("ccm_attention_mma", ("5", "9", "11", "12", "13",
-                                           "14", "15", "16", "18", "19")),
+                                           "14", "15", "16", "18", "19",
+                                           "20")),
                     ("ccm_attention_backward_mma", ("5", "9", "11", "12",
                                                     "13", "14", "15",
-                                                    "16", "18", "19"))):
+                                                    "16", "18", "19",
+                                                    "20"))):
         if any(by_phase[k][ph] <= 0 for ph in need):
             raise AssertionError(f"{k}: launches by phase {by_phase[k]}")
     for k in ("kv_merge_update", "session_gather", "session_scatter"):
@@ -8079,6 +8433,11 @@ def main() -> int:
                 or p16_counts.get(k, 0) <= 0:
             raise AssertionError(f"{k}: no launch in phase 14, 15 or 16")
     log(f"  tensor-core route launches by phase: {by_phase}")
+
+    def p20_all(k):
+        """Phase 20's launches of kernel ``k`` on every route (20a and 20c
+        run the float32 routes)."""
+        return {"launches_phase20_all_routes": p20_counts.get(k, 0)}
     rows = [
         dict(name="segmented_attention", route="cuda",
              source="src/repro_torch/csrc/segmented_attention.cu",
@@ -8086,6 +8445,7 @@ def main() -> int:
              launches=sum(by_phase["segmented_attention_splitk"].values()),
              launches_by_phase=by_phase["segmented_attention_splitk"],
              kernel_route="split-K decode (bf16, Sq <= 2)", **seg["decode"],
+             **p20_all("segmented_attention"),
              shapes=shape_rows(seg),
              lse=dict(rec14["14c"], launches_phase15=rec15["lse_launches"])),
         dict(name="segmented_attention_mma", route="cuda",
@@ -8112,6 +8472,7 @@ def main() -> int:
              launches=sum(by_phase["cond_lora_wgmma"].values()),
              launches_by_phase=by_phase["cond_lora_wgmma"],
              kernel_route="TMA + wgmma (bf16)", **lora[288],
+             **p20_all("cond_lora"),
              shapes=shape_rows(lora)),
         dict(name="kv_merge_update", route="cuda",
              source="src/repro_torch/csrc/kv_merge.cu",
@@ -8126,7 +8487,8 @@ def main() -> int:
              + p14_counts["kv_merge_update"]
              + p15_counts["kv_merge_update"]
              + p16_counts["kv_merge_update"]
-             + p19_counts["kv_merge_update"],
+             + p19_counts["kv_merge_update"]
+             + p20_counts.get("kv_merge_update", 0),
              launches_by_phase={"3": totals["kv_merge_update"],
                                 "7": merge_counts["kv_merge_update"],
                                 "8": stream_counts["kv_merge_update"],
@@ -8137,7 +8499,8 @@ def main() -> int:
                                 "14": p14_counts["kv_merge_update"],
                                 "15": p15_counts["kv_merge_update"],
                                 "16": p16_counts["kv_merge_update"],
-                                "19": p19_counts["kv_merge_update"]},
+                                "19": p19_counts["kv_merge_update"],
+                                "20": p20_counts.get("kv_merge_update", 0)},
              **merge),
         dict(name="ccm_attention", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
@@ -8145,14 +8508,16 @@ def main() -> int:
              launches=sum(by_phase["ccm_attention_mma"].values()),
              launches_by_phase=by_phase["ccm_attention_mma"],
              encoder_launches_phase12=enc["forward"],
-             kernel_route="mma.sync, two tile streams (bf16)", **ccm_fwd),
+             kernel_route="mma.sync, two tile streams (bf16)", **ccm_fwd,
+             **p20_all("ccm_attention")),
         dict(name="ccm_attention_backward", route="cuda",
              source="src/repro_torch/csrc/ccm_attention.cu",
              replaces="src/repro/kernels/ccm_attention.py:86",
              launches=sum(by_phase["ccm_attention_backward_mma"].values()),
              launches_by_phase=by_phase["ccm_attention_backward_mma"],
              encoder_launches_phase12=enc["backward"],
-             kernel_route="mma.sync, two tile streams (bf16)", **ccm_bwd),
+             kernel_route="mma.sync, two tile streams (bf16)", **ccm_bwd,
+             **p20_all("ccm_attention_backward")),
         dict(name="kv_cummean", route="cuda",
              source="src/repro_torch/csrc/kv_cummean.cu",
              replaces="src/repro/kernels/kv_merge.py:65",
@@ -8160,7 +8525,8 @@ def main() -> int:
              + rec_counts["kv_cummean"] + fam_counts["kv_cummean"]
              + p13_counts["kv_cummean"] + p14_counts["kv_cummean"]
              + p15_counts["kv_cummean"] + p16_counts["kv_cummean"]
-             + p18_counts["kv_cummean"] + p19_counts["kv_cummean"],
+             + p18_counts["kv_cummean"] + p19_counts["kv_cummean"]
+             + p20_counts.get("kv_cummean", 0),
              launches_by_phase={"5": train_counts["kv_cummean"],
                                 "11": rec_counts["kv_cummean"],
                                 "12": fam_counts["kv_cummean"],
@@ -8169,7 +8535,8 @@ def main() -> int:
                                 "15": p15_counts["kv_cummean"],
                                 "16": p16_counts["kv_cummean"],
                                 "18": p18_counts["kv_cummean"],
-                                "19": p19_counts["kv_cummean"]},
+                                "19": p19_counts["kv_cummean"],
+                                "20": p20_counts.get("kv_cummean", 0)},
              **cummean),
         dict(name="kv_cummean_backward", route="cuda",
              source="src/repro_torch/csrc/kv_cummean.cu",
@@ -8182,7 +8549,8 @@ def main() -> int:
              + p15_counts["kv_cummean_backward"]
              + p16_counts["kv_cummean_backward"]
              + p18_counts["kv_cummean_backward"]
-             + p19_counts["kv_cummean_backward"],
+             + p19_counts["kv_cummean_backward"]
+             + p20_counts.get("kv_cummean_backward", 0),
              launches_by_phase={"5": train_counts["kv_cummean_backward"],
                                 "11": rec_counts["kv_cummean_backward"],
                                 "12": fam_counts["kv_cummean_backward"],
@@ -8191,7 +8559,8 @@ def main() -> int:
                                 "15": p15_counts["kv_cummean_backward"],
                                 "16": p16_counts["kv_cummean_backward"],
                                 "18": p18_counts["kv_cummean_backward"],
-                                "19": p19_counts["kv_cummean_backward"]},
+                                "19": p19_counts["kv_cummean_backward"],
+                                "20": p20_counts.get("kv_cummean_backward", 0)},
              **cummean_bwd),
         dict(name="session_gather", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
@@ -8200,14 +8569,15 @@ def main() -> int:
              + stream_counts["session_gather"] + zoo_counts["session_gather"]
              + base_counts["session_gather"] + rec_counts["session_gather"]
              + fam_counts["session_gather"]
-             + p13_counts["session_gather"],
+             + p13_counts["session_gather"] + p20_counts["session_gather"],
              launches_by_phase={"7": serve_counts["session_gather"],
                                 "8": stream_counts["session_gather"],
                                 "9": zoo_counts["session_gather"],
                                 "10": base_counts["session_gather"],
                                 "11": rec_counts["session_gather"],
                                 "12": fam_counts["session_gather"],
-                                "13": p13_counts["session_gather"]},
+                                "13": p13_counts["session_gather"],
+                                "20": p20_counts["session_gather"]},
              **gather),
         dict(name="session_scatter", route="cuda",
              source="src/repro_torch/csrc/session_gather.cu",
@@ -8217,14 +8587,15 @@ def main() -> int:
              + zoo_counts["session_scatter"] + base_counts["session_scatter"]
              + rec_counts["session_scatter"]
              + fam_counts["session_scatter"]
-             + p13_counts["session_scatter"],
+             + p13_counts["session_scatter"] + p20_counts["session_scatter"],
              launches_by_phase={"7": serve_counts["session_scatter"],
                                 "8": stream_counts["session_scatter"],
                                 "9": zoo_counts["session_scatter"],
                                 "10": base_counts["session_scatter"],
                                 "11": rec_counts["session_scatter"],
                                 "12": fam_counts["session_scatter"],
-                                "13": p13_counts["session_scatter"]},
+                                "13": p13_counts["session_scatter"],
+                                "20": p20_counts["session_scatter"]},
              **scatter),
     ]
     for r in rows:

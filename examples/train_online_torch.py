@@ -19,9 +19,9 @@ data, optional gradient codec), the counterpart of
 
 A ``--grad-codec`` acts on the data-parallel reduce, so on one device it
 trains exactly as "none" (as the reference does without a mesh).
-``--ablate-lora`` (the conditional-LoRA ablation, paper Table 5) needs
-``benchmarks/common.py``, which the port does not have yet: it exits
-with a message.
+
+    # conditional-LoRA ablation (paper Table 5) on the paper's tiny task:
+    python examples/train_online_torch.py --ablate-lora
 """
 import argparse
 import os
@@ -33,6 +33,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import masks as M  # noqa: E402
+from repro_torch.launch import paper_loop as C  # noqa: E402
 from repro_torch.launch.train import TrainLoop  # noqa: E402
 from repro_torch.models.config import CCMConfig, ModelConfig  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
@@ -71,10 +72,6 @@ def main(argv=None) -> int:
                     help="compare conditional vs default LoRA")
     args = ap.parse_args(argv)
 
-    if args.ablate_lora:
-        ap.exit(2, "--ablate-lora needs benchmarks/common.py "
-                "(pretrain_base, train_compression, eval_at_timesteps), "
-                "which waits for the port of the benchmarks\n")
     cfg = get_config(args.arch, smoke=args.smoke) if args.arch \
         else PRESETS[args.preset]
     print(f"model: {cfg.name}  params~{cfg.param_count() / 1e6:.1f}M  "
@@ -82,6 +79,20 @@ def main(argv=None) -> int:
     t, m = cfg.ccm.max_steps, max(cfg.ccm.comp_len, 1)
     layout = M.segment_layout(t, 12, m, 16)
     opt = AdamWConfig(lr=args.lr, total_steps=args.steps)
+
+    if args.ablate_lora:
+        base = C.pretrain_base(args.steps, device=args.device)
+        for cond in (True, False):
+            p = C.train_compression(base, C.bench_cfg(), args.steps,
+                                    unconditional=not cond,
+                                    device=args.device)
+            acc = C.eval_at_timesteps(p, C.bench_cfg(), ts=(4,),
+                                      unconditional=not cond,
+                                      device=args.device)[4]
+            print(f"{'conditional' if cond else 'default    '} LoRA "
+                  f"acc@t4 = {acc:.3f}")
+        return 0
+
     loop = TrainLoop(cfg, layout, opt, batch_size=args.batch,
                      ckpt_dir=args.ckpt, ckpt_every=CKPT_EVERY,
                      grad_codec=args.grad_codec, device=args.device)

@@ -101,9 +101,33 @@ def sample_kv_batch(gen: torch.Generator, layout: SegmentLayout, batch: int,
     return {"tokens": tokens.to(dev), "loss_mask": loss_mask.to(dev)}
 
 
+def lm_stream(gen: torch.Generator, batch: int, length: int, vocab: int,
+              period: int = 97, device: DeviceLike = None) -> torch.Tensor:
+    """Semi-predictable token stream (noisy periodic pattern) for streaming
+    / perplexity runs: position-dependent structure a compressor can
+    exploit.  (B, length) int32 on ``device`` (default: the CUDA card):
+    ``arange(length) % period + 4``, with each position replaced by
+    ``4 + randint(vocab // 8)`` with probability 0.2, clipped to
+    ``[0, vocab)``."""
+    dev = resolve_device(device)
+    base = (torch.arange(length) % period)[None, :] + 4
+    noise = torch.randint(0, vocab // 8, (batch, length), generator=gen)
+    mix = torch.rand((batch, length), generator=gen) < 0.2
+    toks = torch.where(mix, 4 + noise, base)
+    return toks.clamp(0, vocab - 1).to(torch.int32).to(dev)
+
+
 def _seed(*parts: int) -> int:
     h = hashlib.sha256(",".join(str(int(p)) for p in parts).encode())
     return int.from_bytes(h.digest()[:8], "little") & ((1 << 63) - 1)
+
+
+def generator(*parts: int) -> torch.Generator:
+    """A CPU generator seeded by ``parts`` (the counterpart of the
+    reference's ``fold_in`` of a ``PRNGKey``)."""
+    gen = torch.Generator()
+    gen.manual_seed(_seed(*parts))
+    return gen
 
 
 class ShardableIndexIterator:
@@ -121,9 +145,7 @@ class ShardableIndexIterator:
         self.step = 0
 
     def key_for(self, step: int) -> torch.Generator:
-        gen = torch.Generator()
-        gen.manual_seed(_seed(self.seed, step, self.host_id))
-        return gen
+        return generator(self.seed, step, self.host_id)
 
     def next_key(self) -> torch.Generator:
         g = self.key_for(self.step)

@@ -1,7 +1,7 @@
 """The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
-port's CLIs (``examples/train_online_torch.py``,
-``scripts/serve_metrics_torch.py``) import neither ``jax`` nor the
-reference package ``repro``, and the port's entry points refuse to run
+port's CLIs (``examples/*_torch.py``, ``scripts/serve_metrics_torch.py``)
+import neither ``jax``, the reference package ``repro`` nor the
+reference's ``benchmarks``, and the port's entry points refuse to run
 without a device when no CUDA card is present."""
 import dataclasses
 import functools
@@ -20,8 +20,8 @@ MODULES = sorted(
     ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
     for p in PORT.rglob("*.py") if p.name != "__init__.py")
 
-_IMPORT = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))",
-                     re.M)
+_IMPORT = re.compile(r"^\s*(import\s+(jax|repro|benchmarks)\b|"
+                     r"from\s+(jax|repro|benchmarks)(\.|\s))", re.M)
 
 
 def test_port_imports_without_jax_or_repro():
@@ -40,8 +40,10 @@ def test_port_imports_without_jax_or_repro():
     assert len(MODULES) >= 15
 
 
-CLIS = [ROOT / "examples" / "train_online_torch.py",
-        ROOT / "scripts" / "serve_metrics_torch.py"]
+EXAMPLES = ("train_online_torch", "quickstart_torch", "serve_online_torch",
+            "streaming_demo_torch", "serve_many_users_torch")
+CLIS = [ROOT / "examples" / f"{name}.py" for name in EXAMPLES] \
+    + [ROOT / "scripts" / "serve_metrics_torch.py"]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
@@ -57,7 +59,7 @@ def test_clis_run_without_jax_and_need_a_device(cli):
     and, with no card and no ``--device``, raises the port's no-device
     error rather than falling back to the CPU."""
     stub = ("import sys, runpy\n"
-            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "for m in ('jax', 'jaxlib', 'repro', 'benchmarks'):\n"
             "    sys.modules[m] = None\n"
             "import torch\n"
             "torch.cuda.is_available = lambda: False\n"
@@ -76,6 +78,45 @@ def test_clis_run_without_jax_and_need_a_device(cli):
                          timeout=120, cwd=ROOT)
     assert run.returncode != 0
     assert "no CUDA device" in run.stderr
+
+
+def _load(path: Path):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_CPU_RUNS = {
+    "quickstart_torch": ([], "query accuracy FROM MEMORY ONLY"),
+    "serve_online_torch": ([], "accuracy from memory"),
+    "streaming_demo_torch": (["--tokens", "64"], "StreamingLLM (drop)"),
+    "serve_many_users_torch": (["--metrics"],
+                               "accuracy from compressed memory"),
+    "train_online_torch": (["--ablate-lora"], "default     LoRA acc@t4"),
+}
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: the CLIs' small ops stall on contended thread
+    pools when several test workers share the CPU's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("name", list(_CPU_RUNS))
+def test_examples_run_on_the_cpu(name, capsys, one_thread):
+    """Each example CLI runs end to end on the CPU at 2 training steps
+    (``--device cpu``; the card is their default) and prints its last
+    result line."""
+    extra, line = _CPU_RUNS[name]
+    mod = _load(ROOT / "examples" / f"{name}.py")
+    assert mod.main(["--device", "cpu", "--steps", "2"] + extra) == 0
+    assert line in capsys.readouterr().out
 
 
 def test_dryrun_needs_no_jax_no_xla_flags_and_no_card():

@@ -331,7 +331,7 @@ def test_train_online_example_resumes_on_the_cpu(tmp_path, capsys,
     """``examples/train_online_torch.py --device cpu``: 4 steps with a
     checkpoint every 2, then a second run resumes at step 4 and trains
     to 6; an int8 codec on one device logs the losses of "none";
-    ``--ablate-lora`` exits with its message."""
+    ``--ablate-lora`` trains both arms and prints their accuracy."""
     ex = _example()
     monkeypatch.setattr(ex, "CKPT_EVERY", 2)
     args = ["--arch", "llama-7b", "--smoke", "--device", "cpu", "--batch",
@@ -357,7 +357,14 @@ def test_train_online_example_resumes_on_the_cpu(tmp_path, capsys,
         finals.append([ln for ln in capsys.readouterr().out.splitlines()
                        if ln.startswith("final loss")])
     assert finals[0] == finals[1] and finals[0]
-    with pytest.raises(SystemExit) as exc:
-        ex.main(["--ablate-lora"])
-    assert exc.value.code == 2
-    assert "benchmarks/common.py" in capsys.readouterr().err
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # small ops stall on shared, contended cores
+    try:
+        assert ex.main(["--ablate-lora", "--device", "cpu", "--steps",
+                        "2"]) == 0
+    finally:
+        torch.set_num_threads(threads)
+    accs = [ln for ln in capsys.readouterr().out.splitlines()
+            if "LoRA acc@t4 = " in ln]
+    assert [ln.split()[0] for ln in accs] == ["conditional", "default"]
+    assert all(0.0 <= float(ln.rsplit("=", 1)[1]) <= 1.0 for ln in accs)
